@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the PSOFT serving stack (slice 1: multi-tenant paged
+PSOFT serving on one NVIDIA H100).
+
+The reference package ``repro`` (JAX/Pallas) stays the source of truth; this
+package mirrors its module names and its scan-stacked ``(L, ...)`` parameter
+layout, so a parameter tree converts 1:1 (:mod:`repro_torch.interop`).
+Every entry point takes ``device=`` and defaults to ``"cuda"``; with no GPU
+the default raises instead of falling back to the CPU.
+"""
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a :class:`torch.device`, refusing a CUDA device when no
+    GPU is present (there is no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain PyTorch path")
+    return dev

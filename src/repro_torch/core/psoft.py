@@ -1,0 +1,97 @@
+"""PSOFT: orthogonal fine-tuning in the principal subspace (paper §4).
+
+Per linear ``y = x @ W`` with W_pre (d_in, d_out):
+
+    SVD:  W_pre = U Σ Vᵀ,  A = U[:, :r],  B = Σ[:r,:r] V[:, :r]ᵀ,
+          W_res = W_pre − A B                       (frozen)
+    forward:  y = x @ (A diag(α) R diag(β) B + W_res)
+
+Trainable: q (the r(r−1)/2 Cayley entries), α and β (ones at init, so
+training starts exactly at W_pre).  Every function broadcasts over leading
+(layer-stack) dimensions, so a scan-stacked ``(L, d_in, d_out)`` weight is
+decomposed by one batched SVD.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core import cayley
+
+Params = Dict[str, torch.Tensor]
+
+
+def psoft_init(w_pre: torch.Tensor, rank: int, relax_vectors: bool = True,
+               param_dtype=torch.bfloat16, peft_dtype=torch.float32,
+               ) -> Params:
+    """One-time SVD split (Algorithm 1 lines 4-5), in fp32 on w_pre's
+    device."""
+    d_in, d_out = w_pre.shape[-2:]
+    lead = w_pre.shape[:-2]
+    r = min(rank, min(d_in, d_out))
+    w32 = w_pre.float()
+    u, s, vh = torch.linalg.svd(w32, full_matrices=False)
+    a = u[..., :, :r]
+    b = s[..., :r, None] * vh[..., :r, :]
+    w_res = w32 - a @ b
+    dev = w_pre.device
+    params = {
+        "w_res": w_res.to(param_dtype),
+        "A": a.to(param_dtype),
+        "B": b.to(param_dtype),
+        "q": torch.zeros(lead + (cayley.num_skew_params(r),),
+                         dtype=peft_dtype, device=dev),
+    }
+    if relax_vectors:
+        params["alpha"] = torch.ones(lead + (r,), dtype=peft_dtype,
+                                     device=dev)
+        params["beta"] = torch.ones(lead + (r,), dtype=peft_dtype, device=dev)
+    return params
+
+
+def psoft_rotation(params: Params, neumann_terms: int = 5,
+                   exact: bool = False) -> torch.Tensor:
+    r = params["A"].shape[-1]
+    return cayley.make_rotation(params["q"], r, neumann_terms, exact)
+
+
+def psoft_apply(params: Params, x: torch.Tensor, neumann_terms: int = 5,
+                exact: bool = False, compute_dtype=torch.bfloat16
+                ) -> torch.Tensor:
+    """Unmerged forward: the subspace path runs at rank r."""
+    rot = psoft_rotation(params, neumann_terms, exact)
+    x = x.to(compute_dtype)
+    y = x @ params["w_res"].to(compute_dtype)
+    u = x @ params["A"].to(compute_dtype)
+    if "alpha" in params:
+        u = u * params["alpha"].to(compute_dtype)
+    u = u @ rot.to(compute_dtype)
+    if "beta" in params:
+        u = u * params["beta"].to(compute_dtype)
+    return y + u @ params["B"].to(compute_dtype)
+
+
+def psoft_merge(params: Params, neumann_terms: int = 5,
+                exact: bool = False) -> torch.Tensor:
+    """W_final = A diag(α) R diag(β) B + W_res (Algorithm 1 line 12)."""
+    rot = psoft_rotation(params, neumann_terms, exact)
+    a = params["A"].float()
+    b = params["B"].float()
+    if "alpha" in params:
+        a = a * params["alpha"].float()[..., None, :]
+    if "beta" in params:
+        b = b * params["beta"].float()[..., :, None]
+    w = a @ rot @ b + params["w_res"].float()
+    return w.to(params["w_res"].dtype)
+
+
+def orthogonality_deviation(params: Params,
+                            neumann_terms: int = 5) -> torch.Tensor:
+    """‖CᵀC − I‖_F with C = diag(α) R diag(β) (paper §4.3)."""
+    c = psoft_rotation(params, neumann_terms)
+    if "alpha" in params:
+        c = params["alpha"].float()[..., :, None] * c
+    if "beta" in params:
+        c = c * params["beta"].float()[..., None, :]
+    return cayley.orthogonality_error(c)

@@ -1,0 +1,246 @@
+"""Dense decoder of the port: init, paged prefill and paged decode.
+
+Params are nested dicts of tensors in the reference's scan-stacked layout:
+every per-layer leaf has a leading ``(L, ...)`` axis, so a reference tree
+converts 1:1 (:mod:`repro_torch.interop`).  A Python loop over the layer
+axis takes the place of ``lax.scan``.  Banked serve linears take the
+engine's per-row ``adapter_ids``, threaded explicitly through every call.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.core import peft as peft_lib
+from repro_torch.models import attention, layers
+
+Params = Dict[str, Any]
+
+_MLP = ("up", "down", "gate")
+_ATTN = ("q", "k", "v", "o")
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a scan-stacked subtree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random dense-decoder params from ``seed`` (a ``torch.Generator`` on
+    ``device``), PEFT-wrapped per ``cfg.peft``; PSOFT linears are split by
+    one batched fp32 SVD per layer stack, on ``device``."""
+    if cfg.family != "dense":
+        raise ValueError(f"the port builds the dense family only, not "
+                         f"{cfg.family!r}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pdt, edt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.peft_dtype)
+    f32 = torch.float32
+    nl, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    targets = cfg.peft.target_modules
+
+    def lin(d_in, d_out, name):
+        w = layers.truncated_normal_init(gen, (nl, d_in, d_out), f32, dev)
+        p = peft_lib.init_linear(gen, w, cfg.peft, name in targets, pdt, edt,
+                                 module=name)
+        del w
+        return p
+
+    shapes = {"q": (d, h * hd), "k": (d, kh * hd), "v": (d, kh * hd),
+              "o": (h * hd, d), "up": (d, f), "down": (f, d), "gate": (d, f)}
+    mlp_names = _MLP if cfg.mlp_type == "swiglu" else _MLP[:2]
+    p: Params = {
+        "embed": {"w": layers.truncated_normal_init(
+            gen, (cfg.padded_vocab_size, d), pdt, dev)},
+        "final_norm": layers.norm_init(d, cfg.norm_type, pdt, dev),
+        "layers": {
+            "ln1": layers.norm_init(d, cfg.norm_type, pdt, dev, (nl,)),
+            "attn": {n: lin(*shapes[n], n) for n in _ATTN},
+            "ln2": layers.norm_init(d, cfg.norm_type, pdt, dev, (nl,)),
+            "mlp": {n: lin(*shapes[n], n) for n in mlp_names},
+        },
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": layers.truncated_normal_init(
+            gen, (d, cfg.padded_vocab_size), pdt, dev)}
+    return p
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
+               num_pages: Optional[int] = None, device="cuda"
+               ) -> Dict[str, torch.Tensor]:
+    """Block-paged KV pools ``{"k","v"}: (L, num_pages, page_size, KH, hd)``
+    in the compute dtype.  Page 0 is the reserved trash page; ``num_pages``
+    defaults to dense-equivalent capacity plus the trash page."""
+    if num_pages is None:
+        num_pages = 1 + batch * -(-max_len // page_size)
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    cdt = torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+            "v": torch.zeros(shape, dtype=cdt, device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _lin(params, x, cfg, cdt, module, adapter_ids):
+    return peft_lib.apply_linear(params, x, cfg.peft, cdt, module=module,
+                                 adapter_ids=adapter_ids)
+
+
+def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, cdt,
+              adapter_ids=None) -> torch.Tensor:
+    act = layers.mlp_activation(cfg.mlp_type)
+    up = _lin(params["up"], x, cfg, cdt, "up", adapter_ids)
+    if "gate" in params:
+        g = _lin(params["gate"], x, cfg, cdt, "gate", adapter_ids)
+        h = act(g.float()).to(cdt) * up
+    else:
+        h = act(up.float()).to(cdt)
+    return _lin(params["down"], h, cfg, cdt, "down", adapter_ids)
+
+
+def _qkv(params, x, cfg: ModelConfig, cdt, positions, adapter_ids):
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b, s = x.shape[:2]
+    q = _lin(params["q"], x, cfg, cdt, "q", adapter_ids).reshape(b, s, h, hd)
+    k = _lin(params["k"], x, cfg, cdt, "k", adapter_ids).reshape(b, s, kh, hd)
+    v = _lin(params["v"], x, cfg, cdt, "v", adapter_ids).reshape(b, s, kh, hd)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_prefill(params, x, cfg: ModelConfig, cdt, positions, kv, shared,
+                 adapter_ids=None) -> torch.Tensor:
+    """Paged suffix prefill of one layer: writes the suffix KV through the
+    page table (pad tokens to the trash page), then attends over the aliased
+    prefix pages + the causal suffix (the prefix-prefill kernel) or, with no
+    prefix anywhere in the batch, the chunked causal path."""
+    q, k, v = _qkv(params, x, cfg, cdt, positions, adapter_ids)
+    s = x.shape[1]
+    valid = torch.arange(s, device=x.device)[None, :] < \
+        shared["lengths"][:, None]
+    attention.paged_write(kv["k"], k, shared["page_table"], positions, valid)
+    attention.paged_write(kv["v"], v, shared["page_table"], positions, valid)
+    pre = shared["prefix_table"]
+    if pre.shape[1] != 0:
+        # rows read their prefix pages after the write; positions past
+        # prefix_len (own suffix pages, trash) are masked exactly
+        out = attention.paged_prefix_prefill_attention(
+            q, k, v, kv["k"], kv["v"], pre, shared["prefix_len"])
+    else:
+        out = attention.chunked_attention(q, k, v, causal=True)
+    out = out.reshape(*x.shape[:-1], -1)
+    return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
+
+
+def attn_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
+                page_table, adapter_ids=None) -> torch.Tensor:
+    """One-token decode of one layer at per-slot ``positions`` (B,)."""
+    q, k, v = _qkv(params, x_t, cfg, cdt, positions[:, None], adapter_ids)
+    attention.paged_write(kv["k"], k, page_table, positions[:, None])
+    attention.paged_write(kv["v"], v, page_table, positions[:, None])
+    out = attention.paged_decode_attention(q, kv["k"], kv["v"], page_table,
+                                           positions + 1)
+    out = out.reshape(x_t.shape[0], 1, -1)
+    return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
+
+
+def _block(lp, x, cfg, cdt, attn_fn, adapter_ids):
+    h = layers.apply_norm(lp["ln1"], x)
+    x = x + attn_fn(lp["attn"], h)
+    h = layers.apply_norm(lp["ln2"], x)
+    return x + mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def lm_logits(params: Params, h: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    cdt = torch_dtype(cfg.dtype)
+    w = params["embed"]["w"].T if cfg.tie_embeddings \
+        else params["lm_head"]["w"]
+    return h.to(cdt) @ w.to(cdt)
+
+
+def _last_hidden(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, 1, D) hidden state at each row's last real token."""
+    idx = lengths.long() - 1
+    return h[torch.arange(h.shape[0], device=h.device), idx][:, None]
+
+
+def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
+                  cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  lengths: torch.Tensor, prefix_lengths: torch.Tensor, *,
+                  adapter_ids: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Suffix prefill through block-paged KV indirection.
+
+    ``cache``: pools ``{"k","v"}: (L, P, pg, KH, hd)`` plus ``"page_table"``
+    (B, maxp) and ``"prefix_table"`` (B, 0 or maxp).  ``batch["tokens"]``
+    holds only the right-padded suffix tokens; row i's token j runs at
+    position ``prefix_lengths[i] + j``.  Pools are updated in place.
+    Returns (last-real-token logits (B, 1, V), the pools)."""
+    cdt = torch_dtype(cfg.dtype)
+    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    s = x.shape[1]
+    prefix = prefix_lengths.long()
+    positions = prefix[:, None] + torch.arange(s, device=x.device)[None, :]
+    shared = {"page_table": cache["page_table"],
+              "prefix_table": cache["prefix_table"],
+              "prefix_len": prefix_lengths, "lengths": lengths.long()}
+    for i in range(cfg.num_layers):
+        kv = {"k": cache["k"][i], "v": cache["v"][i]}
+
+        def attn_fn(ap, h, kv=kv):
+            return attn_prefill(ap, h, cfg, cdt, positions, kv, shared,
+                                adapter_ids)
+        x = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
+                   adapter_ids)
+    x = layers.apply_norm(params["final_norm"], x)
+    logits = lm_logits(params, _last_hidden(x, lengths), cfg)
+    return logits, {"k": cache["k"], "v": cache["v"]}
+
+
+def decode_step(params: Params, batch: Dict[str, torch.Tensor],
+                cache: Dict[str, torch.Tensor], pos, cfg: ModelConfig, *,
+                adapter_ids: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token serve step.  ``batch["tokens"]`` (B, 1); ``pos`` a scalar
+    or (B,) per-slot positions; ``cache``: pools plus ``"page_table"``
+    (shared by every layer).  Pools are updated in place.  Returns
+    (logits (B, 1, V), cache)."""
+    cdt = torch_dtype(cfg.dtype)
+    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    b = x.shape[0]
+    positions = torch.as_tensor(pos, device=x.device).long()
+    if positions.ndim == 0:
+        positions = positions.expand(b)
+    pt = cache["page_table"]
+    for i in range(cfg.num_layers):
+        kv = {"k": cache["k"][i], "v": cache["v"][i]}
+
+        def attn_fn(ap, h, kv=kv):
+            return attn_decode(ap, h, cfg, cdt, positions, kv, pt,
+                               adapter_ids)
+        x = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
+                   adapter_ids)
+    x = layers.apply_norm(params["final_norm"], x)
+    return lm_logits(params, x, cfg), cache
