@@ -50,8 +50,6 @@ class PEFTConfig:
     target_modules: Union[Tuple[str, ...], Mapping[str, str]] = (
         "q", "k", "v", "o", "gate", "up", "down", "in_proj", "out_proj",
     )
-    #: route banked decode linears through the gather-delta kernel
-    use_fused_kernel: bool = False
 
     def method_for(self, module: Optional[str]) -> str:
         """PEFT method name for one logical module ("none" if unwrapped)."""

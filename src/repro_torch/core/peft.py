@@ -39,8 +39,7 @@ def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
                  module: Optional[str] = None, method: Optional[str] = None,
                  adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     if registry.is_banked_linear(params):
-        return registry.apply_batched(params, x, compute_dtype, adapter_ids,
-                                      use_kernel=cfg.use_fused_kernel)
+        return registry.apply_batched(params, x, compute_dtype, adapter_ids)
     m = registry.resolve(params, cfg, module=module, method=method)
     return m.apply(params, x, cfg, compute_dtype)
 

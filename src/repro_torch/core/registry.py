@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import lora, psoft
+from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -179,19 +180,17 @@ def stack_deltas(base_w: torch.Tensor,
 
 
 def apply_batched(params: Dict, x: torch.Tensor, compute_dtype,
-                  adapter_ids: Optional[torch.Tensor],
-                  use_kernel: bool = False) -> torch.Tensor:
+                  adapter_ids: Optional[torch.Tensor]) -> torch.Tensor:
     """One banked linear: ``y[b] = x[b] @ (W + delta[ids[b]])``.
 
     ``x``: (B, ..., d_in), leading dim = batch slots; ``adapter_ids``: (B,)
     int32 (None -> base weights only).  Decode-shaped inputs (B, 1, d_in) on
-    a low-rank bank go through the gather-delta kernel when ``use_kernel``."""
+    a low-rank bank always go through the gather-delta wrapper: the kernel
+    on a GPU, its plain version on the CPU."""
     x = x.to(compute_dtype)
     bank = params.get("bank")
     if bank is not None and adapter_ids is not None and "left" in bank \
-            and "delta" not in bank \
-            and use_kernel and x.ndim == 3 and x.shape[1] == 1:
-        from repro_torch.kernels import ops
+            and x.ndim == 3 and x.shape[1] == 1:
         return ops.gather_delta_matmul(
             x[:, 0], params["w"], bank["left"], bank["right"], adapter_ids,
             compute_dtype=compute_dtype)[:, None, :]

@@ -25,6 +25,22 @@ SOURCES = ("paged_decode_attention", "paged_prefill_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry point and argument types per source; every entry point returns
+#: ``cudaGetLastError()`` as an int
+ENTRY_POINTS = {
+    "paged_decode_attention": (
+        "paged_decode_attention_launch",
+        [_I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "paged_prefill_attention": (
+        "paged_prefill_attention_launch",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "gather_delta_matmul": (
+        "gather_delta_matmul_launch",
+        [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+}
+
 #: loaded libraries by source name (a loaded library lives as long as the
 #: process, so this cache is process-wide by nature)
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -88,7 +104,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building every kernel
-    first if this one is missing."""
+    first if this one is missing.  Its C signatures are set once, here."""
     lib = _LOADED.get(name)
     if lib is None:
         path = _library_path(name)
@@ -97,5 +113,10 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        fn_name, argtypes = ENTRY_POINTS[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.launch = fn
         _LOADED[name] = lib
     return lib

@@ -25,20 +25,6 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "gather_delta_matmul": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-#: C entry point and argument types per kernel source
-_SIGNATURES = {
-    "paged_decode_attention": (
-        "paged_decode_attention_launch",
-        [_I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
-    "paged_prefill_attention": (
-        "paged_prefill_attention_launch",
-        [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
-    "gather_delta_matmul": (
-        "gather_delta_matmul_launch",
-        [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
-}
 
 
 def reset_launches() -> None:
@@ -48,11 +34,7 @@ def reset_launches() -> None:
 
 def _launch(name: str, *args) -> None:
     lib = build.library(name)
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    rc = fn(*args)
+    rc = lib.launch(*args)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "

@@ -81,14 +81,12 @@ class ServeEngine:
 
     ``params`` is the (PEFT-wrapped) tree served as the ``"base"`` adapter;
     :meth:`register_adapter` adds fine-tunes of the same architecture.
-    ``use_fused_kernel`` routes banked decode linears through the
-    gather-delta kernel.  ``device`` holds the KV pools and every per-step
-    tensor, and must be where ``params`` live."""
+    ``device`` holds the KV pools and every per-step tensor, and must be
+    where ``params`` live."""
 
     def __init__(self, params, cfg: ModelConfig, max_len: int = 256,
-                 slots: int = 4, use_fused_kernel: bool = False,
-                 page_size: int = 16, num_pages: Optional[int] = None,
-                 device="cuda"):
+                 slots: int = 4, page_size: int = 16,
+                 num_pages: Optional[int] = None, device="cuda"):
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family only, not "
                              f"{cfg.family!r}")
@@ -98,8 +96,7 @@ class ServeEngine:
                              f"engine device is {self.device}")
         # serving config: every linear is a plain {"w"} (+ bank) once merged
         self.cfg = dataclasses.replace(
-            cfg, peft=PEFTConfig(method="none", target_modules=(),
-                                 use_fused_kernel=use_fused_kernel))
+            cfg, peft=PEFTConfig(method="none", target_modules=()))
         self.base_peft = cfg.peft
         self._sources: Dict[str, Tuple[object, PEFTConfig]] = {
             BASE_ADAPTER: (params, cfg.peft)}

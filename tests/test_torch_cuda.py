@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(fp32 tolerance 1e-4, bf16 5e-2), plus a tiny paged serving run that must
+(fp32 tolerance 1e-4; bf16 2e-2, its absolute part scaled by the
+output's RMS), plus a tiny paged serving run that must
 launch every kernel.  Imports nothing of the reference package, so it runs
 where JAX is not installed:
 
@@ -17,7 +18,7 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 
-DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)]
+DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
 
 @pytest.fixture
@@ -41,7 +42,13 @@ def _on(device, dtype):
 
 
 def _close(got, want, tol):
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    """Within ``atol + tol * |want|``: atol is ``tol`` for fp32 and
+    ``tol * rms(want)`` for bf16, so the bf16 limit stays below a typical
+    output whatever the inputs' scale."""
+    want = want.float()
+    atol = tol * float(want.square().mean().sqrt()) \
+        if got.dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -143,7 +150,7 @@ def test_tiny_serving_launches_every_kernel(cuda_device):
         name: {**lin, "q": lin["q"] + 0.05}
         for name, lin in params["layers"]["attn"].items()}}}
     eng = ServeEngine(params, cfg, max_len=64, slots=3, page_size=8,
-                      use_fused_kernel=True, device=cuda_device)
+                      device=cuda_device)
     eng.register_adapter("tuned", tuned)
     rng = np.random.default_rng(0)
     system = rng.integers(0, cfg.vocab_size, 20).astype(np.int32)

@@ -212,10 +212,9 @@ def test_stack_deltas_dense_branch_matches_reference():
     _close(got["delta"], want["delta"])
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_apply_batched_matches_reference(use_kernel):
+def test_apply_batched_matches_reference():
     """Banked linear: prefill-shaped rows through einsums, decode-shaped
-    rows (the gather-delta wrapper when ``use_kernel``)."""
+    rows through the gather-delta wrapper."""
     rng = np.random.default_rng(7)
     jbase, tbase, jtuned, ttuned = _bank_inputs(rng, lead=())
     cfg, jcfg = PEFTConfig(rank=8), JPEFTConfig(rank=8)
@@ -233,10 +232,43 @@ def test_apply_batched_matches_reference(use_kernel):
             compute_dtype=jnp.float32, adapter_ids=jnp.asarray(ids))
         got = registry.apply_batched({"w": tw, "bank": tbank},
                                      torch.from_numpy(x), torch.float32,
-                                     torch.from_numpy(ids),
-                                     use_kernel=use_kernel)
+                                     torch.from_numpy(ids))
         _close(got, want)
     assert registry.is_banked_linear({"w": tw, "bank": tbank})
+
+
+def test_apply_batched_sends_every_low_rank_decode_to_the_wrapper(
+        monkeypatch):
+    """Decode-shaped rows on a low-rank bank always reach the gather-delta
+    wrapper (which launches the kernel on a GPU); prefill-shaped rows, a
+    dense bank and base-only rows do not."""
+    calls = []
+    real = registry.ops.gather_delta_matmul
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+    monkeypatch.setattr(registry.ops, "gather_delta_matmul", spy)
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn((16, 12), generator=gen)
+    low = {"left": torch.randn((2, 16, 4), generator=gen),
+           "right": torch.randn((2, 4, 12), generator=gen)}
+    dense = {"delta": torch.randn((2, 16, 12), generator=gen)}
+    ids = torch.tensor([1, 0, 1], dtype=torch.int32)
+    dec = torch.randn((3, 1, 16), generator=gen)
+    pre = torch.randn((3, 5, 16), generator=gen)
+    for bank, x, adapter_ids in ((dense, dec, ids), (low, pre, ids),
+                                 (low, dec, None)):
+        registry.apply_batched({"w": w, "bank": bank}, x, torch.float32,
+                               adapter_ids)
+    assert calls == []
+    got = registry.apply_batched({"w": w, "bank": low}, dec, torch.float32,
+                                 ids)
+    assert calls == [(3, 16)]
+    want = dec @ w + torch.einsum(
+        "bsd,bdk,bko->bso", dec, low["left"][ids.long()],
+        low["right"][ids.long()])
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_apply_and_merge_tree_dispatch_match_reference():

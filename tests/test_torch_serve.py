@@ -68,13 +68,11 @@ def reference():
         dict(eng.kv.stats)
 
 
-@pytest.mark.parametrize("use_fused_kernel", [False, True])
-def test_port_engine_matches_reference(reference, use_fused_kernel):
+def test_port_engine_matches_reference(reference):
     params, tuned, (want_toks, want_events), want_stats = reference
     cfg = get_config("tiny")
     eng = ServeEngine(interop.params_from_numpy(params, device="cpu"), cfg,
-                      use_fused_kernel=use_fused_kernel, device="cpu",
-                      **ENGINE)
+                      device="cpu", **ENGINE)
     eng.register_adapter("tuned", interop.params_from_numpy(tuned, "cpu"))
     assert eng.list_adapters() == ["base", "tuned"]
     reqs = [Request(uid=u, prompt=p, max_new_tokens=n, adapter=a)
