@@ -1,29 +1,39 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port (``src/repro_torch``): multi-tenant
-paged PSOFT serving on one NVIDIA GPU.
+paged PSOFT serving and PSOFT fine-tuning on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--layers N] [--out PATH]
+    python3 chip_smoke.py [--layers N] [--profile] [--out PATH]
 
 Phases, each of which raises (non-zero exit) on a failed check:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
-   power limit (nvidia-smi) and builds the three CUDA kernels from the
+   power limit (nvidia-smi) and builds the five CUDA kernels from the
    checkout's sources (nvcc, in parallel), printing the build time;
-2. kernels: at llama32-3b serving shapes, bf16 and fp32, each kernel
-   against its plain PyTorch version on the card, with edge cases, and
-   each limit shown to reject a known fault (a dropped last page or prefix
-   tail, a row on the wrong adapter); one JSON line per kernel with its
-   time, the plain version's,
-   a library yardstick's and the least time the card could take (bytes over
-   3.35 TB/s or flops over the peak for the dtype, whichever is larger);
+2. kernels: at llama32-3b shapes, bf16 and fp32, each kernel against its
+   plain PyTorch version on the card, with edge cases, and each limit shown
+   to reject a known fault (a dropped last page or prefix tail, a row on
+   the wrong adapter, a dropped rank-r term, a Horner step short); one JSON
+   line per kernel with its time, the plain version's, a library
+   yardstick's and the least time the card could take (bytes over 3.35
+   TB/s or flops over the peak for the dtype, whichever is larger);
 3. serve: llama32-3b at full width (28 layers unless ``--layers`` cuts
    depth; widths are never cut), seven PSOFT linears per layer in bf16,
    random weights from a seed, two adapters sharing the frozen factors;
    ~24 requests through ``ServeEngine(slots=8, page_size=16,
    max_len=512)``; checks completion, page accounting, prefix
-   hits, that every kernel launched, and run-to-run token identity;
+   hits, that every serving kernel launched, and run-to-run token identity;
 4. card vs CPU: the same ``tiny`` (fp32) engine run on the card and on the
-   CPU gives identical greedy tokens and admissions.
+   CPU gives identical greedy tokens and admissions;
+5. train: the serve phase's llama32-3b params (same depth) split by the
+   PEFT mask, ``remat_policy="full"``, 8 x 256 synthetic tokens a step,
+   one warm-up and 5 timed steps of ``make_train_step``; checks finite
+   losses and grad norms, frozen leaves bit-identical, every trainable leaf
+   moved, and both training kernels launched on every step (psoft_matmul
+   3x per PSOFT linear: forward, remat recompute, backward; cayley_neumann
+   once per linear stack);
+6. train card vs CPU: ``tiny`` (fp32), 5 steps from one state on the card
+   and on the CPU agree within 1e-4 relative, and the tuned tree's logits
+   equal its merged tree's on the card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -31,7 +41,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -56,7 +68,14 @@ REPLACES = {
     "paged_prefill_attention":
         "src/repro/kernels/paged_prefill_attention.py:96",
     "gather_delta_matmul": "src/repro/kernels/gather_delta_matmul.py:39",
+    "psoft_matmul": "src/repro/kernels/psoft_matmul.py:50",
+    "cayley_neumann": "src/repro/kernels/cayley_kernel.py:31",
 }
+SERVE_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+                 "gather_delta_matmul")
+TRAIN_KERNELS = ("psoft_matmul", "cayley_neumann")
+#: llama32-3b training shapes: 8 sequences of 256 tokens, PSOFT r = 352
+TRAIN_TOKENS, TRAIN_BATCH, TRAIN_SEQ, RANK = 2048, 8, 256, 352
 
 
 class CheckFailed(RuntimeError):
@@ -184,27 +203,31 @@ def delta_inputs(torch, dtype, gen, k, n, ids, r=352, a=3):
     return x, w, left, right, idt
 
 
-def over_limit(torch, got, want, dname):
-    """(|got - want|, mask of the elements beyond the dtype's limit)."""
+def over_limit(torch, got, want, dname, scaled=None):
+    """(|got - want|, mask of the elements beyond the dtype's limit).  The
+    absolute part is TOL * rms(want) where ``scaled`` (default: for bf16),
+    else TOL; gradients, sums over thousands of products whatever their
+    dtype, are held to the scaled limit."""
     want = want.float()
     err = (got.float() - want).abs()
     tol = TOL[dname]
-    atol = tol * float(want.square().mean().sqrt()) \
-        if dname == "bfloat16" else tol
+    if scaled is None:
+        scaled = dname == "bfloat16"
+    atol = tol * float(want.square().mean().sqrt()) if scaled else tol
     return err, err > atol + tol * want.abs()
 
 
-def max_err(torch, got, want, dname, what):
-    err, bad = over_limit(torch, got, want, dname)
+def max_err(torch, got, want, dname, what, scaled=None):
+    err, bad = over_limit(torch, got, want, dname, scaled)
     check(not bool(bad.any()),
           f"{what}: {int(bad.sum())} elements outside the {dname} limit "
           f"(max abs err {float(err.max())})")
     return float(err.max())
 
 
-def must_reject(torch, wrong, want, dname, rows, what):
+def must_reject(torch, wrong, want, dname, rows, what, scaled=None):
     """The limit must catch a known fault in every row of ``rows``."""
-    _, bad = over_limit(torch, wrong, want, dname)
+    _, bad = over_limit(torch, wrong, want, dname, scaled)
     missed = [r for r in rows if not bool(bad[r].any())]
     check(not missed, f"{what}: the {dname} limit misses the fault in rows "
                       f"{missed}")
@@ -495,8 +518,8 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
               for r in done), "every request finishes with max_new_tokens")
     check(eng.kv.pages_in_use() == 0, "every page is returned")
     check(kv_stats["prefix_hits"] > 0, "shared prefixes are aliased")
-    for name, cnt in launches.items():
-        check(cnt > 0, f"kernel {name} launched on the main path")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} launched on the main path")
     toks = {r.uid: list(r.generated) for r in done}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del eng, done
@@ -508,7 +531,7 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
     del again
     profile = profile_serve(torch, serve, params, adapters, cfg, reqs, kw,
                             stats) if args.profile else None
-    del params, adapters
+    del adapters
     torch.cuda.empty_cache()
     tok_s = stats["decode_tokens"] / stats["decode_s"]
     step_ms = 1e3 * stats["decode_s"] / stats["decode_steps"]
@@ -533,7 +556,7 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
     print(f"serve: launches {launches}; per decode step "
           f"{result['launches_per_decode_step']}, prefill-kernel launches "
           f"per prefill call {result['prefill_launches_per_call']:.2f}")
-    return result
+    return result, params
 
 
 def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
@@ -610,6 +633,401 @@ def card_vs_cpu_phase(torch, configs, model, serve):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, training kernels: psoft_matmul and cayley_neumann
+# ---------------------------------------------------------------------------
+
+def psoft_inputs(torch, dtype, gen, m, k, n, r=RANK, transpose=False):
+    """One PSOFT linear at the scales of an SVD split of W ~ N(0, 1/k): A's
+    columns of unit norm, B's rows of norm ~2.4 (the top singular values of
+    a k x n Gaussian), R near the identity, alpha and beta near 1."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    x = randn(m, n if transpose else k, scale=0.5).to(dtype)
+    w = randn(k, n, scale=k ** -0.5).to(dtype)
+    a = randn(k, r, scale=k ** -0.5).to(dtype)
+    b = randn(r, n, scale=2.4 * n ** -0.5).to(dtype)
+    rot = torch.eye(r, device="cuda") + randn(r, r, scale=0.1 * r ** -0.5)
+    s_in = 1 + randn(r, scale=0.1)
+    s_out = 1 + randn(r, scale=0.1)
+    return x, w, a, rot, b, s_in, s_out
+
+
+def psoft_bytes_flops(m, k, n, r, elt):
+    """Each input read once (x, W_res, A, B in the compute dtype; R, alpha,
+    beta fp32), each output written once (y; u and t, kept for the
+    backward, fp32); the factored product's flops."""
+    nbytes = ((m * k + k * n + k * r + r * n + m * n) * elt
+              + (r * r + 2 * r) * 4 + 2 * m * r * 4)
+    return nbytes, 2 * m * (k * n + k * r + r * r + r * n)
+
+
+def cayley_inputs(torch, gen, n_mat, r, scale):
+    q = torch.randn((n_mat, r, r), generator=gen, device="cuda") * scale
+    return q - q.transpose(1, 2)
+
+
+def psoft_grad_phase(torch, ops, ref, gen):
+    """The public autograd wrapper ``ops.psoft_matmul`` forward and backward
+    in bf16 at one layer's seven linears (M = 2048, r = 352): the grads the
+    training step takes (x, R, alpha, beta; the factors are frozen) against
+    autograd of the plain version in fp32 on the same values.  dx is bf16
+    (the bf16 limit); the r-sized grads are fp32 (the fp32 limit, scaled).
+    Each limit rejects a planted fault (in every sampled row of dx and d_R,
+    somewhere in the vectors): dx without its rank-r term, d_R without
+    beta, d_alpha with alpha and beta swapped in the transposed launch,
+    d_beta without alpha."""
+    m, r, f32 = TRAIN_TOKENS, RANK, torch.float32
+    errs = {"dx": 0.0, "d_rot": 0.0, "d_alpha": 0.0, "d_beta": 0.0}
+    for name, kdim, n in LLAMA_LINEARS:
+        x, w, a, rot, b, al, be = psoft_inputs(torch, torch.bfloat16, gen,
+                                               m, kdim, n)
+        dy = (torch.randn((m, n), generator=gen, device="cuda")
+              * 0.5).to(torch.bfloat16)
+        leaves = [x.clone().requires_grad_(True), w, a,
+                  rot.clone().requires_grad_(True), b,
+                  al.clone().requires_grad_(True),
+                  be.clone().requires_grad_(True)]
+        y = ops.psoft_matmul(*leaves)
+        got = torch.autograd.grad(y, [leaves[i] for i in (0, 3, 5, 6)], dy)
+        twins = [t.detach().float().requires_grad_(i in (0, 3, 5, 6))
+                 for i, t in enumerate(leaves)]
+        want = torch.autograd.grad(ref.psoft_matmul(*twins),
+                                   [twins[i] for i in (0, 3, 5, 6)],
+                                   dy.float())
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            x32, w32, a32, b32, dy32 = (t.float() for t in (x, w, a, b, dy))
+            u1 = x32 @ a32
+            du4 = dy32 @ b32.T
+            faults = (
+                dy32 @ w32.T,                                   # dx
+                (u1 * al).T @ du4,                              # d_R
+                (u1 * ((du4 * al) @ rot.T)).sum(0),             # d_alpha
+                (du4 * (u1 @ rot)).sum(0),                      # d_beta
+            )
+        for (key, dname, scaled, fault), g, wnt in zip(
+                (("dx", "bfloat16", None, "rank-r term dropped"),
+                 ("d_rot", "float32", True, "beta left out"),
+                 ("d_alpha", "float32", True,
+                  "alpha and beta swapped in the transposed launch"),
+                 ("d_beta", "float32", True, "alpha left out")),
+                got, want):
+            what = f"psoft_matmul grad {key} {name} bf16"
+            check(g.dtype == (torch.bfloat16 if key == "dx" else f32),
+                  f"{what}: dtype {g.dtype}")
+            errs[key] = max(errs[key], max_err(torch, g, wnt, dname, what,
+                                               scaled))
+            wrong = faults[("dx", "d_rot", "d_alpha", "d_beta").index(key)]
+            if wnt.ndim == 1:
+                # a vector is one row: the fault must show in it somewhere
+                wrong, wnt, rows = wrong[None], wnt[None], [0]
+            else:
+                rows = range(0, wnt.shape[0], 97 if key == "dx" else 7)
+            must_reject(torch, wrong, wnt, dname, rows, f"{what}, {fault}",
+                        scaled)
+        del x, w, a, rot, b, dy, leaves, twins, got, want, faults, u1, du4
+    return errs
+
+
+def cayley_grad_phase(torch, ops, ref, gen, n_mat, r, terms):
+    """The public autograd wrapper ``ops.cayley_neumann``'s reverse-Horner
+    grad at one linear stack against autograd of the plain series (fp32,
+    scaled limit); the limit rejects the grad of a series one Horner step
+    short."""
+    q = cayley_inputs(torch, gen, n_mat, r, 0.03)
+    g_out = torch.randn((n_mat, r, r), generator=gen, device="cuda")
+    q1, q2, q3 = (q.clone().requires_grad_(True) for _ in range(3))
+    got, = torch.autograd.grad(ops.cayley_neumann(q1, terms), q1, g_out)
+    want, = torch.autograd.grad(ref.cayley_neumann(q2, terms), q2, g_out)
+    short, = torch.autograd.grad(ref.cayley_neumann(q3, terms - 1), q3,
+                                 g_out)
+    torch.cuda.synchronize()
+    e = max_err(torch, got, want, "float32", "cayley_neumann grad dQ",
+                scaled=True)
+    must_reject(torch, short.reshape(-1, r), want.reshape(-1, r), "float32",
+                range(0, n_mat * r, 13),
+                "cayley_neumann grad, one Horner step short", scaled=True)
+    return e
+
+
+def train_kernel_phase(torch, ops, ref):
+    """psoft_matmul forward and transposed (backward) launch at one
+    llama32-3b layer's seven linears (M = 2048 tokens, r = 352), bf16 and
+    fp32, and its autograd wrapper's grads in bf16; cayley_neumann at one
+    linear stack (28, 352, 352), K = 5, and its wrapper's grad.  Each
+    against its plain version, each limit shown to reject a known fault;
+    timed in the training dtypes (bf16 linears, fp32 rotation)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    m, r = TRAIN_TOKENS, RANK
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        e = 0.0
+        for name, kdim, n in LLAMA_LINEARS:
+            for transpose in (False, True):
+                args = psoft_inputs(torch, dtype, gen, m, kdim, n,
+                                    transpose=transpose)
+                got = ops._psoft_mm(*args, transpose)
+                want = ref.psoft_matmul_parts(*args, transpose)
+                torch.cuda.synchronize()
+                what = f"psoft_matmul {name} {dname}" + \
+                    (" transposed" if transpose else "")
+                e = max(e, max_err(torch, got[0], want[0], dname, what))
+                # u and t are fp32 in both dtypes (bf16 products are
+                # exact in fp32): the fp32 limit
+                for g, w, part in zip(got[1:], want[1:], ("u", "t")):
+                    max_err(torch, g, w, "float32", f"{what} {part}")
+                x, w_res, a, rot, b, s_in, s_out = args
+                no_rank = ref.psoft_matmul_parts(
+                    x, w_res, a, rot, b, s_in, s_out * 0, transpose)[0]
+                must_reject(torch, no_rank, want[0], dname,
+                            range(0, m, 97), f"{what}, rank-r term dropped")
+                del got, want, no_rank, args
+        errs[f"max_err_{dname}"] = e
+    errs["grad_max_err"] = psoft_grad_phase(torch, ops, ref, gen)
+    results = {"psoft_matmul": errs}
+
+    # cayley: Q at a scale where the 5th power is far above the limit
+    n_mat, terms = 28, 5
+    q = cayley_inputs(torch, gen, n_mat, r, 0.03)
+    rot, series = ops._cayley(q, terms)
+    want, want_series = ref.cayley_neumann_series(q, terms)
+    torch.cuda.synchronize()
+    e = max_err(torch, rot, want, "float32", "cayley_neumann R")
+    max_err(torch, series, want_series, "float32", "cayley_neumann series")
+    short = ref.cayley_neumann(q, terms - 1)
+    must_reject(torch, short.reshape(-1, r), want.reshape(-1, r), "float32",
+                range(0, n_mat * r, 13),
+                "cayley_neumann, one Horner step short")
+    fifth = float((want - short).abs().max())
+    results["cayley_neumann"] = {
+        "max_err_float32": e, "fault_max_abs": fifth,
+        "grad_max_err": cayley_grad_phase(torch, ops, ref, gen, n_mat, r,
+                                          terms)}
+
+    # timing: bf16 linears at the main path's shapes
+    dt, elt = torch.bfloat16, 2
+    tot = dict(ms=0.0, backward_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bytes=0, flops=0)
+    per_linear = {}
+    for name, kdim, n in LLAMA_LINEARS:
+        x, w_res, a, rot, b, al, be = psoft_inputs(torch, dt, gen, m, kdim,
+                                                   n)
+        dy = (torch.randn((m, n), generator=gen, device="cuda")
+              * 0.5).to(dt)
+        merged = (w_res.float() + (a.float() * al) @ rot @
+                  (b.float() * be[:, None])).to(dt)
+        nbytes, flops = psoft_bytes_flops(m, kdim, n, r, elt)
+        one = dict(
+            ms=time_ms(torch, lambda: ops._psoft_mm(
+                x, w_res, a, rot, b, al, be, False)),
+            backward_ms=time_ms(torch, lambda: ops._psoft_mm(
+                dy, w_res, a, rot, b, be, al, True)),
+            plain_ms=time_ms(torch, lambda: ref.psoft_matmul_parts(
+                x, w_res, a, rot, b, al, be)),
+            library_ms=time_ms(torch, lambda: torch.matmul(x, merged)),
+            bytes=nbytes, flops=flops)
+        one["bound_ms"], one["bound_by"] = bound(nbytes, flops, "bfloat16")
+        per_linear[name] = one
+        for key in tot:
+            tot[key] += one[key]
+        del x, w_res, a, rot, b, dy, merged
+    results["psoft_matmul"].update(
+        tot, per_linear=per_linear,
+        library="torch.matmul(x, W_final), the merged weight precomputed "
+                "(untimed)",
+        shape=f"one llama32-3b layer's seven linears (q k v o gate up "
+              f"down), M={m} tokens, r={r}, bf16; ms is the forward launch, "
+              f"backward_ms the transposed (dx) launch")
+    q = cayley_inputs(torch, gen, n_mat, r, 0.01)
+    nbytes = (2 + terms) * n_mat * r * r * 4   # Q in; R and S_1..S_K out
+    flops = terms * 2 * r ** 3 * n_mat         # K products per matrix
+    results["cayley_neumann"].update(
+        ms=time_ms(torch, lambda: ops._cayley(q, terms)),
+        plain_ms=time_ms(torch, lambda: ref.cayley_neumann_series(q, terms)),
+        library_ms=None, library="none: no single PyTorch call computes "
+                                 "the truncated series",
+        bytes=nbytes, flops=flops,
+        shape=f"one linear stack: L={n_mat}, r={r}, K={terms}, fp32")
+    res = results["cayley_neumann"]
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, "float32")
+    tot = results["psoft_matmul"]
+    tot["bound_ms"] = sum(v["bound_ms"] for v in per_linear.values())
+    tot["bound_by"] = "operations" if all(
+        v["bound_by"] == "operations" for v in per_linear.values()) \
+        else "bytes"
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5 / 6: training
+# ---------------------------------------------------------------------------
+
+def train_phase(torch, args, configs, trainer, data, tree, ops, params,
+                gpu_line):
+    """The fine-tuning step at full width on the serve phase's params."""
+    # free what earlier phases left in reference cycles now, so that the
+    # peak below is the training's and not a matter of when Python's
+    # collector happens to run
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gc_freed_gib = (held - torch.cuda.memory_allocated()) / 2**30
+    cfg = configs.get_config("llama32-3b", remat_policy="full")
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
+    state = trainer.train_state_from_params(params, cfg, tc)
+    del params
+    frozen = tree.tree_leaves(state.frozen)
+    t0 = time.perf_counter()
+    frozen_before = [t.cpu() for t in frozen]
+    trainable_before = [t.clone() for t in
+                        tree.tree_leaves(state.trainable)]
+    copy_s = time.perf_counter() - t0
+    n_train = sum(t.numel() for t in trainable_before)
+    n_frozen = sum(t.numel() for t in frozen)
+    linears = 7 * cfg.num_layers
+    ds = data.SyntheticLMDataset(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [ds.batch_at(i) for i in range(6)]
+    step = trainer.make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, gnorms, step_ms, per_step = [], [], [], []
+    for i, batch in enumerate(batches):
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        per_step.append({k: ops.LAUNCHES[k] - before[k]
+                         for k in TRAIN_KERNELS})
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        if i:
+            step_ms.append(dt_ms)
+        else:
+            warm_ms = dt_ms
+    launches = dict(ops.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"train: finite losses {losses} and grad norms {gnorms}")
+    check(all(g > 0 for g in gnorms), f"train: grad norms {gnorms} > 0")
+    for i, cnt in enumerate(per_step):
+        check(cnt["psoft_matmul"] == 3 * linears,
+              f"train step {i}: psoft_matmul launched {cnt['psoft_matmul']}"
+              f" times, expected 3 x {linears} (forward, remat recompute, "
+              f"backward)")
+        check(cnt["cayley_neumann"] == 7,
+              f"train step {i}: cayley_neumann launched "
+              f"{cnt['cayley_neumann']} times, expected 7 (one per stack)")
+    t0 = time.perf_counter()
+    after = tree.tree_leaves(state.frozen)
+    check(len(after) == len(frozen_before) and all(
+        a is b for a, b in zip(after, frozen)), "train: frozen leaves kept")
+    check(all(torch.equal(b, a.cpu()) for b, a in zip(frozen_before, after)),
+          "train: every frozen leaf bit-identical after the steps")
+    moved = [bool((a != b).any()) for a, b in zip(
+        tree.tree_leaves(state.trainable), trainable_before)]
+    check(all(moved), f"train: every trainable leaf moved "
+                      f"({moved.count(False)} did not)")
+    verify_s = time.perf_counter() - t0
+    mean_ms = sum(step_ms) / len(step_ms)
+    tok_s = TRAIN_TOKENS / (mean_ms / 1e3)
+    profile = profile_train(torch, step, state, batches[0]) \
+        if args.profile else None
+    result = dict(
+        layers=cfg.num_layers, tokens_per_step=TRAIN_TOKENS,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=cfg.remat_policy,
+        trainable_params=n_train, frozen_params=n_frozen,
+        warmup_step_ms=warm_ms, step_ms=step_ms, mean_step_ms=mean_ms,
+        min_step_ms=min(step_ms), max_step_ms=max(step_ms),
+        tokens_per_s=tok_s, peak_memory_gib=peak_gib, losses=losses,
+        grad_norms=gnorms, launches=launches, launches_per_step=per_step[-1],
+        frozen_copy_s=copy_s, verify_s=verify_s, gc_freed_gib=gc_freed_gib,
+        gpu=gpu_line,
+        profile=profile)
+    print(f"train: llama32-3b {cfg.num_layers} layers, remat full, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens a step, {n_train} trainable / "
+          f"{n_frozen} frozen params; step ms mean {mean_ms:.1f} min "
+          f"{min(step_ms):.1f} max {max(step_ms):.1f} (warm-up "
+          f"{warm_ms:.1f}), {tok_s:.0f} tokens/s, peak "
+          f"{peak_gib:.1f} GiB (a gc.collect before it freed "
+          f"{gc_freed_gib:.2f} GiB) [{gpu_line}]")
+    print(f"train: losses {[round(v, 4) for v in losses]}, grad norms "
+          f"{[round(v, 4) for v in gnorms]}; launches per step "
+          f"{per_step[-1]}")
+    return result
+
+
+def profile_train(torch, step, state, batch):
+    """One more step under torch.profiler: device time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    if not rows:
+        print("profile: the train trace holds no device time (not measured)")
+        return None
+    device_ms = sum(r[1] for r in rows)
+    out = dict(profiled_wall_ms=wall_ms, device_ms=device_ms,
+               top=[dict(name=k[:90], ms=ms, calls=n)
+                    for k, ms, n in rows[:15]])
+    print(f"profile: train step device busy {device_ms:.1f} ms of a "
+          f"profiled {wall_ms:.1f} ms step")
+    for r in out["top"]:
+        print(f"profile:   {r['ms']:9.2f} ms  {r['calls']:6d}x  {r['name']}")
+    return out
+
+
+def train_card_vs_cpu_phase(torch, configs, model, trainer, data, tree,
+                            peft):
+    """tiny fp32: 5 steps from one state on the card and on the CPU."""
+    cfg = configs.get_config("tiny")
+    tc = configs.TrainConfig(steps=10, learning_rate=1e-2, warmup_ratio=0.2)
+    cpu = trainer.init_train_state(cfg, tc, seed=0, device="cpu")
+    gpu = tree.tree_map(lambda t: t.to("cuda"), cpu)
+    ds = data.SyntheticLMDataset(cfg, 4, 32)
+    step = trainer.make_train_step(cfg, tc)
+    losses = {"cpu": [], "cuda": []}
+    for i in range(5):
+        batch = ds.batch_at(i)
+        cpu, mc = step(cpu, batch)
+        gpu, mg = step(gpu, batch)
+        losses["cpu"].append(float(mc["loss"]))
+        losses["cuda"].append(float(mg["loss"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                               losses["cpu"])]
+    check(max(rel) <= 1e-4, f"tiny train: card and CPU losses within 1e-4 "
+                            f"relative ({losses})")
+    tuned = trainer.adapter_params(gpu)
+    merged = peft.merge_tree(tuned, cfg.peft)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in ds.batch_at(9).items()}
+    with torch.no_grad():
+        got = model.forward_logits(merged, batch, cfg)
+        want = model.forward_logits(tuned, batch, cfg)
+    err = max_err(torch, got, want, "float32",
+                  "tiny train: merged vs unmerged logits on the card")
+    print(f"train card vs cpu: tiny fp32, 5 steps, losses {losses['cuda']} "
+          f"(max relative gap {max(rel):.2e}); merged-vs-unmerged logits "
+          f"max abs err {err:.2e}")
+    return dict(losses=losses, max_rel_gap=max(rel), merge_max_err=err)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -634,9 +1052,13 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from repro_torch import configs
+    from repro_torch.core import peft
+    from repro_torch.data import pipeline as data
     from repro_torch.kernels import build, ops, ref
     from repro_torch.models import model
     from repro_torch import serve
+    from repro_torch.train import trainer
+    from repro_torch import tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -656,12 +1078,14 @@ def main(argv=None) -> int:
     phase_s = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     kernels = kernel_phase(torch, ops, ref, F)
+    kernels.update(train_kernel_phase(torch, ops, ref))
     phase_s["kernels"] = time.perf_counter() - t0
     print(f"kernels: phase took {phase_s['kernels']:.1f} s")
     for name, res in kernels.items():
         print(json.dumps({"kernel": name,
-                          "max_err": res["max_err_bfloat16"],
+                          "max_err_bf16": res.get("max_err_bfloat16"),
                           "max_err_fp32": res["max_err_float32"],
+                          "grad_max_err": res.get("grad_max_err"),
                           "kernel_ms": res["ms"], "plain_ms": res["plain_ms"],
                           "library_ms": res["library_ms"],
                           "library": res["library"],
@@ -669,20 +1093,40 @@ def main(argv=None) -> int:
                           "bound_by": res["bound_by"],
                           "bytes": res["bytes"], "flops": res["flops"],
                           "shape": res["shape"], "gpu": gpu_line}))
+    pm = kernels["psoft_matmul"]
+    print(f"kernels: psoft_matmul per linear (forward / transposed ms, "
+          f"bound ms): " + ", ".join(
+              f"{k} {v['ms']:.3f}/{v['backward_ms']:.3f} "
+              f"({v['bound_ms']:.3f})" for k, v in pm["per_linear"].items()))
     t0 = time.perf_counter()
-    served = serve_phase(torch, args, configs, model, serve, ops, gpu_line)
+    served, params = serve_phase(torch, args, configs, model, serve, ops,
+                                 gpu_line)
     phase_s["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cross = card_vs_cpu_phase(torch, configs, model, serve)
     phase_s["card_vs_cpu"] = time.perf_counter() - t0
-    print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}")
+    t0 = time.perf_counter()
+    trained = train_phase(torch, args, configs, trainer, data, tree, ops,
+                          params, gpu_line)
+    del params
+    torch.cuda.empty_cache()
+    phase_s["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_cross = train_card_vs_cpu_phase(torch, configs, model, trainer,
+                                          data, tree, peft)
+    phase_s["train_card_vs_cpu"] = time.perf_counter() - t0
+    print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
+          f" [{gpu_line}]")
 
+    main_path = {**{k: served["launches"][k] for k in SERVE_KERNELS},
+                 **{k: trained["launches"][k] for k in TRAIN_KERNELS}}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": REPLACES[name],
-         "launches": served["launches"][name],
-         "max_abs_err": res["max_err_bfloat16"],
+         "launches": main_path[name],
+         "max_abs_err": res.get("max_err_bfloat16",
+                                res["max_err_float32"]),
          "ms": res["ms"], "plain_ms": res["plain_ms"],
          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
          "library_ms": res["library_ms"]}
@@ -692,8 +1136,9 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(gpu=gpu_line, kind=kind,
                                        kernels=kernels, serve=served,
-                                       card_vs_cpu=cross, phase_s=phase_s),
-                                  indent=1))
+                                       card_vs_cpu=cross, train=trained,
+                                       train_card_vs_cpu=train_cross,
+                                       phase_s=phase_s), indent=1))
     print(gpu_line)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

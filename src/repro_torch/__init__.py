@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the PSOFT serving stack (slice 1: multi-tenant paged
-PSOFT serving on one NVIDIA H100).
+"""PyTorch/CUDA port of the PSOFT stack on one NVIDIA H100: multi-tenant
+paged PSOFT serving (slice 1) and PEFT-masked PSOFT fine-tuning with its
+checkpoints (slice 2).
 
 The reference package ``repro`` (JAX/Pallas) stays the source of truth; this
 package mirrors its module names and its scan-stacked ``(L, ...)`` parameter

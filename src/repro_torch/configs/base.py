@@ -3,7 +3,8 @@ named architectures.
 
 This is the port's own copy of the reference package's config module (the
 port imports nothing of the reference package), cut to what the dense
-serving path reads, plus :data:`DTYPES`, the map from the config's dtype
+serving and training paths read (plus the data pipeline's
+:class:`DataConfig`), and :data:`DTYPES`, the map from the config's dtype
 strings to torch dtypes.
 """
 from __future__ import annotations
@@ -60,6 +61,9 @@ class PEFTConfig:
             return tm.get(module, "none")
         return self.method if module in tm else "none"
 
+    def is_target(self, module: Optional[str]) -> bool:
+        return self.method_for(module) != "none"
+
     def replace(self, **kw) -> "PEFTConfig":
         return dataclasses.replace(self, **kw)
 
@@ -83,6 +87,9 @@ class ModelConfig:
     dtype: str = "bfloat16"         # compute dtype
     param_dtype: str = "bfloat16"   # frozen base weights
     peft_dtype: str = "float32"     # trainable PEFT params
+    # remat: "full" recomputes each layer in the backward
+    # (torch.utils.checkpoint), "none" keeps its activations
+    remat_policy: str = "full"      # none | full
     peft: PEFTConfig = field(default_factory=PEFTConfig)
 
     @property
@@ -95,6 +102,32 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class TrainConfig:
+    """What the train step reads.  The reference's loop settings (seed,
+    logging and checkpoint cadence) come with the port's train loop."""
+    learning_rate: float = 4e-4
+    warmup_ratio: float = 0.1
+    schedule: str = "cosine"        # cosine | linear | constant
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    grad_clip_norm: float = 1.0
+    steps: int = 100
+    microbatches: int = 1           # gradient accumulation
+    full_finetune: bool = False     # True = FFT baseline (all params trainable)
+    grad_allreduce_dtype: str = ""  # "" | "bfloat16" | "int8" (compression)
+
+
+@dataclass
+class DataConfig:
+    seed: int = 0
+    branching: int = 4          # out-degree of the Markov chain
+    num_hosts: int = 1
+    host_id: int = 0
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

@@ -6,7 +6,10 @@ the exact solve is kept as the reference path.  Q is stored as its strictly
 lower-triangular entries in ``np.tril_indices`` order, exactly as the
 reference package stores them, so a converted ``q`` means the same matrix.
 
-Every function broadcasts over leading (layer-stack) dimensions.
+Every function broadcasts over leading (layer-stack) dimensions.  The
+Neumann rotation goes through the ``cayley_neumann`` kernel wrapper on every
+device (the kernel on a GPU, its plain version on the CPU), one call for a
+whole layer stack.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
 
 
 def num_skew_params(r: int) -> int:
@@ -35,21 +40,12 @@ def skew_from_flat(q_flat: torch.Tensor, r: int) -> torch.Tensor:
     return q - q.transpose(-1, -2)
 
 
-def neumann_inverse_series(q: torch.Tensor, terms: int) -> torch.Tensor:
-    """Σ_{k=0}^{K} (−Q)^k by Horner iteration S ← I − Q·S."""
-    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
-    s = eye.expand_as(q)
-    for _ in range(terms):
-        s = eye - q @ s
-    return s
-
-
 def cayley_neumann(q_flat: torch.Tensor, r: int,
                    terms: int = 5) -> torch.Tensor:
-    """R ≈ (I − Q) Σ_{k=0}^{K}(−Q)^k, in fp32."""
-    q = skew_from_flat(q_flat.float(), r)
-    eye = torch.eye(r, dtype=torch.float32, device=q.device)
-    return (eye - q) @ neumann_inverse_series(q, terms)
+    """R ≈ (I − Q) Σ_{k=0}^{K}(−Q)^k, in fp32, differentiable in
+    ``q_flat`` (the wrapper's exact backward, then the scatter of
+    :func:`skew_from_flat`)."""
+    return ops.cayley_neumann(skew_from_flat(q_flat.float(), r), terms)
 
 
 def cayley_exact(q_flat: torch.Tensor, r: int) -> torch.Tensor:

@@ -40,3 +40,7 @@ def lora_merge(params: Params, scale: float) -> torch.Tensor:
     w = params["w"].float()
     w = w + scale * params["a"].float() @ params["b"].float()
     return w.to(params["w"].dtype)
+
+
+def lora_num_params(d_in: int, d_out: int, r: int) -> int:
+    return d_in * r + r * d_out

@@ -9,7 +9,7 @@ A banked serve linear (``{"w", "bank"}``) applies through
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,6 +49,17 @@ def merge_linear(params: Dict[str, torch.Tensor], cfg: PEFTConfig, *,
                  method: Optional[str] = None) -> torch.Tensor:
     return registry.resolve(params, cfg, module=module,
                             method=method).merge(params, cfg)
+
+
+def trainable_names(method: str,
+                    cfg: Optional[PEFTConfig] = None) -> Tuple[str, ...]:
+    return registry.get_method(method).trainable_names(cfg)
+
+
+def count_trainable_params(d_in: int, d_out: int, cfg: PEFTConfig, *,
+                           module: Optional[str] = None) -> int:
+    method = cfg.method_for(module) if module is not None else cfg.method
+    return registry.get_method(method).num_params(d_in, d_out, cfg)
 
 
 def is_peft_linear(node) -> bool:

@@ -7,9 +7,11 @@ Per linear ``y = x @ W`` with W_pre (d_in, d_out):
     forward:  y = x @ (A diag(α) R diag(β) B + W_res)
 
 Trainable: q (the r(r−1)/2 Cayley entries), α and β (ones at init, so
-training starts exactly at W_pre).  Every function broadcasts over leading
-(layer-stack) dimensions, so a scan-stacked ``(L, d_in, d_out)`` weight is
-decomposed by one batched SVD.
+training starts exactly at W_pre).  The forward of one linear runs through
+the ``psoft_matmul`` kernel wrapper (:func:`psoft_fused_apply`) on every
+device; :func:`psoft_apply` mirrors the reference's unfused apply.  The
+other functions broadcast over leading (layer-stack) dimensions, so a
+scan-stacked ``(L, d_in, d_out)`` weight is decomposed by one batched SVD.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core import cayley
+from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -72,6 +75,28 @@ def psoft_apply(params: Params, x: torch.Tensor, neumann_terms: int = 5,
     return y + u @ params["B"].to(compute_dtype)
 
 
+def psoft_fused_apply(params: Params, x: torch.Tensor,
+                      neumann_terms: int = 5, exact: bool = False,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Forward of ONE linear (2-D ``w_res``) through the fused
+    ``psoft_matmul`` wrapper, for any leading shape of ``x`` (flattened to
+    tokens).  A precomputed rotation under ``"rot"`` is used as is (the
+    model builds each layer stack's rotations once per forward); otherwise
+    it is built here."""
+    shape = tuple(params["w_res"].shape)
+    if len(shape) != 2:
+        raise ValueError(f"psoft_fused_apply takes one linear; index the "
+                         f"layer stack first (w_res {shape})")
+    rot = params.get("rot")
+    if rot is None:
+        rot = psoft_rotation(params, neumann_terms, exact)
+    lead = x.shape[:-1]
+    y = ops.psoft_matmul(x.reshape(-1, x.shape[-1]), params["w_res"],
+                         params["A"], rot, params["B"], params.get("alpha"),
+                         params.get("beta"), compute_dtype=compute_dtype)
+    return y.reshape(*lead, y.shape[-1])
+
+
 def psoft_merge(params: Params, neumann_terms: int = 5,
                 exact: bool = False) -> torch.Tensor:
     """W_final = A diag(α) R diag(β) B + W_res (Algorithm 1 line 12)."""
@@ -84,6 +109,11 @@ def psoft_merge(params: Params, neumann_terms: int = 5,
         b = b * params["beta"].float()[..., :, None]
     w = a @ rot @ b + params["w_res"].float()
     return w.to(params["w_res"].dtype)
+
+
+def psoft_num_params(r: int, relax_vectors: bool = True) -> int:
+    """Table 8: r(r−1)/2 + 2r."""
+    return cayley.num_skew_params(r) + (2 * r if relax_vectors else 0)
 
 
 def orthogonality_deviation(params: Params,

@@ -2,11 +2,12 @@
 bank that serves several fine-tunes of one base model in a single batch.
 
 Each method is one :class:`PEFTMethod` registered by name and owns init /
-apply / merge for one linear.  A method with ``supports_batched_delta``
-also reports its weight update as exact low-rank factors
-(:meth:`PEFTMethod.delta_factors`); :func:`stack_deltas` stacks those into a
-per-linear bank and :func:`apply_batched` gathers one adapter column per
-batch row.
+apply / merge for one linear, and names its trainable keys.  PSOFT's apply
+is the fused ``psoft_matmul`` wrapper on every device.  A method with
+``supports_batched_delta`` also reports its weight update as exact low-rank
+factors (:meth:`PEFTMethod.delta_factors`); :func:`stack_deltas` stacks
+those into a per-linear bank and :func:`apply_batched` gathers one adapter
+column per batch row.
 
 Unlike the reference, which scopes the per-row adapter ids in a trace-time
 context, the port threads ``adapter_ids`` explicitly from the engine through
@@ -47,6 +48,14 @@ class PEFTMethod:
 
     def merge(self, params: Params, cfg) -> torch.Tensor:
         raise NotImplementedError
+
+    def trainable_names(self, cfg=None) -> Tuple[str, ...]:
+        """Param keys the PEFT-masked trainer updates."""
+        return ()
+
+    def num_params(self, d_in: int, d_out: int, cfg) -> int:
+        """Trainable params of one (d_in, d_out) linear."""
+        return 0
 
     def base_weight(self, params: Params, cfg) -> torch.Tensor:
         """The pre-trained weight :meth:`delta_factors` is relative to."""
@@ -248,8 +257,10 @@ class PSOFTMethod(PEFTMethod):
                                 param_dtype, peft_dtype)
 
     def apply(self, params, x, cfg, compute_dtype):
-        return psoft.psoft_apply(params, x, cfg.neumann_terms,
-                                 cfg.exact_cayley, compute_dtype)
+        # the fused psoft_matmul wrapper on every device: its kernel on a
+        # GPU, its plain version on the CPU
+        return psoft.psoft_fused_apply(params, x, cfg.neumann_terms,
+                                       cfg.exact_cayley, compute_dtype)
 
     def merge(self, params, cfg):
         return psoft.psoft_merge(params, cfg.neumann_terms, cfg.exact_cayley)
@@ -270,6 +281,13 @@ class PSOFTMethod(PEFTMethod):
         b = params["B"].float()
         return params["A"].float(), rot @ b - b
 
+    def trainable_names(self, cfg=None):
+        if cfg is not None and not cfg.relax_vectors:
+            return ("q",)
+        return ("q", "alpha", "beta")
+
+    def num_params(self, d_in, d_out, cfg):
+        return psoft.psoft_num_params(cfg.rank, cfg.relax_vectors)
 
 
 class LoRAMethod(PEFTMethod):
@@ -296,6 +314,12 @@ class LoRAMethod(PEFTMethod):
     def delta_factors(self, params, cfg):
         # merge − w == s·a@b; the scale folds into the narrow right factor
         return params["a"].float(), params["b"].float() * self._scale(cfg)
+
+    def trainable_names(self, cfg=None):
+        return ("a", "b")
+
+    def num_params(self, d_in, d_out, cfg):
+        return lora.lora_num_params(d_in, d_out, cfg.rank)
 
 
 

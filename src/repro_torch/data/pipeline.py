@@ -1,0 +1,53 @@
+"""Deterministic synthetic LM data: the reference's Markov-chain token
+sequences, in numpy.
+
+Batch ``step`` is a pure function of (seed, step, host), so the port draws
+exactly the reference's batches for the same seed; the trainer moves them to
+its device.  The task is a fixed random Markov chain over the vocabulary:
+low-entropy transitions make convergence measurable.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import DataConfig, ModelConfig
+
+
+class SyntheticLMDataset:
+    """Markov-chain token sequences; ``batch_at(step)`` -> batch dict of
+    int32 ``tokens`` and ``labels`` (B, S)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
+                 data_cfg: Optional[DataConfig] = None):
+        self.cfg = cfg
+        self.dc = data_cfg or DataConfig()
+        if batch % self.dc.num_hosts:
+            raise ValueError(f"batch {batch} does not split over "
+                             f"{self.dc.num_hosts} hosts")
+        self.local_batch = batch // self.dc.num_hosts
+        self.seq_len = seq_len
+        rng = np.random.default_rng(self.dc.seed)
+        v = cfg.vocab_size
+        # sparse transition table: each token has `branching` successors
+        self.succ = rng.integers(0, v, size=(v, self.dc.branching),
+                                 dtype=np.int32)
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            (self.dc.seed, step, self.dc.host_id, 0xBEEF))
+        b, s, v = self.local_batch, self.seq_len, self.cfg.vocab_size
+        toks = np.empty((b, s + 1), np.int32)
+        toks[:, 0] = rng.integers(0, v, size=b)
+        choices = rng.integers(0, self.dc.branching, size=(b, s))
+        for t in range(s):
+            toks[:, t + 1] = self.succ[toks[:, t], choices[:, t]]
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+

@@ -3,7 +3,10 @@
 The reference hands its tree over as nested dicts of numpy arrays (the
 caller does the ``jax -> numpy`` step; this module never imports jax).  Both
 packages keep the same nested-dict, scan-stacked ``(L, ...)`` layout, so the
-conversion is leaf by leaf.
+conversion is leaf by leaf over :mod:`repro_torch.tree`.  ``None`` leaves
+stay ``None`` and NamedTuples keep their type, so a whole train state
+crosses (:func:`repro_torch.train.trainer.train_state_from_numpy` rebuilds
+the port's own ``TrainState`` from the reference's).
 
 A bfloat16 leaf arrives as an ``ml_dtypes.bfloat16`` numpy array, which
 ``torch.from_numpy`` rejects: its dtype is recognised by name and its bits
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.tree import tree_map
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
@@ -37,27 +41,14 @@ def _to_numpy(t: torch.Tensor, bf16_dtype) -> np.ndarray:
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
-    """Nested dicts / lists of numpy arrays -> the same tree of tensors on
-    ``device``."""
+    """Nested dicts / lists / NamedTuples of numpy arrays -> the same tree
+    of tensors on ``device``."""
     dev = resolve_device(device)
-
-    def rec(node):
-        if isinstance(node, dict):
-            return {k: rec(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rec(v) for v in node)
-        return _to_tensor(node, dev)
-    return rec(tree)
+    return tree_map(lambda a: _to_tensor(a, dev), tree)
 
 
 def params_to_numpy(tree: Any, bf16_dtype: Optional[Any] = None) -> Any:
     """The port's tree -> nested dicts of numpy arrays.  bfloat16 leaves come
     back as their uint16 bit patterns, viewed as ``bf16_dtype`` when the
     caller passes a numpy bfloat16 dtype (e.g. the reference's)."""
-    def rec(node):
-        if isinstance(node, dict):
-            return {k: rec(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rec(v) for v in node)
-        return _to_numpy(node, bf16_dtype)
-    return rec(tree)
+    return tree_map(lambda t: _to_numpy(t, bf16_dtype), tree)

@@ -21,7 +21,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_decode_attention", "paged_prefill_attention",
-           "gather_delta_matmul")
+           "gather_delta_matmul", "psoft_matmul", "cayley_neumann")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,12 @@ ENTRY_POINTS = {
     "gather_delta_matmul": (
         "gather_delta_matmul_launch",
         [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+    "psoft_matmul": (
+        "psoft_matmul_launch",
+        [_I, _I] + [_P] * 10 + [_I] * 4 + [_P]),
+    "cayley_neumann": (
+        "cayley_neumann_launch",
+        [_P, _P, _P] + [_I] * 3 + [_P]),
 }
 
 #: loaded libraries by source name (a loaded library lives as long as the
@@ -63,7 +69,7 @@ def nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -5,7 +5,9 @@ PyTorch version (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it checks
 device, dtype, shape and contiguity, allocates the outputs with
 ``torch.empty``, launches the kernel on the current stream and raises if the
 launch failed.  Nothing gives way to the plain version when a build or a
-launch fails.
+launch fails.  The two training wrappers (:func:`psoft_matmul`,
+:func:`cayley_neumann`) are ``torch.autograd.Function``s whose backwards
+are exact: psoft_matmul's dx is the kernel's transposed launch.
 
 :data:`LAUNCHES` counts kernel launches per wrapper (CPU calls are not
 launches), so a run can show that its main path went through the kernels.
@@ -13,7 +15,7 @@ launches), so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -22,7 +24,9 @@ from repro_torch.kernels import build, ref
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "paged_prefill_attention": 0,
-                            "gather_delta_matmul": 0}
+                            "gather_delta_matmul": 0,
+                            "psoft_matmul": 0,
+                            "cayley_neumann": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -192,3 +196,168 @@ def gather_delta_matmul(x: torch.Tensor, w: torch.Tensor, left: torch.Tensor,
             idx.data_ptr(), u.data_ptr(), y.data_ptr(),
             bsz, kdim, n, r, a, _stream(x.device))
     return y
+
+
+# ---------------------------------------------------------------------------
+# training path: the fused PSOFT linear and the Cayley-Neumann rotation
+# ---------------------------------------------------------------------------
+
+def _psoft_mm(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
+              rot: torch.Tensor, b: torch.Tensor, s_in: torch.Tensor,
+              s_out: torch.Tensor, transpose: bool):
+    """One PSOFT-linear launch: (y, u, t) of
+    :func:`repro_torch.kernels.ref.psoft_matmul_parts`.  ``transpose`` reads
+    W_res, A, B and R transposed in place (x is then dy (M, N) and y is dx
+    (M, K))."""
+    if _on_cpu(x, w_res, a, rot, b, s_in, s_out):
+        return ref.psoft_matmul_parts(x, w_res, a, rot, b, s_in, s_out,
+                                      transpose)
+    code = _compute_code(x.dtype)
+    f32 = torch.float32
+    kdim, n = w_res.shape
+    r = a.shape[-1]
+    din, dout = (n, kdim) if transpose else (kdim, n)
+    m = x.shape[0]
+    if x.ndim != 2 or x.shape[1] != din or tuple(a.shape) != (kdim, r) \
+            or tuple(b.shape) != (r, n) or tuple(rot.shape) != (r, r) \
+            or tuple(s_in.shape) != (r,) or tuple(s_out.shape) != (r,):
+        raise ValueError(f"shapes x {tuple(x.shape)}, w_res {(kdim, n)}, "
+                         f"a {tuple(a.shape)}, rot {tuple(rot.shape)}, b "
+                         f"{tuple(b.shape)}, scales {tuple(s_in.shape)} "
+                         f"{tuple(s_out.shape)} (transpose={transpose})")
+    u = torch.empty((m, r), dtype=f32, device=x.device)
+    t = torch.empty((m, r), dtype=f32, device=x.device)
+    y = torch.empty((m, dout), dtype=x.dtype, device=x.device)
+    _launch("psoft_matmul", code, int(transpose),
+            _float_arg(x, "x", x.dtype, 2),
+            _float_arg(w_res, "w_res", x.dtype, 2),
+            _float_arg(a, "A", x.dtype, 2), _float_arg(rot, "rot", f32, 2),
+            _float_arg(b, "B", x.dtype, 2), _float_arg(s_in, "s_in", f32, 1),
+            _float_arg(s_out, "s_out", f32, 1), u.data_ptr(), t.data_ptr(),
+            y.data_ptr(), m, kdim, n, r, _stream(x.device))
+    return y, u, t
+
+
+class _PSoftMatmul(torch.autograd.Function):
+    """y = x (W_res + A diag(alpha) R diag(beta) B), differentiable in every
+    input.  The backward's dx is the kernel's transposed launch (which also
+    yields du4 = dy B^T and du2 = du3 R^T); the r-sized products for R,
+    alpha and beta and, where asked for, the frozen factors' grads are
+    plain torch products.  An input nothing asks a grad of gets None."""
+
+    @staticmethod
+    def forward(ctx, x, w_res, a, rot, b, alpha, beta):
+        y, u1, u3 = _psoft_mm(x, w_res, a, rot, b, alpha, beta, False)
+        ctx.save_for_backward(x, w_res, a, rot, b, alpha, beta, u1, u3)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_res, a, rot, b, alpha, beta, u1, u3 = ctx.saved_tensors
+        need_x, need_w, need_a, need_rot, need_b, need_al, need_be = \
+            ctx.needs_input_grad
+        dy = dy.contiguous()
+        dx = dw = da = drot = db = dal = dbe = None
+        if need_x or need_a or need_rot or need_al or need_be:
+            dxk, du4, du2 = _psoft_mm(dy, w_res, a, rot, b, beta, alpha, True)
+            dx = dxk if need_x else None
+            du3 = du4 * beta
+            if need_rot:
+                drot = (u1 * alpha).T @ du3
+            if need_al:
+                dal = (du2 * u1).sum(0)
+            if need_be:
+                dbe = (du4 * u3).sum(0)
+            if need_a:
+                da = (x.float().T @ (du2 * alpha)).to(a.dtype)
+        if need_w:
+            dw = (x.T @ dy).to(w_res.dtype)
+        if need_b:
+            db = ((u3 * beta).T @ dy.float()).to(b.dtype)
+        return dx, dw, da, drot, db, dal, dbe
+
+
+def psoft_matmul(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
+                 rot: torch.Tensor, b: torch.Tensor,
+                 alpha: Optional[torch.Tensor] = None,
+                 beta: Optional[torch.Tensor] = None, *,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Fused PSOFT linear for 2-D x (tokens, d_in).
+
+    y = x (W_res + A diag(alpha) R diag(beta) B): x, W_res, A and B are cast
+    to ``compute_dtype`` (default x's), R, alpha and beta to fp32 (missing
+    alpha/beta are ones); fp32 accumulation; y in the compute dtype.
+    Differentiable in every input (see :class:`_PSoftMatmul`)."""
+    cdt = compute_dtype or x.dtype
+    f32 = torch.float32
+    r = a.shape[-1]
+    ones = None
+    if alpha is None or beta is None:
+        ones = torch.ones(r, dtype=f32, device=x.device)
+    alpha = ones if alpha is None else alpha.to(f32)
+    beta = ones if beta is None else beta.to(f32)
+    return _PSoftMatmul.apply(
+        x.to(cdt).contiguous(), w_res.to(cdt).contiguous(),
+        a.to(cdt).contiguous(), rot.to(f32).contiguous(),
+        b.to(cdt).contiguous(), alpha.contiguous(), beta.contiguous())
+
+
+def _cayley(q: torch.Tensor, terms: int):
+    """(R, series) of :func:`repro_torch.kernels.ref.cayley_neumann_series`
+    for dense fp32 Q (..., r, r): one launch per call, the leading dims
+    flattened into the kernel's layer axis."""
+    if _on_cpu(q):
+        return ref.cayley_neumann_series(q, terms)
+    r = q.shape[-1]
+    if q.ndim < 2 or q.shape[-2] != r or terms < 0:
+        raise ValueError(f"q must be (..., r, r), got {tuple(q.shape)}; "
+                         f"terms {terms}")
+    q3 = q.reshape(-1, r, r).contiguous()
+    n_mat = q3.shape[0]
+    series = torch.empty((terms, n_mat, r, r), dtype=torch.float32,
+                         device=q.device)
+    rot = torch.empty((n_mat, r, r), dtype=torch.float32, device=q.device)
+    _launch("cayley_neumann", _float_arg(q3, "q", torch.float32, 3),
+            series.data_ptr(), rot.data_ptr(), n_mat, r, terms,
+            _stream(q.device))
+    return rot.reshape(q.shape), series.reshape((terms,) + tuple(q.shape))
+
+
+class _CayleyNeumann(torch.autograd.Function):
+    """R = (I - Q) sum_{k<=K} (-Q)^k with an exact backward: the reverse
+    Horner recursion over the saved partial sums S_0 = I, S_1 .. S_K, in
+    plain torch (the reference differentiates its jnp series instead).
+    With G = dL/dR:  dS_K = (I - Q)^T G,  dQ = -G S_K^T;  then for
+    k = K .. 1:  dQ -= dS_k S_{k-1}^T,  dS_{k-1} = -Q^T dS_k."""
+
+    @staticmethod
+    def forward(ctx, q, terms):
+        rot, series = _cayley(q, terms)
+        ctx.terms = terms
+        ctx.save_for_backward(q, series)
+        return rot
+
+    @staticmethod
+    def backward(ctx, g):
+        q, series = ctx.saved_tensors
+        terms = ctx.terms
+        g = g.to(torch.float32)
+        qt = q.transpose(-1, -2)
+        eye = torch.eye(q.shape[-1], dtype=torch.float32, device=q.device)
+
+        def s_at(k):
+            return series[k - 1] if k > 0 else eye
+
+        dq = -(g @ s_at(terms).transpose(-1, -2))
+        ds = g - qt @ g
+        for k in range(terms, 0, -1):
+            dq = dq - ds @ s_at(k - 1).transpose(-1, -2)
+            ds = -(qt @ ds)
+        return dq.expand_as(q), None
+
+
+def cayley_neumann(q: torch.Tensor, terms: int = 5) -> torch.Tensor:
+    """Cayley-Neumann rotation of dense Q (..., r, r), fp32: one kernel
+    launch for the whole leading (layer-stack) batch.  Differentiable in q
+    (see :class:`_CayleyNeumann`)."""
+    return _CayleyNeumann.apply(q.to(torch.float32), terms)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the three kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels: the three on the serving
+path and the two on the training path (``psoft_matmul``, ``cayley_neumann``).
 
 Each computes exactly what its CUDA kernel computes (fp32 accumulation,
 the same masking) with ordinary tensor ops.  They serve CPU tensors inside
@@ -108,3 +109,67 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.einsum("bskgt,btkd->bskgd", p, vc)
     out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return out.reshape(b, s, h, d).to(out_dtype)
+
+
+def psoft_matmul_parts(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
+                       rot: torch.Tensor, b: torch.Tensor, s_in: torch.Tensor,
+                       s_out: torch.Tensor, transpose: bool = False):
+    """The PSOFT linear and its intermediates, as the kernel computes them.
+
+    forward:    u = x A, t = (u . s_in) R, y = x W_res + (t . s_out) B;
+    transpose:  x is dy (M, N): u = dy B^T, t = (u . s_in) R^T,
+                y = dy W_res^T + (t . s_out) A^T.
+    x (M, K|N), W_res (K, N), A (K, r), B (r, N) in the compute dtype; rot
+    (r, r), s_in, s_out (r,) fp32.  fp32 accumulation; v = t . s_out is
+    rounded to x's dtype before its product, as the kernel rounds it when it
+    enters a tile.  Returns (y in x's dtype, u fp32, t fp32)."""
+    f32 = torch.float32
+    w, p_in, p_out, r_mat = w_res.to(f32), a.to(f32), b.to(f32), rot.to(f32)
+    if transpose:
+        w, p_in, p_out, r_mat = w.T, p_out.T, p_in.T, r_mat.T
+    x32 = x.to(f32)
+    u = x32 @ p_in
+    t = (u * s_in.to(f32)) @ r_mat
+    v = (t * s_out.to(f32)).to(x.dtype).to(f32)
+    y = x32 @ w + v @ p_out
+    return y.to(x.dtype), u, t
+
+
+def psoft_matmul(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
+                 rot: torch.Tensor, b: torch.Tensor,
+                 alpha: Optional[torch.Tensor] = None,
+                 beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x (W_res + A diag(alpha) R diag(beta) B), fp32 accumulation,
+    y in x's dtype: the reference's ``psoft_matmul_ref`` but for one
+    rounding.  Where x is bf16, the rank-r operand v = t . beta is rounded
+    to bf16 before its product with B, as the kernel rounds it; the
+    reference keeps that term in fp32.  In fp32 the two are the same
+    function."""
+    r = a.shape[-1]
+    ones = torch.ones(r, dtype=torch.float32, device=x.device)
+    alpha = ones if alpha is None else alpha
+    beta = ones if beta is None else beta
+    return psoft_matmul_parts(x, w_res, a, rot, b, alpha, beta)[0]
+
+
+def cayley_neumann_series(q: torch.Tensor, terms: int):
+    """R = (I - Q) sum_{k<=K} (-Q)^k by K Horner steps S <- I - Q S, fp32,
+    batched over leading dims.  Returns (R, series) with series
+    (K, ..., r, r) holding S_1 .. S_K, as the kernel writes them."""
+    q = q.to(torch.float32)
+    eye = torch.eye(q.shape[-1], dtype=torch.float32, device=q.device)
+    s = eye.expand_as(q)
+    series = []
+    for _ in range(terms):
+        s = eye - q @ s
+        series.append(s)
+    rot = s - q @ s
+    stacked = torch.stack(series) if series else q.new_zeros(
+        (0,) + tuple(q.shape))
+    return rot, stacked
+
+
+def cayley_neumann(q: torch.Tensor, terms: int) -> torch.Tensor:
+    """R = (I - Q) sum_{k<=K} (-Q)^k for dense Q (..., r, r), fp32 (the
+    reference's ``cayley_neumann_ref``)."""
+    return cayley_neumann_series(q, terms)[0]

@@ -1,26 +1,35 @@
-"""Dense decoder of the port: init, paged prefill and paged decode.
+"""Dense decoder of the port: init, the training forward and loss, paged
+prefill and paged decode, and the PEFT trainability mask.
 
 Params are nested dicts of tensors in the reference's scan-stacked layout:
 every per-layer leaf has a leading ``(L, ...)`` axis, so a reference tree
 converts 1:1 (:mod:`repro_torch.interop`).  A Python loop over the layer
 axis takes the place of ``lax.scan``.  Banked serve linears take the
 engine's per-row ``adapter_ids``, threaded explicitly through every call.
+The training forward builds every PSOFT layer stack's rotations once per
+call (one ``cayley_neumann`` launch per stack), outside the per-layer
+recompute boundary, so remat does not build them twice.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import peft as peft_lib
+from repro_torch.core import psoft, registry
 from repro_torch.models import attention, layers
 
 Params = Dict[str, Any]
 
 _MLP = ("up", "down", "gate")
 _ATTN = ("q", "k", "v", "o")
+#: logical module names a param path of the dense decoder can name
+_MODULE_NAMES = frozenset(_ATTN + _MLP)
 
 
 def _layer(tree, i: int):
@@ -168,9 +177,100 @@ def _block(lp, x, cfg, cdt, attn_fn, adapter_ids):
     return x + mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids)
 
 
+def attn_apply(params, x, cfg: ModelConfig, cdt, positions) -> torch.Tensor:
+    """Full-sequence causal attention of one layer (the training path)."""
+    q, k, v = _qkv(params, x, cfg, cdt, positions, None)
+    out = attention.chunked_attention(q, k, v, causal=True)
+    return _lin(params["o"], out.reshape(*x.shape[:-1], -1), cfg, cdt, "o",
+                None)
+
+
+def _train_block(lp, cfg, cdt, positions, x):
+    def attn_fn(ap, h):
+        return attn_apply(ap, h, cfg, cdt, positions)
+    return _block(lp, x, cfg, cdt, attn_fn, None)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``remat_policy`` "full": recompute the layer in the backward
+    (non-reentrant checkpoint); "none": keep its activations."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "full":
+        return functools.partial(torch_checkpoint.checkpoint, fn,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+    raise ValueError(f"remat_policy {cfg.remat_policy!r} is not ported "
+                     f"(the port has 'none' and 'full')")
+
+
+def _with_rotations(tree, cfg: ModelConfig):
+    """``tree`` with every PSOFT linear's rotation built ahead, under
+    ``"rot"``: one ``cayley_neumann`` call per layer stack."""
+    if isinstance(tree, dict):
+        if registry.get_method("psoft").matches(tree):
+            return {**tree, "rot": psoft.psoft_rotation(
+                tree, cfg.peft.neumann_terms, cfg.peft.exact_cayley)}
+        return {k: _with_rotations(v, cfg) for k, v in tree.items()}
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S):
+    causal chunked attention, one remat boundary per layer."""
+    cdt = torch_dtype(cfg.dtype)
+    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    stack = _with_rotations(params["layers"], cfg)
+    block = _remat(functools.partial(_train_block, cfg=cfg, cdt=cdt,
+                                     positions=positions), cfg)
+    for i in range(cfg.num_layers):
+        x = block(_layer(stack, i), x=x)
+    return layers.apply_norm(params["final_norm"], x)
+
+
+def chunked_ce_loss(params: Params, h: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig, loss_chunk: int = 1024
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean next-token cross-entropy over sequence chunks (the full
+    (B, S, V) logits never exist at once); labels < 0 carry no loss.
+    Returns (loss, token count)."""
+    b, s, _ = h.shape
+    loss_chunk = min(loss_chunk, s)
+    while s % loss_chunk:
+        loss_chunk -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    for c0 in range(0, s, loss_chunk):
+        logits = lm_logits(params, h[:, c0:c0 + loss_chunk], cfg).float()
+        ll = labels[:, c0:c0 + loss_chunk].long()
+        mask = ll >= 0
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ll.clamp_min(0)[..., None])[..., 0]
+        tot = tot + ((lse - gold) * mask).sum()
+        cnt = cnt + mask.sum(dtype=torch.int32)
+    return tot / cnt.clamp_min(1), cnt
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """(loss, {"loss", "aux", "tokens"}) of a token batch with labels."""
+    h = forward_hidden(params, batch, cfg)
+    loss, n_tok = chunked_ce_loss(params, h, batch["labels"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return loss, {"loss": loss, "aux": aux, "tokens": n_tok}
+
+
+def forward_logits(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Full logits (B, S, V): small-scale and eval use only."""
+    return lm_logits(params, forward_hidden(params, batch, cfg), cfg)
+
 
 def lm_logits(params: Params, h: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
@@ -244,3 +344,51 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
                    adapter_ids)
     x = layers.apply_norm(params["final_norm"], x)
     return lm_logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# trainability and re-wrapping
+# ---------------------------------------------------------------------------
+
+def _module_of(names: Tuple[str, ...]) -> Optional[str]:
+    """Innermost logical-module name on a param path, the leaf name
+    excluded (PSOFT's "q" param would otherwise shadow the "q" module)."""
+    for n in reversed(names[:-1]):
+        if n in _MODULE_NAMES:
+            return n
+    return None
+
+
+def trainable_mask(cfg: ModelConfig, params: Params,
+                   full_finetune: bool = False):
+    """Per-leaf trainability (the same tree of bools), resolved per module
+    through the registry: a leaf trains when its key is one of its
+    module's method's ``trainable_names``."""
+    def rec(node, path):
+        if isinstance(node, dict):
+            return {k: rec(v, path + (k,)) for k, v in node.items()}
+        if full_finetune:
+            return True
+        module = _module_of(path)
+        method = cfg.peft.method_for(module) if module else "none"
+        return path[-1] in peft_lib.trainable_names(method, cfg.peft)
+    return rec(params, ())
+
+
+def rewrap_peft(merged_params: Params, cfg: ModelConfig) -> Params:
+    """Wrap every plain ``{"w"}`` linear of a merged or pre-trained tree
+    with the ``cfg.peft`` structure (PSOFT: the SVD split), layer stacks
+    in one batched call: the "load a checkpoint, attach PSOFT" entry."""
+    pdt, edt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.peft_dtype)
+
+    def rec(node, path):
+        if isinstance(node, dict) and set(node) == {"w"} and \
+                node["w"].ndim >= 2 and path and path[-1] in _MODULE_NAMES:
+            module = path[-1]
+            return peft_lib.init_linear(None, node["w"], cfg.peft,
+                                        cfg.peft.is_target(module), pdt, edt,
+                                        module=module)
+        if isinstance(node, dict):
+            return {k: rec(v, path + (k,)) for k, v in node.items()}
+        return node
+    return rec(merged_params, ())

@@ -1,0 +1,65 @@
+"""Parameter trees of the port: the counterpart of the reference's pytrees.
+
+A tree is nested dicts, lists, tuples and NamedTuples of tensors (or numpy
+arrays); ``None`` is an empty subtree and anything else is a leaf.  A leaf's
+path is the tuple of dict keys, NamedTuple field names and list indices
+that lead to it.  :func:`tree_leaves_with_path` visits dict keys in sorted
+order, as jax flattens them, so leaf lists line up with the reference's.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+PyTree = Any
+Path = Tuple[str, ...]
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def tree_map_with_path(fn: Callable, tree: PyTree, *rest: PyTree,
+                       path: Path = ()) -> PyTree:
+    """``fn(path, leaf, *matching leaves of rest)`` over the leaves of
+    ``tree``, rebuilding its structure; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=path + (str(k),))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, *xs, path=path + (name,))
+                            for name, *xs in zip(tree._fields, tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, *xs, path=path + (str(i),))
+                          for i, xs in enumerate(zip(tree, *rest)))
+    return fn(path, tree, *rest)
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``); ``None`` stays ``None``."""
+    return tree_map_with_path(lambda _, *xs: fn(*xs), tree, *rest)
+
+
+def tree_leaves_with_path(tree: PyTree, path: Path = ()
+                          ) -> List[Tuple[Path, Any]]:
+    """(path, leaf) pairs in the reference's flattening order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], path + (str(k),))]
+    if _is_namedtuple(tree):
+        return [x for name, v in zip(tree._fields, tree)
+                for x in tree_leaves_with_path(v, path + (name,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, path + (str(i),))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree: PyTree) -> List[Any]:
+    """Leaves in the reference's flattening order (dict keys sorted)."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]

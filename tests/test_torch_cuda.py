@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (fp32 tolerance 1e-4; bf16 2e-2, its absolute part scaled by the
-output's RMS), plus a tiny paged serving run that must
-launch every kernel.  Imports nothing of the reference package, so it runs
+output's RMS), plus a tiny paged serving run that must launch every serving
+kernel and a tiny train step that must launch both training kernels.  Imports nothing of the reference package, so it runs
 where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -140,7 +140,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.cuda
 def test_tiny_serving_launches_every_kernel(cuda_device):
     """A tiny fp32 engine on the card with an adapter and a shared prompt
-    prefix goes through all three kernels and returns every page."""
+    prefix goes through all three serving kernels and returns every page."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
     from repro_torch.serve import Request, ServeEngine
@@ -163,4 +163,139 @@ def test_tiny_serving_launches_every_kernel(cuda_device):
     assert all(r.done and len(r.generated) == 4 for r in done)
     assert eng.kv.stats["prefix_hits"] > 0
     assert eng.kv.pages_in_use() == 0
-    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    serving = ("paged_decode_attention", "paged_prefill_attention",
+               "gather_delta_matmul")
+    assert all(ops.LAUNCHES[n] > 0 for n in serving), ops.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# training kernels
+# ---------------------------------------------------------------------------
+
+def _psoft_inputs(rng, put, m, k, n, r, transpose=False):
+    """The scales of an SVD split of W ~ N(0, 1/k): A's columns of unit
+    norm, B's rows of norm ~2.4 (the top singular values), R near the
+    identity."""
+    x = put(_normal(rng, (m, n if transpose else k), 0.5))
+    w = put(_normal(rng, (k, n), k ** -0.5))
+    a = put(_normal(rng, (k, r), k ** -0.5))
+    b = put(_normal(rng, (r, n), 2.4 * n ** -0.5))
+    f32 = _on(x.device, torch.float32)
+    rot = f32(_normal(rng, (r, r), 0.1 * r ** -0.5)
+              + np.eye(r, dtype=np.float32))
+    s_in = f32(1 + 0.1 * _normal(rng, (r,)))
+    s_out = f32(1 + 0.1 * _normal(rng, (r,)))
+    return x, w, a, rot, b, s_in, s_out
+
+
+PSOFT_SHAPES = [(64, 128, 128, 8), (37, 96, 40, 12), (130, 200, 72, 33),
+                (2048, 3072, 1024, 352), (200, 3072, 8192, 352),
+                (128, 8192, 3072, 352)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("m,k,n,r", PSOFT_SHAPES)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_psoft_matmul_kernel_matches_plain(cuda_device, dtype, tol, m, k, n,
+                                           r, transpose):
+    """Forward and the backward's transposed launch (ragged M, K, N, r,
+    N = 1024 and the llama32-3b shapes): y, u and t."""
+    rng = np.random.default_rng(m + k + n + r)
+    args = _psoft_inputs(rng, _on(cuda_device, dtype), m, k, n, r, transpose)
+    before = ops.LAUNCHES["psoft_matmul"]
+    got = ops._psoft_mm(*args, transpose)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["psoft_matmul"] == before + 1
+    want = ref.psoft_matmul_parts(*args, transpose)
+    assert got[0].shape == (m, k if transpose else n)
+    assert got[0].dtype == dtype
+    _close(got[0], want[0], tol)
+    # u and t are fp32 in both dtypes (bf16 products are exact in fp32):
+    # only the order of the sums differs
+    for g, w in zip(got[1:], want[1:]):
+        rms = float(w.square().mean().sqrt())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("m,k,n,r", [(96, 128, 136, 16), (40, 72, 24, 9)])
+def test_psoft_matmul_grads_match_autograd_of_plain(cuda_device, dtype, tol,
+                                                    m, k, n, r):
+    """Every grad of the autograd function, the frozen factors' included,
+    against autograd of the plain version in fp32 on the same values (in
+    bf16, autograd of the plain version would round the cotangent where v
+    is cast; the kernel's backward, like the reference's custom VJP, keeps
+    the rank-r cotangents in fp32)."""
+    rng = np.random.default_rng(m + r)
+    args = _psoft_inputs(rng, _on(cuda_device, dtype), m, k, n, r)
+    dy = _on(cuda_device, dtype)(_normal(rng, (m, n)))
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    twins = [a.detach().float().requires_grad_(True) for a in args]
+    y = ops.psoft_matmul(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    y2 = ref.psoft_matmul(*twins)
+    want = torch.autograd.grad(y2, twins, dy.float())
+    _close(y.detach(), y2.detach(), tol)
+    for g, w, leaf in zip(got, want, leaves):
+        assert g.dtype == leaf.dtype
+        _close(g, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mat,r", [(1, 8), (3, 46), (28, 352)])
+@pytest.mark.parametrize("terms", [0, 1, 5])
+def test_cayley_kernel_matches_plain(cuda_device, n_mat, r, terms):
+    rng = np.random.default_rng(n_mat * r + terms)
+    q = _normal(rng, (n_mat, r, r), 0.03)
+    q = torch.from_numpy(q - q.transpose(0, 2, 1)).to(cuda_device)
+    before = ops.LAUNCHES["cayley_neumann"]
+    rot, series = ops._cayley(q, terms)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cayley_neumann"] == before + 1
+    want_rot, want_series = ref.cayley_neumann_series(q, terms)
+    _close(rot, want_rot, 1e-4)
+    assert series.shape == (terms, n_mat, r, r)
+    if terms:
+        _close(series, want_series, 1e-4)
+    # the reverse Horner backward against autograd of the plain series
+    wt = torch.from_numpy(_normal(rng, (n_mat, r, r))).to(cuda_device)
+    q1 = q.clone().requires_grad_(True)
+    q2 = q.clone().requires_grad_(True)
+    (ops.cayley_neumann(q1, terms) * wt).sum().backward()
+    (ref.cayley_neumann(q2, terms) * wt).sum().backward()
+    _close(q1.grad, q2.grad, 1e-4)
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_launches_both_training_kernels(cuda_device):
+    """One fp32 tiny train step on the card goes through psoft_matmul (the
+    forward, the remat recompute and the backward's transposed launch of
+    every PSOFT linear) and cayley_neumann (once per linear stack), and
+    matches the same step on the CPU."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.train import trainer
+    cfg = get_config("tiny")
+    tc = TrainConfig(steps=5, learning_rate=1e-2, warmup_ratio=0.0)
+    cpu_state = trainer.init_train_state(cfg, tc, seed=0, device="cpu")
+    gpu_state = _to_device(cpu_state, cuda_device)
+    batch = SyntheticLMDataset(cfg, 4, 32).batch_at(0)
+    step = trainer.make_train_step(cfg, tc)
+    ops.reset_launches()
+    new_gpu, m_gpu = step(gpu_state, batch)
+    torch.cuda.synchronize()
+    linears = 7 * cfg.num_layers
+    assert ops.LAUNCHES["psoft_matmul"] == 3 * linears, ops.LAUNCHES
+    assert ops.LAUNCHES["cayley_neumann"] == 7, ops.LAUNCHES
+    _, m_cpu = step(cpu_state, batch)
+    assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                  rel=1e-4)
+    assert float(m_gpu["grad_norm"]) > 0
+
+
+def _to_device(tree, device):
+    """``tree`` with every tensor leaf moved to ``device`` (None kept)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
