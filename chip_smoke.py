@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port (``src/repro_torch``): multi-tenant
-paged PSOFT serving and PSOFT fine-tuning on one NVIDIA GPU.
+paged PSOFT serving, and fine-tuning with PSOFT and every baseline method
+of the paper, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N] [--profile] [--out PATH]
 
 Phases, each of which raises (non-zero exit) on a failed check:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
-   power limit (nvidia-smi) and builds the five CUDA kernels from the
+   power limit (nvidia-smi) and builds the six CUDA kernels from the
    checkout's sources (nvcc, in parallel), printing the build time;
 2. kernels: at llama32-3b shapes, bf16 and fp32, each kernel against its
    plain PyTorch version on the card, with edge cases, and each limit shown
    to reject a known fault (a dropped last page or prefix tail, a row on
-   the wrong adapter, a dropped rank-r term, a Horner step short); one JSON
-   line per kernel with its time, the plain version's, a library
-   yardstick's and the least time the card could take (bytes over 3.35
-   TB/s or flops over the peak for the dtype, whichever is larger);
+   the wrong adapter, a dropped rank-r term, a Horner step short, a block
+   rotation replaced by I or transposed); the training wrappers' grads
+   against autograd of the plain versions; one JSON line per kernel with
+   its time, the plain version's, a library yardstick's and the least time
+   the card could take (bytes over 3.35 TB/s or flops over the peak for
+   the dtype, whichever is larger);
 3. serve: llama32-3b at full width (28 layers unless ``--layers`` cuts
    depth; widths are never cut), seven PSOFT linears per layer in bf16,
    random weights from a seed, two adapters sharing the frozen factors;
@@ -28,12 +31,23 @@ Phases, each of which raises (non-zero exit) on a failed check:
    PEFT mask, ``remat_policy="full"``, 8 x 256 synthetic tokens a step,
    one warm-up and 5 timed steps of ``make_train_step``; checks finite
    losses and grad norms, frozen leaves bit-identical, every trainable leaf
-   moved, and both training kernels launched on every step (psoft_matmul
-   3x per PSOFT linear: forward, remat recompute, backward; cayley_neumann
-   once per linear stack);
+   moved, and exact launches on every step (psoft_matmul 3x per PSOFT
+   linear: forward, remat recompute, backward; cayley_neumann once per
+   linear stack);
 6. train card vs CPU: ``tiny`` (fp32), 5 steps from one state on the card
    and on the CPU agree within 1e-4 relative, and the tuned tree's logits
-   equal its merged tree's on the card.
+   equal its merged tree's on the card;
+7. OFT train: llama32-3b at full width (depth as in 3), OFT with blocks of
+   32 on all seven linears, random weights (no SVD) with ``q`` nudged off
+   zero, the same traffic and checks as 5; blockdiag_rotate launches
+   exactly 3x per linear but for layer 0's q, k and v (no dx: their input
+   depends on no trainable), cayley_neumann once per linear stack;
+8. baselines: BOFT (b 8, m 2), GOFT, qGOFT, PiSSA (r 8), DoRA (r 8) and
+   LoRA-XS (r 136) at full width and 2 layers, one warm-up and 2 timed
+   steps each, the same checks (exact blockdiag_rotate and cayley_neumann
+   counts for the OFT family), each run freed before the next;
+9. baselines card vs CPU: ``tiny`` (fp32), 3 steps of OFT and of GOFT on
+   the card and on the CPU agree within 1e-4 relative, and merge.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -70,10 +84,18 @@ REPLACES = {
     "gather_delta_matmul": "src/repro/kernels/gather_delta_matmul.py:39",
     "psoft_matmul": "src/repro/kernels/psoft_matmul.py:50",
     "cayley_neumann": "src/repro/kernels/cayley_kernel.py:31",
+    "blockdiag_rotate": "src/repro/kernels/blockdiag_rotate.py:34",
 }
 SERVE_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
                  "gather_delta_matmul")
 TRAIN_KERNELS = ("psoft_matmul", "cayley_neumann")
+#: the paper's baselines (benchmarks/common.py's method_cfgs at the
+#: paper's ranks): OFT trains at full depth, the others at METHOD_LAYERS
+BASELINES = {"oft": dict(oft_block_size=32),
+             "boft": dict(boft_blocks=8, boft_factors=2),
+             "goft": {}, "qgoft": {}, "pissa": dict(rank=8),
+             "dora": dict(rank=8), "lora_xs": dict(rank=136)}
+METHOD_LAYERS, METHOD_STEPS = 2, 2
 #: llama32-3b training shapes: 8 sequences of 256 tokens, PSOFT r = 352
 TRAIN_TOKENS, TRAIN_BATCH, TRAIN_SEQ, RANK = 2048, 8, 256, 352
 
@@ -429,21 +451,24 @@ def ref_gather(torch, pool, table, length, groups):
 # phase 3 / 4: serving
 # ---------------------------------------------------------------------------
 
-def with_trainables(torch, tree, seed, scale, device):
-    """An adapter of ``tree``: every PSOFT linear gets seeded q/alpha/beta;
-    every frozen tensor (w_res, A, B, norms, embeddings) is SHARED, never
-    copied."""
+#: PSOFT's trainable leaves
+PSOFT_TRAINABLES = ("q", "alpha", "beta")
+
+
+def nudged(torch, tree, keys, seed, scale, device="cuda"):
+    """An adapter of ``tree``: the leaves named ``keys`` of every linear
+    moved by seeded noise (new tensors); every other leaf (frozen factors,
+    norms, embeddings) is SHARED, never copied."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def rec(node):
-        if isinstance(node, dict) and "w_res" in node:
-            out = dict(node)
-            for key in ("q", "alpha", "beta"):
-                noise = torch.randn(node[key].shape, generator=gen,
-                                    device=device) * scale
-                out[key] = node[key] + noise.to(node[key].dtype)
-            return out
+        if isinstance(node, dict) and not any(isinstance(v, dict)
+                                              for v in node.values()):
+            return {k: v + (torch.randn(v.shape, generator=gen,
+                                        device=device) * scale
+                            ).to(v.dtype) if k in keys else v
+                    for k, v in node.items()}
         if isinstance(node, dict):
             return {k: rec(v) for k, v in node.items()}
         return node
@@ -498,8 +523,8 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
           f"{cfg.peft.rank} on 7 linears per layer (one batched fp32 "
           f"torch.linalg.svd per linear stack on the card): "
           f"{init_s:.1f} s")
-    adapters = {"tuned_a": with_trainables(torch, params, 1, 0.01, "cuda"),
-                "tuned_b": with_trainables(torch, params, 2, 0.01, "cuda")}
+    adapters = {"tuned_a": nudged(torch, params, PSOFT_TRAINABLES, 1, 0.01),
+                "tuned_b": nudged(torch, params, PSOFT_TRAINABLES, 2, 0.01)}
     a, b = adapters["tuned_a"]["layers"]["attn"]["q"], \
         params["layers"]["attn"]["q"]
     check(a["w_res"] is b["w_res"] and a["A"] is b["A"] and a["B"] is b["B"],
@@ -604,8 +629,10 @@ def card_vs_cpu_phase(torch, configs, model, serve):
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get_config("tiny")
     params = model.init_params(cfg, seed=0, device="cpu")
-    adapters = {"tuned_a": with_trainables(torch, params, 1, 0.05, "cpu"),
-                "tuned_b": with_trainables(torch, params, 2, 0.05, "cpu")}
+    adapters = {"tuned_a": nudged(torch, params, PSOFT_TRAINABLES, 1, 0.05,
+                                  "cpu"),
+                "tuned_b": nudged(torch, params, PSOFT_TRAINABLES, 2, 0.05,
+                                  "cpu")}
     reqs = workload(cfg.vocab_size, 12, seed=1)
     kw = dict(slots=4, page_size=16, max_len=192)
 
@@ -861,23 +888,157 @@ def train_kernel_phase(torch, ops, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the OFT family's kernel: blockdiag_rotate
+# ---------------------------------------------------------------------------
+
+def blockdiag_inputs(torch, dtype, gen, m, d, b):
+    """x (M, d) and blocks I + N(0, 0.25/b) in x's dtype, as the OFT
+    family's apply casts its rotations (the kernel takes any matrix; the
+    noise keeps R_g far from I and from R_g^T, so both planted faults
+    move every kernel block's output)."""
+    x = (torch.randn((m, d), generator=gen, device="cuda") * 0.5).to(dtype)
+    eye = torch.eye(b, device="cuda")
+    rots = eye + torch.randn((d // b, b, b), generator=gen,
+                             device="cuda") * (0.5 / b ** 0.5)
+    return x, rots.to(dtype)
+
+
+def row_blocks(t, b):
+    """The last group's columns of every 64-row block (one kernel block's
+    slice of it) as one row each: (M / 64, 64 * b)."""
+    return t[:, -b:].reshape(-1, 64 * b)
+
+
+def blockdiag_kernel_phase(torch, ops, ref):
+    """blockdiag_rotate against its plain version at M = 2048 tokens, d in
+    {3072, 8192} (the llama32-3b linears' inputs), b in {32, 8, 2} (OFT,
+    BOFT, GOFT), bf16 and fp32, forward and transposed.  Each limit must
+    reject two planted faults: the last group's rotation replaced by I (in
+    every 64-row block) and every R_g transposed (in every sampled row).
+    The autograd wrapper's grads of x and rots at (2048, 3072, b = 32)
+    against autograd of the plain version in fp32 on the same values, each
+    limit rejecting a wrong-orientation dx and a transposed dR.  Timed in
+    bf16 at every (d, b) of the path; the headline is OFT's (3072, 32)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    m = TRAIN_TOKENS
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        e = 0.0
+        for d in (3072, 8192):
+            for b in (32, 8, 2):
+                x, rots = blockdiag_inputs(torch, dtype, gen, m, d, b)
+                ident = rots.clone()
+                ident[-1] = torch.eye(b, device="cuda").to(dtype)
+                for transpose in (False, True):
+                    what = f"blockdiag_rotate d={d} b={b} {dname}" + \
+                        (" transposed" if transpose else "")
+                    got = ops._rotate(x, rots, transpose)
+                    torch.cuda.synchronize()
+                    want = ref.blockdiag_rotate(x, rots, transpose)
+                    e = max(e, max_err(torch, got, want, dname, what))
+                    must_reject(torch, row_blocks(ref.blockdiag_rotate(
+                        x, ident, transpose), b), row_blocks(want, b),
+                        dname, range(m // 64),
+                        f"{what}, the last rotation replaced by I")
+                    must_reject(torch, ref.blockdiag_rotate(
+                        x, rots, not transpose), want, dname,
+                        range(0, m, 97), f"{what}, every R_g transposed")
+                del x, rots, ident, got, want
+        res[f"max_err_{dname}"] = e
+    res["grad_max_err"] = blockdiag_grad_phase(torch, ops, ref, gen)
+
+    per_shape = {}
+    elt = 2
+    for d in (3072, 8192):
+        for b in (32, 8, 2):
+            x, rots = blockdiag_inputs(torch, torch.bfloat16, gen, m, d, b)
+            xv = x.view(m, d // b, b).transpose(0, 1)
+            nbytes = 2 * m * d * elt + d * b * elt    # x, y; rots once
+            flops = 2 * m * d * b
+            one = dict(
+                ms=time_ms(torch, lambda: ops._rotate(x, rots, False)),
+                transposed_ms=time_ms(torch,
+                                      lambda: ops._rotate(x, rots, True)),
+                plain_ms=time_ms(torch,
+                                 lambda: ref.blockdiag_rotate(x, rots)),
+                library_ms=time_ms(torch, lambda: torch.bmm(xv, rots)),
+                bytes=nbytes, flops=flops)
+            one["bound_ms"], one["bound_by"] = bound(nbytes, flops,
+                                                     "bfloat16")
+            per_shape[f"d={d} b={b}"] = one
+            del x, rots, xv
+    res.update(per_shape["d=3072 b=32"], per_shape=per_shape,
+               library="torch.bmm over the (d/b, M, b) view of x",
+               shape=f"M={m} tokens, d=3072, b=32 (OFT on q k v o gate up), "
+                     f"bf16 x and rotations; ms is the forward launch, "
+                     f"transposed_ms the backward's dx launch")
+    return {"blockdiag_rotate": res}
+
+
+def blockdiag_grad_phase(torch, ops, ref, gen):
+    """``ops.blockdiag_rotate``'s grads of x and rots (the main path's
+    backward: dx by the transposed launch, dR by a batched fp32 product),
+    bf16 and fp32, against autograd of the plain version in fp32; the
+    grads of rots are sums over 2048 products, held to the scaled limit."""
+    m, d, b = TRAIN_TOKENS, 3072, 32
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        x, rots = blockdiag_inputs(torch, dtype, gen, m, d, b)
+        dy = (torch.randn((m, d), generator=gen, device="cuda")
+              * 0.5).to(dtype)
+        leaves = [x.clone().requires_grad_(True),
+                  rots.clone().requires_grad_(True)]
+        got = torch.autograd.grad(ops.blockdiag_rotate(*leaves), leaves, dy)
+        twins = [t.detach().float().requires_grad_(True) for t in (x, rots)]
+        want = torch.autograd.grad(ref.blockdiag_rotate(*twins), twins,
+                                   dy.float())
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            xg = x.float().reshape(m, d // b, b).transpose(0, 1)
+            dyg = dy.float().reshape(m, d // b, b).transpose(0, 1)
+            faults = (ref.blockdiag_rotate(dy, rots),          # not R^T
+                      dyg.transpose(1, 2) @ xg)                 # dR^T
+        for key, g, wnt, fault, leaf in zip(
+                ("dx", "d_rots"), got, want, faults, (x, rots)):
+            what = f"blockdiag_rotate grad {key} {dname}"
+            check(g.dtype == leaf.dtype, f"{what}: dtype {g.dtype}")
+            errs[f"{key}_{dname}"] = max_err(torch, g, wnt, dname, what,
+                                             scaled=True)
+            rows = range(0, wnt.shape[0], 97) if key == "dx" else \
+                range(0, wnt.shape[0], 5)
+            must_reject(torch, fault.reshape(wnt.shape[0], -1),
+                        wnt.reshape(wnt.shape[0], -1), dname, rows,
+                        f"{what}, wrong orientation", scaled=True)
+        del x, rots, dy, leaves, twins, got, want, faults, xg, dyg
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phase 5 / 6: training
 # ---------------------------------------------------------------------------
 
-def train_phase(torch, args, configs, trainer, data, tree, ops, params,
-                gpu_line):
-    """The fine-tuning step at full width on the serve phase's params."""
-    # free what earlier phases left in reference cycles now, so that the
-    # peak below is the training's and not a matter of when Python's
-    # collector happens to run
+def free_cycles(torch) -> float:
+    """GiB of device memory a ``gc.collect()`` frees now: what earlier
+    phases left in reference cycles (a later peak is then the phase's own,
+    not a matter of when Python's collector happens to run)."""
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
-    gc_freed_gib = (held - torch.cuda.memory_allocated()) / 2**30
-    cfg = configs.get_config("llama32-3b", remat_policy="full")
-    if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
+    return (held - torch.cuda.memory_allocated()) / 2**30
+
+
+def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
+              timed: int, expected, what: str, profile=False):
+    """``1 + timed`` steps of ``make_train_step`` on ``params`` (split by
+    the PEFT mask; the first step is a warm-up), 8 x 256 synthetic tokens a
+    step.  Checks finite losses and grad norms, frozen leaves bit-identical,
+    every trainable leaf moved, and each kernel's launches in every step
+    equal to ``expected[kernel]``.  The caller drops its own references to
+    ``params``, so that the run's end frees them."""
     tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
     state = trainer.train_state_from_params(params, cfg, tc)
     del params
@@ -889,9 +1050,8 @@ def train_phase(torch, args, configs, trainer, data, tree, ops, params,
     copy_s = time.perf_counter() - t0
     n_train = sum(t.numel() for t in trainable_before)
     n_frozen = sum(t.numel() for t in frozen)
-    linears = 7 * cfg.num_layers
     ds = data.SyntheticLMDataset(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    batches = [ds.batch_at(i) for i in range(6)]
+    batches = [ds.batch_at(i) for i in range(timed + 1)]
     step = trainer.make_train_step(cfg, tc)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -904,7 +1064,7 @@ def train_phase(torch, args, configs, trainer, data, tree, ops, params,
         torch.cuda.synchronize()
         dt_ms = (time.perf_counter() - t0) * 1e3
         per_step.append({k: ops.LAUNCHES[k] - before[k]
-                         for k in TRAIN_KERNELS})
+                         for k in ops.LAUNCHES})
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
         if i:
@@ -914,53 +1074,149 @@ def train_phase(torch, args, configs, trainer, data, tree, ops, params,
     launches = dict(ops.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(all(math.isfinite(v) for v in losses + gnorms),
-          f"train: finite losses {losses} and grad norms {gnorms}")
-    check(all(g > 0 for g in gnorms), f"train: grad norms {gnorms} > 0")
+          f"{what}: finite losses {losses} and grad norms {gnorms}")
+    check(all(g > 0 for g in gnorms), f"{what}: grad norms {gnorms} > 0")
     for i, cnt in enumerate(per_step):
-        check(cnt["psoft_matmul"] == 3 * linears,
-              f"train step {i}: psoft_matmul launched {cnt['psoft_matmul']}"
-              f" times, expected 3 x {linears} (forward, remat recompute, "
-              f"backward)")
-        check(cnt["cayley_neumann"] == 7,
-              f"train step {i}: cayley_neumann launched "
-              f"{cnt['cayley_neumann']} times, expected 7 (one per stack)")
+        for k, (n, why) in expected.items():
+            check(cnt[k] == n, f"{what} step {i}: {k} launched {cnt[k]} "
+                               f"times, expected {n} ({why})")
     t0 = time.perf_counter()
     after = tree.tree_leaves(state.frozen)
     check(len(after) == len(frozen_before) and all(
-        a is b for a, b in zip(after, frozen)), "train: frozen leaves kept")
+        a is b for a, b in zip(after, frozen)),
+        f"{what}: frozen leaves kept")
     check(all(torch.equal(b, a.cpu()) for b, a in zip(frozen_before, after)),
-          "train: every frozen leaf bit-identical after the steps")
+          f"{what}: every frozen leaf bit-identical after the steps")
     moved = [bool((a != b).any()) for a, b in zip(
         tree.tree_leaves(state.trainable), trainable_before)]
-    check(all(moved), f"train: every trainable leaf moved "
+    check(all(moved), f"{what}: every trainable leaf moved "
                       f"({moved.count(False)} did not)")
     verify_s = time.perf_counter() - t0
     mean_ms = sum(step_ms) / len(step_ms)
-    tok_s = TRAIN_TOKENS / (mean_ms / 1e3)
-    profile = profile_train(torch, step, state, batches[0]) \
-        if args.profile else None
     result = dict(
-        layers=cfg.num_layers, tokens_per_step=TRAIN_TOKENS,
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=cfg.remat_policy,
-        trainable_params=n_train, frozen_params=n_frozen,
-        warmup_step_ms=warm_ms, step_ms=step_ms, mean_step_ms=mean_ms,
-        min_step_ms=min(step_ms), max_step_ms=max(step_ms),
-        tokens_per_s=tok_s, peak_memory_gib=peak_gib, losses=losses,
-        grad_norms=gnorms, launches=launches, launches_per_step=per_step[-1],
-        frozen_copy_s=copy_s, verify_s=verify_s, gc_freed_gib=gc_freed_gib,
-        gpu=gpu_line,
-        profile=profile)
-    print(f"train: llama32-3b {cfg.num_layers} layers, remat full, "
-          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens a step, {n_train} trainable / "
-          f"{n_frozen} frozen params; step ms mean {mean_ms:.1f} min "
+        layers=cfg.num_layers, method=cfg.peft.method,
+        tokens_per_step=TRAIN_TOKENS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        remat=cfg.remat_policy, trainable_params=n_train,
+        frozen_params=n_frozen, warmup_step_ms=warm_ms, step_ms=step_ms,
+        mean_step_ms=mean_ms, min_step_ms=min(step_ms),
+        max_step_ms=max(step_ms),
+        tokens_per_s=TRAIN_TOKENS / (mean_ms / 1e3),
+        peak_memory_gib=peak_gib, losses=losses, grad_norms=gnorms,
+        launches=launches, launches_per_step=per_step[-1],
+        frozen_copy_s=copy_s, verify_s=verify_s,
+        profile=profile_train(torch, step, state, batches[0])
+        if profile else None)
+    print(f"{what}: llama32-3b {cfg.num_layers} layers, "
+          f"{cfg.peft.method}, remat {cfg.remat_policy}, {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} tokens a step, {n_train} trainable / {n_frozen} "
+          f"frozen params; step ms mean {mean_ms:.1f} min "
           f"{min(step_ms):.1f} max {max(step_ms):.1f} (warm-up "
-          f"{warm_ms:.1f}), {tok_s:.0f} tokens/s, peak "
-          f"{peak_gib:.1f} GiB (a gc.collect before it freed "
-          f"{gc_freed_gib:.2f} GiB) [{gpu_line}]")
-    print(f"train: losses {[round(v, 4) for v in losses]}, grad norms "
+          f"{warm_ms:.1f}), {result['tokens_per_s']:.0f} tokens/s, peak "
+          f"{peak_gib:.1f} GiB")
+    print(f"{what}: losses {[round(v, 4) for v in losses]}, grad norms "
           f"{[round(v, 4) for v in gnorms]}; launches per step "
-          f"{per_step[-1]}")
+          f"{ {k: v for k, v in per_step[-1].items() if v} }")
     return result
+
+
+def train_phase(torch, args, configs, trainer, data, tree, ops, params,
+                gpu_line):
+    """PSOFT fine-tuning at full width on the serve phase's params."""
+    gc_freed_gib = free_cycles(torch)
+    cfg = configs.get_config("llama32-3b", remat_policy="full")
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    linears = 7 * cfg.num_layers
+    expected = {
+        "psoft_matmul": (3 * linears, "forward, remat recompute and "
+                                      "backward of every PSOFT linear"),
+        "cayley_neumann": (7, "one per linear stack"),
+        "blockdiag_rotate": (0, "no OFT linear")}
+    result = run_train(torch, configs, trainer, data, tree, ops, cfg,
+                       params, 5, expected, "train", args.profile)
+    result.update(gc_freed_gib=gc_freed_gib, gpu=gpu_line)
+    print(f"train: a gc.collect before it freed {gc_freed_gib:.2f} GiB "
+          f"[{gpu_line}]")
+    return result
+
+
+def rotations_per_step(cfg, per_linear) -> int:
+    """blockdiag_rotate launches a train step needs: three per rotation of
+    the forward (the forward, the remat recompute, the backward's dx) but
+    for the first rotation of layer 0's q, k and v, whose input depends on
+    no trainable (the frozen embedding), so autograd asks no dx of it.
+    ``per_linear(d_in)``: the rotations of one linear."""
+    d, f = cfg.d_model, cfg.d_ff
+    return 3 * cfg.num_layers * (6 * per_linear(d) + per_linear(f)) - 3
+
+
+def method_config(configs, method, layers):
+    cfg = configs.get_config("llama32-3b", remat_policy="full",
+                             num_layers=layers)
+    return cfg.replace(peft=cfg.peft.replace(method=method,
+                                             **BASELINES[method]))
+
+
+def expected_baseline_launches(cfg):
+    """Exact launches a step of each method of the OFT family; none for
+    the LoRA family, whose products are plain torch."""
+    method, pc = cfg.peft.method, cfg.peft
+    levels = {"oft": lambda n: 1, "boft": lambda n: pc.boft_factors,
+              "goft": lambda n: max(1, int(math.log2(n))),
+              "qgoft": lambda n: max(1, int(math.log2(n)))}
+    rot = rotations_per_step(cfg, levels[method]) if method in levels else 0
+    cayley = 7 if method in ("oft", "boft") else 0
+    return {"blockdiag_rotate": (rot, "3 per rotation, but no dx for the "
+                                      "first of layer 0's q, k, v"),
+            "cayley_neumann": (cayley, "one per linear stack"),
+            "psoft_matmul": (0, "no PSOFT linear")}
+
+
+def oft_train_phase(torch, args, configs, model, trainer, data, tree, ops,
+                    gpu_line):
+    """OFT fine-tuning at full width: llama32-3b (28 layers unless
+    ``--layers`` cuts depth), OFT with blocks of 32 on all seven linears,
+    random weights from a seed (no SVD), q moved off zero by a seeded
+    nudge; 1 warm-up and 5 timed steps."""
+    gc_freed_gib = free_cycles(torch)
+    cfg = method_config(configs, "oft", args.layers or 28)
+    t0 = time.perf_counter()
+    params = nudged(torch, model.init_params(cfg, seed=3, device="cuda"),
+                    ("q",), 4, 0.01)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    result = run_train(torch, configs, trainer, data, tree, ops, cfg,
+                       params, 5, expected_baseline_launches(cfg),
+                       "oft train", args.profile)
+    del params
+    result.update(init_s=init_s, gc_freed_gib=gc_freed_gib, gpu=gpu_line)
+    print(f"oft train: init_params {init_s:.1f} s; a gc.collect before it "
+          f"freed {gc_freed_gib:.2f} GiB [{gpu_line}]")
+    return result
+
+
+def baselines_phase(torch, args, configs, model, trainer, data, tree, ops,
+                    gpu_line):
+    """The six other baselines at full width and METHOD_LAYERS layers (or
+    fewer with ``--layers``), METHOD_STEPS timed steps each after one
+    warm-up, each run's tensors freed before the next."""
+    layers = min(METHOD_LAYERS, args.layers or METHOD_LAYERS)
+    out = {}
+    for method in ("boft", "goft", "qgoft", "pissa", "dora", "lora_xs"):
+        free_cycles(torch)
+        cfg = method_config(configs, method, layers)
+        t0 = time.perf_counter()
+        params = model.init_params(cfg, seed=5, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        out[method] = run_train(torch, configs, trainer, data, tree, ops,
+                                cfg, params, METHOD_STEPS,
+                                expected_baseline_launches(cfg),
+                                f"{method} train")
+        del params
+        out[method].update(init_s=init_s, gpu=gpu_line)
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_train(torch, step, state, batch):
@@ -993,16 +1249,19 @@ def profile_train(torch, step, state, batch):
 
 
 def train_card_vs_cpu_phase(torch, configs, model, trainer, data, tree,
-                            peft):
-    """tiny fp32: 5 steps from one state on the card and on the CPU."""
+                            peft, method="psoft", steps=5):
+    """tiny fp32: ``steps`` steps of ``method`` from one state on the card
+    and on the CPU (losses within 1e-4 relative), then the tuned tree's
+    logits against its merged tree's on the card."""
     cfg = configs.get_config("tiny")
+    cfg = cfg.replace(peft=cfg.peft.replace(method=method))
     tc = configs.TrainConfig(steps=10, learning_rate=1e-2, warmup_ratio=0.2)
     cpu = trainer.init_train_state(cfg, tc, seed=0, device="cpu")
     gpu = tree.tree_map(lambda t: t.to("cuda"), cpu)
     ds = data.SyntheticLMDataset(cfg, 4, 32)
     step = trainer.make_train_step(cfg, tc)
     losses = {"cpu": [], "cuda": []}
-    for i in range(5):
+    for i in range(steps):
         batch = ds.batch_at(i)
         cpu, mc = step(cpu, batch)
         gpu, mg = step(gpu, batch)
@@ -1010,8 +1269,8 @@ def train_card_vs_cpu_phase(torch, configs, model, trainer, data, tree,
         losses["cuda"].append(float(mg["loss"]))
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                losses["cpu"])]
-    check(max(rel) <= 1e-4, f"tiny train: card and CPU losses within 1e-4 "
-                            f"relative ({losses})")
+    check(max(rel) <= 1e-4, f"tiny {method} train: card and CPU losses "
+                            f"within 1e-4 relative ({losses})")
     tuned = trainer.adapter_params(gpu)
     merged = peft.merge_tree(tuned, cfg.peft)
     batch = {k: torch.as_tensor(v, device="cuda")
@@ -1020,11 +1279,13 @@ def train_card_vs_cpu_phase(torch, configs, model, trainer, data, tree,
         got = model.forward_logits(merged, batch, cfg)
         want = model.forward_logits(tuned, batch, cfg)
     err = max_err(torch, got, want, "float32",
-                  "tiny train: merged vs unmerged logits on the card")
-    print(f"train card vs cpu: tiny fp32, 5 steps, losses {losses['cuda']} "
-          f"(max relative gap {max(rel):.2e}); merged-vs-unmerged logits "
-          f"max abs err {err:.2e}")
-    return dict(losses=losses, max_rel_gap=max(rel), merge_max_err=err)
+                  f"tiny {method} train: merged vs unmerged logits on the "
+                  f"card")
+    print(f"train card vs cpu: tiny fp32 {method}, {steps} steps, losses "
+          f"{losses['cuda']} (max relative gap {max(rel):.2e}); "
+          f"merged-vs-unmerged logits max abs err {err:.2e}")
+    return dict(method=method, losses=losses, max_rel_gap=max(rel),
+                merge_max_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -1079,6 +1340,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = kernel_phase(torch, ops, ref, F)
     kernels.update(train_kernel_phase(torch, ops, ref))
+    kernels.update(blockdiag_kernel_phase(torch, ops, ref))
     phase_s["kernels"] = time.perf_counter() - t0
     print(f"kernels: phase took {phase_s['kernels']:.1f} s")
     for name, res in kernels.items():
@@ -1098,6 +1360,12 @@ def main(argv=None) -> int:
           f"bound ms): " + ", ".join(
               f"{k} {v['ms']:.3f}/{v['backward_ms']:.3f} "
               f"({v['bound_ms']:.3f})" for k, v in pm["per_linear"].items()))
+    print(f"kernels: blockdiag_rotate (forward / transposed / plain / bmm "
+          f"ms, bound ms): " + ", ".join(
+              f"{k} {v['ms']:.4f}/{v['transposed_ms']:.4f}/"
+              f"{v['plain_ms']:.4f}/{v['library_ms']:.4f} "
+              f"({v['bound_ms']:.4f})"
+              for k, v in kernels["blockdiag_rotate"]["per_shape"].items()))
     t0 = time.perf_counter()
     served, params = serve_phase(torch, args, configs, model, serve, ops,
                                  gpu_line)
@@ -1115,11 +1383,26 @@ def main(argv=None) -> int:
     train_cross = train_card_vs_cpu_phase(torch, configs, model, trainer,
                                           data, tree, peft)
     phase_s["train_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oft_trained = oft_train_phase(torch, args, configs, model, trainer,
+                                  data, tree, ops, gpu_line)
+    phase_s["oft_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    baselines = baselines_phase(torch, args, configs, model, trainer, data,
+                                tree, ops, gpu_line)
+    phase_s["baselines"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    baseline_cross = [train_card_vs_cpu_phase(
+        torch, configs, model, trainer, data, tree, peft, method, 3)
+        for method in ("oft", "goft")]
+    phase_s["baselines_card_vs_cpu"] = time.perf_counter() - t0
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
     main_path = {**{k: served["launches"][k] for k in SERVE_KERNELS},
-                 **{k: trained["launches"][k] for k in TRAIN_KERNELS}}
+                 **{k: trained["launches"][k] for k in TRAIN_KERNELS},
+                 "blockdiag_rotate":
+                     oft_trained["launches"]["blockdiag_rotate"]}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1138,6 +1421,9 @@ def main(argv=None) -> int:
                                        kernels=kernels, serve=served,
                                        card_vs_cpu=cross, train=trained,
                                        train_card_vs_cpu=train_cross,
+                                       oft_train=oft_trained,
+                                       baselines=baselines,
+                                       baselines_card_vs_cpu=baseline_cross,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)
     print(json.dumps(line))

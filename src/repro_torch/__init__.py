@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of the PSOFT stack on one NVIDIA H100: multi-tenant
-paged PSOFT serving (slice 1) and PEFT-masked PSOFT fine-tuning with its
-checkpoints (slice 2).
+paged PSOFT serving (slice 1), PEFT-masked PSOFT fine-tuning with its
+checkpoints (slice 2), and every baseline method of the paper's PEFT
+registry (slice 3).
 
 The reference package ``repro`` (JAX/Pallas) stays the source of truth; this
 package mirrors its module names and its scan-stacked ``(L, ...)`` parameter

@@ -37,14 +37,31 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+PEFT_METHODS = (
+    "none",      # plain frozen linear (or full FT)
+    "psoft",     # the paper's method (strict orthogonality if relax_vectors=False)
+    "lora",
+    "pissa",     # LoRA with principal-SVD init
+    "dora",
+    "lora_xs",
+    "oft",       # block-diagonal OFTv2 (Cayley-Neumann)
+    "boft",      # butterfly OFT
+    "goft",      # Givens-rotation OFT
+    "qgoft",     # quasi-Givens (relaxed 2x2) OFT
+)
+
+
 @dataclass
 class PEFTConfig:
     method: str = "psoft"
-    rank: int = 64                  # r for psoft/lora
+    rank: int = 64                  # r for psoft/lora/pissa/dora/lora_xs
     relax_vectors: bool = True      # PSOFT alpha/beta; False = strict
     neumann_terms: int = 5          # K in the truncated Neumann series
     exact_cayley: bool = False      # exact (I+Q)^-1 solve instead of Neumann
     lora_alpha: float = 16.0        # LoRA scaling
+    oft_block_size: int = 32        # b for block-diagonal OFT
+    boft_blocks: int = 8            # b for BOFT
+    boft_factors: int = 2           # m for BOFT
     #: logical module names that get wrapped: a tuple (every listed module
     #: uses ``method``) or a dict {"q": "psoft", "up": "lora"} (per-module
     #: methods; unlisted modules stay unwrapped)

@@ -1,9 +1,12 @@
-"""PEFT method registry: ``none``, ``psoft`` and ``lora``, plus the adapter
-bank that serves several fine-tunes of one base model in a single batch.
+"""PEFT method registry: PSOFT and every baseline the paper measures it
+against (``none``, ``psoft``, ``lora``, ``pissa``, ``dora``, ``lora_xs``,
+``oft``, ``boft``, ``goft``, ``qgoft``), plus the adapter bank that serves
+several fine-tunes of one base model in a single batch.
 
 Each method is one :class:`PEFTMethod` registered by name and owns init /
 apply / merge for one linear, and names its trainable keys.  PSOFT's apply
-is the fused ``psoft_matmul`` wrapper on every device.  A method with
+is the fused ``psoft_matmul`` wrapper on every device, and the OFT
+family's rotations go through ``blockdiag_rotate``.  A method with
 ``supports_batched_delta`` also reports its weight update as exact low-rank
 factors (:meth:`PEFTMethod.delta_factors`); :func:`stack_deltas` stacks
 those into a per-linear bank and :func:`apply_batched` gathers one adapter
@@ -13,7 +16,11 @@ Unlike the reference, which scopes the per-row adapter ids in a trace-time
 context, the port threads ``adapter_ids`` explicitly from the engine through
 the model to every banked linear; the result is the same.
 
-All methods broadcast over leading (layer-stack) dimensions.
+All methods broadcast over leading (layer-stack) dimensions, and so do the
+structure matchers: a matcher that tells methods apart by the rank of a
+param (OFT's ``q`` against BOFT's) counts it relative to the base weight's
+(``w.ndim - 2`` leading dims), so a layer-stacked tree resolves as an
+unstacked one does.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import lora, psoft
+from repro_torch.core import lora, oft, psoft
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -67,10 +74,22 @@ class PEFTMethod:
         raise NotImplementedError(
             f"method {self.name!r} has no low-rank delta")
 
+    def rotations(self, params: Params, cfg) -> Optional[torch.Tensor]:
+        """The method's rotations for a whole layer stack, built ahead of the
+        forward (the model passes them to :meth:`apply` under ``"rot"``),
+        or None when it has none to build."""
+        return None
+
     def matches(self, params: Dict) -> bool:
         if not self.marker_keys:
             return set(params) == {"w"}
         return all(k in params for k in self.marker_keys)
+
+
+def _rel_ndim(params: Dict, key: str) -> int:
+    """``params[key]``'s rank without the layer-stack dims (those of the
+    2-D base weight ``w``)."""
+    return params[key].ndim - (params["w"].ndim - 2)
 
 
 _METHODS: Dict[str, PEFTMethod] = {}
@@ -265,6 +284,10 @@ class PSOFTMethod(PEFTMethod):
     def merge(self, params, cfg):
         return psoft.psoft_merge(params, cfg.neumann_terms, cfg.exact_cayley)
 
+    def rotations(self, params, cfg):
+        return psoft.psoft_rotation(params, cfg.neumann_terms,
+                                    cfg.exact_cayley)
+
     def base_weight(self, params, cfg):
         # W_pre = W_res + A·B (the SVD split is exact at init)
         w = params["w_res"].float() + params["A"].float() @ params["B"].float()
@@ -299,7 +322,8 @@ class LoRAMethod(PEFTMethod):
         return cfg.lora_alpha / cfg.rank
 
     def matches(self, params):
-        return "a" in params and "b" in params and "w_res" not in params
+        return ("a" in params and "b" in params and "m" not in params
+                and "s" not in params and "w_res" not in params)
 
     def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
         return lora.lora_init(generator, w_pre, cfg.rank, param_dtype,
@@ -322,7 +346,164 @@ class LoRAMethod(PEFTMethod):
         return lora.lora_num_params(d_in, d_out, cfg.rank)
 
 
+class PiSSAMethod(LoRAMethod):
+    name = "pissa"
 
-for _m in (NoneMethod(), PSOFTMethod(), LoRAMethod()):
+    def _scale(self, cfg):
+        return 1.0  # principal factors are trained directly, unit scaling
+
+    def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
+        return lora.pissa_init(w_pre, cfg.rank, param_dtype, peft_dtype)
+
+
+class DoRAMethod(LoRAMethod):
+    name = "dora"
+    marker_keys = ("a", "b", "m")
+    # the per-column magnitude renormalization makes the weight update
+    # full-rank: DoRA serves through the dense-delta bank
+    supports_batched_delta = False
+
+    def matches(self, params):
+        return "m" in params and "a" in params
+
+    def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
+        return lora.dora_init(generator, w_pre, cfg.rank, param_dtype,
+                              peft_dtype)
+
+    def apply(self, params, x, cfg, compute_dtype):
+        return lora.dora_apply(params, x, self._scale(cfg), compute_dtype)
+
+    def merge(self, params, cfg):
+        return lora.dora_merge(params, self._scale(cfg))
+
+    def trainable_names(self, cfg=None):
+        return ("a", "b", "m")
+
+    def num_params(self, d_in, d_out, cfg):
+        return lora.dora_num_params(d_in, d_out, cfg.rank)
+
+
+class LoRAXSMethod(PEFTMethod):
+    name = "lora_xs"
+    marker_keys = ("s",)
+    supports_batched_delta = True
+
+    def matches(self, params):
+        return "s" in params and "a" in params
+
+    def delta_factors(self, params, cfg):
+        # merge − w == a@s@b; the r×r core folds into the left factor
+        return (params["a"].float() @ params["s"].float(),
+                params["b"].float())
+
+    def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
+        return lora.lora_xs_init(w_pre, cfg.rank, param_dtype, peft_dtype)
+
+    def apply(self, params, x, cfg, compute_dtype):
+        return lora.lora_xs_apply(params, x, compute_dtype)
+
+    def merge(self, params, cfg):
+        return lora.lora_xs_merge(params)
+
+    def trainable_names(self, cfg=None):
+        return ("s",)
+
+    def num_params(self, d_in, d_out, cfg):
+        return lora.lora_xs_num_params(cfg.rank)
+
+
+class OFTMethod(PEFTMethod):
+    name = "oft"
+    marker_keys = ("out_scale",)
+    #: rank of ``q`` in one linear's dict: (d/b, b(b-1)/2)
+    q_ndim = 2
+
+    def _block(self, cfg):
+        return cfg.oft_block_size
+
+    def matches(self, params):
+        return ("out_scale" in params and "q" in params and "w" in params
+                and _rel_ndim(params, "q") == self.q_ndim)
+
+    def rotations(self, params, cfg):
+        # every Cayley block of the stack in one cayley_neumann call
+        return oft.block_rotations(params["q"], self._block(cfg),
+                                   cfg.neumann_terms)
+
+    def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
+        return oft.oft_init(w_pre, cfg.oft_block_size, param_dtype,
+                            peft_dtype)
+
+    def apply(self, params, x, cfg, compute_dtype):
+        return oft.oft_apply(params, x, cfg.oft_block_size, cfg.neumann_terms,
+                             compute_dtype)
+
+    def merge(self, params, cfg):
+        return oft.oft_merge(params, cfg.oft_block_size, cfg.neumann_terms)
+
+    def trainable_names(self, cfg=None):
+        return ("q", "out_scale")
+
+    def num_params(self, d_in, d_out, cfg):
+        return oft.oft_num_params(d_in, d_out, cfg.oft_block_size)
+
+
+class BOFTMethod(OFTMethod):
+    name = "boft"
+    #: (m, d/b, b(b-1)/2)
+    q_ndim = 3
+
+    def _block(self, cfg):
+        return cfg.boft_blocks
+
+    def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
+        return oft.boft_init(w_pre, cfg.boft_blocks, cfg.boft_factors,
+                             param_dtype, peft_dtype)
+
+    def apply(self, params, x, cfg, compute_dtype):
+        return oft.boft_apply(params, x, cfg.boft_blocks, cfg.neumann_terms,
+                              compute_dtype)
+
+    def merge(self, params, cfg):
+        return oft.boft_merge(params, cfg.boft_blocks, cfg.neumann_terms)
+
+    def num_params(self, d_in, d_out, cfg):
+        return oft.boft_num_params(d_in, d_out, cfg.boft_blocks,
+                                   cfg.boft_factors)
+
+
+class GOFTMethod(PEFTMethod):
+    name = "goft"
+    marker_keys = ("theta",)
+    quasi = False
+
+    def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
+        return oft.goft_init(w_pre, self.quasi, param_dtype, peft_dtype)
+
+    def apply(self, params, x, cfg, compute_dtype):
+        return oft.goft_apply(params, x, compute_dtype)
+
+    def merge(self, params, cfg):
+        return oft.goft_merge(params)
+
+    def trainable_names(self, cfg=None):
+        return ("theta",)
+
+    def num_params(self, d_in, d_out, cfg):
+        return oft.goft_num_params(d_in, self.quasi)
+
+
+class QGOFTMethod(GOFTMethod):
+    name = "qgoft"
+    marker_keys = ("g",)
+    quasi = True
+
+    def trainable_names(self, cfg=None):
+        return ("g",)
+
+
+for _m in (NoneMethod(), PSOFTMethod(), LoRAMethod(), PiSSAMethod(),
+           DoRAMethod(), LoRAXSMethod(), OFTMethod(), BOFTMethod(),
+           GOFTMethod(), QGOFTMethod()):
     register(_m)
 del _m

@@ -21,7 +21,8 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_decode_attention", "paged_prefill_attention",
-           "gather_delta_matmul", "psoft_matmul", "cayley_neumann")
+           "gather_delta_matmul", "psoft_matmul", "cayley_neumann",
+           "blockdiag_rotate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +46,9 @@ ENTRY_POINTS = {
     "cayley_neumann": (
         "cayley_neumann_launch",
         [_P, _P, _P] + [_I] * 3 + [_P]),
+    "blockdiag_rotate": (
+        "blockdiag_rotate_launch",
+        [_I, _I, _I, _P, _P, _P] + [_I] * 3 + [_P]),
 }
 
 #: loaded libraries by source name (a loaded library lives as long as the

@@ -27,6 +27,8 @@
 
 namespace repro_torch {
 
+constexpr int kMaxGridZ = 65535;
+
 __global__ void eye_minus_kernel(const float* __restrict__ q,
                                  float* __restrict__ out, long n, int r) {
   const long stride = (long)gridDim.x * blockDim.x;
@@ -47,17 +49,26 @@ cudaError_t launch_cayley(const float* q, float* series, float* rot, int L,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || terms == 0) return err;
   const Batch batch{mat, mat, mat, mat};
-  ASrc<float> qa{q, r, nullptr, nullptr, 0, nullptr, r, r, r, false, false};
-  for (int k = 2; k <= terms + 1; ++k) {
-    const float* prev = series + (long)(k - 2) * n;  // S_{k-1}
-    BSrc<float, float> sb{prev, r, 1, nullptr, 0, 0, r, r, r, false, false};
-    if (k <= terms) {  // S_k = I - Q S_{k-1}
-      err = launch_simt(qa, sb, series + (long)(k - 1) * n, r, L, stream,
-                        kEyeMinus, nullptr, 0, batch);
-    } else {  // R = S_K - Q S_K
-      err = launch_simt(qa, sb, rot, r, L, stream, kEMinus, prev, r, batch);
+  // the product grid's z axis holds at most kMaxGridZ matrices: larger
+  // stacks (an OFT family's (L, m, d/b) blocks) go in slices of the stack
+  for (int l0 = 0; l0 < L; l0 += kMaxGridZ) {
+    const int lc = L - l0 < kMaxGridZ ? L - l0 : kMaxGridZ;
+    const long off = (long)l0 * mat;
+    ASrc<float> qa{q + off, r, nullptr, nullptr, 0, nullptr, r, r, r, false,
+                   false};
+    for (int k = 2; k <= terms + 1; ++k) {
+      const float* prev = series + (long)(k - 2) * n + off;  // S_{k-1}
+      BSrc<float, float> sb{prev, r, 1, nullptr, 0, 0, r, r, r, false,
+                            false};
+      if (k <= terms) {  // S_k = I - Q S_{k-1}
+        err = launch_simt(qa, sb, series + (long)(k - 1) * n + off, r, lc,
+                          stream, kEyeMinus, nullptr, 0, batch);
+      } else {  // R = S_K - Q S_K
+        err = launch_simt(qa, sb, rot + off, r, lc, stream, kEMinus, prev,
+                          r, batch);
+      }
+      if (err != cudaSuccess) return err;
     }
-    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }

@@ -5,9 +5,10 @@ PyTorch version (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it checks
 device, dtype, shape and contiguity, allocates the outputs with
 ``torch.empty``, launches the kernel on the current stream and raises if the
 launch failed.  Nothing gives way to the plain version when a build or a
-launch fails.  The two training wrappers (:func:`psoft_matmul`,
-:func:`cayley_neumann`) are ``torch.autograd.Function``s whose backwards
-are exact: psoft_matmul's dx is the kernel's transposed launch.
+launch fails.  The three training wrappers (:func:`psoft_matmul`,
+:func:`cayley_neumann`, :func:`blockdiag_rotate`) are
+``torch.autograd.Function``s whose backwards are exact: psoft_matmul's and
+blockdiag_rotate's dx is the kernel's transposed launch.
 
 :data:`LAUNCHES` counts kernel launches per wrapper (CPU calls are not
 launches), so a run can show that its main path went through the kernels.
@@ -26,7 +27,8 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "paged_prefill_attention": 0,
                             "gather_delta_matmul": 0,
                             "psoft_matmul": 0,
-                            "cayley_neumann": 0}
+                            "cayley_neumann": 0,
+                            "blockdiag_rotate": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -361,3 +363,78 @@ def cayley_neumann(q: torch.Tensor, terms: int = 5) -> torch.Tensor:
     launch for the whole leading (layer-stack) batch.  Differentiable in q
     (see :class:`_CayleyNeumann`)."""
     return _CayleyNeumann.apply(q.to(torch.float32), terms)
+
+
+# ---------------------------------------------------------------------------
+# the OFT family: block-diagonal input rotation
+# ---------------------------------------------------------------------------
+
+#: largest block size the blockdiag_rotate kernel takes
+BLOCKDIAG_MAX_BLOCK = 128
+
+
+def _rotate(x: torch.Tensor, rots: torch.Tensor,
+            transpose: bool) -> torch.Tensor:
+    """One blockdiag_rotate launch: x (M, d) by rots (d/b, b, b)."""
+    if _on_cpu(x, rots):
+        return ref.blockdiag_rotate(x, rots, transpose)
+    code = _compute_code(x.dtype)
+    if rots.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"rots: dtype {rots.dtype}, expected float32 or "
+                        f"x's {x.dtype}")
+    m, d = x.shape
+    if rots.ndim != 3 or rots.shape[1] != rots.shape[2] or \
+            rots.shape[0] * rots.shape[2] != d:
+        raise ValueError(f"shapes x {tuple(x.shape)}, rots "
+                         f"{tuple(rots.shape)}: rots must be (d/b, b, b)")
+    b = rots.shape[2]
+    if b > BLOCKDIAG_MAX_BLOCK:
+        raise ValueError(f"blockdiag_rotate takes blocks of at most "
+                         f"{BLOCKDIAG_MAX_BLOCK}, not {b}")
+    y = torch.empty_like(x)
+    _launch("blockdiag_rotate", code, _compute_code(rots.dtype),
+            int(transpose), _float_arg(x, "x", x.dtype, 2),
+            _float_arg(rots, "rots", rots.dtype, 3), y.data_ptr(), m, d, b,
+            _stream(x.device))
+    return y
+
+
+class _BlockdiagRotate(torch.autograd.Function):
+    """y_g = x_g R_g (R_g^T when transposed) for every block g.  dx is the
+    kernel's launch with the other orientation, and only where autograd
+    asks for it; dR_g = x_g^T dy_g (dy_g^T x_g when transposed) is a plain
+    batched fp32 product, as XLA differentiates the reference's einsum."""
+
+    @staticmethod
+    def forward(ctx, x, rots, transpose):
+        ctx.transpose = transpose
+        ctx.save_for_backward(x, rots)
+        return _rotate(x, rots, transpose)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, rots = ctx.saved_tensors
+        need_x, need_rots, _ = ctx.needs_input_grad
+        dy = dy.contiguous()
+        dx = drots = None
+        if need_x:
+            dx = _rotate(dy, rots, not ctx.transpose)
+        if need_rots:
+            m = x.shape[0]
+            nb, b = rots.shape[0], rots.shape[-1]
+            xg = x.float().reshape(m, nb, b).transpose(0, 1)
+            dyg = dy.float().reshape(m, nb, b).transpose(0, 1)
+            if ctx.transpose:
+                xg, dyg = dyg, xg
+            drots = (xg.transpose(1, 2) @ dyg).to(rots.dtype)
+        return dx, drots, None
+
+
+def blockdiag_rotate(x: torch.Tensor, rots: torch.Tensor, *,
+                     transpose: bool = False) -> torch.Tensor:
+    """Block-diagonal rotation of 2-D x (M, d) by rots (d/b, b, b):
+    ``y[:, g*b:(g+1)*b] = x[:, g*b:(g+1)*b] @ R_g`` (``R_g^T`` with
+    ``transpose``).  rots in fp32 or x's dtype, fp32 accumulation, y in x's
+    dtype.  Differentiable in x and rots (see :class:`_BlockdiagRotate`)."""
+    return _BlockdiagRotate.apply(x.contiguous(), rots.contiguous(),
+                                  transpose)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the three on the serving
-path and the two on the training path (``psoft_matmul``, ``cayley_neumann``).
+path, the two on PSOFT's training path (``psoft_matmul``,
+``cayley_neumann``) and the OFT family's ``blockdiag_rotate``.
 
 Each computes exactly what its CUDA kernel computes (fp32 accumulation,
 the same masking) with ordinary tensor ops.  They serve CPU tensors inside
@@ -173,3 +174,17 @@ def cayley_neumann(q: torch.Tensor, terms: int) -> torch.Tensor:
     """R = (I - Q) sum_{k<=K} (-Q)^k for dense Q (..., r, r), fp32 (the
     reference's ``cayley_neumann_ref``)."""
     return cayley_neumann_series(q, terms)[0]
+
+
+def blockdiag_rotate(x: torch.Tensor, rots: torch.Tensor,
+                     transpose: bool = False) -> torch.Tensor:
+    """y[:, g*b:(g+1)*b] = x[:, g*b:(g+1)*b] @ R_g (R_g^T with
+    ``transpose``): x (M, d), rots (d/b, b, b); fp32 einsum, y in x's
+    dtype (the reference's ``blockdiag_rotate_ref``)."""
+    m, d = x.shape
+    nb, bs, _ = rots.shape
+    r = rots.float()
+    if transpose:
+        r = r.transpose(-1, -2)
+    y = torch.einsum("mgb,gbc->mgc", x.float().reshape(m, nb, bs), r)
+    return y.reshape(m, d).to(x.dtype)

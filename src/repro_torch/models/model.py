@@ -6,9 +6,9 @@ every per-layer leaf has a leading ``(L, ...)`` axis, so a reference tree
 converts 1:1 (:mod:`repro_torch.interop`).  A Python loop over the layer
 axis takes the place of ``lax.scan``.  Banked serve linears take the
 engine's per-row ``adapter_ids``, threaded explicitly through every call.
-The training forward builds every PSOFT layer stack's rotations once per
-call (one ``cayley_neumann`` launch per stack), outside the per-layer
-recompute boundary, so remat does not build them twice.
+The training forward builds every PSOFT, OFT and BOFT layer stack's
+rotations once per call (one ``cayley_neumann`` launch per stack), outside
+the per-layer recompute boundary, so remat does not build them twice.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import peft as peft_lib
-from repro_torch.core import psoft, registry
+from repro_torch.core import registry
 from repro_torch.models import attention, layers
 
 Params = Dict[str, Any]
@@ -45,8 +45,9 @@ def _layer(tree, i: int):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random dense-decoder params from ``seed`` (a ``torch.Generator`` on
-    ``device``), PEFT-wrapped per ``cfg.peft``; PSOFT linears are split by
-    one batched fp32 SVD per layer stack, on ``device``."""
+    ``device``), PEFT-wrapped per ``cfg.peft`` (any registered method);
+    the SVD methods (PSOFT, PiSSA, LoRA-XS) split each linear stack by one
+    batched fp32 SVD, on ``device``."""
     if cfg.family != "dense":
         raise ValueError(f"the port builds the dense family only, not "
                          f"{cfg.family!r}")
@@ -204,14 +205,19 @@ def _remat(fn, cfg: ModelConfig):
                      f"(the port has 'none' and 'full')")
 
 
-def _with_rotations(tree, cfg: ModelConfig):
-    """``tree`` with every PSOFT linear's rotation built ahead, under
-    ``"rot"``: one ``cayley_neumann`` call per layer stack."""
+def _with_rotations(tree, cfg: ModelConfig, path: Tuple[str, ...] = ()):
+    """``tree`` with every rotation a PEFT linear builds ahead (PSOFT's
+    r x r rotation, the OFT/BOFT Cayley blocks (L, d/b, b, b) or
+    (L, m, d/b, b, b)) under ``"rot"``: one ``cayley_neumann`` call per
+    layer stack."""
     if isinstance(tree, dict):
-        if registry.get_method("psoft").matches(tree):
-            return {**tree, "rot": psoft.psoft_rotation(
-                tree, cfg.peft.neumann_terms, cfg.peft.exact_cayley)}
-        return {k: _with_rotations(v, cfg) for k, v in tree.items()}
+        if peft_lib.is_peft_linear(tree):
+            method = registry.resolve(tree, cfg.peft,
+                                      module=path[-1] if path else None)
+            rot = method.rotations(tree, cfg.peft)
+            return tree if rot is None else {**tree, "rot": rot}
+        return {k: _with_rotations(v, cfg, path + (k,))
+                for k, v in tree.items()}
     return tree
 
 

@@ -76,6 +76,36 @@ class AdmissionEvent:
     others: Tuple[int, ...]
 
 
+def _bank_tree(node, raws, pcs, names, cdt, path):
+    """``node`` of the merged base tree with a bank stacked from the
+    adapters' matching subtrees ``raws`` (PEFT configs ``pcs``, adapter
+    ``names`` in bank order) on every linear they update.  A module-level
+    function, so that no closure ties the tree it builds to the engine."""
+    if isinstance(node, dict):
+        module = path[-1] if path else None
+        if set(node) == {"w"} and module in _LINEAR_MODULES \
+                and node["w"].ndim >= 2:
+            bank = registry.stack_deltas(
+                node["w"], [(raw, pc, module) for raw, pc in zip(raws, pcs)])
+            if bank is None:
+                return node
+            if "left" in bank:
+                bank["left"] = bank["left"].to(cdt)
+            return {"w": node["w"], "bank": bank}
+        return {k: _bank_tree(v, [r[k] for r in raws], pcs, names, cdt,
+                              path + (k,))
+                for k, v in node.items()}
+    # a non-linear leaf is shared by every slot: refuse adapters that
+    # changed it
+    for name, leaf in zip(names[1:], raws[1:]):
+        if not torch.equal(leaf, node):
+            raise ValueError(
+                f"adapter {name!r} differs from base at non-linear param "
+                f"{'/'.join(path)}; per-slot serving only covers "
+                f"linear-module updates")
+    return node
+
+
 class ServeEngine:
     """Fixed-slot continuous batcher over the paged decode step.
 
@@ -141,38 +171,12 @@ class ServeEngine:
         """Merged base tree with a stacked adapter bank on every linear an
         adapter updates.  The bank's ``left`` factors are stored in the
         compute dtype: every consumer casts them to it before use."""
-        if self._tree is not None:
-            return self._tree
-        cdt = torch_dtype(self.cfg.dtype)
-        entries = [self._sources[n] for n in self._order]
-        pcs = [pc for _, pc in entries]
-
-        def rec(node, raws, path):
-            if isinstance(node, dict):
-                module = path[-1] if path else None
-                if set(node) == {"w"} and module in _LINEAR_MODULES \
-                        and node["w"].ndim >= 2:
-                    bank = registry.stack_deltas(
-                        node["w"], [(raw, pc, module)
-                                    for raw, pc in zip(raws, pcs)])
-                    if bank is None:
-                        return node
-                    if "left" in bank:
-                        bank["left"] = bank["left"].to(cdt)
-                    return {"w": node["w"], "bank": bank}
-                return {k: rec(v, [r[k] for r in raws], path + (k,))
-                        for k, v in node.items()}
-            # a non-linear leaf is shared by every slot: refuse adapters
-            # that changed it
-            for name, leaf in zip(self._order[1:], raws[1:]):
-                if not torch.equal(leaf, node):
-                    raise ValueError(
-                        f"adapter {name!r} differs from base at non-linear "
-                        f"param {'/'.join(path)}; per-slot serving only "
-                        f"covers linear-module updates")
-            return node
-
-        self._tree = rec(self._merged_base, [raw for raw, _ in entries], ())
+        if self._tree is None:
+            entries = [self._sources[n] for n in self._order]
+            self._tree = _bank_tree(
+                self._merged_base, [raw for raw, _ in entries],
+                [pc for _, pc in entries], self._order,
+                torch_dtype(self.cfg.dtype), ())
         return self._tree
 
     # -- admission ---------------------------------------------------------

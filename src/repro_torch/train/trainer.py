@@ -5,7 +5,8 @@ Gradients and optimizer state exist only for the trainable leaves (for
 PSOFT: q, alpha and beta of every wrapped linear).  The trainable/frozen
 partition comes from :func:`repro_torch.models.model.trainable_mask`, which
 resolves each linear's method through the PEFT registry.  Every PSOFT linear
-of the forward runs through the ``psoft_matmul`` wrapper and every rotation
+of the forward runs through the ``psoft_matmul`` wrapper, every OFT-family
+input rotation through ``blockdiag_rotate``, and every Cayley rotation
 through ``cayley_neumann`` (their kernels on a GPU).
 
 The state is the reference's: a :class:`TrainState` of (step, trainable,

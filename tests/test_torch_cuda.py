@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (fp32 tolerance 1e-4; bf16 2e-2, its absolute part scaled by the
 output's RMS), plus a tiny paged serving run that must launch every serving
-kernel and a tiny train step that must launch both training kernels.  Imports nothing of the reference package, so it runs
+kernel, a tiny PSOFT train step that must launch both of its training
+kernels and tiny OFT-family train steps that must launch blockdiag_rotate.  Imports nothing of the reference package, so it runs
 where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -299,3 +300,109 @@ def _to_device(tree, device):
     """``tree`` with every tensor leaf moved to ``device`` (None kept)."""
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.to(device), tree)
+
+
+#: (M, d, b): ragged M, every block size of the OFT family's path (32, 8,
+#: 2), b = 128 (one group a block), blocks that are not a multiple of 4
+#: (6) or do not divide 128 (48), and d that is not a multiple of 128
+BLOCKDIAG_SHAPES = [(70, 256, 32), (128, 96, 8), (33, 64, 2),
+                    (64, 256, 128), (50, 96, 6), (17, 192, 48),
+                    (200, 3072, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("m,d,b", BLOCKDIAG_SHAPES)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("rots_in_x_dtype", [False, True])
+def test_blockdiag_rotate_kernel_matches_plain(cuda_device, dtype, tol, m,
+                                               d, b, transpose,
+                                               rots_in_x_dtype):
+    rng = np.random.default_rng(m * d + b)
+    put = _on(cuda_device, dtype)
+    x = put(_normal(rng, (m, d)))
+    rots = torch.from_numpy(np.eye(b, dtype=np.float32)
+                            + _normal(rng, (d // b, b, b), 0.2)
+                            ).to(cuda_device)
+    if rots_in_x_dtype:
+        rots = rots.to(dtype)
+    before = ops.LAUNCHES["blockdiag_rotate"]
+    got = ops.blockdiag_rotate(x, rots, transpose=transpose)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["blockdiag_rotate"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, ref.blockdiag_rotate(x, rots, transpose), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,transpose", [(32, False), (8, True), (2, False)])
+def test_blockdiag_rotate_grads_match_autograd_of_plain(cuda_device, dtype,
+                                                        tol, b, transpose):
+    rng = np.random.default_rng(b)
+    put = _on(cuda_device, dtype)
+    x = put(_normal(rng, (96, 128)))
+    rots = torch.from_numpy(np.eye(b, dtype=np.float32)
+                            + _normal(rng, (128 // b, b, b), 0.2)
+                            ).to(cuda_device).to(dtype)
+    dy = put(_normal(rng, (96, 128)))
+    leaves = [x.clone().requires_grad_(True),
+              rots.clone().requires_grad_(True)]
+    got = torch.autograd.grad(
+        ops.blockdiag_rotate(*leaves, transpose=transpose), leaves, dy)
+    twins = [t.detach().float().requires_grad_(True) for t in (x, rots)]
+    want = torch.autograd.grad(ref.blockdiag_rotate(*twins, transpose),
+                               twins, dy.float())
+    for g, w, leaf in zip(got, want, leaves):
+        assert g.dtype == leaf.dtype
+        _close(g, w, tol)
+
+
+@pytest.mark.cuda
+def test_blockdiag_rotate_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    x = torch.zeros((4, 512), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 128"):
+        ops.blockdiag_rotate(x, torch.zeros((2, 256, 256),
+                                            device=cuda_device))
+    with pytest.raises(ValueError, match="rots must be"):
+        ops.blockdiag_rotate(x, torch.zeros((3, 32, 32), device=cuda_device))
+    with pytest.raises(TypeError, match="rots"):
+        ops.blockdiag_rotate(x, torch.zeros((16, 32, 32), device=cuda_device,
+                                            dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["oft", "boft", "goft"])
+def test_tiny_oft_family_step_launches_blockdiag_rotate(cuda_device, method):
+    """One fp32 tiny train step on the card rotates through the kernel: 3
+    launches per rotation of the forward (forward, remat recompute, the
+    backward's dx) but for the first rotation of layer 0's q, k and v,
+    whose input comes from the frozen embedding and takes no dx; and it
+    matches the same step on the CPU."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import oft
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.train import trainer
+    cfg = get_config("tiny")
+    cfg = cfg.replace(peft=cfg.peft.replace(method=method))
+    tc = TrainConfig(steps=5, learning_rate=1e-2, warmup_ratio=0.0)
+    cpu_state = trainer.init_train_state(cfg, tc, seed=0, device="cpu")
+    gpu_state = _to_device(cpu_state, cuda_device)
+    batch = SyntheticLMDataset(cfg, 4, 32).batch_at(0)
+    step = trainer.make_train_step(cfg, tc)
+    ops.reset_launches()
+    _, m_gpu = step(gpu_state, batch)
+    torch.cuda.synchronize()
+    d, f = cfg.d_model, cfg.d_ff
+    per = {"oft": lambda n: 1, "boft": lambda n: cfg.peft.boft_factors,
+           "goft": oft._num_levels}[method]
+    rotations = cfg.num_layers * (6 * per(d) + per(f))
+    assert ops.LAUNCHES["blockdiag_rotate"] == 3 * rotations - 3, \
+        ops.LAUNCHES
+    assert ops.LAUNCHES["cayley_neumann"] == (0 if method == "goft" else 7)
+    _, m_cpu = step(cpu_state, batch)
+    assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                  rel=1e-4)
+    assert float(m_gpu["grad_norm"]) == pytest.approx(
+        float(m_cpu["grad_norm"]), rel=1e-4)

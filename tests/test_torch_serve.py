@@ -1,7 +1,12 @@
 """The port's ServeEngine.run() against the reference engine on ``tiny``
 (fp32) with the base model and one PSOFT adapter, shared-prefix prompts:
 identical greedy tokens, identical admission events, prefix hits, every
-page returned."""
+page returned; the same with an OFT and a DoRA adapter, which serve through
+the dense-delta bank; and a dropped engine is freed without Python's cycle
+collector."""
+import gc
+import weakref
+
 import numpy as np
 import pytest
 
@@ -14,6 +19,7 @@ import jax  # noqa: E402
 
 from benchmarks.common import nudge_psoft  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
+from repro.core import peft as jpeft  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
 from repro.serve import ServeEngine as JServeEngine  # noqa: E402
@@ -99,3 +105,86 @@ def test_port_engine_rejects_unknown_adapter_and_long_prompt(reference):
                          adapter="missing")])
     with pytest.raises(ValueError, match="prompt length"):
         eng.run([Request(uid=0, prompt=np.zeros(64, np.int32))])
+
+
+def _rewrapped(jparams, jcfg, method, seed):
+    """An adapter of the base model trained with ``method``: the merged base
+    re-wrapped by the reference, every trainable moved off init by seeded
+    numpy noise (so both engines see the same values)."""
+    jp = jcfg.peft.replace(method=method)
+    tree = jax.jit(lambda p: jmodel.rewrap_peft(
+        jpeft.merge_tree(p, jcfg.peft), jcfg.replace(peft=jp)))(jparams)
+    names = set(jpeft.trainable_names(method, jp))
+    rng = np.random.default_rng(seed)
+
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(v) if isinstance(v, dict) else (
+                v + rng.standard_normal(v.shape).astype(v.dtype) * 0.05
+                if k in names else v) for k, v in node.items()}
+        return node
+    return rec(jax.tree.map(np.asarray, tree)), jp
+
+
+def test_dense_bank_adapters_match_reference(reference):
+    """Base, OFT and DoRA adapters (the dense-delta bank) in one run: the
+    port's tokens and admissions equal the reference engine's.  The port
+    serves the OFT and DoRA trees as trained; the reference engine serves
+    each as its merged tree (``merge_tree`` vmaps the merge over the layer
+    stack), because its bank builder merges a layer-stacked adapter without
+    vmap, where OFT's structure matcher takes the stacked ``q`` for BOFT's
+    and DoRA's column norm runs over the layer axis."""
+    params = reference[0]
+    jcfg = jget_config("tiny")
+    adapters = {"oft": _rewrapped(params, jcfg, "oft", 1),
+                "dora": _rewrapped(params, jcfg, "dora", 2)}
+    workload = [(u, p, n, "base" if a == "base" else ("oft", "dora")[u % 2])
+                for u, p, n, a in _workload(jcfg.vocab_size)]
+    eng = JServeEngine(params, jcfg, **ENGINE)
+    for name, (tree, pc) in adapters.items():
+        merged = jax.jit(lambda t, pc=pc: jpeft.merge_tree(t, pc))(tree)
+        eng.register_adapter(name, jax.tree.map(np.asarray, merged),
+                             pc.replace(method="none", target_modules=()))
+    done = eng.run([JRequest(uid=u, prompt=p, max_new_tokens=n, adapter=a)
+                    for u, p, n, a in workload], max_steps=128)
+    want_toks, want_events = _summary(eng, done)
+
+    cfg = get_config("tiny")
+    port = ServeEngine(interop.params_from_numpy(params, device="cpu"), cfg,
+                       device="cpu", **ENGINE)
+    for name, (tree, pc) in adapters.items():
+        port.register_adapter(name, interop.params_from_numpy(tree, "cpu"),
+                              cfg.peft.replace(method=name))
+    done = port.run([Request(uid=u, prompt=p, max_new_tokens=n, adapter=a)
+                     for u, p, n, a in workload], max_steps=128)
+    toks, events = _summary(port, done)
+    assert toks == want_toks
+    assert events == want_events
+    bank = port._tree["layers"]["attn"]["q"]["bank"]
+    assert set(bank) == {"delta"} and bank["delta"].shape[1] == 3
+    assert {a for *_, a in workload} == {"base", "oft", "dora"}
+    assert port.kv.pages_in_use() == 0
+
+
+def test_dropped_engine_is_freed_without_the_cycle_collector(reference):
+    """Nothing the engine builds refers back to it: with the collector off,
+    the last reference going frees the engine, its KV pools and its bank."""
+    params, tuned = reference[0], reference[1]
+    cfg = get_config("tiny")
+    gc.collect()
+    gc.disable()
+    try:
+        eng = ServeEngine(interop.params_from_numpy(params, device="cpu"),
+                          cfg, device="cpu", **ENGINE)
+        eng.register_adapter("tuned", interop.params_from_numpy(tuned,
+                                                                "cpu"))
+        done = eng.run([Request(uid=0, prompt=np.arange(6, dtype=np.int32),
+                                max_new_tokens=3, adapter="tuned")])
+        assert done[0].done and "bank" in eng._tree["layers"]["mlp"]["up"]
+        pools = weakref.ref(eng.kv.pools["k"])
+        alive = weakref.ref(eng)
+        del eng, done
+        assert alive() is None
+        assert pools() is None
+    finally:
+        gc.enable()
