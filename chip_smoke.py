@@ -9,16 +9,23 @@ Phases, each of which raises (non-zero exit) on a failed check:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (nvidia-smi) and builds the six CUDA kernels from the
-   checkout's sources (nvcc, in parallel), printing the build time;
+   checkout's sources (nvcc, in parallel), printing the build time and
+   each kernel's registers, shared memory and spills (``-Xptxas -v``); the
+   redesigned kernels (split decode, the Hopper GEMM engine and its fp32
+   rotation) must not spill;
 2. kernels: at llama32-3b shapes, bf16 and fp32, each kernel against its
    plain PyTorch version on the card, with edge cases, and each limit shown
-   to reject a known fault (a dropped last page or prefix tail, a row on
-   the wrong adapter, a dropped rank-r term, a Horner step short, a block
-   rotation replaced by I or transposed); the training wrappers' grads
-   against autograd of the plain versions; one JSON line per kernel with
-   its time, the plain version's, a library yardstick's and the least time
-   the card could take (bytes over 3.35 TB/s or flops over the peak for
-   the dtype, whichever is larger);
+   to reject a known fault (a dropped last page, a dropped middle page in
+   every row longer than one decode split, a dropped prefix tail, a row on
+   the wrong adapter, a dropped rank-r term or its partial last depth step,
+   a Horner step short, a block rotation replaced by I or transposed);
+   every bf16 psoft_matmul check on the wgmma engine, fp32 on the CUDA
+   cores; the training wrappers' grads against autograd of the plain
+   versions; one JSON line per kernel with its time, the plain version's,
+   a library yardstick's and the least time the card could take (bytes
+   over 3.35 TB/s or flops over the peak for the dtype, whichever is
+   larger); psoft_matmul's three launches timed apart (torch.profiler) with
+   the output product's share of the bf16 peak;
 3. serve: llama32-3b at full width (28 layers unless ``--layers`` cuts
    depth; widths are never cut), seven PSOFT linears per layer in bf16,
    random weights from a seed, two adapters sharing the frozen factors;
@@ -32,8 +39,8 @@ Phases, each of which raises (non-zero exit) on a failed check:
    one warm-up and 5 timed steps of ``make_train_step``; checks finite
    losses and grad norms, frozen leaves bit-identical, every trainable leaf
    moved, and exact launches on every step (psoft_matmul 3x per PSOFT
-   linear: forward, remat recompute, backward; cayley_neumann once per
-   linear stack);
+   linear: forward, remat recompute, backward, every one on the wgmma
+   engine; cayley_neumann once per linear stack);
 6. train card vs CPU: ``tiny`` (fp32), 5 steps from one state on the card
    and on the CPU agree within 1e-4 relative, and the tuned tree's logits
    equal its merged tree's on the card;
@@ -115,6 +122,32 @@ def gpu_name_and_power() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str):
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its mangled name, its
+    registers, static shared memory and spill bytes."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append(dict(entry=m.group(1), registers=None, smem=0,
+                            spill_stores=0, spill_loads=0))
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[-1].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +293,18 @@ def last_page_dropped(lengths, pg):
     return lengths - ((lengths - 1).clamp_min(0) % pg + 1) * (lengths > 0)
 
 
+def middle_page_dropped(table, lengths, pg, rows):
+    """(table, lengths) without the middle page (index npages // 2, a full
+    page) of each row of ``rows``: later columns shift left by one, the
+    length falls by pg."""
+    table, lengths = table.clone(), lengths.clone()
+    for i in rows:
+        j = -(-int(lengths[i]) // pg) // 2
+        table[i, j:-1] = table[i, j + 1:].clone()
+        lengths[i] -= pg
+    return table, lengths
+
+
 def distinct_slots(table, lengths, pg) -> int:
     """KV slots a paged kernel must read: distinct (page, offset) pairs
     under the rows' valid tokens (rows that share pages read them once)."""
@@ -299,6 +344,13 @@ def kernel_phase(torch, ops, ref, F):
             q, kp, vp, table, last_page_dropped(ln, 16)), want, dname,
             [i for i, n in enumerate(dec_lengths) if n > 0],
             "paged_decode_attention, each row's last page dropped")
+        split = ops.decode_split_plan(len(dec_lengths), 8, 32)[0] * 16
+        long_rows = [i for i, n in enumerate(dec_lengths) if n > split]
+        must_reject(torch, ref.paged_decode_attention(
+            q, kp, vp, *middle_page_dropped(table, ln, 16, long_rows)),
+            want, dname, long_rows,
+            "paged_decode_attention, a middle page dropped in each row "
+            "longer than one split")
         # prefill: mid-page prefix, no prefix, aliased pages; then an empty
         # prefix table and a single suffix token
         args = prefill_inputs(torch, dtype, gen, pre_prefix, pre_s)
@@ -679,6 +731,33 @@ def psoft_inputs(torch, dtype, gen, m, k, n, r=RANK, transpose=False):
     return x, w, a, rot, b, s_in, s_out
 
 
+#: psoft_matmul's launches on the wgmma engine, by a part of the kernel's
+#: name (spaces removed) as the profiler shows it
+PSOFT_LAUNCH_NAMES = (("projection", "gemm_kernel<1,"),
+                      ("rotate", "rotate_kernel"),
+                      ("output", "gemm_kernel<2,"))
+
+
+def launch_split_ms(torch, fn, calls: int = 5):
+    """Device ms per call of each launch of PSOFT_LAUNCH_NAMES, from
+    torch.profiler over ``calls`` calls of ``fn`` one after another (L2
+    warm, unlike time_ms); None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k, _ in PSOFT_LAUNCH_NAMES}
+    for e in prof.key_averages():
+        for k, pat in PSOFT_LAUNCH_NAMES:
+            if pat in e.key.replace(" ", ""):
+                out[k] += e.self_device_time_total / 1e3 / calls
+    return out if all(out.values()) else None
+
+
 def psoft_bytes_flops(m, k, n, r, elt):
     """Each input read once (x, W_res, A, B in the compute dtype; R, alpha,
     beta fp32), each output written once (y; u and t, kept for the
@@ -795,11 +874,16 @@ def train_kernel_phase(torch, ops, ref):
             for transpose in (False, True):
                 args = psoft_inputs(torch, dtype, gen, m, kdim, n,
                                     transpose=transpose)
+                ops.reset_launches()
                 got = ops._psoft_mm(*args, transpose)
                 want = ref.psoft_matmul_parts(*args, transpose)
                 torch.cuda.synchronize()
                 what = f"psoft_matmul {name} {dname}" + \
                     (" transposed" if transpose else "")
+                engine = "wgmma" if dtype == torch.bfloat16 else "simt"
+                check(ops.PSOFT_ENGINE_LAUNCHES[engine] == 1,
+                      f"{what}: ran on {ops.PSOFT_ENGINE_LAUNCHES}, "
+                      f"expected the {engine} engine")
                 e = max(e, max_err(torch, got[0], want[0], dname, what))
                 # u and t are fp32 in both dtypes (bf16 products are
                 # exact in fp32): the fp32 limit
@@ -810,7 +894,15 @@ def train_kernel_phase(torch, ops, ref):
                     x, w_res, a, rot, b, s_in, s_out * 0, transpose)[0]
                 must_reject(torch, no_rank, want[0], dname,
                             range(0, m, 97), f"{what}, rank-r term dropped")
-                del got, want, no_rank, args
+                # the partial last depth step (r = 352 = 5.5 x 64) dropped
+                cut = s_out.clone()
+                cut[320:] = 0
+                short = ref.psoft_matmul_parts(
+                    x, w_res, a, rot, b, s_in, cut, transpose)[0]
+                must_reject(torch, short, want[0], dname, range(0, m, 97),
+                            f"{what}, rank-r term cut to its first 320 "
+                            f"columns")
+                del got, want, no_rank, short, args
         errs[f"max_err_{dname}"] = e
     errs["grad_max_err"] = psoft_grad_phase(torch, ops, ref, gen)
     results = {"psoft_matmul": errs}
@@ -846,6 +938,15 @@ def train_kernel_phase(torch, ops, ref):
         merged = (w_res.float() + (a.float() * al) @ rot @
                   (b.float() * be[:, None])).to(dt)
         nbytes, flops = psoft_bytes_flops(m, kdim, n, r, elt)
+        split = {
+            "forward": launch_split_ms(torch, lambda: ops._psoft_mm(
+                x, w_res, a, rot, b, al, be, False)),
+            "transposed": launch_split_ms(torch, lambda: ops._psoft_mm(
+                dy, w_res, a, rot, b, be, al, True))}
+        # the output product's useful flops: [x | v] . [W' ; P_out]
+        share = {k: None if v is None else
+                 2 * m * (kdim + r) * n / (v["output"] * 1e-3)
+                 / PEAK_FLOPS["bfloat16"] for k, v in split.items()}
         one = dict(
             ms=time_ms(torch, lambda: ops._psoft_mm(
                 x, w_res, a, rot, b, al, be, False)),
@@ -854,7 +955,8 @@ def train_kernel_phase(torch, ops, ref):
             plain_ms=time_ms(torch, lambda: ref.psoft_matmul_parts(
                 x, w_res, a, rot, b, al, be)),
             library_ms=time_ms(torch, lambda: torch.matmul(x, merged)),
-            bytes=nbytes, flops=flops)
+            bytes=nbytes, flops=flops, launch_ms=split,
+            output_peak_share=share)
         one["bound_ms"], one["bound_by"] = bound(nbytes, flops, "bfloat16")
         per_linear[name] = one
         for key in tot:
@@ -1072,6 +1174,7 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
         else:
             warm_ms = dt_ms
     launches = dict(ops.LAUNCHES)
+    engines = dict(ops.PSOFT_ENGINE_LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(all(math.isfinite(v) for v in losses + gnorms),
           f"{what}: finite losses {losses} and grad norms {gnorms}")
@@ -1103,6 +1206,7 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
         tokens_per_s=TRAIN_TOKENS / (mean_ms / 1e3),
         peak_memory_gib=peak_gib, losses=losses, grad_norms=gnorms,
         launches=launches, launches_per_step=per_step[-1],
+        psoft_engines=engines,
         frozen_copy_s=copy_s, verify_s=verify_s,
         profile=profile_train(torch, step, state, batches[0])
         if profile else None)
@@ -1134,6 +1238,12 @@ def train_phase(torch, args, configs, trainer, data, tree, ops, params,
         "blockdiag_rotate": (0, "no OFT linear")}
     result = run_train(torch, configs, trainer, data, tree, ops, cfg,
                        params, 5, expected, "train", args.profile)
+    engines = result["psoft_engines"]
+    check(engines["wgmma"] == result["launches"]["psoft_matmul"]
+          and engines["wmma"] == engines["simt"] == 0,
+          f"train: every bf16 psoft_matmul call on the wgmma engine "
+          f"({engines})")
+    print(f"train: psoft_matmul launches by engine {engines}")
     result.update(gc_freed_gib=gc_freed_gib, gpu=gpu_line)
     print(f"train: a gc.collect before it freed {gc_freed_gib:.2f} GiB "
           f"[{gpu_line}]")
@@ -1332,9 +1442,23 @@ def main(argv=None) -> int:
     built = build.build()
     print(f"build: {len(built)} kernel libraries compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
+    ptxas = {name: ptxas_summary(log)
+             for name, log in build.BUILD_LOGS.items()}
     for name, log in build.BUILD_LOGS.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"build: {name}: {'; '.join(regs)}")
+        for line in log.splitlines():
+            if "warning" in line.lower() or "Performance Loss" in line:
+                print(f"build: {name}: {line.strip()}")
+    for name, entries in ptxas.items():
+        for e in entries:
+            print(f"build: {name}: {e['entry']}: {e['registers']} registers"
+                  f", {e['smem']} bytes static smem, spill stores "
+                  f"{e['spill_stores']} / loads {e['spill_loads']}")
+    for e in ptxas.get("paged_decode_attention", []) + [
+            e for e in ptxas.get("psoft_matmul", [])
+            if "gemm_kernel" in e["entry"] and "hopper" in e["entry"]
+            or "rotate_kernel" in e["entry"]]:
+        check(e["spill_stores"] == 0 and e["spill_loads"] == 0,
+              f"build: {e['entry']} spills registers")
 
     phase_s = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
@@ -1360,6 +1484,20 @@ def main(argv=None) -> int:
           f"bound ms): " + ", ".join(
               f"{k} {v['ms']:.3f}/{v['backward_ms']:.3f} "
               f"({v['bound_ms']:.3f})" for k, v in pm["per_linear"].items()))
+    for k, v in pm["per_linear"].items():
+        for orient, sp in v["launch_ms"].items():
+            if sp is None:
+                print(f"kernels: psoft_matmul {k} {orient}: launch split "
+                      f"not measured (no device time in the trace)")
+                continue
+            print(f"kernels: psoft_matmul {k} {orient} launches (profiled, "
+                  f"L2 warm): projection {sp['projection']:.4f} ms, rotate "
+                  f"{sp['rotate']:.4f} ms, output {sp['output']:.4f} ms "
+                  f"({100 * v['output_peak_share'][orient]:.1f}% of the "
+                  f"bf16 peak)")
+    dec = kernels["paged_decode_attention"]
+    print(f"kernels: paged_decode_attention {dec['ms']:.4f} ms against "
+          f"SDPA's {dec['library_ms']:.4f} ms in the same run")
     print(f"kernels: blockdiag_rotate (forward / transposed / plain / bmm "
           f"ms, bound ms): " + ", ".join(
               f"{k} {v['ms']:.4f}/{v['transposed_ms']:.4f}/"

@@ -33,7 +33,7 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     "paged_decode_attention": (
         "paged_decode_attention_launch",
-        [_I, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+        [_I] + [_P] * 7 + [_I] * 8 + [_P]),
     "paged_prefill_attention": (
         "paged_prefill_attention_launch",
         [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
@@ -42,7 +42,7 @@ ENTRY_POINTS = {
         [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
     "psoft_matmul": (
         "psoft_matmul_launch",
-        [_I, _I] + [_P] * 10 + [_I] * 4 + [_P]),
+        [_I, _I, _I] + [_P] * 11 + [_I] * 4 + [_P]),
     "cayley_neumann": (
         "cayley_neumann_launch",
         [_P, _P, _P] + [_I] * 3 + [_P]),

@@ -11,12 +11,15 @@ launch fails.  The three training wrappers (:func:`psoft_matmul`,
 blockdiag_rotate's dx is the kernel's transposed launch.
 
 :data:`LAUNCHES` counts kernel launches per wrapper (CPU calls are not
-launches), so a run can show that its main path went through the kernels.
+launches), so a run can show that its main path went through the kernels;
+a wrapper counts one launch per call even where its C entry point starts
+two or three CUDA kernels.  :data:`PSOFT_ENGINE_LAUNCHES` splits
+psoft_matmul's launches by the engine they took (:func:`_psoft_engine`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,12 +33,20 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "cayley_neumann": 0,
                             "blockdiag_rotate": 0}
 
+#: psoft_matmul launches per engine since the last :func:`reset_launches`
+PSOFT_ENGINE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wmma": 0, "simt": 0}
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PSOFT_ENGINE_CODE = {"simt": 0, "wmma": 1, "wgmma": 2}
+
+#: blocks the decode split aims for: about two per SM of an H100 (132 SMs)
+DECODE_TARGET_BLOCKS = 2 * 132
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PSOFT_ENGINE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _launch(name: str, *args) -> None:
@@ -94,13 +105,28 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def decode_split_plan(b: int, kh: int, maxp: int) -> Tuple[int, int]:
+    """(pages per split, splits) of the decode kernel's grid (B * KH,
+    splits): the largest power of two ``pps <= maxp`` whose
+    ``B * KH * ceil(maxp / pps)`` blocks still reach
+    :data:`DECODE_TARGET_BLOCKS` (1 where none does).  The splits cover the
+    table's ``maxp`` columns, the last one possibly short."""
+    pps = 1
+    while pps * 2 <= maxp and \
+            b * kh * -(-maxp // (pps * 2)) >= DECODE_TARGET_BLOCKS:
+        pps *= 2
+    return pps, -(-maxp // pps)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """One-token GQA over block-paged KV pools.
 
     q (B, H, D); pools (P, pg, KH, D); page_table (B, maxp); lengths (B,).
-    Page ids outside [0, P) are clamped.  Returns (B, H, D) in q's dtype."""
+    Page ids outside [0, P) are clamped.  Returns (B, H, D) in q's dtype.
+    On the card the kernel reads 16-byte rows: D times the element size must
+    be a multiple of 16 and the pools 16-byte aligned."""
     if _on_cpu(q, k_pool, v_pool, page_table, lengths):
         return ref.paged_decode_attention(q, k_pool, v_pool, page_table,
                                           lengths)
@@ -115,13 +141,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ln = _index_arg(lengths, "lengths", (b,))
     if maxp == 0:
         raise ValueError("page_table needs at least one column")
+    if d * q.element_size() % 16:
+        raise ValueError(f"head_dim {d}: the kernel reads 16-byte rows, so "
+                         f"D * {q.element_size()} must be a multiple of 16")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("k_pool and v_pool must be 16-byte aligned")
+    pps, splits = decode_split_plan(b, kh, maxp)
+    # per split: the running max and sum and the unnormalized output
+    part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     _launch("paged_decode_attention", code,
             _float_arg(q, "q", q.dtype, 3),
             _float_arg(k_pool, "k_pool", q.dtype, 4),
             _float_arg(v_pool, "v_pool", q.dtype, 4),
-            pt.data_ptr(), ln.data_ptr(), out.data_ptr(),
-            b, h, kh, d, p, pg, maxp, _stream(q.device))
+            pt.data_ptr(), ln.data_ptr(), out.data_ptr(), part.data_ptr(),
+            b, h, kh, d, p, pg, maxp, pps, _stream(q.device))
     return out
 
 
@@ -204,6 +239,23 @@ def gather_delta_matmul(x: torch.Tensor, w: torch.Tensor, left: torch.Tensor,
 # training path: the fused PSOFT linear and the Cayley-Neumann rotation
 # ---------------------------------------------------------------------------
 
+def _psoft_engine(dtype: torch.dtype, k: int, n: int, r: int,
+                  ptrs: Sequence[int]) -> str:
+    """The engine of a psoft_matmul launch on the card, from the dtype, the
+    shapes (W_res (k, n), rank r) and the inputs' addresses ``ptrs``:
+    ``"simt"`` in fp32 (exact fp32 on the CUDA cores); ``"wgmma"`` in bf16
+    where TMA can read every operand in place (k, n and r > 0 multiples of
+    8 elements, so every row pitch is a multiple of 16 bytes, and every
+    pointer 16-byte aligned); ``"wmma"`` for any other bf16 shape.  The
+    orientation does not enter: both read the same arrays."""
+    if dtype == torch.float32:
+        return "simt"
+    if r > 0 and k % 8 == 0 and n % 8 == 0 and r % 8 == 0 and \
+            all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "wmma"
+
+
 def _psoft_mm(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
               rot: torch.Tensor, b: torch.Tensor, s_in: torch.Tensor,
               s_out: torch.Tensor, transpose: bool):
@@ -227,16 +279,23 @@ def _psoft_mm(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
                          f"a {tuple(a.shape)}, rot {tuple(rot.shape)}, b "
                          f"{tuple(b.shape)}, scales {tuple(s_in.shape)} "
                          f"{tuple(s_out.shape)} (transpose={transpose})")
-    u = torch.empty((m, r), dtype=f32, device=x.device)
-    t = torch.empty((m, r), dtype=f32, device=x.device)
-    y = torch.empty((m, dout), dtype=x.dtype, device=x.device)
-    _launch("psoft_matmul", code, int(transpose),
-            _float_arg(x, "x", x.dtype, 2),
+    ptrs = [_float_arg(x, "x", x.dtype, 2),
             _float_arg(w_res, "w_res", x.dtype, 2),
             _float_arg(a, "A", x.dtype, 2), _float_arg(rot, "rot", f32, 2),
-            _float_arg(b, "B", x.dtype, 2), _float_arg(s_in, "s_in", f32, 1),
+            _float_arg(b, "B", x.dtype, 2)]
+    engine = _psoft_engine(x.dtype, kdim, n, r, ptrs)
+    u = torch.empty((m, r), dtype=f32, device=x.device)
+    t = torch.empty((m, r), dtype=f32, device=x.device)
+    # the wgmma engine's bf16 copy of v = t . s_out, for TMA to read
+    v = torch.empty((m, r), dtype=x.dtype, device=x.device) \
+        if engine == "wgmma" else None
+    y = torch.empty((m, dout), dtype=x.dtype, device=x.device)
+    _launch("psoft_matmul", code, _PSOFT_ENGINE_CODE[engine],
+            int(transpose), *ptrs, _float_arg(s_in, "s_in", f32, 1),
             _float_arg(s_out, "s_out", f32, 1), u.data_ptr(), t.data_ptr(),
-            y.data_ptr(), m, kdim, n, r, _stream(x.device))
+            None if v is None else v.data_ptr(), y.data_ptr(), m, kdim, n,
+            r, _stream(x.device))
+    PSOFT_ENGINE_LAUNCHES[engine] += 1
     return y, u, t
 
 

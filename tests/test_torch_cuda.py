@@ -78,6 +78,33 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, tol, b, h, kh, hd,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("maxp", [32, 30])
+def test_decode_kernel_at_split_seams(cuda_device, dtype, tol, maxp):
+    """Lengths at and next to the split seams (k * pps * pg - 1, k * pps *
+    pg, + 1), a full row of maxp * pg tokens, a length-0 row, and a maxp
+    that pps does not divide (30: the last split holds 2 pages)."""
+    b, h, kh, hd, pg = 8, 24, 8, 128, 16
+    pps, splits = ops.decode_split_plan(b, kh, maxp)
+    assert pps == 4 and splits == -(-maxp // 4)
+    seam = pps * pg
+    lengths = np.asarray([seam - 1, seam, seam + 1, 2 * seam - 1, 2 * seam,
+                          2 * seam + 1, maxp * pg, 0], np.int32)
+    rng = np.random.default_rng(maxp)
+    pages = 1 + b * maxp
+    table = (rng.permutation(pages - 1)[:b * maxp] + 1).reshape(b, maxp)
+    put = _on(cuda_device, dtype)
+    args = [put(_normal(rng, (b, h, hd))),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(table.astype(np.int32)), put(lengths)]
+    got = ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.all(got[-1] == 0)
+    _close(got, ref.paged_decode_attention(*args), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("b,s,h,kh,hd,pages,pg,maxp,plen", [
     (2, 8, 4, 4, 32, 8, 8, 3, [5, 17]), (2, 8, 8, 2, 32, 8, 8, 3, [0, 24]),
     (1, 16, 4, 1, 64, 6, 8, 2, [9]), (2, 1, 4, 4, 32, 6, 8, 2, [7, 16]),
@@ -242,6 +269,71 @@ def test_psoft_matmul_grads_match_autograd_of_plain(cuda_device, dtype, tol,
     for g, w, leaf in zip(got, want, leaves):
         assert g.dtype == leaf.dtype
         _close(g, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,r", [
+    (130, 72, 200, 8), (200, 3072, 1000, 64), (130, 3072, 1000, 352),
+    (200, 72, 136, 352)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_psoft_matmul_wgmma_engine_matches_plain(cuda_device, m, k, n, r,
+                                                 transpose):
+    """The Hopper engine (TMA + wgmma) at ragged M, N not a tile multiple,
+    K a multiple of 64 or not, and r below, at and across one 64-deep step
+    (the seam mid-step at r = 352): y in bf16, u and t in fp32."""
+    rng = np.random.default_rng(m + k + n + r)
+    args = _psoft_inputs(rng, _on(cuda_device, torch.bfloat16), m, k, n, r,
+                         transpose)
+    ops.reset_launches()
+    got = ops._psoft_mm(*args, transpose)
+    torch.cuda.synchronize()
+    assert ops.PSOFT_ENGINE_LAUNCHES == {"wgmma": 1, "wmma": 0, "simt": 0}
+    want = ref.psoft_matmul_parts(*args, transpose)
+    assert got[0].shape == (m, k if transpose else n)
+    _close(got[0], want[0], 2e-2)
+    for g, w in zip(got[1:], want[1:]):
+        rms = float(w.square().mean().sqrt())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * rms)
+
+
+@pytest.mark.cuda
+def test_psoft_matmul_engines_by_shape_on_the_card(cuda_device):
+    """fp32 takes the CUDA-core engine, bf16 with r = 12 (a 24-byte row)
+    the WMMA one, bf16 with every pitch a multiple of 16 bytes wgmma."""
+    rng = np.random.default_rng(5)
+    for dtype, r, engine in ((torch.float32, 16, "simt"),
+                             (torch.bfloat16, 12, "wmma"),
+                             (torch.bfloat16, 16, "wgmma")):
+        args = _psoft_inputs(rng, _on(cuda_device, dtype), 64, 128, 128, r)
+        ops.reset_launches()
+        ops._psoft_mm(*args, False)
+        torch.cuda.synchronize()
+        assert ops.PSOFT_ENGINE_LAUNCHES[engine] == 1, (dtype, r)
+        assert sum(ops.PSOFT_ENGINE_LAUNCHES.values()) == 1
+
+
+@pytest.mark.cuda
+def test_psoft_matmul_grads_on_the_wgmma_engine(cuda_device):
+    """Every grad of the autograd function on the Hopper engine (forward
+    and the transposed dx launch) against autograd of the plain version in
+    fp32 on the same values."""
+    m, k, n, r = 200, 72, 136, 64
+    rng = np.random.default_rng(7)
+    args = _psoft_inputs(rng, _on(cuda_device, torch.bfloat16), m, k, n, r)
+    dy = _on(cuda_device, torch.bfloat16)(_normal(rng, (m, n)))
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    twins = [a.detach().float().requires_grad_(True) for a in args]
+    ops.reset_launches()
+    y = ops.psoft_matmul(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert ops.PSOFT_ENGINE_LAUNCHES == {"wgmma": 2, "wmma": 0, "simt": 0}
+    y2 = ref.psoft_matmul(*twins)
+    want = torch.autograd.grad(y2, twins, dy.float())
+    _close(y.detach(), y2.detach(), 2e-2)
+    for g, w, leaf in zip(got, want, leaves):
+        assert g.dtype == leaf.dtype
+        _close(g, w, 2e-2)
 
 
 @pytest.mark.cuda
