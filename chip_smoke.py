@@ -12,28 +12,37 @@ Phases, each of which raises (non-zero exit) on a failed check:
    checkout's sources (nvcc, in parallel), printing the build time and
    each kernel's registers, shared memory and spills (``-Xptxas -v``); the
    redesigned kernels (split decode, the Hopper GEMM engine and its fp32
-   rotation) must not spill;
+   rotation, the three gather-delta launches, the tensor-core prefill) must
+   not spill;
 2. kernels: at llama32-3b shapes, bf16 and fp32, each kernel against its
    plain PyTorch version on the card, with edge cases, and each limit shown
    to reject a known fault (a dropped last page, a dropped middle page in
-   every row longer than one decode split, a dropped prefix tail, a row on
-   the wrong adapter, a dropped rank-r term or its partial last depth step,
-   a Horner step short, a block rotation replaced by I or transposed);
-   every bf16 psoft_matmul check on the wgmma engine, fp32 on the CUDA
-   cores; the training wrappers' grads against autograd of the plain
+   every row longer than one decode split, a dropped prefix tail, the
+   causal diagonal masked, the prefix chunk holding the last prefix token
+   dropped, a row on the wrong adapter, the last K split of W dropped, the
+   rank-r term on only the first row of each adapter, a dropped rank-r
+   term or its partial last depth step, a Horner step short, a block
+   rotation replaced by I or transposed); every bf16 psoft_matmul check on
+   the wgmma engine and every bf16 prefill on the tensor-core ("mma")
+   engine, fp32 on the CUDA cores; the training wrappers' grads against
+   autograd of the plain
    versions; one JSON line per kernel with its time, the plain version's,
    a library yardstick's and the least time the card could take (bytes
    over 3.35 TB/s or flops over the peak for the dtype, whichever is
    larger); psoft_matmul's three launches timed apart (torch.profiler) with
-   the output product's share of the bf16 peak;
+   the output product's share of the bf16 peak; gather_delta_matmul's time
+   per linear beside its own byte bound;
 3. serve: llama32-3b at full width (28 layers unless ``--layers`` cuts
    depth; widths are never cut), seven PSOFT linears per layer in bf16,
    random weights from a seed, two adapters sharing the frozen factors;
    ~24 requests through ``ServeEngine(slots=8, page_size=16,
    max_len=512)``; checks completion, page accounting, prefix
-   hits, that every serving kernel launched, and run-to-run token identity;
+   hits, that every serving kernel launched (gather_delta_matmul exactly 7
+   per layer per decode step, every prefill on the "mma" engine), and
+   run-to-run token identity;
 4. card vs CPU: the same ``tiny`` (fp32) engine run on the card and on the
-   CPU gives identical greedy tokens and admissions;
+   CPU gives identical greedy tokens and admissions, every card prefill on
+   the fp32 ("simt") engine;
 5. train: the serve phase's llama32-3b params (same depth) split by the
    PEFT mask, ``remat_policy="full"``, 8 x 256 synthetic tokens a step,
    one warm-up and 5 timed steps of ``make_train_step``; checks finite
@@ -319,6 +328,45 @@ def table_entries(lengths, pg) -> int:
     return sum(-(-n // pg) for n in lengths.tolist())
 
 
+#: keys per chunk of the bf16 prefill kernel (csrc/paged_prefill_attention.cu)
+PREFILL_CHUNK_KEYS = 64
+
+
+def prefill_diagonal_masked(torch, ref, q, k, v, kp, vp, table, plen):
+    """The plain prefill with the causal diagonal masked (query i sees the
+    suffix keys j < i only): a planted fault."""
+    b, s, h, d = q.shape
+    pg, kh, maxp = kp.shape[1], kp.shape[2], table.shape[1]
+    flat = table.reshape(-1).long()
+    kc = torch.cat([kp[flat].reshape(b, maxp * pg, kh, d), k], 1).float()
+    vc = torch.cat([vp[flat].reshape(b, maxp * pg, kh, d), v], 1).float()
+    qg = q.reshape(b, s, kh, h // kh, d).float()
+    scores = torch.einsum("bskgd,btkd->bskgt", qg, kc) / math.sqrt(d)
+    spre = maxp * pg
+    pre = (torch.arange(spre, device=q.device)[None, None, :]
+           < plen.reshape(-1, 1, 1).long()).expand(b, s, spre)
+    ar = torch.arange(s, device=q.device)
+    suf = (ar[:, None] > ar[None, :])[None].expand(b, s, s)
+    ok = torch.cat([pre, suf], -1)[:, :, None, None, :]
+    p = ref._masked_softmax_weights(scores, ok)
+    out = torch.einsum("bskgt,btkd->bskgd", p, vc) / \
+        p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def first_of_each_adapter(ids, group):
+    """Rows that are the first of their adapter in their row group of
+    ``group`` rows (the kernel's row groups)."""
+    first, seen = [], set()
+    for i, a in enumerate(ids):
+        if i % group == 0:
+            seen = set()
+        if a not in seen:
+            first.append(i)
+            seen.add(a)
+    return first
+
+
 def kernel_phase(torch, ops, ref, F):
     """Correctness at every dtype and edge case; timing in bf16 (the serving
     dtype) at the main path's shapes."""
@@ -352,16 +400,29 @@ def kernel_phase(torch, ops, ref, F):
             "paged_decode_attention, a middle page dropped in each row "
             "longer than one split")
         # prefill: mid-page prefix, no prefix, aliased pages; then an empty
-        # prefix table and a single suffix token
+        # prefix table and a single suffix token; bf16 on the tensor-core
+        # engine, fp32 on the CUDA cores
+        engine = "mma" if dtype == torch.bfloat16 else "simt"
+        ops.reset_launches()
         args = prefill_inputs(torch, dtype, gen, pre_prefix, pre_s)
         want = ref.paged_prefill_attention(*args)
         e = max_err(torch, ops.paged_prefill_attention(*args), want, dname,
                     f"paged_prefill_attention {dname}")
         q, k, v, kp, vp, table, plen = args
+        pre_rows = [i for i, n in enumerate(pre_prefix) if n > 0]
         must_reject(torch, ref.paged_prefill_attention(
             q, k, v, kp, vp, table, last_page_dropped(plen, 16)),
-            want, dname, [i for i, n in enumerate(pre_prefix) if n > 0],
+            want, dname, pre_rows,
             "paged_prefill_attention, each prefix's last page dropped")
+        must_reject(torch, ref.paged_prefill_attention(
+            q, k, v, kp, vp, table,
+            last_page_dropped(plen, PREFILL_CHUNK_KEYS)), want, dname,
+            pre_rows, "paged_prefill_attention, the prefix chunk holding "
+                      "each prefix's last token dropped")
+        must_reject(torch, prefill_diagonal_masked(
+            torch, ref, q, k, v, kp, vp, table, plen), want, dname,
+            range(len(pre_prefix)),
+            "paged_prefill_attention, the causal diagonal masked")
         empty = table[:, :0]
         e = max(e, max_err(
             torch, ops.paged_prefill_attention(q, k, v, kp, vp, empty, plen),
@@ -373,6 +434,10 @@ def kernel_phase(torch, ops, ref, F):
             torch, ops.paged_prefill_attention(*one, kp, vp, table, plen),
             ref.paged_prefill_attention(*one, kp, vp, table, plen), dname,
             f"paged_prefill_attention one suffix token {dname}"))
+        check(ops.PREFILL_ENGINE_LAUNCHES[engine] == 3 ==
+              ops.LAUNCHES["paged_prefill_attention"],
+              f"paged_prefill_attention {dname}: ran on "
+              f"{ops.PREFILL_ENGINE_LAUNCHES}, expected the {engine} engine")
         errs["paged_prefill_attention"] = e
         # gather-delta: every llama32-3b linear shape, rows on different
         # adapters
@@ -389,6 +454,22 @@ def kernel_phase(torch, ops, ref, F):
                 (idt + 1) % left.shape[0], x, w, left, right), want, dname,
                 range(len(delta_ids)),
                 f"gather_delta_matmul {name}, each row on the wrong adapter")
+            plan = ops.gather_delta_plan(len(delta_ids), kdim, n,
+                                         left.shape[2])
+            w_cut = w.clone()
+            w_cut[(plan.k_splits - 1) * plan.k_rows:] = 0
+            must_reject(torch, ref.gather_delta_matmul(
+                idt, x, w_cut, left, right), want, dname,
+                range(len(delta_ids)),
+                f"gather_delta_matmul {name}, the last K split's rows of W "
+                f"dropped")
+            first = first_of_each_adapter(delta_ids, ops.GATHER_DELTA_ROWS)
+            one_each = ref.gather_delta_matmul(idt, x, w, left, right * 0)
+            one_each[first] = want[first]
+            must_reject(torch, one_each, want, dname,
+                        [i for i in range(len(delta_ids)) if i not in first],
+                        f"gather_delta_matmul {name}, the rank-r term on only "
+                        f"the first row of each adapter")
         errs["gather_delta_matmul"] = e
         torch.cuda.synchronize()
         for kname, err in errs.items():
@@ -475,6 +556,9 @@ def kernel_phase(torch, ops, ref, F):
                    + distinct * kdim * r * elt + distinct * r * n * 4
                    + bsz * 4 + bsz * n * elt),
             flops=2 * bsz * (kdim * n + kdim * r + r * n))
+        one["bound_ms"], one["bound_by"] = bound(one["bytes"], one["flops"],
+                                                 dname)
+        one["bound_share"] = one["bound_ms"] / one["ms"]
         per_shape[name] = one
         for key in tot:
             tot[key] += one[key]
@@ -597,6 +681,15 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
     check(kv_stats["prefix_hits"] > 0, "shared prefixes are aliased")
     for name in SERVE_KERNELS:
         check(launches[name] > 0, f"kernel {name} launched on the main path")
+    per_step = 7 * cfg.num_layers
+    check(launches["gather_delta_matmul"] == per_step * stats["decode_steps"],
+          f"gather_delta_matmul launched {launches['gather_delta_matmul']} "
+          f"times in {stats['decode_steps']} decode steps, expected exactly "
+          f"{per_step} a step")
+    prefill_engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    check(prefill_engines["mma"] == launches["paged_prefill_attention"]
+          and prefill_engines["simt"] == 0,
+          f"every bf16 prefill on the tensor-core engine ({prefill_engines})")
     toks = {r.uid: list(r.generated) for r in done}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del eng, done
@@ -618,7 +711,8 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
         prefill_s=stats["prefill_s"], decode_steps=stats["decode_steps"],
         decode_tokens=stats["decode_tokens"], decode_s=stats["decode_s"],
         decode_tokens_per_s=tok_s, mean_decode_step_ms=step_ms,
-        engine_steps=stats["steps"], launches=launches, kv=kv_stats,
+        engine_steps=stats["steps"], launches=launches,
+        prefill_engines=prefill_engines, kv=kv_stats,
         peak_memory_gib=peak_gb, gpu=gpu_line, profile=profile,
         launches_per_decode_step={
             k: launches[k] / stats["decode_steps"]
@@ -632,19 +726,47 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
           f", peak {peak_gb:.1f} GiB [{gpu_line}]")
     print(f"serve: launches {launches}; per decode step "
           f"{result['launches_per_decode_step']}, prefill-kernel launches "
-          f"per prefill call {result['prefill_launches_per_call']:.2f}")
+          f"per prefill call {result['prefill_launches_per_call']:.2f}, by "
+          f"engine {prefill_engines}")
     return result, params
 
 
+#: ranges the serve profile marks around the engine's prefill and decode
+SERVE_RANGES = {"prefill": "chip_smoke.prefill_group",
+                "decode": "chip_smoke.decode_step"}
+#: the port's serving kernels in each range, as the profile names their
+#: CUDA functions: launched through ctypes, they are not attributed to the
+#: range they ran in, so each range's device time adds them
+RANGE_KERNELS = {
+    "prefill": ("prefill_mma_kernel", "paged_prefill_attention_kernel"),
+    "decode": ("gather_u_kernel", "gather_out_kernel",
+               "gather_finish_kernel", "decode_split_kernel",
+               "decode_combine_kernel")}
+
+
+def marked(torch, fn, label):
+    """``fn`` inside a ``torch.profiler.record_function(label)`` range."""
+    def run(*a, **k):
+        with torch.profiler.record_function(label):
+            return fn(*a, **k)
+    return run
+
+
 def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
-    """One more run under torch.profiler: device time by kernel name, and
-    the device's busy share of the UNPROFILED run's prefill + decode time
-    (``stats``; the profiler itself slows the host)."""
+    """One more run under torch.profiler: device time by kernel name, the
+    device's busy share of the UNPROFILED run's prefill + decode time
+    (``stats``; the profiler itself slows the host), and the device time of
+    each decode step: the PyTorch kernels launched inside the engine's
+    decode call (a profiler range) plus the port's decode kernels."""
     from torch.profiler import ProfilerActivity, profile
     eng = serve.ServeEngine(params, cfg, device="cuda", **kw)
     for name, tree in adapters.items():
         eng.register_adapter(name, tree)
     eng._banked_tree()
+    eng._prefill_group = marked(torch, eng._prefill_group,
+                                SERVE_RANGES["prefill"])
+    eng._decode_live = marked(torch, eng._decode_live,
+                              SERVE_RANGES["decode"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -653,30 +775,72 @@ def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
                  for u, p, n, a in reqs], max_steps=4096)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    # kernel rows only: operator rows repeat their kernels' device time
+    events = prof.key_averages()
+    # kernel rows only: operator rows repeat their kernels' device time, and
+    # the marked ranges' device-side rows span their kernels
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in events
             if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and e.key not in SERVE_RANGES.values()]
     rows.sort(key=lambda r: -r[1])
     if not rows:
         print("profile: the trace holds no device time (not measured)")
         return None
     device_ms = sum(r[1] for r in rows)
     run_ms = 1e3 * (stats["prefill_s"] + stats["decode_s"])
+    ranges = {}
+    for what, label in SERVE_RANGES.items():
+        hits = [e for e in events if e.key == label
+                and str(e.device_type).endswith("CPU")]
+        if hits and hits[0].device_time_total > 0:
+            torch_ms = hits[0].device_time_total / 1e3
+            port_ms = sum(ms for k, ms, _ in rows
+                          if any(p in k for p in RANGE_KERNELS[what]))
+            ranges[what] = dict(device_ms=torch_ms + port_ms,
+                                torch_ms=torch_ms, port_kernels_ms=port_ms,
+                                calls=hits[0].count)
+    decode = ranges.get("decode")
     out = dict(profiled_wall_ms=wall_s * 1e3, device_ms=device_ms,
                unprofiled_run_ms=run_ms, device_busy_share=device_ms / run_ms,
-               top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:15]])
+               ranges=ranges,
+               decode_step_device_ms=decode["device_ms"] / decode["calls"]
+               if decode else None,
+               unprofiled_decode_step_ms=1e3 * stats["decode_s"]
+               / stats["decode_steps"],
+               top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:15]],
+               serving_kernels=[dict(name=k[:90], ms=ms, calls=n)
+                                for k, ms, n in rows
+                                if any(p in k for names in
+                                       RANGE_KERNELS.values()
+                                       for p in names)])
     print(f"profile: device busy {device_ms:.0f} ms; the unprofiled run's "
           f"prefill + decode took {run_ms:.0f} ms "
           f"({100 * out['device_busy_share']:.1f}% busy; profiled wall "
           f"{out['profiled_wall_ms']:.0f} ms)")
+    if decode:
+        pre = ranges.get("prefill", {})
+        print(f"profile: decode steps {decode['calls']}, "
+              f"{out['decode_step_device_ms']:.2f} ms of device time a step "
+              f"({decode['torch_ms']:.1f} ms of PyTorch kernels and "
+              f"{decode['port_kernels_ms']:.1f} ms of the port's in all) "
+              f"against {out['unprofiled_decode_step_ms']:.2f} ms a step "
+              f"unprofiled; prefill calls {pre.get('calls')}, "
+              f"{pre.get('device_ms', 0.0):.1f} ms of device time in all; "
+              f"{device_ms - decode['device_ms'] - pre.get('device_ms', 0.0):.1f}"
+              f" ms of device time in neither")
+    else:
+        print("profile: the decode range holds no device time (decode step "
+              "device time not measured)")
     for r in out["top"]:
         print(f"profile:   {r['ms']:9.2f} ms  {r['calls']:6d}x  {r['name']}")
+    for r in out["serving_kernels"]:
+        print(f"profile: serving kernel {r['ms']:9.2f} ms  {r['calls']:6d}x  "
+              f"{r['name']}")
     return out
 
 
-def card_vs_cpu_phase(torch, configs, model, serve):
+def card_vs_cpu_phase(torch, configs, model, serve, ops):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get_config("tiny")
@@ -697,18 +861,25 @@ def card_vs_cpu_phase(torch, configs, model, serve):
     for dev, p, ad in (("cpu", params, adapters),
                        ("cuda", to_cuda(params),
                         {k: to_cuda(v) for k, v in adapters.items()})):
+        ops.reset_launches()
         eng, done, _ = serve_once(torch, serve, p, ad, cfg, reqs, dev, **kw)
         outs[dev] = ({r.uid: list(r.generated) for r in done},
                      [(e.step, e.slot, e.uid, e.prefix_tokens)
                       for e in eng.admission_events])
+    engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    check(engines["simt"] == ops.LAUNCHES["paged_prefill_attention"] > 0
+          and engines["mma"] == 0,
+          f"tiny: every fp32 prefill on the card on the simt engine "
+          f"({engines})")
     check(outs["cuda"][0] == outs["cpu"][0],
           "tiny: card and CPU give the same greedy tokens")
     check(outs["cuda"][1] == outs["cpu"][1],
           "tiny: card and CPU give the same admissions")
     n_tok = sum(len(t) for t in outs["cpu"][0].values())
     print(f"card vs cpu: tiny fp32, {len(reqs)} requests, {n_tok} tokens "
-          f"and {len(outs['cpu'][1])} admissions identical")
-    return dict(requests=len(reqs), tokens=n_tok)
+          f"and {len(outs['cpu'][1])} admissions identical; card prefills "
+          f"by engine {engines}")
+    return dict(requests=len(reqs), tokens=n_tok, prefill_engines=engines)
 
 
 # ---------------------------------------------------------------------------
@@ -1453,10 +1624,14 @@ def main(argv=None) -> int:
             print(f"build: {name}: {e['entry']}: {e['registers']} registers"
                   f", {e['smem']} bytes static smem, spill stores "
                   f"{e['spill_stores']} / loads {e['spill_loads']}")
-    for e in ptxas.get("paged_decode_attention", []) + [
+    redesigned = ptxas.get("paged_decode_attention", []) + \
+        ptxas.get("gather_delta_matmul", []) + [
             e for e in ptxas.get("psoft_matmul", [])
             if "gemm_kernel" in e["entry"] and "hopper" in e["entry"]
-            or "rotate_kernel" in e["entry"]]:
+            or "rotate_kernel" in e["entry"]] + [
+            e for e in ptxas.get("paged_prefill_attention", [])
+            if "prefill_mma_kernel" in e["entry"]]
+    for e in redesigned:
         check(e["spill_stores"] == 0 and e["spill_loads"] == 0,
               f"build: {e['entry']} spills registers")
 
@@ -1498,6 +1673,19 @@ def main(argv=None) -> int:
     dec = kernels["paged_decode_attention"]
     print(f"kernels: paged_decode_attention {dec['ms']:.4f} ms against "
           f"SDPA's {dec['library_ms']:.4f} ms in the same run")
+    pre = kernels["paged_prefill_attention"]
+    print(f"kernels: paged_prefill_attention {pre['ms']:.4f} ms against "
+          f"SDPA's {pre['library_ms']:.4f} ms in the same run")
+    gd = kernels["gather_delta_matmul"]
+    print(f"kernels: gather_delta_matmul {gd['ms']:.4f} ms a layer against "
+          f"a {gd['bound_ms']:.4f} ms byte bound "
+          f"({100 * gd['bound_ms'] / gd['ms']:.1f}%) and "
+          f"{gd['library_ms']:.4f} ms for torch.matmul(x, W) alone")
+    print(f"kernels: gather_delta_matmul per linear (ms, bound ms, share of "
+          f"its bound): " + ", ".join(
+              f"{k} {v['ms']:.4f} ({v['bound_ms']:.4f}, "
+              f"{100 * v['bound_share']:.1f}%)"
+              for k, v in gd["per_linear"].items()))
     print(f"kernels: blockdiag_rotate (forward / transposed / plain / bmm "
           f"ms, bound ms): " + ", ".join(
               f"{k} {v['ms']:.4f}/{v['transposed_ms']:.4f}/"
@@ -1509,7 +1697,7 @@ def main(argv=None) -> int:
                                  gpu_line)
     phase_s["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cross = card_vs_cpu_phase(torch, configs, model, serve)
+    cross = card_vs_cpu_phase(torch, configs, model, serve, ops)
     phase_s["card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     trained = train_phase(torch, args, configs, trainer, data, tree, ops,

@@ -36,10 +36,10 @@ ENTRY_POINTS = {
         [_I] + [_P] * 7 + [_I] * 8 + [_P]),
     "paged_prefill_attention": (
         "paged_prefill_attention_launch",
-        [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
+        [_I, _I] + [_P] * 8 + [_I] * 9 + [_P]),
     "gather_delta_matmul": (
         "gather_delta_matmul_launch",
-        [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+        [_I] + [_P] * 8 + [_I] * 8 + [_P]),
     "psoft_matmul": (
         "psoft_matmul_launch",
         [_I, _I, _I] + [_P] * 11 + [_I] * 4 + [_P]),

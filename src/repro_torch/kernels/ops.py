@@ -13,13 +13,18 @@ blockdiag_rotate's dx is the kernel's transposed launch.
 :data:`LAUNCHES` counts kernel launches per wrapper (CPU calls are not
 launches), so a run can show that its main path went through the kernels;
 a wrapper counts one launch per call even where its C entry point starts
-two or three CUDA kernels.  :data:`PSOFT_ENGINE_LAUNCHES` splits
-psoft_matmul's launches by the engine they took (:func:`_psoft_engine`).
+two or three CUDA kernels.  :data:`PSOFT_ENGINE_LAUNCHES` and
+:data:`PREFILL_ENGINE_LAUNCHES` split psoft_matmul's and
+paged_prefill_attention's launches by the engine they took
+(:func:`_psoft_engine`, :func:`_prefill_engine`).  The grids of the decode,
+prefill and gather-delta kernels are planned here from shapes alone
+(:func:`decode_split_plan`, :func:`prefill_tile_plan`,
+:func:`gather_delta_plan`): no wrapper reads a device value on the host.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,16 +40,43 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
 
 #: psoft_matmul launches per engine since the last :func:`reset_launches`
 PSOFT_ENGINE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wmma": 0, "simt": 0}
+#: paged_prefill_attention launches per engine since the last
+#: :func:`reset_launches`
+PREFILL_ENGINE_LAUNCHES: Dict[str, int] = {"mma": 0, "simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PSOFT_ENGINE_CODE = {"simt": 0, "wmma": 1, "wgmma": 2}
+_PREFILL_ENGINE_CODE = {"simt": 0, "mma": 1}
 
-#: blocks the decode split aims for: about two per SM of an H100 (132 SMs)
+#: blocks the decode split and the gather-delta x-W blocks aim for: about
+#: two per SM of an H100 (132 SMs)
 DECODE_TARGET_BLOCKS = 2 * 132
+GATHER_DELTA_TARGET_BLOCKS = DECODE_TARGET_BLOCKS
+#: gather-delta tiles (csrc/gather_delta_matmul.cu): rows per row group,
+#: output columns of an x-W block, rank columns of a u block, output
+#: columns of a rank block
+GATHER_DELTA_ROWS = 8
+GATHER_DELTA_COLS = 64
+GATHER_DELTA_U_COLS = 64
+GATHER_DELTA_RANK_COLS = 256
+#: K lanes of an x-W block (256 threads over 8 column lanes): a K split
+#: holds at least this many rows
+GATHER_DELTA_K_LANES = 32
+#: a K split's rows are a multiple of this: whole 16-row tensor-core steps,
+#: each split starting on 16 bytes of x
+GATHER_DELTA_K_STEP = 16
+#: rows of K in a u block's slice and of r in a rank block's slice (tuned
+#: on an H100 at the llama32-3b linears)
+GATHER_DELTA_U_ROWS = 256
+GATHER_DELTA_R_ROWS = 32
+#: flattened (position, group) query rows of one prefill "mma" block
+PREFILL_TILE_ROWS = 64
+#: head dims the prefill "mma" engine is built for
+PREFILL_MMA_HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PSOFT_ENGINE_LAUNCHES):
+    for counts in (LAUNCHES, PSOFT_ENGINE_LAUNCHES, PREFILL_ENGINE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -160,6 +192,43 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def prefill_tile_plan(s: int, g: int) -> int:
+    """Blocks per (row, kv head) of the prefill "mma" engine: the S * G
+    flattened query rows ``rho = i * G + g`` of one kv head, in tiles of
+    :data:`PREFILL_TILE_ROWS` (see :func:`prefill_tile_rows`)."""
+    return _cdiv(s * g, PREFILL_TILE_ROWS)
+
+
+def prefill_tile_rows(s: int, g: int, tile: int) -> Tuple[int, int, int]:
+    """(first flattened row, rows, suffix keys visible) of one prefill tile,
+    as the kernel computes them: rows [rho0, rho0 + rows) with positions
+    ``rho // g``; the suffix keys ``j < kend`` (the tile's last position + 1)
+    are all any of its rows can see."""
+    rho0 = tile * PREFILL_TILE_ROWS
+    rows = min(PREFILL_TILE_ROWS, s * g - rho0)
+    return rho0, rows, (rho0 + rows - 1) // g + 1
+
+
+def _prefill_engine(dtype: torch.dtype, d: int) -> str:
+    """The engine of a paged_prefill_attention launch on the card:
+    ``"mma"`` (flash prefill on the tensor cores) in bf16, ``"simt"`` (the
+    first, CUDA-core design) in fp32.  Raises for a bf16 head dim the mma
+    engine is not built for (:data:`PREFILL_MMA_HEAD_DIMS`); neither engine
+    ever stands in for the other."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype == torch.bfloat16:
+        if d not in PREFILL_MMA_HEAD_DIMS:
+            raise ValueError(f"head_dim {d}: the bf16 prefill kernel takes "
+                             f"{PREFILL_MMA_HEAD_DIMS}")
+        return "mma"
+    raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
+
+
 def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, prefix_table: torch.Tensor,
@@ -168,7 +237,9 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
     q (B, S, H, D); k/v (B, S, KH, D) post-RoPE; pools (P, pg, KH, D);
     prefix_table (B, maxp); prefix_len (B,), any alignment.  An empty table
-    is padded to one trash column with prefix_len 0."""
+    is padded to one trash column with prefix_len 0.  On the card, bf16
+    runs on the "mma" engine (D in :data:`PREFILL_MMA_HEAD_DIMS`, every
+    tensor 16-byte aligned) and fp32 on "simt" (:func:`_prefill_engine`)."""
     b = q.shape[0]
     if prefix_table.shape[-1] == 0:
         prefix_table = torch.zeros((b, 1), dtype=torch.int32,
@@ -188,15 +259,87 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     maxp = prefix_table.shape[-1]
     pt = _index_arg(prefix_table, "prefix_table", (b, maxp))
     pl = _index_arg(prefix_len, "prefix_len", (b,))
-    out = torch.empty_like(q)
-    _launch("paged_prefill_attention", code,
-            _float_arg(q, "q", q.dtype, 4), _float_arg(k, "k", q.dtype, 4),
+    engine = _prefill_engine(q.dtype, d)
+    ptrs = [_float_arg(q, "q", q.dtype, 4), _float_arg(k, "k", q.dtype, 4),
             _float_arg(v, "v", q.dtype, 4),
             _float_arg(k_pool, "k_pool", q.dtype, 4),
-            _float_arg(v_pool, "v_pool", q.dtype, 4),
-            pt.data_ptr(), pl.data_ptr(), out.data_ptr(),
-            b, s, h, kh, d, p, pg, maxp, _stream(q.device))
+            _float_arg(v_pool, "v_pool", q.dtype, 4)]
+    if engine == "mma" and any(ptr % 16 for ptr in ptrs):
+        raise ValueError("q, k, v and the pools must be 16-byte aligned for "
+                         "the bf16 prefill kernel")
+    out = torch.empty_like(q)
+    _launch("paged_prefill_attention", code, _PREFILL_ENGINE_CODE[engine],
+            *ptrs, pt.data_ptr(), pl.data_ptr(), out.data_ptr(),
+            b, s, h, kh, d, p, pg, maxp, prefill_tile_plan(s, h // kh),
+            _stream(q.device))
+    PREFILL_ENGINE_LAUNCHES[engine] += 1
     return out
+
+
+class GatherDeltaPlan(NamedTuple):
+    """The grids of one gather-delta call (csrc/gather_delta_matmul.cu).
+
+    The u launch holds ``u_blocks`` blocks of the rank-r input
+    ``u = x left[ids]`` (K slices of ``u_rows`` rows by
+    :data:`GATHER_DELTA_U_COLS` rank columns); the output launch
+    ``base_blocks`` blocks of ``x W`` (K splits of ``k_rows`` rows by
+    :data:`GATHER_DELTA_COLS` output columns) and ``rank_blocks`` blocks of
+    the rank-r term (slices of ``r_rows`` rows of r by
+    :data:`GATHER_DELTA_RANK_COLS` output columns); the finish launch sums the
+    ``k_splits + r_splits`` fp32 partial planes.  Every count covers all
+    row groups of :data:`GATHER_DELTA_ROWS` rows."""
+    k_rows: int
+    k_splits: int
+    u_rows: int
+    u_splits: int
+    r_rows: int
+    r_splits: int
+    base_blocks: int
+    u_blocks: int
+    rank_blocks: int
+    kernels: int
+
+
+def gather_delta_plan(b: int, k: int, n: int, r: int) -> GatherDeltaPlan:
+    """The split of a gather-delta call x (b, k) . W (k, n) + rank r, from
+    shapes alone (the host never reads ids):
+
+    - K splits: as few as give :data:`GATHER_DELTA_TARGET_BLOCKS` x-W
+      blocks over the 64-column tiles and row groups, each split at least
+      :data:`GATHER_DELTA_K_LANES` rows, rounded down to a multiple of
+      :data:`GATHER_DELTA_K_STEP` (the last split takes the rest);
+    - u slices: :data:`GATHER_DELTA_U_ROWS` rows each (every rank block
+      sums one partial per slice);
+    - r slices: :data:`GATHER_DELTA_R_ROWS` rows each.
+
+    The last slice of each takes the rest.
+
+    Each split's rows are ``[s * rows, min(total, (s + 1) * rows))``; no
+    split is empty.  r = 0 has no u or rank blocks (two launches)."""
+    groups = _cdiv(b, GATHER_DELTA_ROWS)
+    tiles = _cdiv(n, GATHER_DELTA_COLS)
+    k_splits = min(_cdiv(GATHER_DELTA_TARGET_BLOCKS, tiles * groups),
+                   max(1, k // GATHER_DELTA_K_LANES))
+    step = GATHER_DELTA_K_STEP
+
+    def rows(splits):
+        return max(step, _cdiv(k, splits) // step * step)
+
+    k_rows = rows(k_splits)
+    k_splits = _cdiv(k, k_rows)
+    if r == 0:
+        return GatherDeltaPlan(k_rows, k_splits, k_rows, 0, 0, 0,
+                               k_splits * tiles * groups, 0, 0, 2)
+    u_tiles = _cdiv(r, GATHER_DELTA_U_COLS)
+    u_rows = min(GATHER_DELTA_U_ROWS, _cdiv(k, step) * step)
+    u_splits = _cdiv(k, u_rows)
+    rank_tiles = _cdiv(n, GATHER_DELTA_RANK_COLS)
+    r_rows = min(r, GATHER_DELTA_R_ROWS)
+    r_splits = _cdiv(r, r_rows)
+    return GatherDeltaPlan(
+        k_rows, k_splits, u_rows, u_splits, r_rows, r_splits,
+        k_splits * tiles * groups, u_splits * u_tiles * groups,
+        r_splits * rank_tiles * groups, 3)
 
 
 def gather_delta_matmul(x: torch.Tensor, w: torch.Tensor, left: torch.Tensor,
@@ -207,7 +350,9 @@ def gather_delta_matmul(x: torch.Tensor, w: torch.Tensor, left: torch.Tensor,
     y[b] = x[b] @ W + (x[b] @ left[ids[b]]) @ right[ids[b]]; x (B, K),
     W (K, N), left (A, K, r), right (A, r, N).  x, W and left are cast to
     ``compute_dtype``; right stays fp32.  Adapter ids outside [0, A) are
-    clamped.  Returns (B, N) in ``compute_dtype``."""
+    clamped.  Returns (B, N) in ``compute_dtype``.  On the card: three
+    launches planned by :func:`gather_delta_plan`, fp32 partials in scratch
+    this wrapper allocates."""
     x = x.to(compute_dtype)
     w = w.to(compute_dtype)
     left = left.to(compute_dtype)
@@ -223,15 +368,20 @@ def gather_delta_matmul(x: torch.Tensor, w: torch.Tensor, left: torch.Tensor,
                          f"{tuple(right.shape)}")
     n = w.shape[1]
     idx = _index_arg(ids, "ids", (bsz,))
-    u = torch.empty((bsz, r), dtype=torch.float32, device=x.device)
+    plan = gather_delta_plan(bsz, kdim, n, r)
+    f32 = torch.float32
+    u_part = torch.empty((plan.u_splits, bsz, r), dtype=f32, device=x.device)
+    part = torch.empty((plan.k_splits + plan.r_splits, bsz, n), dtype=f32,
+                       device=x.device)
     y = torch.empty((bsz, n), dtype=compute_dtype, device=x.device)
     _launch("gather_delta_matmul", code,
             _float_arg(x, "x", compute_dtype, 2),
             _float_arg(w, "w", compute_dtype, 2),
             _float_arg(left, "left", compute_dtype, 3),
-            _float_arg(right, "right", torch.float32, 3),
-            idx.data_ptr(), u.data_ptr(), y.data_ptr(),
-            bsz, kdim, n, r, a, _stream(x.device))
+            _float_arg(right, "right", f32, 3),
+            idx.data_ptr(), u_part.data_ptr(), part.data_ptr(), y.data_ptr(),
+            bsz, kdim, n, r, a, plan.k_rows, plan.u_rows, max(plan.r_rows, 1),
+            _stream(x.device))
     return y
 
 

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (fp32 tolerance 1e-4; bf16 2e-2, its absolute part scaled by the
-output's RMS), plus a tiny paged serving run that must launch every serving
-kernel, a tiny PSOFT train step that must launch both of its training
-kernels and tiny OFT-family train steps that must launch blockdiag_rotate.  Imports nothing of the reference package, so it runs
-where JAX is not installed:
+output's RMS), both engines of the prefill kernel, the serving wrappers
+under ``torch.cuda.set_sync_debug_mode("error")``, plus a tiny paged
+serving run that must launch every serving kernel, a tiny PSOFT train step
+that must launch both of its training kernels and tiny OFT-family train
+steps that must launch blockdiag_rotate.  Imports nothing of the reference
+package, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
@@ -149,6 +151,131 @@ def test_gather_delta_kernel_matches_plain(cuda_device, dtype, tol, b, k, n,
     assert got.dtype == dtype
     _close(got, ref.gather_delta_matmul(ids, x, w, left, right), tol)
     torch.cuda.synchronize()
+
+
+#: (K, N, r): K that no split divides, N not a multiple of the 64-column
+#: tile (200; 100 is not a multiple of 8 either, so W and right are read
+#: element by element), r of PiSSA/DoRA (8), LoRA-XS (136) and PSOFT (352)
+GATHER_DELTA_SHAPES = [(1000, 200, 8), (3072, 1024, 136), (520, 100, 352)]
+
+
+def _gather_ids(pattern, b):
+    """(ids, bank columns): every row on one adapter, each row on its own,
+    or ids outside [0, A) that the kernel clamps."""
+    if pattern == "one":
+        return np.full(b, 2, np.int32), 3
+    if pattern == "own":
+        return np.arange(b, dtype=np.int32), b
+    return np.asarray([(-3, 5, 1, 9)[i % 4] for i in range(b)], np.int32), 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b", [1, 3, 8, 11, 16])
+@pytest.mark.parametrize("pattern", ["one", "own", "clamped"])
+def test_gather_delta_split_kernel_matches_plain(cuda_device, dtype, tol, b,
+                                                 pattern):
+    k, n, r = GATHER_DELTA_SHAPES[b % len(GATHER_DELTA_SHAPES)]
+    rng = np.random.default_rng(b * 7 + len(pattern))
+    ids, na = _gather_ids(pattern, b)
+    put = _on(cuda_device, dtype)
+    x = put(_normal(rng, (b, k), 0.5))
+    w = put(_normal(rng, (k, n), k ** -0.5))
+    left = put(_normal(rng, (na, k, r), k ** -0.5))
+    right = torch.from_numpy(_normal(rng, (na, r, n), 0.05)).to(cuda_device)
+    idt = put(ids)
+    before = ops.LAUNCHES["gather_delta_matmul"]
+    got = ops.gather_delta_matmul(x, w, left, right, idt, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gather_delta_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, n)
+    _close(got, ref.gather_delta_matmul(idt.clamp(0, na - 1), x, w, left,
+                                        right), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("s", [1, 17, 64, 130])
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_prefill_engines_match_plain(cuda_device, dtype, tol, s, g, hd):
+    """Three rows over pages of 16: no prefix, a prefix ending mid-page and
+    the full table, the last row aliasing the second's pages; then the same
+    suffix over an empty table.  bf16 runs on the tensor-core engine, fp32
+    on the CUDA cores."""
+    b, kh, pg, maxp = 3, 2, 16, 3
+    h, pages = g * kh, 1 + b * maxp
+    rng = np.random.default_rng(s * 16 + g * 4 + hd)
+    put = _on(cuda_device, dtype)
+    table = (rng.permutation(pages - 1)[:b * maxp] + 1).reshape(b, maxp)
+    table[2] = table[1]
+    args = [put(_normal(rng, (b, s, h, hd))),
+            put(_normal(rng, (b, s, kh, hd), 0.5)),
+            put(_normal(rng, (b, s, kh, hd), 0.5)),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(table.astype(np.int32)),
+            put(np.asarray([0, 21, maxp * pg], np.int32))]
+    engine = "mma" if dtype == torch.bfloat16 else "simt"
+    assert ops._prefill_engine(dtype, hd) == engine
+    ops.reset_launches()
+    got = ops.paged_prefill_attention(*args)
+    _close(got, ref.paged_prefill_attention(*args), tol)
+    q, k, v, kp, vp, tab, pl = args
+    got = ops.paged_prefill_attention(q, k, v, kp, vp, tab[:, :0], pl)
+    _close(got, ref.paged_prefill_attention(
+        q, k, v, kp, vp, tab[:, :1], torch.zeros_like(pl)), tol)
+    torch.cuda.synchronize()
+    assert ops.PREFILL_ENGINE_LAUNCHES[engine] == 2 == \
+        ops.LAUNCHES["paged_prefill_attention"], ops.PREFILL_ENGINE_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_prefill_refuses_a_bf16_head_dim_it_is_not_built_for(cuda_device):
+    q = torch.zeros((1, 4, 2, 96), dtype=torch.bfloat16, device=cuda_device)
+    pool = torch.zeros((2, 16, 2, 96), dtype=torch.bfloat16,
+                       device=cuda_device)
+    table = torch.ones((1, 1), dtype=torch.int32, device=cuda_device)
+    plen = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ops.paged_prefill_attention(q, q.clone(), q.clone(), pool, pool,
+                                    table, plen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_wrappers_never_sync_with_the_host(cuda_device, dtype):
+    """Neither wrapper reads a device value on the host: under
+    ``set_sync_debug_mode("error")`` a synchronising call would raise."""
+    rng = np.random.default_rng(5)
+    put = _on(cuda_device, dtype)
+    x, w = put(_normal(rng, (8, 256))), put(_normal(rng, (256, 192), 0.06))
+    left = put(_normal(rng, (3, 256, 16), 0.06))
+    right = torch.from_numpy(_normal(rng, (3, 16, 192), 0.05)).to(cuda_device)
+    ids = put(np.asarray([0, 1, 2, 1, 0, 2, 2, 7], np.int32))
+    pre = [put(_normal(rng, (2, 24, 6, 64))),
+           put(_normal(rng, (2, 24, 2, 64), 0.5)),
+           put(_normal(rng, (2, 24, 2, 64), 0.5)),
+           put(_normal(rng, (5, 16, 2, 64), 0.5)),
+           put(_normal(rng, (5, 16, 2, 64), 0.5)),
+           put(np.asarray([[1, 2], [3, 4]], np.int32)),
+           put(np.asarray([20, 32], np.int32))]
+    # build and load both libraries first (the build is host work)
+    ops.gather_delta_matmul(x, w, left, right, ids, compute_dtype=dtype)
+    ops.paged_prefill_attention(*pre)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = ops.gather_delta_matmul(x, w, left, right, ids,
+                                    compute_dtype=dtype)
+        out = ops.paged_prefill_attention(*pre)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    tol = dict(DTYPES)[dtype]
+    _close(y, ref.gather_delta_matmul(ids.clamp(0, 2), x, w, left, right),
+           tol)
+    _close(out, ref.paged_prefill_attention(*pre), tol)
 
 
 @pytest.mark.cuda
