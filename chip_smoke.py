@@ -12,8 +12,8 @@ Phases, each of which raises (non-zero exit) on a failed check:
    checkout's sources (nvcc, in parallel), printing the build time and
    each kernel's registers, shared memory and spills (``-Xptxas -v``); the
    redesigned kernels (split decode, the Hopper GEMM engine and its fp32
-   rotation, the three gather-delta launches, the tensor-core prefill) must
-   not spill;
+   rotation, the three gather-delta launches, both prefill engines, both
+   cayley_neumann engines, both blockdiag_rotate engines) must not spill;
 2. kernels: at llama32-3b shapes, bf16 and fp32, each kernel against its
    plain PyTorch version on the card, with edge cases, and each limit shown
    to reject a known fault (a dropped last page, a dropped middle page in
@@ -21,15 +21,20 @@ Phases, each of which raises (non-zero exit) on a failed check:
    causal diagonal masked, the prefix chunk holding the last prefix token
    dropped, a row on the wrong adapter, the last K split of W dropped, the
    rank-r term on only the first row of each adapter, a dropped rank-r
-   term or its partial last depth step, a Horner step short, a block
-   rotation replaced by I or transposed); every bf16 psoft_matmul check on
-   the wgmma engine and every bf16 prefill on the tensor-core ("mma")
-   engine, fp32 on the CUDA cores; the training wrappers' grads against
+   term or its partial last depth step, a Horner step short, a packed
+   Cayley matrix on its neighbour's Q, the low tf32 terms dropped, a block
+   rotation replaced by I or transposed, R_g's last depth chunk dropped);
+   every bf16 psoft_matmul check on the wgmma engine, every bf16 prefill
+   on the tensor-core ("mma") engine, fp32 on the CUDA cores;
+   cayley_neumann at every path's stack shape (PSOFT r 352 on "tc", OFT
+   and BOFT on "smem"), blockdiag_rotate at b 2/8/16/32/256 (bf16 at b a
+   multiple of 16 on "mma"); the training wrappers' grads against
    autograd of the plain
    versions; one JSON line per kernel with its time, the plain version's,
    a library yardstick's and the least time the card could take (bytes
    over 3.35 TB/s or flops over the peak for the dtype, whichever is
-   larger); psoft_matmul's three launches timed apart (torch.profiler) with
+   larger; fp32-accurate products at the lower of the fp32 and 3xTF32
+   rates); psoft_matmul's three launches timed apart (torch.profiler) with
    the output product's share of the bf16 peak; gather_delta_matmul's time
    per linear beside its own byte bound;
 3. serve: llama32-3b at full width (28 layers unless ``--layers`` cuts
@@ -49,7 +54,7 @@ Phases, each of which raises (non-zero exit) on a failed check:
    losses and grad norms, frozen leaves bit-identical, every trainable leaf
    moved, and exact launches on every step (psoft_matmul 3x per PSOFT
    linear: forward, remat recompute, backward, every one on the wgmma
-   engine; cayley_neumann once per linear stack);
+   engine; cayley_neumann once per linear stack, every one on "tc");
 6. train card vs CPU: ``tiny`` (fp32), 5 steps from one state on the card
    and on the CPU agree within 1e-4 relative, and the tuned tree's logits
    equal its merged tree's on the card;
@@ -57,11 +62,13 @@ Phases, each of which raises (non-zero exit) on a failed check:
    32 on all seven linears, random weights (no SVD) with ``q`` nudged off
    zero, the same traffic and checks as 5; blockdiag_rotate launches
    exactly 3x per linear but for layer 0's q, k and v (no dx: their input
-   depends on no trainable), cayley_neumann once per linear stack;
+   depends on no trainable), every one on "mma"; cayley_neumann once
+   per linear stack, on "smem";
 8. baselines: BOFT (b 8, m 2), GOFT, qGOFT, PiSSA (r 8), DoRA (r 8) and
    LoRA-XS (r 136) at full width and 2 layers, one warm-up and 2 timed
    steps each, the same checks (exact blockdiag_rotate and cayley_neumann
-   counts for the OFT family), each run freed before the next;
+   counts for the OFT family; BOFT, GOFT and qGOFT rotate on "simt", BOFT's
+   Cayley blocks on "smem"), each run freed before the next;
 9. baselines card vs CPU: ``tiny`` (fp32), 3 steps of OFT and of GOFT on
    the card and on the CPU agree within 1e-4 relative, and merge.
 
@@ -84,7 +91,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
-              "float32": 67e12}       # fp32 outside the tensor cores
+              "float32": 67e12,       # fp32 outside the tensor cores
+              "tf32": 494.7e12}       # dense tensor-core tf32
 #: |got - want| <= atol + TOL * |want|, elementwise; atol is TOL for fp32
 #: and TOL * rms(want) for bf16, so the bf16 limit stays well below a
 #: typical output whatever the inputs' scale (bf16 output rounding alone
@@ -112,6 +120,9 @@ BASELINES = {"oft": dict(oft_block_size=32),
              "goft": {}, "qgoft": {}, "pissa": dict(rank=8),
              "dora": dict(rank=8), "lora_xs": dict(rank=136)}
 METHOD_LAYERS, METHOD_STEPS = 2, 2
+#: the baselines whose rotations go through blockdiag_rotate's "simt"
+#: engine (block sizes 8 and 2)
+BASELINE_ENGINES = ("boft", "goft", "qgoft")
 #: llama32-3b training shapes: 8 sequences of 256 tokens, PSOFT r = 352
 TRAIN_TOKENS, TRAIN_BATCH, TRAIN_SEQ, RANK = 2048, 8, 256, 352
 
@@ -203,6 +214,21 @@ def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fp32_products_bound(nbytes: float, flops: float):
+    """(ms, bytes or operations, route) for fp32-accurate products: the
+    operations take the lower of exact fp32 on the CUDA cores and 3xTF32
+    (three tf32 products each) on the tensor cores, so no share of it can
+    read above 100% whichever route a kernel takes."""
+    t_fp32 = flops / PEAK_FLOPS["float32"] * 1e3
+    t_tc = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    t_ops, route = (t_tc, "3xTF32 tensor cores") if t_tc < t_fp32 else \
+        (t_fp32, "fp32 CUDA cores")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", route
+    return t_ops, "operations", route
 
 
 # ---------------------------------------------------------------------------
@@ -1027,13 +1053,142 @@ def cayley_grad_phase(torch, ops, ref, gen, n_mat, r, terms):
     return e
 
 
+#: (matrices, r) of one linear stack's cayley_neumann call on each path:
+#: PSOFT r = 352; OFT blocks of 32 (q/k/v/o/gate/up: 28 x 96, down: 28 x
+#: 256); BOFT blocks of 8 (m = 2: 28 x 2 x 384, and 28 x 2 x 1024); and the
+#: largest "smem" r
+CAYLEY_SHAPES = {"psoft": (28, 352), "oft": (2688, 32), "oft_down": (7168, 32),
+                 "boft": (21504, 8), "boft_down": (57344, 8),
+                 "smem_max": (2, 128)}
+CAYLEY_TERMS = 5
+
+
+def cayley_checks(torch, ops, ref, gen):
+    """ops._cayley at every stack shape against the plain series (R and
+    S_1..S_K at the fp32 limit; Q at a scale where the 5th power is far
+    above it), each launch on the engine ops._cayley_engine names.  The
+    limit must reject: one Horner step short (every engine); on "smem",
+    each matrix of a packed block computed from its neighbour's Q; on
+    "tc", the low tf32 terms dropped (plain TF32 products), where the limit
+    can see it.  The autograd wrapper's reverse-Horner grad at the PSOFT
+    and OFT stacks."""
+    terms = CAYLEY_TERMS
+    out = {"max_err_float32": 0.0, "engines": {}}
+    for name, (n_mat, r) in CAYLEY_SHAPES.items():
+        # entries ~0.03 * sqrt(352 / r): Q's norm about the same at every
+        # r, so that the 5th power is far above the limit at r = 8 too
+        q = cayley_inputs(torch, gen, n_mat, r, 0.03 * (352 / r) ** 0.5)
+        engine = ops._cayley_engine(r)
+        ops.reset_launches()
+        rot, series = ops._cayley(q, terms)
+        want, want_series = ref.cayley_neumann_series(q, terms)
+        torch.cuda.synchronize()
+        check(ops.CAYLEY_ENGINE_LAUNCHES[engine] == 1 ==
+              ops.LAUNCHES["cayley_neumann"],
+              f"cayley_neumann {name}: ran on {ops.CAYLEY_ENGINE_LAUNCHES}, "
+              f"expected {engine}")
+        out["engines"][name] = engine
+        what = f"cayley_neumann {name} ({n_mat}, {r}) on {engine}"
+        out["max_err_float32"] = max(out["max_err_float32"], max_err(
+            torch, rot, want, "float32", f"{what} R"), max_err(
+            torch, series, want_series, "float32", f"{what} series"))
+        rows = range(0, n_mat * r, max(1, n_mat * r // 97))
+        short = ref.cayley_neumann(q, terms - 1)
+        must_reject(torch, short.reshape(-1, r), want.reshape(-1, r),
+                    "float32", rows, f"{what}, one Horner step short")
+        if name == "psoft":
+            out["fault_max_abs"] = float((want - short).abs().max())
+        if engine == "smem":
+            # matrix m computed from matrix m ^ 1's Q (the neighbour in its
+            # packed block): every matrix of the stack must show it
+            swap = torch.arange(n_mat, device="cuda") ^ 1
+            swap[swap >= n_mat] = n_mat - 1
+            nb = ref.cayley_neumann(q[swap], terms)
+            mats = [m for m in range(0, n_mat, max(1, n_mat // 97))
+                    if m ^ 1 < n_mat]
+            must_reject(torch, nb.reshape(n_mat, -1), want.reshape(n_mat, -1),
+                        "float32", mats, f"{what}, each matrix on its "
+                                         f"neighbour's Q")
+        else:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = ref.cayley_neumann(q, terms)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            _, bad = over_limit(torch, tf32, want, "float32")
+            seen = bool(bad.any())
+            out["tf32_fault_seen"] = seen
+            out["tf32_fault_max_abs"] = float((tf32 - want).abs().max())
+            if seen:
+                print(f"kernels: {what}: the fp32 limit rejects the low tf32 "
+                      f"terms dropped (plain TF32 products, max abs err "
+                      f"{out['tf32_fault_max_abs']:.2e}) in "
+                      f"{int(bad.sum())} elements")
+            else:
+                print(f"kernels: {what}: the fp32 limit cannot see the low "
+                      f"tf32 terms dropped at this Q scale (plain TF32 "
+                      f"max abs err {out['tf32_fault_max_abs']:.2e}); the "
+                      f"other faults stand")
+        del q, rot, series, want, want_series, short
+    out["grad_max_err"] = max(
+        cayley_grad_phase(torch, ops, ref, gen, *CAYLEY_SHAPES[k], terms)
+        for k in ("psoft", "oft"))
+    return out
+
+
+def cayley_timing(torch, ops, ref, gen):
+    """ms, plain ms and bounds at every stack shape; the headline is
+    PSOFT's (28, 352).  The bound: Q in and R, S_1..S_K out once, against
+    K products of 2 r^3 flops per matrix at the lower of the fp32 and
+    3xTF32 rates (:func:`fp32_products_bound`).  Yardsticks: a device copy
+    moving the same bytes (``copy_ms``), and at r = 352 the plain series
+    with cuBLAS in TF32 (``plain_tf32_ms``)."""
+    terms = CAYLEY_TERMS
+    per_shape = {}
+    for name, (n_mat, r) in CAYLEY_SHAPES.items():
+        q = cayley_inputs(torch, gen, n_mat, r, 0.01)
+        nbytes = (2 + terms) * n_mat * r * r * 4
+        flops = terms * 2 * r ** 3 * n_mat
+        src = torch.empty(nbytes // 8, device="cuda")
+        dst = torch.empty_like(src)
+        one = dict(
+            ms=time_ms(torch, lambda: ops._cayley(q, terms)),
+            plain_ms=time_ms(torch,
+                             lambda: ref.cayley_neumann_series(q, terms)),
+            copy_ms=time_ms(torch, lambda: dst.copy_(src)),
+            bytes=nbytes, flops=flops, engine=ops._cayley_engine(r),
+            bound_fp32_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+            bound_tf32x3_ms=3 * flops / PEAK_FLOPS["tf32"] * 1e3,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        one["bound_ms"], one["bound_by"], one["bound_route"] = \
+            fp32_products_bound(nbytes, flops)
+        if one["engine"] == "tc":
+            # the same products through cuBLAS in plain TF32 (one tf32
+            # product each, below the fp32 limit's accuracy): a yardstick
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                one["plain_tf32_ms"] = time_ms(
+                    torch, lambda: ref.cayley_neumann_series(q, terms))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        per_shape[f"{name} L={n_mat} r={r}"] = one
+        del q, src, dst
+    head = per_shape["psoft L=28 r=352"]
+    return dict(head, library_ms=None, per_shape=per_shape,
+                library="none: no single PyTorch call computes the "
+                        "truncated series",
+                shape=f"one PSOFT linear stack: L=28, r=352, K={terms}, "
+                      f"fp32 (\"tc\" engine)")
+
+
 def train_kernel_phase(torch, ops, ref):
     """psoft_matmul forward and transposed (backward) launch at one
     llama32-3b layer's seven linears (M = 2048 tokens, r = 352), bf16 and
-    fp32, and its autograd wrapper's grads in bf16; cayley_neumann at one
-    linear stack (28, 352, 352), K = 5, and its wrapper's grad.  Each
-    against its plain version, each limit shown to reject a known fault;
-    timed in the training dtypes (bf16 linears, fp32 rotation)."""
+    fp32, and its autograd wrapper's grads in bf16; cayley_neumann at
+    every path's linear stack (:data:`CAYLEY_SHAPES`), K = 5, on both
+    engines, and its wrapper's grad (:func:`cayley_checks`).  Each against
+    its plain version, each limit shown to reject a known fault; timed in
+    the training dtypes (bf16 linears, fp32 rotation)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     m, r = TRAIN_TOKENS, RANK
@@ -1078,23 +1233,7 @@ def train_kernel_phase(torch, ops, ref):
     errs["grad_max_err"] = psoft_grad_phase(torch, ops, ref, gen)
     results = {"psoft_matmul": errs}
 
-    # cayley: Q at a scale where the 5th power is far above the limit
-    n_mat, terms = 28, 5
-    q = cayley_inputs(torch, gen, n_mat, r, 0.03)
-    rot, series = ops._cayley(q, terms)
-    want, want_series = ref.cayley_neumann_series(q, terms)
-    torch.cuda.synchronize()
-    e = max_err(torch, rot, want, "float32", "cayley_neumann R")
-    max_err(torch, series, want_series, "float32", "cayley_neumann series")
-    short = ref.cayley_neumann(q, terms - 1)
-    must_reject(torch, short.reshape(-1, r), want.reshape(-1, r), "float32",
-                range(0, n_mat * r, 13),
-                "cayley_neumann, one Horner step short")
-    fifth = float((want - short).abs().max())
-    results["cayley_neumann"] = {
-        "max_err_float32": e, "fault_max_abs": fifth,
-        "grad_max_err": cayley_grad_phase(torch, ops, ref, gen, n_mat, r,
-                                          terms)}
+    results["cayley_neumann"] = cayley_checks(torch, ops, ref, gen)
 
     # timing: bf16 linears at the main path's shapes
     dt, elt = torch.bfloat16, 2
@@ -1140,18 +1279,7 @@ def train_kernel_phase(torch, ops, ref):
         shape=f"one llama32-3b layer's seven linears (q k v o gate up "
               f"down), M={m} tokens, r={r}, bf16; ms is the forward launch, "
               f"backward_ms the transposed (dx) launch")
-    q = cayley_inputs(torch, gen, n_mat, r, 0.01)
-    nbytes = (2 + terms) * n_mat * r * r * 4   # Q in; R and S_1..S_K out
-    flops = terms * 2 * r ** 3 * n_mat         # K products per matrix
-    results["cayley_neumann"].update(
-        ms=time_ms(torch, lambda: ops._cayley(q, terms)),
-        plain_ms=time_ms(torch, lambda: ref.cayley_neumann_series(q, terms)),
-        library_ms=None, library="none: no single PyTorch call computes "
-                                 "the truncated series",
-        bytes=nbytes, flops=flops,
-        shape=f"one linear stack: L={n_mat}, r={r}, K={terms}, fp32")
-    res = results["cayley_neumann"]
-    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, "float32")
+    results["cayley_neumann"].update(cayley_timing(torch, ops, ref, gen))
     tot = results["psoft_matmul"]
     tot["bound_ms"] = sum(v["bound_ms"] for v in per_linear.values())
     tot["bound_by"] = "operations" if all(
@@ -1182,16 +1310,25 @@ def row_blocks(t, b):
     return t[:, -b:].reshape(-1, 64 * b)
 
 
+#: (d, b) of blockdiag_rotate's checks and timings: the llama32-3b
+#: linears' inputs (3072, 8192) at OFT's 32, BOFT's 8 and GOFT's 2; then
+#: b = 16, and b = 256 (depth in chunks of 64, 128-column slices)
+BLOCKDIAG_CASES = ((3072, 32), (3072, 8), (3072, 2), (8192, 32), (8192, 8),
+                   (8192, 2), (3072, 16), (3072, 256))
+
+
 def blockdiag_kernel_phase(torch, ops, ref):
-    """blockdiag_rotate against its plain version at M = 2048 tokens, d in
-    {3072, 8192} (the llama32-3b linears' inputs), b in {32, 8, 2} (OFT,
-    BOFT, GOFT), bf16 and fp32, forward and transposed.  Each limit must
-    reject two planted faults: the last group's rotation replaced by I (in
-    every 64-row block) and every R_g transposed (in every sampled row).
-    The autograd wrapper's grads of x and rots at (2048, 3072, b = 32)
+    """blockdiag_rotate against its plain version at M = 2048 tokens and
+    every (d, b) of :data:`BLOCKDIAG_CASES`, bf16 and fp32, forward and
+    transposed, each launch on the engine ops._blockdiag_engine names
+    ("mma" for bf16 at b a multiple of 16, "simt" else).  Each limit must
+    reject the last group's rotation replaced by I (in every 64-row block)
+    and every R_g transposed (in every sampled row); above b = 128 also
+    R_g's last depth chunk dropped (in every sampled row).  The autograd
+    wrapper's grads of x and rots at (2048, 3072) and b = 32 and 256
     against autograd of the plain version in fp32 on the same values, each
     limit rejecting a wrong-orientation dx and a transposed dR.  Timed in
-    bf16 at every (d, b) of the path; the headline is OFT's (3072, 32)."""
+    bf16 at every case; the headline is OFT's (3072, 32)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     m = TRAIN_TOKENS
@@ -1199,66 +1336,89 @@ def blockdiag_kernel_phase(torch, ops, ref):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         e = 0.0
-        for d in (3072, 8192):
-            for b in (32, 8, 2):
-                x, rots = blockdiag_inputs(torch, dtype, gen, m, d, b)
-                ident = rots.clone()
-                ident[-1] = torch.eye(b, device="cuda").to(dtype)
-                for transpose in (False, True):
-                    what = f"blockdiag_rotate d={d} b={b} {dname}" + \
-                        (" transposed" if transpose else "")
-                    got = ops._rotate(x, rots, transpose)
-                    torch.cuda.synchronize()
-                    want = ref.blockdiag_rotate(x, rots, transpose)
-                    e = max(e, max_err(torch, got, want, dname, what))
-                    must_reject(torch, row_blocks(ref.blockdiag_rotate(
-                        x, ident, transpose), b), row_blocks(want, b),
-                        dname, range(m // 64),
-                        f"{what}, the last rotation replaced by I")
+        for d, b in BLOCKDIAG_CASES:
+            x, rots = blockdiag_inputs(torch, dtype, gen, m, d, b)
+            ident = rots.clone()
+            ident[-1] = torch.eye(b, device="cuda").to(dtype)
+            engine = "mma" if dtype == torch.bfloat16 and b % 16 == 0 \
+                else "simt"
+            for transpose in (False, True):
+                what = f"blockdiag_rotate d={d} b={b} {dname}" + \
+                    (" transposed" if transpose else "")
+                ops.reset_launches()
+                got = ops._rotate(x, rots, transpose)
+                torch.cuda.synchronize()
+                check(ops.BLOCKDIAG_ENGINE_LAUNCHES[engine] == 1 ==
+                      ops.LAUNCHES["blockdiag_rotate"],
+                      f"{what}: ran on {ops.BLOCKDIAG_ENGINE_LAUNCHES}, "
+                      f"expected {engine}")
+                want = ref.blockdiag_rotate(x, rots, transpose)
+                e = max(e, max_err(torch, got, want, dname, what))
+                must_reject(torch, row_blocks(ref.blockdiag_rotate(
+                    x, ident, transpose), b), row_blocks(want, b),
+                    dname, range(m // 64),
+                    f"{what}, the last rotation replaced by I")
+                must_reject(torch, ref.blockdiag_rotate(
+                    x, rots, not transpose), want, dname,
+                    range(0, m, 97), f"{what}, every R_g transposed")
+                if b > ops.BLOCKDIAG_COLS:
+                    # the depth index is R_g's row (forward) or column
+                    cut = rots.clone()
+                    if transpose:
+                        cut[:, :, -ops.BLOCKDIAG_DEPTH:] = 0
+                    else:
+                        cut[:, -ops.BLOCKDIAG_DEPTH:, :] = 0
                     must_reject(torch, ref.blockdiag_rotate(
-                        x, rots, not transpose), want, dname,
-                        range(0, m, 97), f"{what}, every R_g transposed")
-                del x, rots, ident, got, want
+                        x, cut, transpose), want, dname, range(0, m, 97),
+                        f"{what}, R_g's last depth chunk of "
+                        f"{ops.BLOCKDIAG_DEPTH} dropped")
+            del x, rots, ident, got, want
         res[f"max_err_{dname}"] = e
     res["grad_max_err"] = blockdiag_grad_phase(torch, ops, ref, gen)
 
     per_shape = {}
     elt = 2
-    for d in (3072, 8192):
-        for b in (32, 8, 2):
-            x, rots = blockdiag_inputs(torch, torch.bfloat16, gen, m, d, b)
-            xv = x.view(m, d // b, b).transpose(0, 1)
-            nbytes = 2 * m * d * elt + d * b * elt    # x, y; rots once
-            flops = 2 * m * d * b
-            one = dict(
-                ms=time_ms(torch, lambda: ops._rotate(x, rots, False)),
-                transposed_ms=time_ms(torch,
-                                      lambda: ops._rotate(x, rots, True)),
-                plain_ms=time_ms(torch,
-                                 lambda: ref.blockdiag_rotate(x, rots)),
-                library_ms=time_ms(torch, lambda: torch.bmm(xv, rots)),
-                bytes=nbytes, flops=flops)
-            one["bound_ms"], one["bound_by"] = bound(nbytes, flops,
-                                                     "bfloat16")
-            per_shape[f"d={d} b={b}"] = one
-            del x, rots, xv
+    for d, b in BLOCKDIAG_CASES:
+        x, rots = blockdiag_inputs(torch, torch.bfloat16, gen, m, d, b)
+        xv = x.view(m, d // b, b).transpose(0, 1)
+        y = torch.empty_like(x)   # a device copy of x: the bytes yardstick
+        nbytes = 2 * m * d * elt + d * b * elt    # x, y; rots once
+        flops = 2 * m * d * b
+        one = dict(
+            ms=time_ms(torch, lambda: ops._rotate(x, rots, False)),
+            transposed_ms=time_ms(torch,
+                                  lambda: ops._rotate(x, rots, True)),
+            plain_ms=time_ms(torch,
+                             lambda: ref.blockdiag_rotate(x, rots)),
+            library_ms=time_ms(torch, lambda: torch.bmm(xv, rots)),
+            copy_ms=time_ms(torch, lambda: y.copy_(x)),
+            bytes=nbytes, flops=flops,
+            engine=ops._blockdiag_engine(x.dtype, rots.dtype, b, True))
+        one["bound_ms"], one["bound_by"] = bound(nbytes, flops,
+                                                 "bfloat16")
+        per_shape[f"d={d} b={b}"] = one
+        del x, rots, xv, y
     res.update(per_shape["d=3072 b=32"], per_shape=per_shape,
                library="torch.bmm over the (d/b, M, b) view of x",
                shape=f"M={m} tokens, d=3072, b=32 (OFT on q k v o gate up), "
-                     f"bf16 x and rotations; ms is the forward launch, "
-                     f"transposed_ms the backward's dx launch")
+                     f"bf16 x and rotations (\"mma\" engine); ms is the "
+                     f"forward launch, transposed_ms the backward's dx "
+                     f"launch")
     return {"blockdiag_rotate": res}
 
 
 def blockdiag_grad_phase(torch, ops, ref, gen):
     """``ops.blockdiag_rotate``'s grads of x and rots (the main path's
     backward: dx by the transposed launch, dR by a batched fp32 product),
-    bf16 and fp32, against autograd of the plain version in fp32; the
-    grads of rots are sums over 2048 products, held to the scaled limit."""
-    m, d, b = TRAIN_TOKENS, 3072, 32
+    bf16 and fp32, at b = 32 and 256, against autograd of the plain
+    version in fp32; the grads of rots are sums over 2048 products, held
+    to the scaled limit."""
+    m, d = TRAIN_TOKENS, 3072
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, b in ((dt, b) for dt in (torch.float32, torch.bfloat16)
+                     for b in (32, 256)):
         dname = str(dtype).replace("torch.", "")
+        label = dname if b == 32 else f"{dname} b={b}"
         x, rots = blockdiag_inputs(torch, dtype, gen, m, d, b)
         dy = (torch.randn((m, d), generator=gen, device="cuda")
               * 0.5).to(dtype)
@@ -1276,9 +1436,9 @@ def blockdiag_grad_phase(torch, ops, ref, gen):
                       dyg.transpose(1, 2) @ xg)                 # dR^T
         for key, g, wnt, fault, leaf in zip(
                 ("dx", "d_rots"), got, want, faults, (x, rots)):
-            what = f"blockdiag_rotate grad {key} {dname}"
+            what = f"blockdiag_rotate grad {key} {label}"
             check(g.dtype == leaf.dtype, f"{what}: dtype {g.dtype}")
-            errs[f"{key}_{dname}"] = max_err(torch, g, wnt, dname, what,
+            errs[f"{key}_{label}"] = max_err(torch, g, wnt, dname, what,
                                              scaled=True)
             rows = range(0, wnt.shape[0], 97) if key == "dx" else \
                 range(0, wnt.shape[0], 5)
@@ -1378,6 +1538,8 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
         peak_memory_gib=peak_gib, losses=losses, grad_norms=gnorms,
         launches=launches, launches_per_step=per_step[-1],
         psoft_engines=engines,
+        cayley_engines=dict(ops.CAYLEY_ENGINE_LAUNCHES),
+        blockdiag_engines=dict(ops.BLOCKDIAG_ENGINE_LAUNCHES),
         frozen_copy_s=copy_s, verify_s=verify_s,
         profile=profile_train(torch, step, state, batches[0])
         if profile else None)
@@ -1390,8 +1552,19 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
           f"{peak_gib:.1f} GiB")
     print(f"{what}: losses {[round(v, 4) for v in losses]}, grad norms "
           f"{[round(v, 4) for v in gnorms]}; launches per step "
-          f"{ {k: v for k, v in per_step[-1].items() if v} }")
+          f"{ {k: v for k, v in per_step[-1].items() if v} }; engines: "
+          f"cayley_neumann {result['cayley_engines']}, blockdiag_rotate "
+          f"{result['blockdiag_engines']}")
     return result
+
+
+def check_engines(result, kernel, engine, what):
+    """Every launch of ``kernel`` in the run took ``engine``."""
+    engines = result[f"{kernel.split('_')[0]}_engines"]
+    n = result["launches"][kernel]
+    check(engines[engine] == n and sum(engines.values()) == n,
+          f"{what}: every {kernel} call on the {engine!r} engine "
+          f"({n} launches, by engine {engines})")
 
 
 def train_phase(torch, args, configs, trainer, data, tree, ops, params,
@@ -1414,6 +1587,7 @@ def train_phase(torch, args, configs, trainer, data, tree, ops, params,
           and engines["wmma"] == engines["simt"] == 0,
           f"train: every bf16 psoft_matmul call on the wgmma engine "
           f"({engines})")
+    check_engines(result, "cayley_neumann", "tc", "train")
     print(f"train: psoft_matmul launches by engine {engines}")
     result.update(gc_freed_gib=gc_freed_gib, gpu=gpu_line)
     print(f"train: a gc.collect before it freed {gc_freed_gib:.2f} GiB "
@@ -1470,6 +1644,10 @@ def oft_train_phase(torch, args, configs, model, trainer, data, tree, ops,
                        params, 5, expected_baseline_launches(cfg),
                        "oft train", args.profile)
     del params
+    # bf16 x and rotations, b = 32: the tensor cores; r = 32: one launch
+    # with the series in shared memory
+    check_engines(result, "blockdiag_rotate", "mma", "oft train")
+    check_engines(result, "cayley_neumann", "smem", "oft train")
     result.update(init_s=init_s, gc_freed_gib=gc_freed_gib, gpu=gpu_line)
     print(f"oft train: init_params {init_s:.1f} s; a gc.collect before it "
           f"freed {gc_freed_gib:.2f} GiB [{gpu_line}]")
@@ -1495,6 +1673,13 @@ def baselines_phase(torch, args, configs, model, trainer, data, tree, ops,
                                 expected_baseline_launches(cfg),
                                 f"{method} train")
         del params
+        if method in BASELINE_ENGINES:
+            # blocks of 8 (BOFT) and 2 (GOFT, qGOFT) are no multiple of 16
+            check_engines(out[method], "blockdiag_rotate", "simt",
+                          f"{method} train")
+        if method == "boft":
+            check_engines(out[method], "cayley_neumann", "smem",
+                          f"{method} train")
         out[method].update(init_s=init_s, gpu=gpu_line)
     torch.cuda.empty_cache()
     return out
@@ -1625,12 +1810,13 @@ def main(argv=None) -> int:
                   f", {e['smem']} bytes static smem, spill stores "
                   f"{e['spill_stores']} / loads {e['spill_loads']}")
     redesigned = ptxas.get("paged_decode_attention", []) + \
-        ptxas.get("gather_delta_matmul", []) + [
+        ptxas.get("gather_delta_matmul", []) + \
+        ptxas.get("paged_prefill_attention", []) + \
+        ptxas.get("cayley_neumann", []) + \
+        ptxas.get("blockdiag_rotate", []) + [
             e for e in ptxas.get("psoft_matmul", [])
             if "gemm_kernel" in e["entry"] and "hopper" in e["entry"]
-            or "rotate_kernel" in e["entry"]] + [
-            e for e in ptxas.get("paged_prefill_attention", [])
-            if "prefill_mma_kernel" in e["entry"]]
+            or "rotate_kernel" in e["entry"]]
     for e in redesigned:
         check(e["spill_stores"] == 0 and e["spill_loads"] == 0,
               f"build: {e['entry']} spills registers")
@@ -1687,11 +1873,22 @@ def main(argv=None) -> int:
               f"{100 * v['bound_share']:.1f}%)"
               for k, v in gd["per_linear"].items()))
     print(f"kernels: blockdiag_rotate (forward / transposed / plain / bmm "
-          f"ms, bound ms): " + ", ".join(
+          f"/ same-bytes copy ms, bound ms, engine): " + ", ".join(
               f"{k} {v['ms']:.4f}/{v['transposed_ms']:.4f}/"
-              f"{v['plain_ms']:.4f}/{v['library_ms']:.4f} "
-              f"({v['bound_ms']:.4f})"
+              f"{v['plain_ms']:.4f}/{v['library_ms']:.4f}/"
+              f"{v['copy_ms']:.4f} ({v['bound_ms']:.5f}, {v['engine']})"
               for k, v in kernels["blockdiag_rotate"]["per_shape"].items()))
+    print(f"kernels: cayley_neumann (ms / plain ms / same-bytes copy ms; "
+          f"bound ms by bytes, fp32 operations, 3xTF32 operations; "
+          f"engine): " + ", ".join(
+              f"{k} {v['ms']:.4f}/{v['plain_ms']:.4f}/{v['copy_ms']:.4f} "
+              f"({v['bytes_ms']:.4f}, {v['bound_fp32_ms']:.4f}, "
+              f"{v['bound_tf32x3_ms']:.4f}; {v['engine']})"
+              for k, v in kernels["cayley_neumann"]["per_shape"].items()))
+    cn = kernels["cayley_neumann"]
+    print(f"kernels: cayley_neumann PSOFT stack {cn['ms']:.4f} ms (3xTF32) "
+          f"against {cn['plain_tf32_ms']:.4f} ms for the plain series "
+          f"through cuBLAS in plain TF32 in the same run")
     t0 = time.perf_counter()
     served, params = serve_phase(torch, args, configs, model, serve, ops,
                                  gpu_line)

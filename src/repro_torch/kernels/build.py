@@ -45,10 +45,10 @@ ENTRY_POINTS = {
         [_I, _I, _I] + [_P] * 11 + [_I] * 4 + [_P]),
     "cayley_neumann": (
         "cayley_neumann_launch",
-        [_P, _P, _P] + [_I] * 3 + [_P]),
+        [_I, _P, _P, _P] + [_I] * 4 + [_P]),
     "blockdiag_rotate": (
         "blockdiag_rotate_launch",
-        [_I, _I, _I, _P, _P, _P] + [_I] * 3 + [_P]),
+        [_I] * 4 + [_P] * 3 + [_I] * 4 + [_P]),
 }
 
 #: loaded libraries by source name (a loaded library lives as long as the

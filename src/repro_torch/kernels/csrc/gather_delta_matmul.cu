@@ -63,6 +63,7 @@
 // elements or whose base is not 16-byte aligned is read element by element
 // instead (no ring).
 #include "common.cuh"
+#include "ptx.cuh"
 
 namespace repro_torch {
 
@@ -168,31 +169,6 @@ __device__ __forceinline__ void stream_rows(const T* __restrict__ m,
                      mult_s + d * kRows, mask, acc);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem)
-               : "memory");
-}
-// 16 bytes, of which the first ``bytes`` come from gmem and the rest are 0
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The distinct adapters of rows [b0, b0 + nb) and the rows on each (thread
 // 0 writes them; the caller syncs)
 struct AdapterGroups {
@@ -239,17 +215,17 @@ __device__ __forceinline__ void stream_async(
           // columns past this lane's first
           const int off = (c * 32 + lane) * kPer - lane * kCols;
           const bool ok = off + kPer <= valid;
-          cp_async16(mine + (slot * kChunks + c) * kThreads,
+          ptx::cp_async(mine + (slot * kChunks + c) * kThreads,
                      ok ? wmat + row + (c * 32 + lane) * kPer : mat,
                      ok ? 16 : 0);
         } else {
-          cp_async16(mine + (slot * kChunks + c) * kThreads,
+          ptx::cp_async(mine + (slot * kChunks + c) * kThreads,
                      mat + row + c * kPer);
         }
       }
       if (++ir == cnt) ir = 0, ++ig;
     }
-    cp_async_commit();
+    ptx::cp_async_commit();
   };
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
@@ -266,7 +242,7 @@ __device__ __forceinline__ void stream_async(
   for (int i = 0; i < total; ++i) {
     if constexpr (kWarpRow) __syncwarp();  // slot i - 1 is read by all lanes
     issue(i + kStages - 1);
-    cp_async_wait<kStages - 1>();  // item i's group has landed
+    ptx::cp_async_wait<kStages - 1>();  // item i's group has landed
     if constexpr (kWarpRow) __syncwarp();  // ... for every lane's pieces
     const int slot = i % kStages;
     typename Load8<T>::Raw raw;
@@ -405,26 +381,6 @@ constexpr int red_floats(int lanes) {
 // end of an adapter it keeps the sums of the rows on that adapter and
 // starts again from zero, so a row only ever sees its own adapter.
 
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c += a b: a 16 x 16 (row-major fragment), b 16 x 8 (column fragment)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 constexpr int kMmaTile = 64;  // columns of an mma block
 // elements of a row of x in shared memory: the slice rounded up to a step,
 // plus 8 so that the 8 rows' B fragments fall on distinct banks
@@ -447,7 +403,7 @@ __device__ __forceinline__ void stage_x_async(const __nv_bfloat16* x,
   for (int i = threadIdx.x; i < kRows * pieces; i += kThreads) {
     const int b = i / pieces, kk = i % pieces * 8;
     const int bytes = b < nb ? min(max(nk - kk, 0), 8) * 2 : 0;
-    cp_async16(x_s + b * pitch + kk,
+    ptx::cp_async(x_s + b * pitch + kk,
                bytes ? x + (size_t)(b0 + b) * K + k0 + kk : x, bytes);
   }
 }
@@ -484,13 +440,13 @@ __device__ __forceinline__ void mma_slice(
         const int row = lane / 8 + 4 * q, chunk = lane % 8;
         const int kk = step * 16 + row, col = c0 + chunk * 8;
         const bool ok = col < ncols && kk < nk;
-        cp_async16(slot + (row * 8 + (chunk ^ (row & 7))) * 8,
+        ptx::cp_async(slot + (row * 8 + (chunk ^ (row & 7))) * 8,
                    ok ? mat + a * astride + (size_t)kk * ld + col : mat,
                    ok ? 16 : 0);
       }
       if (++ii == cnt) ii = 0, ++ig;
     }
-    cp_async_commit();
+    ptx::cp_async_commit();
   };
 #pragma unroll
   for (int i = 0; i < kMmaStages - 1; ++i) issue(i);
@@ -507,7 +463,7 @@ __device__ __forceinline__ void mma_slice(
   int cg = 0, ci = 0;
   for (int i = 0; i < total; ++i) {
     issue(i + kMmaStages - 1);
-    cp_async_wait<kMmaStages - 1>();
+    ptx::cp_async_wait<kMmaStages - 1>();
     __syncwarp();  // every lane's pieces of step i have landed
     const __nv_bfloat16* slot = wring + (i % kMmaStages) * kStepPieces * 8;
     const __nv_bfloat16* xs = xr + (warp + kWarps * ci) * 16;
@@ -517,8 +473,8 @@ __device__ __forceinline__ void mma_slice(
     for (int g = 0; g < 4; ++g) {
       unsigned a[4];
       const int chunk = 2 * g + (m & 1);
-      ldmatrix_x4_trans(a, slot + (lrow * 8 + (chunk ^ (lrow & 7))) * 8);
-      mma_bf16(acc[g], a, b0, b1);
+      ptx::ldmatrix_x4_trans(a, slot + (lrow * 8 + (chunk ^ (lrow & 7))) * 8);
+      ptx::mma_bf16(acc[g], a, b0, b1);
     }
     __syncwarp();  // step i's slot is read before any lane refills it
     if (++ci == cnt) {
@@ -590,8 +546,8 @@ __device__ __forceinline__ void x_block(const T* __restrict__ x,
     __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(stage);
     const int pitch = x_pitch(nk);
     stage_x_async(x, x_s, pitch, K, k0, nk, b0, nb);
-    cp_async_commit();
-    cp_async_wait<0>();
+    ptx::cp_async_commit();
+    ptx::cp_async_wait<0>();
     __syncthreads();
     mma_slice(mat + (size_t)k0 * ld, astride, ld, ncols, c0, x_s, pitch, nk,
               groups, n_groups, groups == nullptr,

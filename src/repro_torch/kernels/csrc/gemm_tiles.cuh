@@ -1,5 +1,4 @@
-// Tiled matrix products shared by the training kernels (psoft_matmul.cu,
-// cayley_neumann.cu).
+// Tiled matrix products of psoft_matmul.cu's "wmma" and "simt" engines.
 //
 // C (M x N) = A (M x D) . B (D x N), fp32 accumulation, where each operand
 // is read through a descriptor rather than as one dense array:
@@ -23,9 +22,7 @@
 //     memory, double-buffered with one barrier per step.  The fp32 part of
 //     A is scaled and rounded to bf16 as it enters the tile.
 //   * simt_gemm: fp32 on the CUDA cores (exact fp32, as the plain version),
-//     64x64 block tile, 16-deep steps, 4x4 outputs per thread; batched over
-//     blockIdx.z.  Its epilogue can subtract the product from the identity or
-//     from a matrix E (the Horner steps of the Cayley-Neumann series).
+//     64x64 block tile, 16-deep steps, 4x4 outputs per thread.
 #pragma once
 
 #include <mma.h>
@@ -301,25 +298,11 @@ __global__ void __launch_bounds__(kTcThreads)
 constexpr int kSimtBM = 64, kSimtBN = 64, kSimtBK = 16;
 constexpr int kSimtThreads = 256;
 
-// epilogue: C = acc (kStore), I - acc (kEyeMinus) or E - acc (kEMinus)
-enum SimtEpilogue { kStore = 0, kEyeMinus = 1, kEMinus = 2 };
-
-struct Batch {
-  long a, b, c, e;  // element strides between batch entries (blockIdx.z)
-};
-
 template <typename T1, typename TB1, typename TB2, typename TC>
 __global__ void __launch_bounds__(kSimtThreads)
-    simt_gemm(ASrc<T1> a, BSrc<TB1, TB2> b, TC* __restrict__ c, long ldc,
-              int epilogue, const float* __restrict__ e_mat, long lde,
-              Batch batch) {
+    simt_gemm(ASrc<T1> a, BSrc<TB1, TB2> b, TC* __restrict__ c, long ldc) {
   __shared__ __align__(16) float As[kSimtBK][kSimtBM + 4];
   __shared__ __align__(16) float Bs[kSimtBK][kSimtBN + 4];
-  const int z = blockIdx.z;
-  a.p1 += z * batch.a;
-  b.p1 += z * batch.b;
-  c += z * batch.c;
-  if (e_mat) e_mat += z * batch.e;
   const bool b_trans = b.sd1 == 1 && b.sc1 != 1;  // contiguous along depth
 
   const int tid = threadIdx.x;
@@ -364,12 +347,7 @@ __global__ void __launch_bounds__(kSimtThreads)
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx * 4 + j;
       if (col >= b.N) continue;
-      float v = acc[i][j];
-      if (epilogue == kEyeMinus)
-        v = (row == col ? 1.f : 0.f) - v;
-      else if (epilogue == kEMinus)
-        v = e_mat[(long)row * lde + col] - v;
-      c[(long)row * ldc + col] = from_float<TC>(v);
+      c[(long)row * ldc + col] = from_float<TC>(acc[i][j]);
     }
   }
 }
@@ -380,13 +358,11 @@ inline bool aligned16(const void* p) {
 
 template <typename T1, typename TB1, typename TB2, typename TC>
 cudaError_t launch_simt(const ASrc<T1>& a, const BSrc<TB1, TB2>& b, TC* c,
-                        long ldc, int batches, cudaStream_t stream,
-                        int epilogue = kStore, const float* e_mat = nullptr,
-                        long lde = 0, Batch batch = Batch{0, 0, 0, 0}) {
+                        long ldc, cudaStream_t stream) {
   const dim3 grid((b.N + kSimtBN - 1) / kSimtBN,
-                  (a.M + kSimtBM - 1) / kSimtBM, batches);
-  simt_gemm<T1, TB1, TB2, TC><<<grid, kSimtThreads, 0, stream>>>(
-      a, b, c, ldc, epilogue, e_mat, lde, batch);
+                  (a.M + kSimtBM - 1) / kSimtBM);
+  simt_gemm<T1, TB1, TB2, TC><<<grid, kSimtThreads, 0, stream>>>(a, b, c,
+                                                                 ldc);
   return cudaGetLastError();
 }
 

@@ -35,28 +35,16 @@
 //   2. combine kernel, one block per (row, head): rescales the non-empty
 //      splits to their common max, sums them and writes the output in q's
 //      dtype; no non-empty split (a row of length 0) writes exact zeros.
-// D * sizeof(T) must be a multiple of 16 and the pools 16-byte aligned (the
-// wrapper checks both).
+// Any D: where D * sizeof(T) is a multiple of 16 and the pools are 16-byte
+// aligned, pages move by 16-byte cp.async and scores read 16 bytes of K at
+// a time; otherwise (an odd bf16 head dim, say) the same kernel copies and
+// reads element by element, the choice made by shape on the host.
 #include "common.cuh"
+#include "ptx.cuh"
 
 namespace repro_torch {
 
 constexpr int kDecodeThreads = 128;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 16 bytes of T as fp32: 8 bf16 or 4 floats
 template <typename T>
@@ -86,15 +74,43 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-// cp.async the K and V rows of table column j of row b, kv head kh, into
-// ring buffer ``buf`` ([2][K, V][pg][D] at kv_s), as one commit group
-template <typename T>
+// Elements a lane moves and reads at once: 16 bytes (kVec16), else one
+template <typename T, bool kVec16>
+__host__ __device__ constexpr int chunk_elems() {
+  return kVec16 ? Vec16<T>::kN : 1;
+}
+
+// dot(q, k) over one chunk of a token's row: q fp32 in shared memory
+template <typename T, bool kVec16>
+__device__ __forceinline__ float chunk_dot(const T* k, const float* q) {
+  if constexpr (kVec16) {
+    constexpr int kVec = Vec16<T>::kN;
+    float kf[kVec];
+    Vec16<T>::load(k, kf);
+    const float4* qv = reinterpret_cast<const float4*>(q);
+    float dot = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec / 4; ++e) {
+      const float4 qq = qv[e];
+      dot += qq.x * kf[4 * e] + qq.y * kf[4 * e + 1] + qq.z * kf[4 * e + 2] +
+             qq.w * kf[4 * e + 3];
+    }
+    return dot;
+  } else {
+    return q[0] * to_float(k[0]);
+  }
+}
+
+// Copy the K and V rows of table column j of row b, kv head kh, into ring
+// buffer ``buf`` ([2][K, V][pg][D] at kv_s): by 16-byte cp.async as one
+// commit group (kVec16), else element by element with plain loads
+template <typename T, bool kVec16>
 __device__ __forceinline__ void issue_page(T* kv_s, const T* k_pool,
                                            const T* v_pool,
                                            const int* page_table, int b,
                                            int kh, int j, int buf, int KH,
                                            int D, int P, int pg, int maxp) {
-  constexpr int kVec = Vec16<T>::kN;
+  constexpr int kVec = chunk_elems<T, kVec16>();
   const int chunks = D / kVec;
   const int tile = pg * D;
   const int page = clamp_index(page_table[(size_t)b * maxp + j], P);
@@ -104,22 +120,27 @@ __device__ __forceinline__ void issue_page(T* kv_s, const T* k_pool,
   for (int i = threadIdx.x; i < pg * chunks; i += kDecodeThreads) {
     const int t = i / chunks, c = (i % chunks) * kVec;
     const size_t off = base + (size_t)t * KH * D + c;
-    cp_async16(ks + t * D + c, k_pool + off);
-    cp_async16(vs + t * D + c, v_pool + off);
+    if constexpr (kVec16) {
+      ptx::cp_async(ks + t * D + c, k_pool + off);
+      ptx::cp_async(vs + t * D + c, v_pool + off);
+    } else {
+      ks[t * D + c] = k_pool[off];
+      vs[t * D + c] = v_pool[off];
+    }
   }
-  cp_async_commit();
+  if constexpr (kVec16) ptx::cp_async_commit();
 }
 
 // 4 blocks per SM fill one wave at serving sizes; naming them keeps ptxas
 // from capping the registers at 40 and spilling loop invariants
-template <typename T>
+template <typename T, bool kVec16>
 __global__ void __launch_bounds__(kDecodeThreads, 4) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ page_table,
     const int* __restrict__ lengths, float* __restrict__ part, int B, int H,
     int KH, int D, int P, int pg, int maxp, int pps, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kVec = Vec16<T>::kN;
+  constexpr int kVec = chunk_elems<T, kVec16>();
   const int G = H / KH;
   const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
   const int split = blockIdx.y, S = gridDim.y;
@@ -148,16 +169,17 @@ __global__ void __launch_bounds__(kDecodeThreads, 4) decode_split_kernel(
 
   const int tile = pg * D;  // elements of one page's K (or V) for one head
   T* kv_s = reinterpret_cast<T*>(smem_raw);  // [2 buffers][K, V][pg][D]
-  float* q_s = reinterpret_cast<float*>(kv_s + 4 * tile);  // [G][D]
+  float* q_s = reinterpret_cast<float*>(                   // [G][D]
+      smem_raw + ((4 * tile * sizeof(T) + 15) & ~(size_t)15));
   float* acc = q_s + G * D;                                // [G][D]
   float* s_s = acc + G * D;                                // [G][pg]
   float* m_s = s_s + G * pg;                               // [G]
   float* l_s = m_s + G;                                    // [G]
   float* c_s = l_s + G;                                    // [G]
 
-  const int chunks = D / kVec;  // 16-byte chunks per token row
-  issue_page(kv_s, k_pool, v_pool, page_table, b, kh, j0, 0, KH, D, P, pg,
-             maxp);
+  const int chunks = D / kVec;  // chunks per token row
+  issue_page<T, kVec16>(kv_s, k_pool, v_pool, page_table, b, kh, j0, 0, KH, D,
+                       P, pg, maxp);
   for (int i = tid; i < G * D; i += kDecodeThreads) {
     q_s[i] = to_float(q[((size_t)b * H + kh * G) * D + i]);
     acc[i] = 0.f;
@@ -167,8 +189,8 @@ __global__ void __launch_bounds__(kDecodeThreads, 4) decode_split_kernel(
     l_s[g] = 0.f;
   }
 
-  // lanes per token: the 16-byte chunks of a row, rounded up to a power of
-  // two, at most a warp
+  // lanes per token: the chunks of a row, rounded up to a power of two, at
+  // most a warp
   int lpt = 1;
   while (lpt < chunks && lpt < 32) lpt <<= 1;
   const int tpw = 32 / lpt;  // tokens per warp pass
@@ -177,11 +199,11 @@ __global__ void __launch_bounds__(kDecodeThreads, 4) decode_split_kernel(
   for (int j = j0; j < j1; ++j) {
     const int buf = (j - j0) & 1;
     if (j + 1 < j1) {
-      issue_page(kv_s, k_pool, v_pool, page_table, b, kh, j + 1, buf ^ 1, KH,
-                 D, P, pg, maxp);
-      cp_async_wait<1>();
+      issue_page<T, kVec16>(kv_s, k_pool, v_pool, page_table, b, kh, j + 1,
+                            buf ^ 1, KH, D, P, pg, maxp);
+      ptx::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      ptx::cp_async_wait<0>();
     }
     __syncthreads();  // page j landed for every thread; q and acc set
     const T* ks = kv_s + (2 * buf) * tile;
@@ -195,18 +217,9 @@ __global__ void __launch_bounds__(kDecodeThreads, 4) decode_split_kernel(
       for (int g = 0; g < G; ++g) {
         float part_dot = 0.f;
         if (valid) {
-          for (int c = sub; c < chunks; c += lpt) {
-            float kf[kVec];
-            Vec16<T>::load(ks + t * D + c * kVec, kf);
-            const float4* qv =
-                reinterpret_cast<const float4*>(q_s + g * D + c * kVec);
-#pragma unroll
-            for (int e = 0; e < kVec / 4; ++e) {
-              const float4 qq = qv[e];
-              part_dot += qq.x * kf[4 * e] + qq.y * kf[4 * e + 1] +
-                          qq.z * kf[4 * e + 2] + qq.w * kf[4 * e + 3];
-            }
-          }
+          for (int c = sub; c < chunks; c += lpt)
+            part_dot += chunk_dot<T, kVec16>(ks + t * D + c * kVec,
+                                             q_s + g * D + c * kVec);
         }
         for (int o = lpt / 2; o > 0; o >>= 1)
           part_dot += __shfl_xor_sync(0xffffffffu, part_dot, o);
@@ -295,12 +308,20 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    int maxp, int pps, cudaStream_t stream) {
   const int G = H / KH;
   const int S = (maxp + pps - 1) / pps;
-  const size_t smem = (size_t)4 * pg * D * sizeof(T) +
-                      (size_t)(2 * G * D + G * pg + 3 * G) * sizeof(float);
-  cudaError_t err = allow_smem(decode_split_kernel<T>, smem);
+  // q_s (fp32) follows the K/V ring: round the ring up to 16 bytes
+  const size_t ring = ((size_t)4 * pg * D * sizeof(T) + 15) & ~(size_t)15;
+  const size_t smem =
+      ring + (size_t)(2 * G * D + G * pg + 3 * G) * sizeof(float);
+  const bool vec16 = (D * sizeof(T)) % 16 == 0 &&
+                     ((reinterpret_cast<size_t>(k_pool) |
+                       reinterpret_cast<size_t>(v_pool)) & 15) == 0;
+  void (*kernel)(const T*, const T*, const T*, const int*, const int*,
+                 float*, int, int, int, int, int, int, int, int, float) =
+      vec16 ? decode_split_kernel<T, true> : decode_split_kernel<T, false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
-  decode_split_kernel<T><<<dim3(B * KH, S), kDecodeThreads, smem, stream>>>(
+  kernel<<<dim3(B * KH, S), kDecodeThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(page_table),
       static_cast<const int*>(lengths), part, B, H, KH, D, P, pg, maxp, pps,
@@ -321,12 +342,8 @@ extern "C" int paged_decode_attention_launch(
     int B, int H, int KH, int D, int P, int pg, int maxp, int pps,
     void* stream) {
   if (B == 0) return 0;
-  const int elt = dtype == REPRO_DTYPE_BF16 ? 2 : 4;
-  if (KH <= 0 || H % KH != 0 || D <= 0 || (D * elt) % 16 != 0 || pg <= 0 ||
-      maxp <= 0 || P <= 0 || pps <= 0 ||
-      (reinterpret_cast<size_t>(k_pool) | reinterpret_cast<size_t>(v_pool)) %
-              16 !=
-          0)
+  if (KH <= 0 || H % KH != 0 || D <= 0 || pg <= 0 || maxp <= 0 || P <= 0 ||
+      pps <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);

@@ -17,8 +17,8 @@
 // of 0-45 tokens) neither is more than ~1.4 us: a launch's latency and the
 // first loads set the time.
 //
-// Two engines, chosen by dtype on the host (ops._prefill_engine); neither
-// ever stands in for the other:
+// Two engines, chosen by dtype and head dim on the host
+// (ops._prefill_engine); neither ever stands in for the other:
 //
 // "mma" (bf16, D in {32, 64, 128}): flash prefill on the tensor cores.  The
 //   G = H / KH query heads of a kv head read the same keys, so a block owns
@@ -43,14 +43,16 @@
 //   launch ~100 blocks of two chunks each, so the asynchronous warpgroup
 //   pipeline has nothing to overlap.
 //
-// "simt" (fp32, the tiny card-vs-CPU check; TF32 would not meet the fp32
-//   limit): the first design.  One block per (query tile of TQ positions,
+// "simt" (fp32, the tiny card-vs-CPU check, where TF32 would not meet the
+//   fp32 limit; and bf16 at the head dims "mma" is not built for): the
+//   first design, any D.  One block per (query tile of TQ positions,
 //   kv head, row); the block walks its keys in chunks of 16 staged in
 //   shared memory; one thread per (query, key) pair computes a score, one
 //   thread per query folds the chunk into that query's running max / sum,
 //   and threads own (query, column) pairs of the accumulator.  TQ is chosen
 //   by the host so the tile fits in shared memory.
 #include "common.cuh"
+#include "ptx.cuh"
 
 namespace repro_torch {
 
@@ -181,10 +183,11 @@ __global__ void paged_prefill_attention_kernel(
   }
 }
 
-cudaError_t launch_simt(const float* q, const float* k, const float* v,
-                        const float* k_pool, const float* v_pool,
+template <typename T>
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        const void* k_pool, const void* v_pool,
                         const int* prefix_table, const int* prefix_len,
-                        float* out, int B, int S, int H, int KH, int D, int P,
+                        void* out, int B, int S, int H, int KH, int D, int P,
                         int pg, int maxp, cudaStream_t stream) {
   const int G = H / KH;
   int TQ = 16;
@@ -192,13 +195,15 @@ cudaError_t launch_simt(const float* q, const float* k, const float* v,
                        96 * 1024)
     TQ /= 2;
   const size_t smem = prefill_smem_floats(TQ, G, D) * sizeof(float);
-  cudaError_t err = allow_smem(paged_prefill_attention_kernel<float>, smem);
+  cudaError_t err = allow_smem(paged_prefill_attention_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
   const dim3 grid((S + TQ - 1) / TQ, KH, B);
-  paged_prefill_attention_kernel<float><<<grid, 256, smem, stream>>>(
-      q, k, v, k_pool, v_pool, prefix_table, prefix_len, out, S, H, KH, D, P,
-      pg, maxp, TQ, scale);
+  paged_prefill_attention_kernel<T><<<grid, 256, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), prefix_table, prefix_len,
+      static_cast<T*>(out), S, H, KH, D, P, pg, maxp, TQ, scale);
   return cudaGetLastError();
 }
 
@@ -209,59 +214,6 @@ cudaError_t launch_simt(const float* q, const float* k, const float* v,
 constexpr int kTileRows = 64;    // flattened query rows per block
 constexpr int kChunkKeys = 64;   // keys per chunk
 constexpr int kMmaThreads = 128; // four warps of 16 rows
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled where !ok (gmem is then any valid
-// address and nothing is read)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c += a b: a 16 x 16 (row-major fragment), b 16 x 8 (column fragment)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
 
 template <int D>
 struct MmaTile {
@@ -318,10 +270,10 @@ __device__ __forceinline__ void issue_chunk(const ChunkSrc& src,
                   D + col;
       }
     }
-    cp_async16(ks + t * Tl::kPitch + col, kb + off, ok);
-    cp_async16(vs + t * Tl::kPitch + col, vb + off, ok);
+    ptx::cp_async(ks + t * Tl::kPitch + col, kb + off, ok ? 16 : 0);
+    ptx::cp_async(vs + t * Tl::kPitch + col, vb + off, ok ? 16 : 0);
   }
-  cp_async_commit();
+  ptx::cp_async_commit();
 }
 
 // grid (tiles, KH, B): tiles = ceil(S * G / 64)
@@ -364,7 +316,7 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
     const __nv_bfloat16* from =
         ok ? q + (((size_t)b * S + rho / G) * H + kh * G + rho % G) * D + c
            : q;
-    cp_async16(q_s + row * kPitch + c, from, ok);
+    ptx::cp_async(q_s + row * kPitch + c, from, ok ? 16 : 0);
   }
   const ChunkSrc src{k, v, k_pool, v_pool, prefix_table, b, kh, S, KH, P,
                      pg, maxp, n_pre, plen, kend};
@@ -388,15 +340,15 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
     const int buf = c & 1;
     if (c + 1 < n_chunks) {
       issue_chunk<D>(src, kv_s, c + 1, buf ^ 1);
-      cp_async_wait<1>();
+      ptx::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      ptx::cp_async_wait<0>();
     }
     __syncthreads();  // chunk c (and at c = 0 the Q tile) landed
     if (c == 0) {
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks)
-        ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane >> 3 & 1) * 8 +
+        ptx::ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane >> 3 & 1) * 8 +
                                    (lane & 7)) * kPitch +
                                       ks * 16 + (lane >> 4) * 8);
     }
@@ -416,10 +368,10 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
 #pragma unroll
       for (int nt = 0; nt < kKeyTiles; ++nt) {
         unsigned kf[4];
-        ldmatrix_x4(kf, ks_s + (nt * 8 + (lane & 7)) * kPitch + ks * 16 +
+        ptx::ldmatrix_x4(kf, ks_s + (nt * 8 + (lane & 7)) * kPitch + ks * 16 +
                             (lane >> 3) * 8);
-        mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
+        ptx::mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
+        ptx::mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
       }
     }
 
@@ -474,11 +426,11 @@ __global__ void __launch_bounds__(kMmaThreads) prefill_mma_kernel(
 #pragma unroll
       for (int dp = 0; dp < kDTiles / 2; ++dp) {
         unsigned vf[4];
-        ldmatrix_x4_trans(vf, vs_s + (j * 16 + (lane >> 3 & 1) * 8 +
+        ptx::ldmatrix_x4_trans(vf, vs_s + (j * 16 + (lane >> 3 & 1) * 8 +
                                       (lane & 7)) * kPitch +
                                   dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+        ptx::mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+        ptx::mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
       }
     }
     __syncthreads();  // buffer buf free for chunk c + 2
@@ -527,9 +479,9 @@ cudaError_t launch_mma_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 }  // namespace repro_torch
 
-// engine: 0 "simt" (dtype fp32 only), 1 "mma" (bf16 only, D in {32, 64,
-// 128}, every array 16-byte aligned, tiles = ceil(S * (H / KH) / 64)); any
-// other combination is refused
+// engine: 0 "simt" (fp32 or bf16, any D), 1 "mma" (bf16 only, D in {32,
+// 64, 128}, every array 16-byte aligned, tiles = ceil(S * (H / KH) / 64));
+// any other combination is refused
 extern "C" int paged_prefill_attention_launch(
     int dtype, int engine, const void* q, const void* k, const void* v,
     const void* k_pool, const void* v_pool, const void* prefix_table,
@@ -540,13 +492,15 @@ extern "C" int paged_prefill_attention_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (engine == 0 && dtype == REPRO_DTYPE_F32)
-    return (int)repro_torch::launch_simt(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(k_pool),
-        static_cast<const float*>(v_pool),
-        static_cast<const int*>(prefix_table),
-        static_cast<const int*>(prefix_len), static_cast<float*>(out), B, S,
-        H, KH, D, P, pg, maxp, s);
+    return (int)repro_torch::launch_simt<float>(
+        q, k, v, k_pool, v_pool, static_cast<const int*>(prefix_table),
+        static_cast<const int*>(prefix_len), out, B, S, H, KH, D, P, pg,
+        maxp, s);
+  if (engine == 0 && dtype == REPRO_DTYPE_BF16)
+    return (int)repro_torch::launch_simt<__nv_bfloat16>(
+        q, k, v, k_pool, v_pool, static_cast<const int*>(prefix_table),
+        static_cast<const int*>(prefix_len), out, B, S, H, KH, D, P, pg,
+        maxp, s);
   if (engine != 1 || dtype != REPRO_DTYPE_BF16)
     return (int)cudaErrorInvalidValue;
   const long rows = (long)S * (H / KH);

@@ -97,13 +97,13 @@ cudaError_t launch_psoft(bool transpose, const T* x, const T* w_res,
       b1.vec1 = (transpose ? pin_sc : pin_sd) % 8 == 0 && aligned16(p_in);
       err = launch_tc(a1, b1, transpose, u, r, stream);
     } else {
-      err = launch_simt(a1, b1, u, r, 1, stream);
+      err = launch_simt(a1, b1, u, r, stream);
     }
     if (err != cudaSuccess) return err;
     ASrc<float> a2{u, r, s_in, nullptr, 0, nullptr, M, r, r, false, false};
     BSrc<float, float> b2{rot, rot_sd, rot_sc, nullptr, 0, 0, r, r, r,
                           false, false};
-    err = launch_simt(a2, b2, t, r, 1, stream);
+    err = launch_simt(a2, b2, t, r, stream);
     if (err != cudaSuccess) return err;
   }
   ASrc<T> a3{x, din, nullptr, t, r, s_out, M, din, din + r, false, false};
@@ -118,7 +118,7 @@ cudaError_t launch_psoft(bool transpose, const T* x, const T* w_res,
               aligned16(p_out);
     return launch_tc(a3, b3, transpose, y, dout, stream);
   } else {
-    return launch_simt(a3, b3, y, dout, 1, stream);
+    return launch_simt(a3, b3, y, dout, stream);
   }
 }
 

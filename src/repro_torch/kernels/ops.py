@@ -13,13 +13,16 @@ blockdiag_rotate's dx is the kernel's transposed launch.
 :data:`LAUNCHES` counts kernel launches per wrapper (CPU calls are not
 launches), so a run can show that its main path went through the kernels;
 a wrapper counts one launch per call even where its C entry point starts
-two or three CUDA kernels.  :data:`PSOFT_ENGINE_LAUNCHES` and
-:data:`PREFILL_ENGINE_LAUNCHES` split psoft_matmul's and
-paged_prefill_attention's launches by the engine they took
-(:func:`_psoft_engine`, :func:`_prefill_engine`).  The grids of the decode,
-prefill and gather-delta kernels are planned here from shapes alone
-(:func:`decode_split_plan`, :func:`prefill_tile_plan`,
-:func:`gather_delta_plan`): no wrapper reads a device value on the host.
+two or more CUDA kernels.  :data:`PSOFT_ENGINE_LAUNCHES`,
+:data:`PREFILL_ENGINE_LAUNCHES`, :data:`CAYLEY_ENGINE_LAUNCHES` and
+:data:`BLOCKDIAG_ENGINE_LAUNCHES` split psoft_matmul's,
+paged_prefill_attention's, cayley_neumann's and blockdiag_rotate's launches
+by the engine they took (:func:`_psoft_engine`, :func:`_prefill_engine`,
+:func:`_cayley_engine`, :func:`_blockdiag_engine`).  The grids of the
+decode, prefill, gather-delta, Cayley and rotation kernels are planned here
+from shapes alone (:func:`decode_split_plan`, :func:`prefill_tile_plan`,
+:func:`gather_delta_plan`, :func:`cayley_smem_plan`,
+:func:`blockdiag_plan`): no wrapper reads a device value on the host.
 """
 from __future__ import annotations
 
@@ -43,10 +46,16 @@ PSOFT_ENGINE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wmma": 0, "simt": 0}
 #: paged_prefill_attention launches per engine since the last
 #: :func:`reset_launches`
 PREFILL_ENGINE_LAUNCHES: Dict[str, int] = {"mma": 0, "simt": 0}
+#: cayley_neumann launches per engine since the last :func:`reset_launches`
+CAYLEY_ENGINE_LAUNCHES: Dict[str, int] = {"smem": 0, "tc": 0}
+#: blockdiag_rotate launches per engine since the last :func:`reset_launches`
+BLOCKDIAG_ENGINE_LAUNCHES: Dict[str, int] = {"mma": 0, "simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PSOFT_ENGINE_CODE = {"simt": 0, "wmma": 1, "wgmma": 2}
 _PREFILL_ENGINE_CODE = {"simt": 0, "mma": 1}
+_CAYLEY_ENGINE_CODE = {"smem": 0, "tc": 1}
+_BLOCKDIAG_ENGINE_CODE = {"simt": 0, "mma": 1}
 
 #: blocks the decode split and the gather-delta x-W blocks aim for: about
 #: two per SM of an H100 (132 SMs)
@@ -76,7 +85,8 @@ PREFILL_MMA_HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PSOFT_ENGINE_LAUNCHES, PREFILL_ENGINE_LAUNCHES):
+    for counts in (LAUNCHES, PSOFT_ENGINE_LAUNCHES, PREFILL_ENGINE_LAUNCHES,
+                   CAYLEY_ENGINE_LAUNCHES, BLOCKDIAG_ENGINE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -157,8 +167,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     q (B, H, D); pools (P, pg, KH, D); page_table (B, maxp); lengths (B,).
     Page ids outside [0, P) are clamped.  Returns (B, H, D) in q's dtype.
-    On the card the kernel reads 16-byte rows: D times the element size must
-    be a multiple of 16 and the pools 16-byte aligned."""
+    Any D: on the card the kernel copies pages by 16-byte rows where D
+    times the element size is a multiple of 16 and the pools are 16-byte
+    aligned, element by element otherwise."""
     if _on_cpu(q, k_pool, v_pool, page_table, lengths):
         return ref.paged_decode_attention(q, k_pool, v_pool, page_table,
                                           lengths)
@@ -173,11 +184,6 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ln = _index_arg(lengths, "lengths", (b,))
     if maxp == 0:
         raise ValueError("page_table needs at least one column")
-    if d * q.element_size() % 16:
-        raise ValueError(f"head_dim {d}: the kernel reads 16-byte rows, so "
-                         f"D * {q.element_size()} must be a multiple of 16")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("k_pool and v_pool must be 16-byte aligned")
     pps, splits = decode_split_plan(b, kh, maxp)
     # per split: the running max and sum and the unnormalized output
     part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
@@ -215,17 +221,14 @@ def prefill_tile_rows(s: int, g: int, tile: int) -> Tuple[int, int, int]:
 
 def _prefill_engine(dtype: torch.dtype, d: int) -> str:
     """The engine of a paged_prefill_attention launch on the card:
-    ``"mma"`` (flash prefill on the tensor cores) in bf16, ``"simt"`` (the
-    first, CUDA-core design) in fp32.  Raises for a bf16 head dim the mma
-    engine is not built for (:data:`PREFILL_MMA_HEAD_DIMS`); neither engine
-    ever stands in for the other."""
+    ``"mma"`` (flash prefill on the tensor cores) in bf16 at the head dims
+    it is built for (:data:`PREFILL_MMA_HEAD_DIMS`), ``"simt"`` (the first,
+    CUDA-core design, any head dim) in fp32 and at every other bf16 head
+    dim.  Neither engine ever stands in for the other."""
     if dtype == torch.float32:
         return "simt"
     if dtype == torch.bfloat16:
-        if d not in PREFILL_MMA_HEAD_DIMS:
-            raise ValueError(f"head_dim {d}: the bf16 prefill kernel takes "
-                             f"{PREFILL_MMA_HEAD_DIMS}")
-        return "mma"
+        return "mma" if d in PREFILL_MMA_HEAD_DIMS else "simt"
     raise TypeError(f"kernels take float32 or bfloat16, not {dtype}")
 
 
@@ -238,8 +241,9 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     q (B, S, H, D); k/v (B, S, KH, D) post-RoPE; pools (P, pg, KH, D);
     prefix_table (B, maxp); prefix_len (B,), any alignment.  An empty table
     is padded to one trash column with prefix_len 0.  On the card, bf16
-    runs on the "mma" engine (D in :data:`PREFILL_MMA_HEAD_DIMS`, every
-    tensor 16-byte aligned) and fp32 on "simt" (:func:`_prefill_engine`)."""
+    with D in :data:`PREFILL_MMA_HEAD_DIMS` runs on the "mma" engine (every
+    tensor 16-byte aligned), everything else on "simt"
+    (:func:`_prefill_engine`)."""
     b = q.shape[0]
     if prefix_table.shape[-1] == 0:
         prefix_table = torch.zeros((b, 1), dtype=torch.int32,
@@ -513,24 +517,87 @@ def psoft_matmul(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
         b.to(cdt).contiguous(), alpha.contiguous(), beta.contiguous())
 
 
+#: largest r of the "smem" Cayley engine: Q and S of one matrix, 2 r^2
+#: fp32 with padded rows, in a block's shared memory, and at most four
+#: 4 x 4 output tiles a thread
+CAYLEY_SMEM_MAX_R = 128
+#: threads of a "smem" Cayley block, each owning 4 x 4 output tiles
+CAYLEY_THREADS = 256
+#: shared memory a Hopper block can use
+SMEM_BYTES = 232448
+
+
+class CayleyPlan(NamedTuple):
+    """The grid of one "smem" Cayley launch (csrc/cayley_neumann.cu): each
+    matrix padded to ``rp`` (r rounded up to 4) and cut into ``tiles``
+    4 x 4 output tiles; ``per_block`` consecutive matrices a block (enough
+    tiles for its :data:`CAYLEY_THREADS` threads, within its shared
+    memory); ``blocks`` blocks over the stack."""
+    rp: int
+    tiles: int
+    per_block: int
+    blocks: int
+
+
+def _cayley_matrix_floats(r: int) -> int:
+    """fp32 words one matrix takes in a "smem" block: Q and S at rp x
+    (rp + 4), rounded up to 32 words plus 8 (neighbouring matrices start 8
+    banks apart)."""
+    rp = -(-r // 4) * 4
+    return -(-(2 * rp * (rp + 4)) // 32) * 32 + 8
+
+
+def cayley_smem_plan(n_mat: int, r: int) -> CayleyPlan:
+    """Plan of the "smem" engine for ``n_mat`` matrices of r x r."""
+    rp = -(-r // 4) * 4
+    tiles = (rp // 4) ** 2
+    per_block = max(1, CAYLEY_THREADS // tiles)
+    per_block = max(1, min(per_block,
+                           SMEM_BYTES // (4 * _cayley_matrix_floats(r))))
+    return CayleyPlan(rp, tiles, per_block, _cdiv(n_mat, per_block))
+
+
+def cayley_tile_cells(rp: int, tile: int) -> Tuple[Tuple[int, ...],
+                                                   Tuple[int, ...]]:
+    """(rows, columns) of 4 x 4 output tile ``tile`` of an rp x rp matrix,
+    as the "smem" kernel assigns them: rows ``ti + rp/4 * i`` (a quarter
+    warp's lanes share them), columns ``4 tj .. 4 tj + 3``."""
+    tpr = rp // 4
+    ti, tj = divmod(tile, tpr)
+    return (tuple(ti + tpr * i for i in range(4)),
+            tuple(4 * tj + c for c in range(4)))
+
+
+def _cayley_engine(r: int) -> str:
+    """The engine of a cayley_neumann launch on the card: ``"smem"`` (the
+    whole series in shared memory, one launch a stack, exact fp32 on the
+    CUDA cores) up to :data:`CAYLEY_SMEM_MAX_R`, ``"tc"`` (one 3xTF32
+    tensor-core product a Horner step) above."""
+    return "smem" if r <= CAYLEY_SMEM_MAX_R else "tc"
+
+
 def _cayley(q: torch.Tensor, terms: int):
     """(R, series) of :func:`repro_torch.kernels.ref.cayley_neumann_series`
-    for dense fp32 Q (..., r, r): one launch per call, the leading dims
-    flattened into the kernel's layer axis."""
+    for dense fp32 Q (..., r, r): one call per stack, the leading dims
+    flattened into the kernel's layer axis, on :func:`_cayley_engine`'s
+    engine."""
     if _on_cpu(q):
         return ref.cayley_neumann_series(q, terms)
     r = q.shape[-1]
     if q.ndim < 2 or q.shape[-2] != r or terms < 0:
         raise ValueError(f"q must be (..., r, r), got {tuple(q.shape)}; "
                          f"terms {terms}")
+    engine = _cayley_engine(r)
     q3 = q.reshape(-1, r, r).contiguous()
     n_mat = q3.shape[0]
     series = torch.empty((terms, n_mat, r, r), dtype=torch.float32,
                          device=q.device)
     rot = torch.empty((n_mat, r, r), dtype=torch.float32, device=q.device)
-    _launch("cayley_neumann", _float_arg(q3, "q", torch.float32, 3),
-            series.data_ptr(), rot.data_ptr(), n_mat, r, terms,
-            _stream(q.device))
+    _launch("cayley_neumann", _CAYLEY_ENGINE_CODE[engine],
+            _float_arg(q3, "q", torch.float32, 3), series.data_ptr(),
+            rot.data_ptr(), n_mat, r, terms,
+            cayley_smem_plan(n_mat, r).per_block, _stream(q.device))
+    CAYLEY_ENGINE_LAUNCHES[engine] += 1
     return rot.reshape(q.shape), series.reshape((terms,) + tuple(q.shape))
 
 
@@ -578,8 +645,70 @@ def cayley_neumann(q: torch.Tensor, terms: int = 5) -> torch.Tensor:
 # the OFT family: block-diagonal input rotation
 # ---------------------------------------------------------------------------
 
-#: largest block size the blockdiag_rotate kernel takes
-BLOCKDIAG_MAX_BLOCK = 128
+#: blockdiag_rotate tiles (csrc/blockdiag_rotate.cu): output columns a
+#: block owns at most, depth chunk above that block size, rows of a tile
+BLOCKDIAG_COLS = 128
+BLOCKDIAG_DEPTH = 64
+BLOCKDIAG_ROWS = 64
+#: blocks the "mma" engine aims for: three of its 62 KB blocks per SM of an
+#: H100 at b = 32
+BLOCKDIAG_TARGET_BLOCKS = 3 * 132
+
+
+def blockdiag_block_columns(d: int, b: int, cb: int
+                            ) -> Tuple[int, int, int, int]:
+    """(first group g0, groups ng, first column c0, width sw) of column
+    block ``cb``, as both rotation engines split d: 128 // b whole groups a
+    block up to b = 128 (each contributing its b columns), else one
+    128-column slice [c0, c0 + sw) of one group."""
+    nb = d // b
+    if b <= BLOCKDIAG_COLS:
+        gpb = BLOCKDIAG_COLS // b
+        return cb * gpb, min(gpb, nb - cb * gpb), 0, b
+    slices = _cdiv(b, BLOCKDIAG_COLS)
+    c0 = cb % slices * BLOCKDIAG_COLS
+    return cb // slices, 1, c0, min(BLOCKDIAG_COLS, b - c0)
+
+
+class BlockdiagPlan(NamedTuple):
+    """The grid of a blockdiag_rotate launch: ``col_blocks`` column blocks
+    (:func:`blockdiag_block_columns`), each group's depth walked in
+    ``chunks`` chunks of :data:`BLOCKDIAG_DEPTH` above 128 (one below);
+    ``row_tiles`` tiles of :data:`BLOCKDIAG_ROWS` rows, ``tiles_per_block``
+    of them a block of the "mma" engine (one a block on "simt"), in
+    ``row_blocks`` row blocks."""
+    col_blocks: int
+    chunks: int
+    row_tiles: int
+    tiles_per_block: int
+    row_blocks: int
+
+
+def blockdiag_plan(m: int, d: int, b: int) -> BlockdiagPlan:
+    """The "mma" engine's grid for x (m, d) and blocks of b: as few row
+    tiles a block as keep :data:`BLOCKDIAG_TARGET_BLOCKS` blocks, counting
+    each depth chunk as a tile (one row tile a block at 4 chunks)."""
+    nb = d // b
+    col_blocks = _cdiv(nb, BLOCKDIAG_COLS // b) if b <= BLOCKDIAG_COLS \
+        else nb * _cdiv(b, BLOCKDIAG_COLS)
+    chunks = 1 if b <= BLOCKDIAG_COLS else _cdiv(b, BLOCKDIAG_DEPTH)
+    row_tiles = _cdiv(m, BLOCKDIAG_ROWS)
+    tpb = max(1, min(row_tiles, _cdiv(row_tiles * col_blocks,
+                                      BLOCKDIAG_TARGET_BLOCKS) // chunks))
+    return BlockdiagPlan(col_blocks, chunks, row_tiles, tpb,
+                         _cdiv(row_tiles, tpb))
+
+
+def _blockdiag_engine(x_dtype: torch.dtype, rots_dtype: torch.dtype, b: int,
+                      aligned: bool) -> str:
+    """The engine of a blockdiag_rotate launch on the card: ``"mma"``
+    (bf16 products on the tensor cores) for bf16 x and rotations, b a
+    multiple of 16 and 16-byte aligned arrays; ``"simt"`` (exact fp32 on
+    the CUDA cores) for everything else.  Both take any b that divides d;
+    neither ever stands in for the other."""
+    if x_dtype == rots_dtype == torch.bfloat16 and b % 16 == 0 and aligned:
+        return "mma"
+    return "simt"
 
 
 def _rotate(x: torch.Tensor, rots: torch.Tensor,
@@ -597,14 +726,15 @@ def _rotate(x: torch.Tensor, rots: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)}, rots "
                          f"{tuple(rots.shape)}: rots must be (d/b, b, b)")
     b = rots.shape[2]
-    if b > BLOCKDIAG_MAX_BLOCK:
-        raise ValueError(f"blockdiag_rotate takes blocks of at most "
-                         f"{BLOCKDIAG_MAX_BLOCK}, not {b}")
     y = torch.empty_like(x)
+    ptrs = [_float_arg(x, "x", x.dtype, 2),
+            _float_arg(rots, "rots", rots.dtype, 3), y.data_ptr()]
+    engine = _blockdiag_engine(x.dtype, rots.dtype, b,
+                               all(p % 16 == 0 for p in ptrs))
     _launch("blockdiag_rotate", code, _compute_code(rots.dtype),
-            int(transpose), _float_arg(x, "x", x.dtype, 2),
-            _float_arg(rots, "rots", rots.dtype, 3), y.data_ptr(), m, d, b,
-            _stream(x.device))
+            _BLOCKDIAG_ENGINE_CODE[engine], int(transpose), *ptrs, m, d, b,
+            blockdiag_plan(m, d, b).tiles_per_block, _stream(x.device))
+    BLOCKDIAG_ENGINE_LAUNCHES[engine] += 1
     return y
 
 

@@ -80,6 +80,28 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, tol, b, h, kh, hd,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hd", [5, 20, 96, 6, 33])
+def test_decode_kernel_at_any_head_dim(cuda_device, dtype, tol, hd):
+    """Head dims whose rows are not a multiple of 16 bytes in one dtype or
+    both (5, 33 odd; 20 and 6 bf16 rows of 40 and 12 bytes) take the
+    element-by-element copies; 96 the 16-byte ones."""
+    b, h, kh, pages, pg, maxp = 4, 6, 2, 20, 8, 4
+    rng = np.random.default_rng(hd)
+    put = _on(cuda_device, dtype)
+    table = rng.integers(0, pages, size=(b, maxp)).astype(np.int32)
+    lengths = np.asarray([0, 1, 19, maxp * pg], np.int32)
+    args = [put(_normal(rng, (b, h, hd))),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)), put(table),
+            put(lengths)]
+    got = ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.all(got[0] == 0)
+    _close(got, ref.paged_decode_attention(*args), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("maxp", [32, 30])
 def test_decode_kernel_at_split_seams(cuda_device, dtype, tol, maxp):
     """Lengths at and next to the split seams (k * pps * pg - 1, k * pps *
@@ -231,15 +253,50 @@ def test_prefill_engines_match_plain(cuda_device, dtype, tol, s, g, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [80, 96, 256])
+def test_prefill_bf16_head_dims_off_the_mma_engine(cuda_device, hd):
+    """bf16 head dims the "mma" engine is not built for run on "simt"
+    against the plain version: three rows (no prefix, one ending mid-page,
+    the full table), G = 3."""
+    b, s, kh, g, pg, maxp = 3, 17, 2, 3, 16, 3
+    h, pages = g * kh, 1 + b * maxp
+    rng = np.random.default_rng(hd)
+    put = _on(cuda_device, torch.bfloat16)
+    table = (rng.permutation(pages - 1)[:b * maxp] + 1).reshape(b, maxp)
+    args = [put(_normal(rng, (b, s, h, hd))),
+            put(_normal(rng, (b, s, kh, hd), 0.5)),
+            put(_normal(rng, (b, s, kh, hd), 0.5)),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(table.astype(np.int32)),
+            put(np.asarray([0, 21, maxp * pg], np.int32))]
+    assert ops._prefill_engine(torch.bfloat16, hd) == "simt"
+    ops.reset_launches()
+    got = ops.paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.PREFILL_ENGINE_LAUNCHES == {"mma": 0, "simt": 1}
+    _close(got, ref.paged_prefill_attention(*args), 2e-2)
+
+
+@pytest.mark.cuda
 def test_prefill_refuses_a_bf16_head_dim_it_is_not_built_for(cuda_device):
+    """The wrapper sends bf16 D = 96 to "simt"; the C entry point refuses
+    the "mma" engine code at that head dim."""
+    from repro_torch.kernels import build
     q = torch.zeros((1, 4, 2, 96), dtype=torch.bfloat16, device=cuda_device)
     pool = torch.zeros((2, 16, 2, 96), dtype=torch.bfloat16,
                        device=cuda_device)
     table = torch.ones((1, 1), dtype=torch.int32, device=cuda_device)
     plen = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim 96"):
-        ops.paged_prefill_attention(q, q.clone(), q.clone(), pool, pool,
-                                    table, plen)
+    assert ops._prefill_engine(torch.bfloat16, 96) == "simt"
+    out = ops.paged_prefill_attention(q, q.clone(), q.clone(), pool, pool,
+                                      table, plen)
+    lib = build.library("paged_prefill_attention")
+    rc = lib.launch(1, 1, q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                    pool.data_ptr(), pool.data_ptr(), table.data_ptr(),
+                    plen.data_ptr(), out.data_ptr(), 1, 4, 2, 2, 96, 2, 16,
+                    1, 1, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 @pytest.mark.cuda
@@ -464,16 +521,24 @@ def test_psoft_matmul_grads_on_the_wgmma_engine(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_mat,r", [(1, 8), (3, 46), (28, 352)])
+@pytest.mark.parametrize("n_mat,r", [(1, 8), (3, 46), (28, 352), (2688, 32),
+                                     (21504, 8), (2, 128), (4, 80)])
 @pytest.mark.parametrize("terms", [0, 1, 5])
 def test_cayley_kernel_matches_plain(cuda_device, n_mat, r, terms):
+    """The test shapes, PSOFT's stack (28, 352, on "tc"), OFT's q stack
+    (2688 blocks of 32) and BOFT's (21504 of 8), the largest "smem" r (four
+    4 x 4 tiles a thread) and r = 80 (two); each launch on the engine
+    :func:`ops._cayley_engine` names."""
     rng = np.random.default_rng(n_mat * r + terms)
     q = _normal(rng, (n_mat, r, r), 0.03)
     q = torch.from_numpy(q - q.transpose(0, 2, 1)).to(cuda_device)
-    before = ops.LAUNCHES["cayley_neumann"]
+    engine = ops._cayley_engine(r)
+    assert engine == ("tc" if r == 352 else "smem")
+    ops.reset_launches()
     rot, series = ops._cayley(q, terms)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["cayley_neumann"] == before + 1
+    assert ops.LAUNCHES["cayley_neumann"] == 1
+    assert ops.CAYLEY_ENGINE_LAUNCHES[engine] == 1
     want_rot, want_series = ref.cayley_neumann_series(q, terms)
     _close(rot, want_rot, 1e-4)
     assert series.shape == (terms, n_mat, r, r)
@@ -486,6 +551,28 @@ def test_cayley_kernel_matches_plain(cuda_device, n_mat, r, terms):
     (ops.cayley_neumann(q1, terms) * wt).sum().backward()
     (ref.cayley_neumann(q2, terms) * wt).sum().backward()
     _close(q1.grad, q2.grad, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mat,r", [(3, 129), (2, 130), (1, 200),
+                                     (2, 360)])
+@pytest.mark.parametrize("terms", [1, 2, 5])
+def test_cayley_tc_engine_at_any_r(cuda_device, n_mat, r, terms):
+    """The "tc" engine at sizes that its 352 x 88 tiles do not divide
+    (ragged edges zero-filled; 360 spills into a second row tile), two of
+    them not a multiple of 4 (4-byte copies): R and the series at the fp32
+    limit, K = 1 (R from S_1 in the first launch) included."""
+    rng = np.random.default_rng(r + terms)
+    q = _normal(rng, (n_mat, r, r), 0.03)
+    q = torch.from_numpy(q - q.transpose(0, 2, 1)).to(cuda_device)
+    assert ops._cayley_engine(r) == "tc"
+    ops.reset_launches()
+    rot, series = ops._cayley(q, terms)
+    torch.cuda.synchronize()
+    assert ops.CAYLEY_ENGINE_LAUNCHES == {"smem": 0, "tc": 1}
+    want_rot, want_series = ref.cayley_neumann_series(q, terms)
+    _close(rot, want_rot, 1e-4)
+    _close(series, want_series, 1e-4)
 
 
 @pytest.mark.cuda
@@ -523,10 +610,17 @@ def _to_device(tree, device):
 
 #: (M, d, b): ragged M, every block size of the OFT family's path (32, 8,
 #: 2), b = 128 (one group a block), blocks that are not a multiple of 4
-#: (6) or do not divide 128 (48), and d that is not a multiple of 128
+#: (6) or do not divide 128 (48), d that is not a multiple of 128, b = 16,
+#: and blocks above 128 (depth in chunks of 64, 128-column slices): 256 at
+#: (64, 512) and at d = 3072, 512, 144 (a 16-column last slice and
+#: chunk) and 136 (not a multiple of 16: "simt" in bf16 too); b = 64, 32
+#: and 16 with a last column block short of groups
 BLOCKDIAG_SHAPES = [(70, 256, 32), (128, 96, 8), (33, 64, 2),
                     (64, 256, 128), (50, 96, 6), (17, 192, 48),
-                    (200, 3072, 32)]
+                    (200, 3072, 32), (96, 256, 16), (64, 512, 256),
+                    (130, 3072, 256), (33, 1024, 512), (20, 288, 144),
+                    (20, 272, 136), (40, 320, 64), (50, 192, 32),
+                    (30, 160, 16)]
 
 
 @pytest.mark.cuda
@@ -545,26 +639,32 @@ def test_blockdiag_rotate_kernel_matches_plain(cuda_device, dtype, tol, m,
                             ).to(cuda_device)
     if rots_in_x_dtype:
         rots = rots.to(dtype)
-    before = ops.LAUNCHES["blockdiag_rotate"]
+    engine = ops._blockdiag_engine(dtype, rots.dtype, b, True)
+    assert engine == ("mma" if dtype == rots.dtype == torch.bfloat16
+                      and b % 16 == 0 else "simt")
+    ops.reset_launches()
     got = ops.blockdiag_rotate(x, rots, transpose=transpose)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["blockdiag_rotate"] == before + 1
+    assert ops.LAUNCHES["blockdiag_rotate"] == 1
+    assert ops.BLOCKDIAG_ENGINE_LAUNCHES[engine] == 1
     assert got.dtype == dtype and got.shape == x.shape
     _close(got, ref.blockdiag_rotate(x, rots, transpose), tol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("b,transpose", [(32, False), (8, True), (2, False)])
+@pytest.mark.parametrize("b,transpose", [(32, False), (8, True), (2, False),
+                                         (256, True), (256, False)])
 def test_blockdiag_rotate_grads_match_autograd_of_plain(cuda_device, dtype,
                                                         tol, b, transpose):
     rng = np.random.default_rng(b)
     put = _on(cuda_device, dtype)
-    x = put(_normal(rng, (96, 128)))
+    d = max(128, 2 * b)
+    x = put(_normal(rng, (96, d)))
     rots = torch.from_numpy(np.eye(b, dtype=np.float32)
-                            + _normal(rng, (128 // b, b, b), 0.2)
+                            + _normal(rng, (d // b, b, b), 0.2)
                             ).to(cuda_device).to(dtype)
-    dy = put(_normal(rng, (96, 128)))
+    dy = put(_normal(rng, (96, d)))
     leaves = [x.clone().requires_grad_(True),
               rots.clone().requires_grad_(True)]
     got = torch.autograd.grad(
@@ -580,10 +680,18 @@ def test_blockdiag_rotate_grads_match_autograd_of_plain(cuda_device, dtype,
 @pytest.mark.cuda
 def test_blockdiag_rotate_refuses_what_the_kernel_does_not_take(
         cuda_device):
-    x = torch.zeros((4, 512), device=cuda_device)
-    with pytest.raises(ValueError, match="at most 128"):
-        ops.blockdiag_rotate(x, torch.zeros((2, 256, 256),
-                                            device=cuda_device))
+    """Rotations that do not tile d, or in a third dtype, are refused;
+    blocks above 128 are taken (both engines walk their depth in
+    chunks)."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_normal(rng, (4, 512))).to(cuda_device)
+    big = torch.from_numpy(np.eye(256, dtype=np.float32)
+                           + _normal(rng, (2, 256, 256), 0.05)
+                           ).to(cuda_device)
+    for rots in (big, big.to(torch.bfloat16)):
+        xx = x.to(rots.dtype)
+        _close(ops.blockdiag_rotate(xx, rots),
+               ref.blockdiag_rotate(xx, rots), dict(DTYPES)[rots.dtype])
     with pytest.raises(ValueError, match="rots must be"):
         ops.blockdiag_rotate(x, torch.zeros((3, 32, 32), device=cuda_device))
     with pytest.raises(TypeError, match="rots"):

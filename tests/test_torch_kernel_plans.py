@@ -1,8 +1,11 @@
 """The plain-Python planning of the port's Hopper kernels, on the CPU: the
 decode kernel's split of each row's page table, the gather-delta kernel's
-K, u and r splits, the prefill kernel's query tiles, the engine a
-psoft_matmul or paged_prefill_attention launch takes, and the wrappers'
-CPU path (the plain versions, bit for bit).  No card is needed."""
+K, u and r splits, the prefill kernel's query tiles, the Cayley "smem"
+engine's matrices and 4 x 4 tiles, the rotation kernel's column blocks,
+depth chunks and row tiles, the engine a psoft_matmul,
+paged_prefill_attention, cayley_neumann or blockdiag_rotate launch takes,
+and the wrappers' CPU path (the plain versions, bit for bit).  No card is
+needed."""
 import numpy as np
 import pytest
 
@@ -203,10 +206,12 @@ def test_prefill_engine_is_mma_in_bf16_and_simt_in_fp32(d):
     assert ops._prefill_engine(torch.float32, d) == "simt"
 
 
-@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("d", [16, 80, 96, 256, 5])
 def test_prefill_engine_refuses_other_bf16_head_dims(d):
-    with pytest.raises(ValueError, match=f"head_dim {d}"):
-        ops._prefill_engine(torch.bfloat16, d)
+    """The "mma" engine is built for 32, 64 and 128 only: every other bf16
+    head dim goes to "simt", which takes any D, as fp32 does."""
+    assert d not in ops.PREFILL_MMA_HEAD_DIMS
+    assert ops._prefill_engine(torch.bfloat16, d) == "simt"
     assert ops._prefill_engine(torch.float32, d) == "simt"
 
 
@@ -252,3 +257,137 @@ def test_gather_delta_wrapper_on_the_cpu_is_the_plain_version(dtype, b, k, n,
                                    left.to(dtype), right)
     assert got.dtype == dtype and torch.equal(got, want)
     assert ops.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# cayley_neumann: the engine and the "smem" engine's packing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r,engine", [(2, "smem"), (8, "smem"), (32, "smem"),
+                                      (46, "smem"), (128, "smem"),
+                                      (129, "tc"), (352, "tc")])
+def test_cayley_engine_by_r(r, engine):
+    assert ops._cayley_engine(r) == engine
+
+
+@pytest.mark.parametrize("n_mat,r", [(2688, 32), (7168, 32), (21504, 8),
+                                     (57344, 8), (28, 128), (3, 46), (1, 8),
+                                     (5, 100), (7, 2), (1, 127)])
+def test_cayley_smem_plan_covers_every_matrix_and_cell_once(n_mat, r):
+    """Blocks of ``per_block`` consecutive matrices cover the stack once;
+    the 4 x 4 tiles cover every cell of the padded rp x rp matrix once; a
+    block's tiles are at most four a thread, and its Q and S fit a block's
+    shared memory."""
+    plan = ops.cayley_smem_plan(n_mat, r)
+    assert plan.rp % 4 == 0 and r <= plan.rp < r + 4
+    assert plan.tiles == (plan.rp // 4) ** 2
+    mats = [m for blk in range(plan.blocks)
+            for m in range(blk * plan.per_block,
+                           min(n_mat, (blk + 1) * plan.per_block))]
+    assert mats == list(range(n_mat))
+    assert (plan.blocks - 1) * plan.per_block < n_mat
+    cells = sorted((i, j) for t in range(plan.tiles)
+                   for i in ops.cayley_tile_cells(plan.rp, t)[0]
+                   for j in ops.cayley_tile_cells(plan.rp, t)[1])
+    assert cells == [(i, j) for i in range(plan.rp) for j in range(plan.rp)]
+    assert plan.per_block * plan.tiles <= 4 * ops.CAYLEY_THREADS
+    assert plan.per_block * 4 * ops._cayley_matrix_floats(r) <= \
+        ops.SMEM_BYTES
+
+
+def test_cayley_smem_plan_at_the_oft_and_boft_stacks():
+    """OFT's blocks of 32 pack 4 matrices a block (one 4 x 4 tile per
+    thread), BOFT's blocks of 8 pack 64."""
+    assert ops.cayley_smem_plan(2688, 32).per_block == 4
+    assert ops.cayley_smem_plan(21504, 8).per_block == 64
+    assert ops.cayley_smem_plan(2, 128).per_block == 1
+
+
+@pytest.mark.parametrize("terms", [0, 1, 5])
+def test_cayley_wrapper_on_the_cpu_is_the_plain_version(terms):
+    rng = np.random.default_rng(4)
+    q = _normal(rng, (3, 10, 10), 0.1)
+    q = q - q.transpose(1, 2)
+    before = dict(ops.LAUNCHES), dict(ops.CAYLEY_ENGINE_LAUNCHES)
+    got = ops._cayley(q, terms)
+    want = ref.cayley_neumann_series(q, terms)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (dict(ops.LAUNCHES), dict(ops.CAYLEY_ENGINE_LAUNCHES)) == before
+
+
+# ---------------------------------------------------------------------------
+# blockdiag_rotate: the engine and the grid
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("x_dtype,rots_dtype,b,aligned,engine", [
+    (torch.bfloat16, torch.bfloat16, 32, True, "mma"),
+    (torch.bfloat16, torch.bfloat16, 16, True, "mma"),
+    (torch.bfloat16, torch.bfloat16, 256, True, "mma"),
+    (torch.bfloat16, torch.bfloat16, 144, True, "mma"),
+    (torch.bfloat16, torch.bfloat16, 8, True, "simt"),    # BOFT
+    (torch.bfloat16, torch.bfloat16, 2, True, "simt"),    # GOFT, qGOFT
+    (torch.bfloat16, torch.bfloat16, 48 + 8, True, "simt"),
+    (torch.bfloat16, torch.bfloat16, 32, False, "simt"),  # misaligned
+    (torch.bfloat16, torch.float32, 32, True, "simt"),    # fp32 rotations
+    (torch.float32, torch.float32, 32, True, "simt"),
+    (torch.float32, torch.float32, 256, True, "simt")])
+def test_blockdiag_engine_by_dtype_block_and_alignment(x_dtype, rots_dtype, b,
+                                                       aligned, engine):
+    assert ops._blockdiag_engine(x_dtype, rots_dtype, b, aligned) == engine
+
+
+@pytest.mark.parametrize("m,d,b", [
+    (2048, 3072, 32), (2048, 8192, 32), (2048, 3072, 16), (2048, 3072, 8),
+    (2048, 3072, 2), (2048, 3072, 256), (64, 512, 256), (33, 1024, 512),
+    (20, 288, 144), (20, 272, 136), (17, 192, 48), (50, 96, 6),
+    (1, 3072, 3072), (130, 3072, 256), (70, 256, 128)])
+def test_blockdiag_plan_covers_every_row_column_and_depth_once(m, d, b):
+    """Column blocks cover each output column once, each inside its own
+    group and at most 128 wide; depth chunks of 64 cover a group's b rows
+    once above b = 128 (one chunk at or below); the row tiles and each row
+    block's tiles cover every row once."""
+    plan = ops.blockdiag_plan(m, d, b)
+    cols = []
+    for cb in range(plan.col_blocks):
+        g0, ng, c0, sw = ops.blockdiag_block_columns(d, b, cb)
+        assert 0 < sw <= ops.BLOCKDIAG_COLS and ng >= 1
+        assert ng == 1 or (c0 == 0 and sw == b)
+        assert ng * sw <= ops.BLOCKDIAG_COLS
+        cols += [(g0 + j) * b + c0 + c for j in range(ng) for c in range(sw)]
+    assert cols == list(range(d))
+    depth = ops.BLOCKDIAG_DEPTH if b > ops.BLOCKDIAG_COLS else b
+    chunks = [k for ch in range(plan.chunks)
+              for k in range(ch * depth, min(b, (ch + 1) * depth))]
+    assert chunks == list(range(b))
+    rows = [i for rb in range(plan.row_blocks)
+            for t in range(rb * plan.tiles_per_block,
+                           min(plan.row_tiles,
+                               (rb + 1) * plan.tiles_per_block))
+            for i in range(t * ops.BLOCKDIAG_ROWS,
+                           min(m, (t + 1) * ops.BLOCKDIAG_ROWS))]
+    assert rows == list(range(m))
+    assert (plan.row_blocks - 1) * plan.tiles_per_block < plan.row_tiles
+
+
+def test_blockdiag_plan_at_the_oft_shape():
+    """OFT's rotation of a llama32-3b linear (2048 tokens, d 3072, b 32):
+    4 groups a block, 24 column blocks, two row tiles a block (384 blocks,
+    about three per SM of an H100); b = 256 walks 4 depth chunks of one
+    row tile a block."""
+    assert ops.blockdiag_plan(2048, 3072, 32) == (24, 1, 32, 2, 16)
+    assert ops.blockdiag_plan(2048, 3072, 256) == (24, 4, 32, 1, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [2, 32, 256])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_blockdiag_wrapper_on_the_cpu_is_the_plain_version(dtype, b,
+                                                           transpose):
+    rng = np.random.default_rng(5)
+    x = _normal(rng, (9, 512)).to(dtype)
+    rots = (torch.eye(b) + _normal(rng, (512 // b, b, b), 0.1)).to(dtype)
+    before = dict(ops.LAUNCHES), dict(ops.BLOCKDIAG_ENGINE_LAUNCHES)
+    got = ops.blockdiag_rotate(x, rots, transpose=transpose)
+    assert torch.equal(got, ref.blockdiag_rotate(x, rots, transpose))
+    assert (dict(ops.LAUNCHES), dict(ops.BLOCKDIAG_ENGINE_LAUNCHES)) == \
+        before

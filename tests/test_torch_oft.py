@@ -63,10 +63,11 @@ def _rots(rng, nb, b, scale=0.3):
 # ------------------------------------------------------------ the kernel
 
 @pytest.mark.parametrize("m,d,b", [(64, 128, 16), (128, 256, 32),
-                                   (256, 128, 8)])
+                                   (256, 128, 8), (64, 512, 256)])
 def test_plain_blockdiag_rotate_matches_pallas_interpret(m, d, b):
-    """The shapes of tests/test_kernels.py::test_blockdiag_rotate_vs_ref;
-    transposed against the reference's oracle on the transposed blocks."""
+    """The shapes of tests/test_kernels.py::test_blockdiag_rotate_vs_ref,
+    and blocks of 256 (above the port's 128-column slices); transposed
+    against the reference's oracle on the transposed blocks."""
     rng = np.random.default_rng(m + d + b)
     x = rng.standard_normal((m, d)).astype(np.float32)
     rots = _rots(rng, d // b, b)
@@ -81,6 +82,29 @@ def test_plain_blockdiag_rotate_matches_pallas_interpret(m, d, b):
                                  transpose=True)
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=1e-5,
                                rtol=1e-5)
+
+
+def test_oft_apply_at_block_256_matches_reference():
+    """OFT with ``oft_block_size=256`` (two blocks of a 512-wide input):
+    the port's CPU apply against the reference's ``oft_apply`` on the same
+    weights (converted by ``interop``), compute dtype fp32 in both, within
+    1e-5 of the largest output."""
+    rng = np.random.default_rng(256)
+    d_in, d_out, b = 512, 96, 256
+    params = {"w": (rng.standard_normal((d_in, d_out)) / d_in ** 0.5
+                    ).astype(np.float32),
+              "q": (rng.standard_normal((d_in // b, b * (b - 1) // 2))
+                    * 0.01).astype(np.float32),
+              "out_scale": (1 + 0.1 * rng.standard_normal(d_out)
+                            ).astype(np.float32)}
+    x = rng.standard_normal((3, 7, d_in)).astype(np.float32)
+    want = np.asarray(joft.oft_apply(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x), b,
+        compute_dtype=jnp.float32))
+    got = oft.oft_apply(interop.params_from_numpy(params, device="cpu"),
+                        torch.from_numpy(x), b, compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("transpose", [False, True])
