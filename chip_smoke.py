@@ -41,7 +41,8 @@ Phases, each of which raises (non-zero exit) on a failed check:
    depth; widths are never cut), seven PSOFT linears per layer in bf16,
    random weights from a seed, two adapters sharing the frozen factors;
    ~24 requests through ``ServeEngine(slots=8, page_size=16,
-   max_len=512)``; checks completion, page accounting, prefix
+   max_len=512).run`` (greedy, strict FIFO: the thin wrapper over
+   ``run_stream``); checks completion, page accounting, prefix
    hits, that every serving kernel launched (gather_delta_matmul exactly 7
    per layer per decode step, every prefill on the "mma" engine), and
    run-to-run token identity;
@@ -71,6 +72,26 @@ Phases, each of which raises (non-zero exit) on a failed check:
    Cayley blocks on "smem"), each run freed before the next;
 9. baselines card vs CPU: ``tiny`` (fp32), 3 steps of OFT and of GOFT on
    the card and on the CPU agree within 1e-4 relative, and merge.
+10. stream (runs after 3, on its params and adapters, same depth): 32
+    requests arriving over steps 1-60 (prompts of 8-200 tokens, half
+    behind a 40-token system prompt, 16-47 new tokens, priorities 0 and
+    1, deadlines on some; a third greedy, a third top-k/top-p sampled
+    with a seed, a third top-p sampled with logprobs and stop ids) through
+    ``run_stream`` on ``ServeEngine(slots=8, page_size=16, max_len=512,
+    prefill_chunk_tokens=64, tracker=InMemoryTracker())`` with about half
+    the trace's worst-case pages; checks every request done, page
+    conservation and no page in use at the end, at least one preemption
+    with every preempted request resumed, chunk continuations, every bf16
+    prefill on "mma", gather_delta_matmul exactly 7 per layer per decode
+    step, stop rows ending on a stop id, and a second run giving identical
+    tokens, events and logprobs; prints decode tokens/s, the mean decode
+    step, the queueing-delay quantiles and the sampler's time per call at
+    B 8, V 128256 (mixed and all-greedy);
+11. stream card vs CPU (runs after 4): the same kind of trace on ``tiny``
+    (fp32), preempting and chunking with sampled rows, on the card and on
+    the CPU: identical tokens, finish reasons, admission and preemption
+    events and kv stats, logprobs within 1e-4, every card prefill on
+    "simt".
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -727,7 +748,6 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
     del again
     profile = profile_serve(torch, serve, params, adapters, cfg, reqs, kw,
                             stats) if args.profile else None
-    del adapters
     torch.cuda.empty_cache()
     tok_s = stats["decode_tokens"] / stats["decode_s"]
     step_ms = 1e3 * stats["decode_s"] / stats["decode_steps"]
@@ -754,7 +774,7 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
           f"{result['launches_per_decode_step']}, prefill-kernel launches "
           f"per prefill call {result['prefill_launches_per_call']:.2f}, by "
           f"engine {prefill_engines}")
-    return result, params
+    return result, params, adapters, cfg
 
 
 #: ranges the serve profile marks around the engine's prefill and decode
@@ -789,8 +809,8 @@ def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
     for name, tree in adapters.items():
         eng.register_adapter(name, tree)
     eng._banked_tree()
-    eng._prefill_group = marked(torch, eng._prefill_group,
-                                SERVE_RANGES["prefill"])
+    eng._run_prefill_groups = marked(torch, eng._run_prefill_groups,
+                                     SERVE_RANGES["prefill"])
     eng._decode_live = marked(torch, eng._decode_live,
                               SERVE_RANGES["decode"])
     torch.cuda.synchronize()
@@ -906,6 +926,316 @@ def card_vs_cpu_phase(torch, configs, model, serve, ops):
           f"and {len(outs['cpu'][1])} admissions identical; card prefills "
           f"by engine {engines}")
     return dict(requests=len(reqs), tokens=n_tok, prefill_engines=engines)
+
+
+# ---------------------------------------------------------------------------
+# phase 10 / 11: streaming serving
+# ---------------------------------------------------------------------------
+
+#: prefill chunk of the streaming engine (tokens per chunk)
+STREAM_CHUNK = 64
+
+
+def stream_trace(serve, vocab, n, seed, max_prompt, spread):
+    """A seeded arrival trace of ``n`` requests over steps 1..``spread``:
+    prompts of 8..``max_prompt`` tokens, half of them behind a 40-token
+    system prompt; 16-47 new tokens; priority 0 or 1, deadlines on half
+    the priority-1 requests; a third greedy, a third ``temperature 0.8,
+    top_k 50, top_p 0.95`` with a seed, a third ``temperature 1.0, top_p
+    0.9, logprobs 4`` whose stop ids are every 32nd token id."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 40).astype(np.int32)
+    adapters = ("base", "tuned_a", "tuned_b")
+    stops = tuple(range(seed % 32, vocab, 32))
+    steps = np.sort(rng.integers(1, spread + 1, n))
+    out = []
+    for uid in range(n):
+        if uid % 2 == 0:
+            user = rng.integers(0, vocab, int(rng.integers(
+                8, max_prompt - 39))).astype(np.int32)
+            prompt = np.concatenate([system, user])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(
+                8, max_prompt + 1))).astype(np.int32)
+        new = int(rng.integers(16, 48))
+        priority = int(rng.random() < 0.4)
+        deadline = float(new + 24) if priority and uid % 2 else None
+        sampling = (None,
+                    serve.SamplingParams(temperature=0.8, top_k=50,
+                                         top_p=0.95, seed=1000 + uid),
+                    serve.SamplingParams(temperature=1.0, top_p=0.9,
+                                         logprobs=4,
+                                         stop_token_ids=stops))[uid % 3]
+        out.append((int(steps[uid]), serve.Request(
+            uid=uid, prompt=prompt, max_new_tokens=new,
+            adapter=adapters[uid % 3], priority=priority, deadline=deadline,
+            sampling=sampling)))
+    return out
+
+
+def stream_pages(trace, slots, max_len, page_size):
+    """About half the trace's worst-case live pages: half the sum of the
+    ``slots`` largest worst-case footprints, at least the largest one."""
+    foot = sorted(-(-min(len(r.prompt) + r.max_new_tokens, max_len)
+                    // page_size) for _, r in trace)
+    return 1 + max(foot[-1], sum(foot[-slots:]) // 2)
+
+
+def stream_once(serve, params, adapters, cfg, trace, device, **kw):
+    eng = serve.ServeEngine(params, cfg, device=device,
+                            tracker=serve.InMemoryTracker(), **kw)
+    for name, tree in adapters.items():
+        eng.register_adapter(name, tree)
+    done = eng.run_stream(trace, max_steps=4096)
+    return eng, done
+
+
+def stream_outcome(eng, done):
+    """What two runs of one trace must share: tokens, finish reasons,
+    admission and preemption events, kv stats and logprobs."""
+    return dict(
+        tokens={r.uid: list(r.generated) for r in done},
+        reasons={r.uid: r.finish_reason for r in done},
+        admissions=[(e.step, e.slot, e.uid, e.resumed, e.prefix_tokens)
+                    for e in eng.admission_events],
+        preemptions=[(e.step, e.slot, e.uid, e.resident_tokens)
+                     for e in eng.preemption_events],
+        kv=dict(eng.kv.stats),
+        logprobs={r.uid: [(lp.token, lp.logprob, lp.top_tokens,
+                           lp.top_logprobs) for lp in r.logprobs]
+                  for r in done})
+
+
+def check_stream_run(eng, done, trace, what):
+    """The checks every streaming run must pass."""
+    check(len(done) == len(trace) and all(r.done for r in done),
+          f"{what}: every request comes back done")
+    cons = eng.kv.conservation()
+    check(cons["conserved"] == 1 and eng.kv.pages_in_use() == 0
+          and not eng.kv._pins,
+          f"{what}: pages conserved and none in use at the end ({cons})")
+    check(eng.last_run_preemptions >= 1, f"{what}: at least one preemption")
+    resumed = {e.uid for e in eng.admission_events if e.resumed}
+    preempted = {e.uid for e in eng.preemption_events}
+    check(preempted <= resumed,
+          f"{what}: every preempted request resumes ({preempted - resumed})")
+    admissions = len(eng.admission_events)
+    chunks = eng.tracker.counter("engine/prefill_chunks")
+    check(chunks > admissions, f"{what}: chunk continuations ran "
+          f"({chunks:.0f} chunks for {admissions} admissions)")
+    for r in done:
+        sp = r.sampling
+        if r.finish_reason == "stop":
+            check(r.generated[-1] in sp.stop_token_ids,
+                  f"{what}: uid {r.uid} stops on a stop id")
+        elif sp is not None and sp.stop_token_ids:
+            check(not set(r.generated) & set(sp.stop_token_ids),
+                  f"{what}: uid {r.uid} ran past a stop id")
+        if sp is not None and sp.logprobs:
+            check(len(r.logprobs) == len(r.generated),
+                  f"{what}: uid {r.uid} has a logprob per token")
+    check(any(r.finish_reason == "stop" for r in done),
+          f"{what}: a stop row ends on its stop id")
+    return chunks - admissions
+
+
+def time_sampler(torch, sampling, vocab, slots=8, iters=20):
+    """The sampler at ``slots`` rows of ``vocab`` bf16 logits: the mixed
+    step (greedy, top-k + top-p, top-p + logprobs rows) and the all-greedy
+    step.  Per call: the host wall time with its one transfer
+    (``to_host``), and the stream time between CUDA events around
+    ``iters`` back-to-back calls.  A mixed call launches ~400 small
+    kernels, more than the launch queue holds, so ``time_ms``'s stream
+    hold cannot separate device from launch time here."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    logits = (torch.randn((slots, vocab), generator=gen, device="cuda")
+              * 3).to(torch.bfloat16)
+    rows = np.arange(slots) % 3
+    put = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    mixed = (put(np.where(rows == 0, 0.0, np.where(rows == 1, 0.8, 1.0))
+                 .astype(np.float32)),
+             put(np.where(rows == 1, 50, 0).astype(np.int32)),
+             put(np.where(rows == 1, 0.95, np.where(rows == 2, 0.9, 1.0))
+                 .astype(np.float32)),
+             put(np.arange(slots, dtype=np.int64) + 1000),
+             put(np.full(slots, 17, np.int64)))
+    calls = {"mixed": lambda: sampling.sample_tokens(
+                 logits, *mixed, want_logprobs=True),
+             "greedy": lambda: sampling.sample_tokens(
+                 logits, *(None,) * 5, want_logprobs=False,
+                 greedy_only=True)}
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(3):
+            sampling.to_host(*fn())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            sampling.to_host(*fn())
+        wall = 1e3 * (time.perf_counter() - t0) / iters
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = dict(wall_ms=wall,
+                         stream_ms=start.elapsed_time(end) / iters)
+    return out
+
+
+def stream_phase(torch, configs, serve, ops, params, adapters, cfg,
+                 gpu_line):
+    """Phase 3's params and adapters under a streaming trace: arrivals,
+    chunked prefill, preemption and sampling at full width."""
+    from repro_torch.serve import sampling
+    kw = dict(slots=8, page_size=16, max_len=512,
+              prefill_chunk_tokens=STREAM_CHUNK)
+    trace = lambda: stream_trace(serve, cfg.vocab_size, 32, 0, 200,  # noqa
+                                 60)
+    pages = stream_pages(trace(), kw["slots"], kw["max_len"],
+                         kw["page_size"])
+    print(f"stream: {len(trace())} requests over steps 1-60, num_pages "
+          f"{pages} (about half the trace's worst-case live pages)")
+    ops.reset_launches()
+    eng, done = stream_once(serve, params, adapters, cfg, trace(), "cuda",
+                            num_pages=pages, **kw)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    prefill_engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    stats = dict(eng.last_run_stats)
+    continuations = check_stream_run(eng, done, trace(), "stream")
+    for name in SERVE_KERNELS + ("cayley_neumann",):
+        check(launches[name] > 0, f"stream: kernel {name} launched")
+    per_step = 7 * cfg.num_layers
+    check(launches["gather_delta_matmul"] == per_step * stats["decode_steps"],
+          f"stream: gather_delta_matmul launched "
+          f"{launches['gather_delta_matmul']} times in "
+          f"{stats['decode_steps']} decode steps, expected exactly "
+          f"{per_step} a step")
+    check(prefill_engines["mma"] == launches["paged_prefill_attention"]
+          and prefill_engines["simt"] == 0,
+          f"stream: every bf16 prefill on the tensor-core engine "
+          f"({prefill_engines})")
+    tr = eng.tracker
+    first = stream_outcome(eng, done)
+    queueing = {q: float(tr.quantile("engine/queueing_delay", q))
+                for q in (0.5, 0.9, 0.99)}
+    summary = dict(
+        requests=len(done), num_pages=pages,
+        preemptions=eng.last_run_preemptions,
+        stops=sum(r.finish_reason == "stop" for r in done),
+        chunk_continuations=continuations, kv=dict(eng.kv.stats),
+        slo_met=tr.counter("engine/slo_met"),
+        slo_missed=tr.counter("engine/slo_missed"))
+    del eng, done
+    torch.cuda.empty_cache()
+    eng, again = stream_once(serve, params, adapters, cfg, trace(), "cuda",
+                             num_pages=pages, **kw)
+    second = stream_outcome(eng, again)
+    for key in ("tokens", "preemptions", "logprobs", "admissions",
+                "reasons"):
+        check(second[key] == first[key],
+              f"stream: a second identical run gives identical {key}")
+    del eng, again
+    torch.cuda.empty_cache()
+    sampler = time_sampler(torch, sampling, cfg.vocab_size)
+    tok_s = stats["decode_tokens"] / stats["decode_s"]
+    step_ms = 1e3 * stats["decode_s"] / stats["decode_steps"]
+    result = dict(summary, layers=cfg.num_layers, decode_tokens_per_s=tok_s,
+                  mean_decode_step_ms=step_ms, stats=stats,
+                  queueing_delay_steps=queueing, launches=launches,
+                  prefill_engines=prefill_engines,
+                  launches_per_decode_step={
+                      k: launches[k] / stats["decode_steps"]
+                      for k in ("paged_decode_attention",
+                                "gather_delta_matmul")},
+                  sampler_ms=sampler, gpu=gpu_line)
+    print(f"stream: {len(trace())} requests, {stats['decode_steps']} decode "
+          f"steps, {tok_s:.1f} decode tokens/s, {step_ms:.2f} ms mean "
+          f"decode step, {stats['prefill_calls']} prefill calls in "
+          f"{stats['prefill_s']:.2f} s, {summary['preemptions']} "
+          f"preemptions, {continuations:.0f} chunk continuations, "
+          f"{summary['stops']} stops, SLO met {summary['slo_met']:.0f} / "
+          f"missed {summary['slo_missed']:.0f} [{gpu_line}]")
+    print(f"stream: queueing delay p50 / p90 / p99 "
+          f"{queueing[0.5]:.1f} / {queueing[0.9]:.1f} / {queueing[0.99]:.1f}"
+          f" steps; launches {launches}; per decode step "
+          f"{result['launches_per_decode_step']}; prefill by engine "
+          f"{prefill_engines}")
+    print(f"stream: sample_tokens at B 8, V {cfg.vocab_size}: mixed "
+          f"{sampler['mixed']['wall_ms']:.3f} ms a call on the host clock "
+          f"with its transfer, {sampler['mixed']['stream_ms']:.3f} ms "
+          f"between CUDA events; all-greedy "
+          f"{sampler['greedy']['wall_ms']:.3f} / "
+          f"{sampler['greedy']['stream_ms']:.3f} ms [{gpu_line}]")
+    return result
+
+
+def stream_card_vs_cpu_phase(torch, configs, model, serve, ops):
+    """The tiny (fp32) streaming engine on the card and on the CPU:
+    identical tokens, finish reasons, admission and preemption events and
+    kv stats, logprobs within 1e-4."""
+    cfg = configs.get_config("tiny")
+    params = model.init_params(cfg, seed=0, device="cpu")
+    adapters = {"tuned_a": nudged(torch, params, PSOFT_TRAINABLES, 1, 0.05,
+                                  "cpu"),
+                "tuned_b": nudged(torch, params, PSOFT_TRAINABLES, 2, 0.05,
+                                  "cpu")}
+    kw = dict(slots=4, page_size=16, max_len=192, prefill_chunk_tokens=24)
+    trace = lambda: stream_trace(serve, cfg.vocab_size, 16, 1, 120,  # noqa
+                                 30)
+    pages = stream_pages(trace(), kw["slots"], kw["max_len"],
+                         kw["page_size"])
+
+    def to_cuda(tree):
+        if isinstance(tree, dict):
+            return {k: to_cuda(v) for k, v in tree.items()}
+        return tree.to("cuda")
+
+    outs = {}
+    for dev, p, ad in (("cpu", params, adapters),
+                       ("cuda", to_cuda(params),
+                        {k: to_cuda(v) for k, v in adapters.items()})):
+        ops.reset_launches()
+        eng, done = stream_once(serve, p, ad, cfg, trace(), dev,
+                                num_pages=pages, **kw)
+        continuations = check_stream_run(eng, done, trace(),
+                                         f"stream card vs cpu ({dev})")
+        outs[dev] = stream_outcome(eng, done)
+    engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    check(engines["simt"] == ops.LAUNCHES["paged_prefill_attention"] > 0
+          and engines["mma"] == 0,
+          f"stream card vs cpu: every fp32 prefill on the card on the simt "
+          f"engine ({engines})")
+    want, got = outs["cpu"], outs["cuda"]
+    for key in ("tokens", "reasons", "admissions", "preemptions", "kv"):
+        check(got[key] == want[key],
+              f"stream card vs cpu: identical {key}")
+    worst = 0.0
+    for uid, rows in want["logprobs"].items():
+        for (t, lp, tt, tl), (gt, glp, gtt, gtl) in zip(
+                rows, got["logprobs"][uid]):
+            check((t, tt) == (gt, gtt),
+                  f"stream card vs cpu: uid {uid} logprob token ids")
+            worst = max([worst, abs(lp - glp)]
+                        + [abs(a - b) for a, b in zip(tl, gtl)])
+    check(worst <= 1e-4, f"stream card vs cpu: logprobs within 1e-4 "
+          f"({worst:.2e})")
+    n_tok = sum(len(t) for t in want["tokens"].values())
+    print(f"stream card vs cpu: tiny fp32, {len(want['tokens'])} requests, "
+          f"{n_tok} tokens, {len(want['admissions'])} admissions, "
+          f"{len(want['preemptions'])} preemptions and "
+          f"{continuations:.0f} chunk continuations identical, logprobs "
+          f"within {worst:.2e}; card prefills by engine {engines}")
+    return dict(requests=len(want["tokens"]), tokens=n_tok,
+                preemptions=len(want["preemptions"]),
+                chunk_continuations=continuations,
+                logprob_max_err=worst, prefill_engines=engines)
 
 
 # ---------------------------------------------------------------------------
@@ -1890,12 +2220,22 @@ def main(argv=None) -> int:
           f"against {cn['plain_tf32_ms']:.4f} ms for the plain series "
           f"through cuBLAS in plain TF32 in the same run")
     t0 = time.perf_counter()
-    served, params = serve_phase(torch, args, configs, model, serve, ops,
-                                 gpu_line)
+    served, params, adapters, serve_cfg = serve_phase(
+        torch, args, configs, model, serve, ops, gpu_line)
     phase_s["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed = stream_phase(torch, configs, serve, ops, params, adapters,
+                            serve_cfg, gpu_line)
+    del adapters
+    torch.cuda.empty_cache()
+    phase_s["stream"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cross = card_vs_cpu_phase(torch, configs, model, serve, ops)
     phase_s["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream_cross = stream_card_vs_cpu_phase(torch, configs, model, serve,
+                                            ops)
+    phase_s["stream_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     trained = train_phase(torch, args, configs, trainer, data, tree, ops,
                           params, gpu_line)
@@ -1942,7 +2282,10 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(gpu=gpu_line, kind=kind,
                                        kernels=kernels, serve=served,
-                                       card_vs_cpu=cross, train=trained,
+                                       stream=streamed,
+                                       card_vs_cpu=cross,
+                                       stream_card_vs_cpu=stream_cross,
+                                       train=trained,
                                        train_card_vs_cpu=train_cross,
                                        oft_train=oft_trained,
                                        baselines=baselines,

@@ -1,7 +1,13 @@
-"""Multi-tenant paged serving of the PyTorch port."""
+"""Multi-tenant paged serving of the PyTorch port: streaming admission
+with SLO-aware preemption, chunked prefill and per-request sampling."""
 from repro_torch.serve.engine import (  # noqa: F401
-    AdmissionEvent, BASE_ADAPTER, Request, ServeEngine,
-)
+    BASE_ADAPTER, AdmissionEvent, PreemptionEvent, Request, ServeEngine)
 from repro_torch.serve.kv_cache import (  # noqa: F401
-    OutOfPages, PagedKVCache, TRASH_PAGE,
-)
+    OutOfPages, PagedKVCache, TRASH_PAGE)
+from repro_torch.serve.sampling import (  # noqa: F401
+    MAX_LOGPROBS, SamplingParams, TokenLogprobs)
+from repro_torch.serve.scheduler import (  # noqa: F401
+    StreamScheduler, TokenCostModel)
+from repro_torch.obs.tracker import (  # noqa: F401
+    NOOP, NULL_SPAN, SCHEMA_VERSION, CompositeTracker, InMemoryTracker,
+    JsonlTracker, NoopTracker, Tracker, read_jsonl, replay)

@@ -1,5 +1,6 @@
 """Serving engine of the port: multi-tenant continuous batching over a
-block-paged KV cache, greedy decoding, strict-FIFO ``run()``.
+block-paged KV cache, with streaming admission, SLO-aware preemption,
+chunked prefill and per-request sampling.
 
 The engine merges the base tree once (PSOFT adapters fold into plain
 weights) and stacks every registered adapter's update into a per-linear
@@ -10,17 +11,39 @@ KV lives in refcounted pages (:class:`repro_torch.serve.kv_cache
 .PagedKVCache`); admissions whose prompt prefix hashes to resident pages
 alias them and prefill only their suffix.
 
-This is the reference engine's ``run()`` subset: paged cache only, every
-request arrives at step 0, admission is strict FIFO with worst-case page
-reservation, no preemption, greedy argmax.  Streaming, preemption, chunked
-prefill, speculative decode, ``n > 1``, sampling parameters, the tracker and
-the hot-swap lifecycle are later slices of the port.
+Admission is streaming (:meth:`ServeEngine.run_stream`): requests are
+``submit()``-ed as they arrive — mid-run included — and a
+:class:`repro_torch.serve.scheduler.StreamScheduler` picks what each free
+slot serves next (priority/deadline ordering, bounded out-of-order
+lookahead).  Under page pressure a deadline-at-risk request that cannot get
+pages SUSPENDS a lower-priority running slot (its computed KV parks in the
+retained-prefix pool; resume re-aliases whatever stayed resident and
+re-prefills only the evicted tail), and decode grows pages on demand,
+suspending the lowest-priority slot when the pool runs dry.  With
+``prefill_chunk_tokens`` a prompt prefills a chunk per step, interleaved
+with decode; mid-prefill slots ride the decode call as ghosts whose table
+rows are redirected to the trash page.  :meth:`ServeEngine.run` is the thin
+wrapper — every request arrives at step 0, strict FIFO, worst-case page
+reservation, no preemption.
+
+Generation control is per request (:mod:`repro_torch.serve.sampling`):
+temperature / top-k / top-p / seed / stop tokens / logprobs, drawn on the
+engine's device with the reference's counter-based threefry stream
+(``fold_in(PRNGKey(seed), n_generated)``), so sampled tokens survive
+preemption and admission order.  Each sampler call brings its outputs back
+in one device-to-host transfer.  Every layer reports through a
+:class:`repro_torch.obs.Tracker` (``engine/…``, ``scheduler/…``,
+``sampler/…``, ``kv/…``) under the reference's metric names.
+
+Speculative decode, ``n > 1``, the dense cache and the hot-swap lifecycle
+are later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+import warnings
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +52,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, PEFTConfig, torch_dtype
 from repro_torch.core import peft as peft_lib, registry
 from repro_torch.models import model as model_lib
+from repro_torch.obs import NOOP, NULL_SPAN, Tracker
+from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve.kv_cache import OutOfPages, PagedKVCache, TRASH_PAGE
+from repro_torch.serve.sampling import SamplingParams, TokenLogprobs
+from repro_torch.serve.scheduler import StreamScheduler, TokenCostModel
 
 #: adapter name every request uses unless it asks for another
 BASE_ADAPTER = "base"
@@ -44,28 +71,64 @@ class Request:
     prompt: np.ndarray              # (S,) int32
     max_new_tokens: int = 16
     adapter: str = BASE_ADAPTER
+    #: per-request generation control; None inherits the engine default
+    sampling: Optional[SamplingParams] = None
+    #: scheduling weight: higher-priority requests are admitted first and
+    #: may preempt lower-priority running slots under page pressure
+    priority: int = 0
+    #: SLO on the engine's cost clock: finish within this many cost units
+    #: of arrival (None = no SLO; default cost units are engine steps)
+    deadline: Optional[float] = None
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    #: "length" once max_new_tokens / max_len is reached; None otherwise
+    #: "stop" (emitted one of its stop ids, kept in ``generated``) or
+    #: "length" (max_new_tokens / max_len reached); None otherwise
     finish_reason: Optional[str] = None
-    #: run() hit max_steps before this request finished
+    #: per generated token, when ``sampling.logprobs > 0``
+    logprobs: List[TokenLogprobs] = dataclasses.field(default_factory=list)
+    #: the run hit max_steps before this request finished
     truncated: bool = False
+    #: engine-stamped: the step the request entered the queue / was first
+    #: admitted / finished, and how many times it was preempted
     arrival_step: int = 0
     admit_step: Optional[int] = None
     finish_step: Optional[int] = None
+    preemptions: int = 0
+    #: the same stamps on the scheduler's cost clock
+    arrival_cost: float = 0.0
+    finish_cost: Optional[float] = None
 
     @property
     def queueing_delay(self) -> Optional[int]:
+        """Engine steps spent waiting for first admission (None: never
+        admitted)."""
         if self.admit_step is None:
             return None
         return self.admit_step - self.arrival_step
 
+    @property
+    def slo_met(self) -> Optional[bool]:
+        """Whether the request finished inside its deadline (None: no
+        deadline; False also covers never-finished)."""
+        if self.deadline is None:
+            return None
+        if self.finish_cost is None:
+            return False
+        return self.finish_cost - self.arrival_cost <= self.deadline
+
+    @property
+    def remaining_tokens(self) -> int:
+        """Upper bound on tokens left to generate (the scheduler's
+        remaining-work estimate)."""
+        return max(self.max_new_tokens - len(self.generated), 0)
+
 
 @dataclasses.dataclass(frozen=True)
 class AdmissionEvent:
-    """One slot fill: ``prefix_tokens`` is the resident KV the prefill
-    skipped (aliased shared-prefix pages); non-empty ``others`` shows the
-    slot was refilled while other slots were mid-decode."""
+    """One slot fill (fresh or resumed): ``prefix_tokens`` is the resident
+    KV the prefill skipped (aliased shared-prefix pages or a resumed
+    request's retained pages); non-empty ``others`` shows the slot was
+    refilled while other slots were mid-decode."""
     step: int
     slot: int
     uid: int
@@ -76,11 +139,25 @@ class AdmissionEvent:
     others: Tuple[int, ...]
 
 
-def _bank_tree(node, raws, pcs, names, cdt, path):
+@dataclasses.dataclass(frozen=True)
+class PreemptionEvent:
+    """One suspension: ``resident_tokens`` is the KV the slot had computed
+    when it yielded."""
+    step: int
+    slot: int
+    uid: int
+    adapter: str
+    priority: int
+    resident_tokens: int
+
+
+def _bank_tree(node, raws, pcs, names, cdt, path, kinds):
     """``node`` of the merged base tree with a bank stacked from the
     adapters' matching subtrees ``raws`` (PEFT configs ``pcs``, adapter
-    ``names`` in bank order) on every linear they update.  A module-level
-    function, so that no closure ties the tree it builds to the engine."""
+    ``names`` in bank order) on every linear they update; ``kinds`` counts
+    the low-rank (``"left"``) and dense (``"delta"``) banks built.  A
+    module-level function, so that no closure ties the tree it builds to
+    the engine."""
     if isinstance(node, dict):
         module = path[-1] if path else None
         if set(node) == {"w"} and module in _LINEAR_MODULES \
@@ -89,11 +166,12 @@ def _bank_tree(node, raws, pcs, names, cdt, path):
                 node["w"], [(raw, pc, module) for raw, pc in zip(raws, pcs)])
             if bank is None:
                 return node
+            kinds["left" if "left" in bank else "delta"] += 1
             if "left" in bank:
                 bank["left"] = bank["left"].to(cdt)
             return {"w": node["w"], "bank": bank}
         return {k: _bank_tree(v, [r[k] for r in raws], pcs, names, cdt,
-                              path + (k,))
+                              path + (k,), kinds)
                 for k, v in node.items()}
     # a non-linear leaf is shared by every slot: refuse adapters that
     # changed it
@@ -112,11 +190,24 @@ class ServeEngine:
     ``params`` is the (PEFT-wrapped) tree served as the ``"base"`` adapter;
     :meth:`register_adapter` adds fine-tunes of the same architecture.
     ``device`` holds the KV pools and every per-step tensor, and must be
-    where ``params`` live."""
+    where ``params`` live.
+
+    ``sampling`` is the default :class:`SamplingParams` of requests that
+    carry none (default: greedy); ``sample_seed`` seeds the derived seeds of
+    requests whose params pin none.  ``tracker`` receives the metrics.
+    ``prefill_chunk_tokens`` splits admission prefill into chunks of at
+    most that many tokens, one per engine step; ``cost_model`` is the
+    deadline clock and optional step budget; ``bucket_multiple`` is the
+    prefill padding granularity (default 8)."""
 
     def __init__(self, params, cfg: ModelConfig, max_len: int = 256,
                  slots: int = 4, page_size: int = 16,
-                 num_pages: Optional[int] = None, device="cuda"):
+                 num_pages: Optional[int] = None, device="cuda",
+                 sampling: Optional[SamplingParams] = None,
+                 sample_seed: int = 0, tracker: Optional[Tracker] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 cost_model: Optional[TokenCostModel] = None,
+                 bucket_multiple: Optional[int] = None):
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family only, not "
                              f"{cfg.family!r}")
@@ -135,20 +226,93 @@ class ServeEngine:
         self._tree = None                            # built at run start
         self.max_len = max_len
         self.slots = slots
+        self.default_sampling = (SamplingParams.greedy() if sampling is None
+                                 else sampling)
+        self.default_sampling.validate(self.cfg.vocab_size)
+        self.sample_seed = int(sample_seed)
         self.kv = PagedKVCache(self.cfg, slots, max_len, page_size=page_size,
                                num_pages=num_pages, device=self.device)
+        #: deadline-clock / step-budget basis (shared with the scheduler)
+        self.cost_model = cost_model if cost_model is not None \
+            else TokenCostModel()
+        #: chunked prefill: prompts prefill at most this many tokens per
+        #: engine step, interleaved with decode (None = one-shot prefill)
+        self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
+                                     else int(prefill_chunk_tokens))
+        if self.prefill_chunk_tokens is not None \
+                and self.prefill_chunk_tokens < 1:
+            raise ValueError(f"prefill_chunk_tokens must be >= 1, got "
+                             f"{self.prefill_chunk_tokens}")
+        self.bucket_multiple = (8 if bucket_multiple is None
+                                else int(bucket_multiple))
+        if self.bucket_multiple < 1:
+            raise ValueError(f"bucket_multiple must be >= 1, got "
+                             f"{self.bucket_multiple}")
         self.positions = np.zeros((slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
         self.admission_events: List[AdmissionEvent] = []
+        self.preemption_events: List[PreemptionEvent] = []
+        #: streaming admission policy; run() pins it to strict FIFO,
+        #: run_stream() reconfigures it per call
+        self.scheduler = StreamScheduler(cost_model=self.cost_model)
+        #: the run's cost clock (TokenCostModel units) and this step's spend
+        self._cost_clock = 0.0
+        self._step_spent = 0.0
+        #: per-step (cost_spent, decoded slots) of the last run
+        self.last_run_step_costs: List[Tuple[float, int]] = []
         #: host-clock totals of the last run: prefill calls and decode steps
-        #: (each ends in the token transfer, so the device work is included)
+        #: (a call that samples ends in the token transfer, so the device
+        #: work is included)
         self.last_run_stats: Dict[str, float] = {}
         self._stats: Dict[str, float] = {}
+        #: uids queued or active, and uids of an arrival trace not yet
+        #: injected: duplicates would corrupt the uid-keyed bookkeeping
+        self._inflight: set = set()
+        self._pending_trace_uids: set = set()
+        self._step = 0              # current engine step (0 when idle)
+        # once-per-engine warnings (the tracker still counts every one)
+        self._warned_dense_fallback = False
+        self._warned_truncation = False
+        #: cumulative engine steps ever served — the tracker's step domain
+        self._obs_step = 0
+        self._tracker = NOOP
+        self._obs = False
+        if tracker is not None:
+            self.tracker = tracker
+
+    # -- observability -----------------------------------------------------
+    @property
+    def tracker(self) -> Tracker:
+        """The metrics backend every serving layer reports through; shared
+        with the scheduler and the KV cache."""
+        return self._tracker
+
+    @tracker.setter
+    def tracker(self, t: Tracker) -> None:
+        self._tracker = t
+        self._obs = not t.is_noop
+        self.scheduler.tracker = t
+        self.kv.set_tracker(t)
+
+    def _observe_decode(self, live: List[int]) -> None:
+        """Per-decode-step metrics from host-side slot bookkeeping only
+        (gated behind ``self._obs`` by the caller)."""
+        tr = self._tracker
+        s = self._obs_step
+        tr.gauge("engine/live_slots", len(live), step=s)
+        tr.gauge("scheduler/queue_depth", len(self.scheduler), step=s)
+        by_adapter: Dict[str, int] = {}
+        for i in live:
+            a = self.active[i].adapter
+            by_adapter[a] = by_adapter.get(a, 0) + 1
+        for a, n in by_adapter.items():
+            tr.count(f"engine/tokens/{a}", n, step=s)
+        self.kv.observe_pool(step=s)
 
     # -- adapters ----------------------------------------------------------
     def register_adapter(self, name: str, params,
                          peft_cfg: Optional[PEFTConfig] = None) -> None:
-        """Add one fine-tuned tree by name (before :meth:`run`; the bank is
+        """Add one fine-tuned tree by name (before a run; the bank is
         rebuilt at the next run start).  ``peft_cfg`` defaults to the
         engine's construction-time PEFT config."""
         if name in self._sources:
@@ -173,122 +337,471 @@ class ServeEngine:
         compute dtype: every consumer casts them to it before use."""
         if self._tree is None:
             entries = [self._sources[n] for n in self._order]
+            kinds = {"left": 0, "delta": 0}
             self._tree = _bank_tree(
                 self._merged_base, [raw for raw, _ in entries],
                 [pc for _, pc in entries], self._order,
-                torch_dtype(self.cfg.dtype), ())
+                torch_dtype(self.cfg.dtype), (), kinds)
+            self._note_bank_kinds(kinds)
         return self._tree
 
-    # -- admission ---------------------------------------------------------
-    def _bucket(self, plen: int) -> int:
-        """Right-pad prefill length to a multiple of 8, the reference's
-        default (pads are never attended: logits read the last real
-        token)."""
-        return min(self.max_len, -(-plen // 8) * 8)
+    def _note_bank_kinds(self, kinds: Dict[str, int]) -> None:
+        """Count every dense-delta bank on the tracker; warn once per
+        engine."""
+        if not kinds["delta"]:
+            return
+        self._tracker.count("engine/warnings/dense_fallback",
+                            kinds["delta"], step=self._obs_step)
+        if not self._warned_dense_fallback:
+            self._warned_dense_fallback = True
+            warnings.warn(
+                f"{kinds['delta']} of {kinds['delta'] + kinds['left']} "
+                f"adapter banks use the DENSE delta fallback. The low-rank "
+                f"path needs every adapter's frozen base to equal the "
+                f"serving base exactly: serving from a fine-tuned base "
+                f"tree, or PiSSA/DoRA/OFT-family/full-FT adapters, all fall "
+                f"back.")
 
     @staticmethod
     def _kv_key(r: Request) -> str:
         return f"{r.adapter}#1"
 
-    def _validate(self, r: Request) -> None:
-        self._adapter_id(r.adapter)
-        if not 0 < len(r.prompt) < self.max_len:
-            raise ValueError(
-                f"request {r.uid}: prompt length {len(r.prompt)} must be in "
-                f"[1, max_len) = [1, {self.max_len})")
-        reserve = min(len(r.prompt) + r.max_new_tokens, self.max_len)
-        need = -(-reserve // self.kv.page_size)
-        if need > self.kv.num_pages - 1:
-            raise ValueError(
-                f"request {r.uid}: worst-case footprint of {need} pages "
-                f"exceeds the pool ({self.kv.num_pages - 1} pages)")
+    # -- sampling ----------------------------------------------------------
+    def _sampling_for(self, r: Request) -> SamplingParams:
+        return r.sampling if r.sampling is not None else self.default_sampling
 
-    def _admit(self, step: int, queue: List[Request]) -> None:
-        """Fill free slots from the head of the queue (strict FIFO: a head
-        that does not fit the page pool waits for frees), then prefill the
-        admissions in one call per padding bucket."""
-        admitted = []
-        for slot in range(self.slots):
-            if not queue:
-                break
-            if self.active[slot] is not None:
+    def _seed_for(self, r: Request) -> int:
+        sp = self._sampling_for(r)
+        return sp.seed if sp.seed is not None \
+            else sampling_lib.derive_seed(self.sample_seed, r.uid)
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, copied without waiting for
+        the card."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
+
+    def _sample_rows(self, logits_rows: torch.Tensor,
+                     reqs: List[Optional[Request]]) -> np.ndarray:
+        """Draw every row's next token in one sampler call on the device.
+
+        ``logits_rows`` is the ``(B, vocab)`` last-position logits; ``reqs
+        [j]`` is the request row ``j`` samples for, or None for rows whose
+        draw is discarded (ghosts, resumed requests whose next token
+        predates their suspension).  Each live row's draw is
+        ``fold_in(PRNGKey(seed), len(generated))``.  One device-to-host
+        transfer brings back the tokens, plus the logprobs when a row asked
+        for them.  The caller MUST append the returned token for every
+        non-None row."""
+        greedy = SamplingParams.greedy()
+        entries = []
+        for r in reqs:
+            if r is None:
+                entries.append((greedy, 0, 0))
+            else:
+                entries.append((self._sampling_for(r), self._seed_for(r),
+                                len(r.generated)))
+        temps, ks, ps, seeds, counters = sampling_lib.stack(entries)
+        if self._obs:
+            sampling_lib.record_occupancy(self._tracker, reqs,
+                                          step=self._obs_step)
+        want_lp = any(r is not None and self._sampling_for(r).logprobs
+                      for r in reqs)
+        greedy_only = bool((temps <= 0.0).all())
+        if greedy_only:
+            args = (None,) * 5
+        else:
+            args = tuple(self._put(a) for a in (temps, ks, ps, seeds,
+                                                counters))
+        out = sampling_lib.sample_tokens(logits_rows, *args,
+                                         want_logprobs=want_lp,
+                                         greedy_only=greedy_only)
+        toks, chosen, top_ids, top_lps = sampling_lib.to_host(*out)
+        if want_lp:
+            for j, r in enumerate(reqs):
+                n = 0 if r is None else self._sampling_for(r).logprobs
+                if n:
+                    r.logprobs.append(TokenLogprobs(
+                        int(toks[j]), float(chosen[j]),
+                        tuple(int(t) for t in top_ids[j, :n]),
+                        tuple(float(v) for v in top_lps[j, :n])))
+        return toks
+
+    def _hit_stop(self, r: Request) -> bool:
+        """Whether the request's latest token is one of its stop ids."""
+        return bool(r.generated) and \
+            r.generated[-1] in self._sampling_for(r).stop_token_ids
+
+    # -- admission ---------------------------------------------------------
+    def _bucket(self, plen: int) -> int:
+        """Right-pad prefill length to a ``bucket_multiple`` multiple (pads
+        are never attended: logits read the last real token)."""
+        m = self.bucket_multiple
+        return min(self.max_len, -(-plen // m) * m)
+
+    @staticmethod
+    def _target_seq(r: Request) -> np.ndarray:
+        """Full sequence a (re)admission must make resident: the prompt
+        plus every already-decoded token but the latest (the next decode
+        input, preserved across suspend/resume)."""
+        return np.concatenate([np.asarray(r.prompt, np.int32),
+                               np.asarray(r.generated[:-1], np.int32)])
+
+    @staticmethod
+    def _resident_seq(r: Request) -> np.ndarray:
+        """Tokens whose KV is resident for an active request: the target
+        sequence, or only its completed chunks while mid-prefill."""
+        full = ServeEngine._target_seq(r)
+        if not getattr(r, "_prefill_done", True):
+            return full[:r._prefill_pos]
+        return full
+
+    def _record_admissions(self, step: int, group, next_tokens) -> None:
+        """Install one admission pass's slot fills.  ``group`` entries are
+        ``(slot, r, pref, seq, resumed, end, final)``: ``end`` tokens of
+        ``seq`` are resident after this prefill call and ``final`` says
+        whether that is all of them.  ``next_tokens[j]`` is the sampled
+        first token, or None for rows that don't sample one."""
+        for j, (slot, r, pref, seq, resumed, end, final) in enumerate(group):
+            others = tuple(q.uid for i, q in enumerate(self.active)
+                           if q is not None and i != slot)
+            self.active[slot] = r
+            first = r.admit_step is None
+            if first:
+                r.admit_step = step
+            tok = next_tokens[j]
+            if tok is not None:
+                r.generated.append(int(tok))
+            if final:
+                r._prefill_done = True
+                self.positions[slot] = len(seq)
+            else:
+                r._prefill_done = False
+                r._prefill_pos = end
+                self.positions[slot] = 0
+            ev = AdmissionEvent(step=step, slot=slot, uid=r.uid,
+                                adapter=r.adapter, resumed=resumed,
+                                prefix_tokens=int(pref),
+                                queueing_delay=r.queueing_delay,
+                                others=others)
+            self.admission_events.append(ev)
+            if self._obs:
+                tr = self._tracker
+                s = self._obs_step
+                tr.event("engine/admission", dataclasses.asdict(ev), step=s)
+                if tok is not None:
+                    tr.count(f"engine/tokens/{r.adapter}", step=s)
+                if first:
+                    tr.histogram("engine/queueing_delay", r.queueing_delay,
+                                 step=s)
+                if self.scheduler.at_risk(r, self._cost_clock):
+                    tr.count("scheduler/at_risk_admissions", step=s)
+                if final and self.prefill_chunk_tokens is not None:
+                    tr.histogram("engine/prefill_stall_steps",
+                                 step - r.admit_step, step=s)
+
+    def _admit(self, step: int) -> None:
+        """Fill every free slot from the scheduler (budget permitting): a
+        candidate that doesn't fit the page pool is skipped for up to
+        ``lookahead`` later ones; a deadline-at-risk candidate may preempt
+        a lower-priority running slot instead of waiting."""
+        free = [i for i in range(self.slots) if self.active[i] is None]
+        if not free or not self.scheduler.has_work():
+            return
+        cm = self.cost_model
+        if (cm.step_budget is not None
+                and self._step_spent >= cm.step_budget
+                and any(r is not None for r in self.active)):
+            return
+        self._admit_paged(free, step)
+
+    # -- preemption --------------------------------------------------------
+    def _suspend(self, slot: int, step: int) -> None:
+        """Preempt ``slot``: park its computed KV in the retained-prefix
+        pool, release its pages, and queue it for resumption."""
+        r = self.active[slot]
+        resident = self._resident_seq(r)
+        r._kv_pin = self.kv.suspend_slot(slot, resident, self._kv_key(r),
+                                         priority=r.priority)
+        self.active[slot] = None
+        self.positions[slot] = 0
+        r.preemptions += 1
+        ev = PreemptionEvent(step=step, slot=slot, uid=r.uid,
+                             adapter=r.adapter, priority=r.priority,
+                             resident_tokens=len(resident))
+        self.preemption_events.append(ev)
+        if self._obs:
+            self._tracker.count("engine/preemptions", step=self._obs_step)
+            self._tracker.event("engine/preemption", dataclasses.asdict(ev),
+                                step=self._obs_step)
+        self.scheduler.push_resume(r)
+
+    def _eligible_victims(self, r: Request, frozen) -> List[int]:
+        """Slots suspendable so deadline-at-risk ``r`` can be admitted:
+        strictly lower priority (or equal priority with no deadline of its
+        own), lowest priority first, most slack first.  ``frozen`` slots
+        (admitted this pass) are never victims."""
+        sched = self.scheduler
+        cands = []
+        for j, occ in enumerate(self.active):
+            if occ is None or j in frozen:
                 continue
-            r = queue[0]
-            seq = np.asarray(r.prompt, np.int32)
-            reserve = min(len(seq) + r.max_new_tokens, self.max_len)
+            if occ.priority < r.priority or (
+                    occ.priority == r.priority
+                    and occ.deadline is None and r.deadline is not None):
+                cands.append((occ.priority,
+                              -sched.slack(occ, self._cost_clock), j))
+        return [c[-1] for c in sorted(cands)]
+
+    def _pick_decode_victim(self) -> Optional[int]:
+        """Slot to suspend when a KV write cannot get a page: lowest
+        priority, then most slack, then most recently admitted."""
+        sched = self.scheduler
+        cands = [(occ.priority, -sched.slack(occ, self._cost_clock),
+                  -(occ.admit_step or 0), j)
+                 for j, occ in enumerate(self.active) if occ is not None]
+        return min(cands)[-1] if cands else None
+
+    def _try_admit_pages(self, free: List[int], r: Request, resumed: bool,
+                         step: int, frozen
+                         ) -> Optional[Tuple[int, np.ndarray]]:
+        """Allocate slot ``free[0]``'s pages for ``r``; returns (aliased
+        prefix length, token sequence) or None when they don't fit.  Under
+        the preempting policy a deadline-at-risk ``r`` suspends victims
+        (their slots join ``free``) until it fits or none is left, and the
+        reservation is prompt-only (decode grows pages on demand)."""
+        kv = self.kv
+        seq = self._target_seq(r) if resumed \
+            else np.asarray(r.prompt, np.int32)
+        reserve = None if self.scheduler.preempt \
+            else min(len(r.prompt) + r.max_new_tokens, self.max_len)
+        alloc = self.prefill_chunk_tokens if reserve is None else None
+        while True:
             try:
-                prefix = self.kv.admit(slot, seq, self._kv_key(r),
-                                       reserve_tokens=reserve)
+                if resumed:
+                    prefix = kv.resume_slot(
+                        free[0], seq, self._kv_key(r),
+                        reserve_tokens=reserve, alloc_tokens=alloc,
+                        pin=getattr(r, "_kv_pin", None))
+                    r._kv_pin = None
+                else:
+                    prefix = kv.admit(free[0], seq, self._kv_key(r),
+                                      reserve_tokens=reserve,
+                                      alloc_tokens=alloc)
+                return prefix, seq
             except OutOfPages:
-                break
-            queue.pop(0)
-            admitted.append((slot, r, prefix, seq))
+                if not (self.scheduler.preempt
+                        and self.scheduler.at_risk(r, self._cost_clock)):
+                    return None
+                victims = self._eligible_victims(r, frozen)
+                if not victims:
+                    return None
+                # suspend only when preemption can cover the shortfall
+                need = -(-(len(seq) if reserve is None else reserve)
+                         // kv.page_size) - kv.alias_probe(seq,
+                                                           self._kv_key(r))
+                gain = sum(kv.exclusive_pages(j) for j in victims)
+                if kv.allocatable_pages() + gain < need:
+                    return None
+                self._suspend(victims[0], step)
+                free.append(victims[0])
+
+    def _admit_paged(self, free: List[int], step: int) -> None:
+        admitted = []          # (slot, request, prefix, seq, resumed)
+        frozen = set()         # slots filled this pass: not preemptible
+        while free and self.scheduler.has_work():
+            pick = None
+            skipped = 0
+            for r, resumed in self.scheduler.window(self._cost_clock):
+                res = self._try_admit_pages(free, r, resumed, step, frozen)
+                if res is not None:
+                    pick = (r, resumed) + res
+                    break
+                skipped += 1
+            if self._obs and skipped:
+                self._tracker.count("scheduler/lookahead_skips", skipped,
+                                    step=self._obs_step)
+            if pick is None:
+                break          # retry after running slots free pages
+            r, resumed, prefix, seq = pick
+            self.scheduler.remove(r)
+            slot = free.pop(0)
+            frozen.add(slot)
+            admitted.append((slot, r, prefix, seq, resumed))
         if not admitted:
             return
+        for group, nxt in self._run_prefill_groups(admitted):
+            self._record_admissions(step, group, nxt)
+
+    def _chunk_plan(self, prefix: int, total: int) -> Tuple[int, bool]:
+        """``(end, final)`` of this prefill call for a row whose first
+        ``prefix`` of ``total`` tokens are resident."""
+        chunk = self.prefill_chunk_tokens
+        if chunk is None or total - prefix <= chunk:
+            return total, True
+        return prefix + chunk, False
+
+    def _run_prefill_groups(self, entries):
+        """One paged prefill call per suffix bucket over ``entries`` =
+        ``(slot, r, prefix, seq, resumed)``, each row chunked by
+        :meth:`_chunk_plan`.  Returns ``[(group, next_tokens)]`` with
+        entries extended by ``(end, final)``; a row samples only on its
+        final chunk and only if it never sampled before."""
+        kv = self.kv
+        plans = [(slot, r, prefix, seq, resumed) + self._chunk_plan(
+                     prefix, len(seq))
+                 for slot, r, prefix, seq, resumed in entries]
         groups: Dict[int, list] = {}
-        for entry in admitted:
-            groups.setdefault(self._bucket(len(entry[3]) - entry[2]),
-                              []).append(entry)
+        for entry in plans:
+            _slot, _r, prefix, _seq, _res, end, _fin = entry
+            groups.setdefault(self._bucket(end - prefix), []).append(entry)
+        out = []
         for bucket, group in groups.items():
+            g = len(group)
+            toks = np.zeros((g, bucket), np.int32)
+            lens = np.zeros((g,), np.int32)
+            prefs = np.zeros((g,), np.int32)
+            ids = np.zeros((g,), np.int32)
+            rows = np.zeros((g, kv.pages_per_slot), np.int32)
+            for j, (slot, r, prefix, seq, _res, end, _fin) in \
+                    enumerate(group):
+                suffix = seq[prefix:end]
+                toks[j, :len(suffix)] = suffix
+                lens[j] = len(suffix)
+                prefs[j] = prefix
+                ids[j] = self._adapter_id(r.adapter)
+                rows[j] = kv.tables[slot]
+            # the prefix table is empty (no aliasing in the group: the
+            # exact chunked path) or the full table masked by prefix_len,
+            # which need not be page-aligned (a mid-page chunk boundary)
+            n_pref = kv.pages_per_slot if prefs.max() else 0
+            self._step_spent += self.cost_model.prefill_cost(int(lens.sum()))
+            sample_for = [r if (fin and not r.generated) else None
+                          for _s, r, _p, _sq, _res, _e, fin in group]
             t0 = time.perf_counter()
-            nxt = self._prefill_group(bucket, group)
+            with self._tracker.time_block("engine/prefill_s",
+                                          step=self._obs_step):
+                cache = {"k": kv.pools["k"], "v": kv.pools["v"],
+                         "page_table": kv.table_tensor(rows),
+                         "prefix_table": kv.table_tensor(rows[:, :n_pref])}
+                logits, _ = model_lib.paged_prefill(
+                    self._tree, {"tokens": self._put(toks)}, cache,
+                    self.cfg, self._put(lens), self._put(prefs),
+                    adapter_ids=self._put(ids))
+                nxt = [None] * g
+                if any(q is not None for q in sample_for):
+                    drawn = self._sample_rows(
+                        logits[:, -1, :self.cfg.vocab_size], sample_for)
+                    nxt = [None if sample_for[j] is None else int(drawn[j])
+                           for j in range(g)]
             self._stats["prefill_s"] += time.perf_counter() - t0
             self._stats["prefill_calls"] += 1
-            for j, (slot, r, prefix, seq) in enumerate(group):
-                others = tuple(q.uid for i, q in enumerate(self.active)
-                               if q is not None and i != slot)
-                self.active[slot] = r
-                r.admit_step = step
-                r.generated.append(int(nxt[j]))
+            for slot, r, _pref, seq, _res, end, _fin in group:
+                kv.commit_prompt(slot, seq[:end], self._kv_key(r))
+            if self._obs and self.prefill_chunk_tokens is not None:
+                self._tracker.count("engine/prefill_chunks", g,
+                                    step=self._obs_step)
+            out.append((group, nxt))
+        return out
+
+    def _any_decodable(self) -> bool:
+        return any(r is not None and getattr(r, "_prefill_done", True)
+                   for r in self.active)
+
+    def _continue_prefills(self, step: int) -> None:
+        """Advance every mid-prefill slot by one chunk (budget permitting;
+        at least one chunk runs when nothing else can progress).  A chunk
+        whose pages don't fit suspends the preferred victim or, without
+        preemption, stalls until running slots free pages."""
+        if self.prefill_chunk_tokens is None:
+            return
+        cm = self.cost_model
+        entries = []
+        for slot in range(self.slots):
+            r = self.active[slot]
+            if r is None or getattr(r, "_prefill_done", True):
+                continue
+            if (cm.step_budget is not None
+                    and self._step_spent >= cm.step_budget
+                    and (entries or self._any_decodable())):
+                break
+            target = self._target_seq(r)
+            end, _fin = self._chunk_plan(r._prefill_pos, len(target))
+            ok = False
+            while self.active[slot] is not None:
+                try:
+                    self.kv.ensure_position(slot, end - 1)
+                    ok = True
+                    break
+                except OutOfPages:
+                    if not self.scheduler.preempt:
+                        break              # stall: retry next step
+                    victim = self._pick_decode_victim()
+                    if victim is None:
+                        break
+                    self._suspend(victim, step)
+            if ok and self.active[slot] is not None:
+                entries.append((slot, r, r._prefill_pos, target, False))
+        # a later slot's victim pick may have suspended an earlier entry
+        entries = [e for e in entries if self.active[e[0]] is e[1]]
+        if not entries:
+            return
+        for group, nxt in self._run_prefill_groups(entries):
+            self._finish_chunks(step, group, nxt)
+
+    def _finish_chunks(self, step: int, group, next_tokens) -> None:
+        """Book a continuation pass's results (no AdmissionEvent: the slot
+        was filled when its first chunk ran)."""
+        for j, (slot, r, _pref, seq, _res, end, final) in enumerate(group):
+            tok = next_tokens[j]
+            if tok is not None:
+                r.generated.append(int(tok))
+            if final:
+                r._prefill_done = True
                 self.positions[slot] = len(seq)
-                self.admission_events.append(AdmissionEvent(
-                    step=step, slot=slot, uid=r.uid, adapter=r.adapter,
-                    resumed=False, prefix_tokens=int(prefix),
-                    queueing_delay=r.queueing_delay, others=others))
-
-    def _prefill_group(self, bucket: int, group) -> np.ndarray:
-        """One paged prefill over a bucket's admissions; returns each row's
-        greedy first token."""
-        kv = self.kv
-        g = len(group)
-        toks = np.zeros((g, bucket), np.int32)
-        lens = np.zeros((g,), np.int32)
-        prefs = np.zeros((g,), np.int32)
-        ids = np.zeros((g,), np.int32)
-        rows = np.zeros((g, kv.pages_per_slot), np.int32)
-        for j, (slot, r, prefix, seq) in enumerate(group):
-            suffix = seq[prefix:]
-            toks[j, :len(suffix)] = suffix
-            lens[j] = len(suffix)
-            prefs[j] = prefix
-            ids[j] = self._adapter_id(r.adapter)
-            rows[j] = kv.tables[slot]
-        # the prefix table is either empty (no aliasing in the group: the
-        # exact chunked path) or the full table masked by prefix_len
-        n_pref = kv.pages_per_slot if prefs.max() else 0
-        dev = self.device
-        cache = {"k": kv.pools["k"], "v": kv.pools["v"],
-                 "page_table": kv.table_tensor(rows),
-                 "prefix_table": kv.table_tensor(rows[:, :n_pref])}
-        logits, _ = model_lib.paged_prefill(
-            self._tree, {"tokens": torch.from_numpy(toks).to(dev)}, cache,
-            self.cfg, torch.from_numpy(lens).to(dev),
-            torch.from_numpy(prefs).to(dev),
-            adapter_ids=torch.from_numpy(ids).to(dev))
-        nxt = self._greedy(logits)
-        for slot, r, _prefix, seq in group:
-            kv.commit_prompt(slot, seq, self._kv_key(r))
-        return nxt
-
-    def _greedy(self, logits: torch.Tensor) -> np.ndarray:
-        """Argmax over the real vocabulary of each row's last position: one
-        device-to-host transfer per step."""
-        return logits[:, -1, :self.cfg.vocab_size].argmax(-1).cpu().numpy()
+            else:
+                r._prefill_pos = end
+                self.positions[slot] = 0
+            if self._obs:
+                tr = self._tracker
+                s = self._obs_step
+                if tok is not None:
+                    tr.count(f"engine/tokens/{r.adapter}", step=s)
+                if final:
+                    tr.histogram("engine/prefill_stall_steps",
+                                 step - r.admit_step, step=s)
 
     # -- decode --------------------------------------------------------------
-    def _decode_live(self, live: List[int]) -> np.ndarray:
-        """One decode step over every slot; dead slots ride as ghosts
-        (token 0, adapter 0, position 0, all-trash table)."""
+    def _ensure_decode_pages(self, live: List[int], step: int) -> List[int]:
+        """Give every live slot the page this step's KV write lands in.
+        Under the preempting policy, pool pressure suspends the
+        lowest-priority live slot (possibly the needy one) instead of
+        faulting; returns the surviving live slots."""
+        survivors: List[int] = []
+        for i in live:
+            while self.active[i] is not None:
+                try:
+                    self.kv.ensure_position(i, int(self.positions[i]))
+                    survivors.append(i)
+                    break
+                except OutOfPages:
+                    if not self.scheduler.preempt:
+                        raise
+                    victim = self._pick_decode_victim()
+                    if victim is None:
+                        raise
+                    self._suspend(victim, step)
+        return [i for i in survivors if self.active[i] is not None]
+
+    def _decode_live(self, live: List[int], step: int):
+        """One decode step over every slot; returns (last-position logits,
+        surviving live slots).  Dead slots ride as ghosts (token 0, adapter
+        0, position 0, all-trash table); so do mid-prefill slots, whose
+        real table rows are redirected to the trash page in the call's
+        table copy."""
+        live = self._ensure_decode_pages(live, step)
+        if not live:
+            return None, live
         toks = np.zeros((self.slots, 1), np.int32)
         ids = np.zeros((self.slots,), np.int32)
         positions = np.zeros((self.slots,), np.int32)
@@ -304,95 +817,307 @@ class ServeEngine:
                     f"dead slot {i} still maps pages "
                     f"{self.kv.tables[i].tolist()}; its ghost write would "
                     f"corrupt live KV")
-        dev = self.device
+        ghosted = [i for i in range(self.slots)
+                   if self.active[i] is not None and i not in live]
+        table = self.kv.tables
+        if ghosted:
+            table = table.copy()
+            table[ghosted] = TRASH_PAGE
         cache = {"k": self.kv.pools["k"], "v": self.kv.pools["v"],
-                 "page_table": self.kv.table_tensor()}
+                 "page_table": self.kv.table_tensor(table)}
         logits, _ = model_lib.decode_step(
-            self._tree, {"tokens": torch.from_numpy(toks).to(dev)}, cache,
-            torch.from_numpy(positions).to(dev), self.cfg,
-            adapter_ids=torch.from_numpy(ids).to(dev))
-        return self._greedy(logits)
+            self._tree, {"tokens": self._put(toks)}, cache,
+            self._put(positions), self.cfg, adapter_ids=self._put(ids))
+        return logits[:, -1, :self.cfg.vocab_size], live
 
-    def _finish_slot(self, slot: int, finished: List[Request],
-                     step: int) -> None:
+    def _finish_slot(self, slot: int, finished: List[Request], step: int,
+                     reason: str = "length") -> None:
         r = self.active[slot]
         r.done = True
-        r.finish_reason = "length"
+        r.finish_reason = reason
         r.finish_step = step
+        r.finish_cost = self._cost_clock
         finished.append(r)
+        self._inflight.discard(r.uid)
         self.active[slot] = None
         self.positions[slot] = 0
         self.kv.free_slot(slot)
+        if self._obs:
+            tr = self._tracker
+            s = self._obs_step
+            tr.count(f"engine/finish/{reason}", step=s)
+            if r.slo_met is not None:
+                tr.count("engine/slo_met" if r.slo_met
+                         else "engine/slo_missed", step=s)
+            tr.event("engine/finish", {
+                "uid": r.uid, "adapter": r.adapter, "reason": reason,
+                "tokens": len(r.generated),
+                "queueing_delay": r.queueing_delay,
+                "preemptions": r.preemptions, "slo_met": r.slo_met}, step=s)
 
-    def _finish_admitted(self, finished: List[Request], step: int,
-                         queue: List[Request]) -> None:
-        """Finish slots whose prefill token already completed the request
-        (``max_new_tokens == 1``) and refill them before decoding."""
+    def _observe_truncated(self, r: Request) -> None:
+        """Count a request returned as a partial; a deadlined one has
+        missed its SLO."""
+        if not self._obs:
+            return
+        s = self._obs_step
+        self._tracker.count("engine/finish/truncated", step=s)
+        if r.deadline is not None:
+            self._tracker.count("engine/slo_missed", step=s)
+
+    def _finish_admitted(self, finished: List[Request], step: int) -> None:
+        """Finish slots whose prefill-sampled first token already completed
+        the request (a stop id, or ``max_new_tokens == 1``) and refill them
+        before this step's decode."""
         while True:
             ended = False
             for i, r in enumerate(self.active):
-                if r is not None and len(r.generated) >= r.max_new_tokens:
+                if r is None:
+                    continue
+                if self._hit_stop(r):
+                    self._finish_slot(i, finished, step, reason="stop")
+                    ended = True
+                elif len(r.generated) >= r.max_new_tokens:
                     self._finish_slot(i, finished, step)
                     ended = True
             if not ended:
                 return
-            self._admit(step, queue)
+            self._admit(step)
 
+    # -- request intake ----------------------------------------------------
+    def _validate(self, r: Request) -> None:
+        self._adapter_id(r.adapter)
+        try:
+            self._sampling_for(r).validate(self.cfg.vocab_size)
+        except ValueError as e:
+            raise ValueError(f"request {r.uid}: {e}") from None
+        if not 0 < len(r.prompt) < self.max_len:
+            raise ValueError(
+                f"request {r.uid}: prompt length {len(r.prompt)} must be in "
+                f"[1, max_len) = [1, {self.max_len})")
+        reserve = min(len(r.prompt) + r.max_new_tokens, self.max_len)
+        need = -(-reserve // self.kv.page_size)
+        if need > self.kv.num_pages - 1:
+            raise ValueError(
+                f"request {r.uid}: worst-case footprint of {need} pages "
+                f"exceeds the pool ({self.kv.num_pages - 1} pages)")
+
+    def submit(self, request: Request, arrival_step: Optional[int] = None,
+               _validated: bool = False) -> None:
+        """Enqueue one request for streaming admission (before or during
+        :meth:`run_stream`; arrival is stamped at the current engine step
+        unless ``arrival_step`` overrides it).  A request object served
+        before is reset; a uid already queued or active raises."""
+        if not _validated:
+            self._validate(request)
+        if request.uid in self._inflight \
+                or request.uid in self._pending_trace_uids:
+            raise ValueError(
+                f"request uid {request.uid} is already queued or active — "
+                f"in-flight uids must be unique")
+        request.generated = []
+        request.logprobs = []
+        request.done = False
+        request.truncated = False
+        request.finish_reason = None
+        request.admit_step = None
+        request.finish_step = None
+        request.finish_cost = None
+        request.preemptions = 0
+        request._prefill_done = True
+        request._prefill_pos = 0
+        request._kv_pin = None
+        request.arrival_step = (self._step if arrival_step is None
+                                else arrival_step)
+        request.arrival_cost = (
+            self._cost_clock if self._step
+            else self.cost_model.steps_to_cost(request.arrival_step))
+        self._inflight.add(request.uid)
+        self.scheduler.push(request)
+
+    # -- serving -----------------------------------------------------------
     def run(self, requests: List[Request], max_steps: int = 512
             ) -> List[Request]:
-        """Serve ``requests`` to completion (or ``max_steps``) in strict
-        FIFO order.  Every request comes back: finished ones ``done``, the
-        rest ``truncated`` with their partial output, pages freed."""
+        """Serve a static batch to completion (or ``max_steps``): every
+        request arrives at step 0, strict FIFO admission with worst-case
+        page reservation, no preemption (a thin wrapper over
+        :meth:`run_stream`).  Every request comes back: finished ones
+        ``done``, the rest ``truncated`` with their partial output."""
         seen = set()
         for r in requests:
             self._validate(r)
-            if r.uid in seen:
-                raise ValueError(f"duplicate request uid {r.uid}")
+            if r.uid in seen or r.uid in self._inflight:
+                raise ValueError(f"duplicate request uid {r.uid} in run() "
+                                 f"batch — in-flight uids must be unique")
             seen.add(r.uid)
         for r in requests:
-            r.generated, r.done, r.truncated = [], False, False
-            r.finish_reason = r.admit_step = r.finish_step = None
-            r.arrival_step = 0
+            self.submit(r, arrival_step=0, _validated=True)
+        return self.run_stream(max_steps=max_steps, lookahead=0,
+                               preempt=False)
+
+    def run_stream(self,
+                   arrivals: Optional[Iterable[Tuple[int, Request]]] = None,
+                   max_steps: int = 512, lookahead: int = 4,
+                   preempt: bool = True) -> List[Request]:
+        """Streaming serve: ``arrivals`` is an optional trace of ``(step,
+        request)`` pairs, each injected once the engine reaches that step
+        (on top of anything already submitted).  ``lookahead`` bounds
+        out-of-order admission past a head that doesn't fit; ``preempt``
+        enables SLO-aware suspension, with prompt-only reservation and
+        decode-time page growth.  Returns every request served this run
+        (the completion/truncation contract of :meth:`run`)."""
+        self.scheduler.configure(lookahead, preempt)
+        trace = sorted(arrivals, key=lambda a: a[0]) if arrivals else []
+        trace_uids = set()
+        for _, r in trace:
+            self._validate(r)
+            if r.uid in trace_uids or r.uid in self._inflight:
+                raise ValueError(
+                    f"duplicate request uid {r.uid} in arrivals trace — "
+                    f"in-flight uids must be unique")
+            trace_uids.add(r.uid)
         self._banked_tree()
+        self._pending_trace_uids = trace_uids
         self._stats = dict(prefill_s=0.0, prefill_calls=0, decode_s=0.0,
                            decode_steps=0, decode_tokens=0)
-        queue = list(requests)
         finished: List[Request] = []
         steps = 0
-        while (queue or any(r is not None for r in self.active)) \
+        next_arrival = 0
+        preempted_before = len(self.preemption_events)
+        cm = self.cost_model
+        self._cost_clock = 0.0
+        self._step_spent = 0.0
+        self.last_run_step_costs = []
+        while (next_arrival < len(trace) or self.scheduler.has_work()
+                or any(r is not None for r in self.active)) \
                 and steps < max_steps:
             steps += 1
-            self._admit(steps, queue)
-            self._finish_admitted(finished, steps, queue)
-            live = [i for i, r in enumerate(self.active) if r is not None]
+            self._step = steps
+            self._obs_step += 1
+            # unbudgeted the cost clock IS the step counter in cost units;
+            # budgeted it advances by what the previous step spent
+            if cm.step_budget is None:
+                self._cost_clock = cm.steps_to_cost(steps)
+            else:
+                self._cost_clock += max(self._step_spent,
+                                        cm.decode_step_cost)
+            self._step_spent = 0.0
+            while (next_arrival < len(trace)
+                    and trace[next_arrival][0] <= steps):
+                s, r = trace[next_arrival]
+                self._pending_trace_uids.discard(r.uid)
+                self.submit(r, arrival_step=s, _validated=True)
+                next_arrival += 1
+            # mid-prefill slots advance a chunk before new admissions
+            # compete for the step's budget
+            self._continue_prefills(steps)
+            self._admit(steps)
+            self._finish_admitted(finished, steps)
+            busy = [i for i, r in enumerate(self.active) if r is not None]
+            live = [i for i in busy
+                    if getattr(self.active[i], "_prefill_done", True)]
             if not live:
-                if queue:
-                    raise OutOfPages(
-                        f"request {queue[0].uid} (prompt "
-                        f"{len(queue[0].prompt)} tokens) cannot fit an idle "
-                        f"pool of {self.kv.num_pages - 1} pages")
+                if (not busy and self.scheduler.has_work()
+                        and next_arrival >= len(trace)):
+                    head = self.scheduler.window(self._cost_clock)[0][0]
+                    raise self.kv.oom(
+                        f"request {head.uid} (prompt {len(head.prompt)} "
+                        f"tokens) cannot fit an idle page pool of "
+                        f"{self.kv.num_pages - 1} pages x "
+                        f"{self.kv.page_size} "
+                        f"({self.kv.pages_resident()} resident, "
+                        f"{self.kv.pages_resident() - self.kv.pages_in_use()}"
+                        f" retained)")
+                self.last_run_step_costs.append((self._step_spent, 0))
                 continue
+            span = (self._tracker.time_block("engine/decode_step_s",
+                                             step=self._obs_step)
+                    if self._obs else NULL_SPAN)
             t0 = time.perf_counter()
-            toks = self._decode_live(live)
-            self._stats["decode_s"] += time.perf_counter() - t0
-            self._stats["decode_steps"] += 1
-            self._stats["decode_tokens"] += len(live)
+            with span:
+                rows, live = self._decode_live(live, steps)
+                if live:
+                    # mid-prefill slots ride the batch as ghosts: None rows
+                    # draw nothing and return no token
+                    reqs: List[Optional[Request]] = [None] * self.slots
+                    for i in live:
+                        reqs[i] = self.active[i]
+                    toks = self._sample_rows(rows, reqs)
+            if live:
+                self._stats["decode_s"] += time.perf_counter() - t0
+                self._stats["decode_steps"] += 1
+                self._stats["decode_tokens"] += len(live)
+                self._step_spent += cm.decode_step_cost
+                for i in live:
+                    self.active[i].generated.append(int(toks[i]))
+                    self.positions[i] += 1
+                if self._obs:
+                    self._observe_decode(live)
             for i in live:
                 r = self.active[i]
-                r.generated.append(int(toks[i]))
-                self.positions[i] += 1
-                if len(r.generated) >= r.max_new_tokens \
-                        or self.positions[i] >= self.max_len - 1:
+                if self._hit_stop(r):
+                    # stop id emitted: finish now, the slot refills at the
+                    # next admission pass
+                    self._finish_slot(i, finished, steps, reason="stop")
+                elif (len(r.generated) >= r.max_new_tokens
+                        or self.positions[i] >= self.max_len - 1):
                     self._finish_slot(i, finished, steps)
+            if self._obs and cm.step_budget is not None:
+                self._tracker.gauge("engine/step_budget_utilization",
+                                    self._step_spent / cm.step_budget,
+                                    step=self._obs_step)
+            self.last_run_step_costs.append((self._step_spent, len(live)))
         self.last_run_stats = dict(self._stats, steps=steps)
-        for i, r in enumerate(self.active):
-            if r is not None:
-                r.truncated = True
-                finished.append(r)
-                self.active[i] = None
-                self.positions[i] = 0
-                self.kv.free_slot(i)
-        for r in queue:
-            r.truncated = True
-            finished.append(r)
+        #: suspensions this run
+        self.last_run_preemptions = \
+            len(self.preemption_events) - preempted_before
+        self.last_run_truncated = bool(
+            next_arrival < len(trace) or self.scheduler.has_work()
+            or any(r is not None for r in self.active))
+        if self.last_run_truncated:
+            self._truncate(finished, trace[next_arrival:], max_steps)
+        self._pending_trace_uids = set()
+        self._step = 0
+        self._cost_clock = 0.0
+        self._step_spent = 0.0
         return finished
+
+    def _truncate(self, finished: List[Request], unarrived, max_steps: int
+                  ) -> None:
+        """Return everything still active, queued or not yet arrived as a
+        partial (``truncated``), freeing pages and suspension pins."""
+        n_active = sum(r is not None for r in self.active)
+        n_queued = len(self.scheduler) + len(unarrived)
+        if self._obs:
+            self._tracker.count("engine/warnings/truncation",
+                                step=self._obs_step)
+        if not self._warned_truncation:
+            self._warned_truncation = True
+            warnings.warn(
+                f"run hit max_steps={max_steps} with {n_active} active and "
+                f"{n_queued} queued requests; returning them as partials "
+                f"(done=False, truncated=True)")
+        for i, r in enumerate(self.active):
+            if r is None:
+                continue
+            r.truncated = True
+            self._observe_truncated(r)
+            finished.append(r)
+            self._inflight.discard(r.uid)
+            self.active[i] = None
+            self.positions[i] = 0
+            self.kv.free_slot(i)
+        for r in self.scheduler.drain():
+            r.truncated = True
+            self._observe_truncated(r)
+            if r._kv_pin is not None:
+                # abandoned suspension: its retained pages demote to
+                # ordinary residency
+                self.kv.release_pin(r._kv_pin)
+                r._kv_pin = None
+            self._inflight.discard(r.uid)
+            finished.append(r)
+        for _, r in unarrived:
+            r.truncated = True
+            self._observe_truncated(r)
+            finished.append(r)

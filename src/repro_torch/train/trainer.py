@@ -16,8 +16,9 @@ the reference's format (:mod:`repro_torch.train.checkpoint`).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import interop, resolve_device
@@ -154,6 +155,21 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
             metrics
 
     return train_step
+
+
+def log_step_metrics(tracker, step: int, metrics: Dict,
+                     step_time: Optional[float] = None) -> None:
+    """Report one train step through the :mod:`repro_torch.obs` Tracker,
+    the surface the serving stack reports through: every scalar of
+    ``metrics`` under ``train/`` (loss, grad_norm, lr, ...) against the
+    optimizer step, plus ``train/step_time_s`` as a histogram when the
+    caller hands in a measured wall-clock.  The ``float()`` casts read
+    device values, so call it at the logging cadence, after the step."""
+    scalars = {f"train/{k}": float(v) for k, v in metrics.items()
+               if (v.ndim if torch.is_tensor(v) else np.ndim(v)) == 0}
+    tracker.log(scalars, step=step)
+    if step_time is not None:
+        tracker.histogram("train/step_time_s", step_time, step=step)
 
 
 def _zero_if_none(g, like: torch.Tensor) -> torch.Tensor:

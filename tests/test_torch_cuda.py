@@ -303,7 +303,11 @@ def test_prefill_refuses_a_bf16_head_dim_it_is_not_built_for(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_serving_wrappers_never_sync_with_the_host(cuda_device, dtype):
     """Neither wrapper reads a device value on the host: under
-    ``set_sync_debug_mode("error")`` a synchronising call would raise."""
+    ``set_sync_debug_mode("error")`` a synchronising call would raise.  And
+    a sampling, preempting, chunking ``run_stream`` of a tiny engine in the
+    same dtype, its adapter bank built beforehand, synchronises exactly
+    once per sampler call (its one device-to-host transfer), so once a
+    decode step."""
     rng = np.random.default_rng(5)
     put = _on(cuda_device, dtype)
     x, w = put(_normal(rng, (8, 256))), put(_normal(rng, (256, 192), 0.06))
@@ -333,6 +337,35 @@ def test_serving_wrappers_never_sync_with_the_host(cuda_device, dtype):
     _close(y, ref.gather_delta_matmul(ids.clamp(0, 2), x, w, left, right),
            tol)
     _close(out, ref.paged_prefill_attention(*pre), tol)
+
+    import warnings
+    from repro_torch.serve import sampling
+    cfg_dtype = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    eng, trace = _tiny_stream_engine(cuda_device, cfg_dtype)
+    eng.run_stream(trace(), max_steps=400)          # build + warm up
+    calls = []
+    to_host = sampling.to_host
+
+    def counted(*a):
+        calls.append(1)
+        return to_host(*a)
+    eng, trace = _tiny_stream_engine(cuda_device, cfg_dtype)
+    eng._banked_tree()      # the bank build reads device values, once
+    sampling.to_host = counted
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            done = eng.run_stream(trace(), max_steps=400)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        sampling.to_host = to_host
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert all(r.done for r in done) and eng.last_run_preemptions >= 1
+    assert eng.last_run_stats["decode_steps"] > 0
+    assert len(syncs) == len(calls) >= eng.last_run_stats["decode_steps"], (
+        len(syncs), len(calls), [str(w.message)[:80] for w in syncs[:3]])
 
 
 @pytest.mark.cuda
@@ -378,6 +411,115 @@ def test_tiny_serving_launches_every_kernel(cuda_device):
     serving = ("paged_decode_attention", "paged_prefill_attention",
                "gather_delta_matmul")
     assert all(ops.LAUNCHES[n] > 0 for n in serving), ops.LAUNCHES
+
+
+def _tiny_stream_engine(device, dtype="float32"):
+    """A tiny engine with a tight pool (6 usable pages of 8) and prefill
+    chunks of 5, and a trace factory: a big low-priority sampled request
+    with logprobs, then deadlined high-priority arrivals on two adapters,
+    greedy, sampled and stop rows (a quarter of the vocabulary stops them)
+    behind a shared 16-token prefix."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+    cfg = get_config("tiny").replace(dtype=dtype)
+    params = model.init_params(cfg, seed=0, device="cpu")
+    tuned = {**params, "layers": {**params["layers"], "attn": {
+        name: {**lin, "q": lin["q"] + 0.05}
+        for name, lin in params["layers"]["attn"].items()}}}
+    put = (lambda t: {k: put(v) for k, v in t.items()}
+           if isinstance(t, dict) else t.to(device))
+    eng = ServeEngine(put(params), cfg, max_len=56, slots=2, page_size=8,
+                      num_pages=7, prefill_chunk_tokens=5, device=device)
+    eng.register_adapter("tuned", put(tuned))
+    vocab = cfg.vocab_size
+
+    def trace():
+        rng = np.random.default_rng(3)
+        system = rng.integers(0, vocab, 16).astype(np.int32)
+        out = [(1, Request(uid=0, prompt=(np.arange(30, dtype=np.int32) * 3
+                                          + 1) % vocab, max_new_tokens=14,
+                           sampling=SamplingParams(temperature=1.0,
+                                                   top_p=0.9, seed=5,
+                                                   logprobs=4)))]
+        for i in range(6):
+            sp = (None, SamplingParams(temperature=0.8, top_k=50,
+                                       top_p=0.95, seed=40 + i),
+                  SamplingParams(temperature=1.0, top_p=0.9, logprobs=4,
+                                 stop_token_ids=range(0, vocab, 4)))[i % 3]
+            out.append((3 + 2 * i, Request(
+                uid=1 + i, prompt=np.concatenate(
+                    [system, rng.integers(0, vocab, 3).astype(np.int32)]),
+                max_new_tokens=5, priority=1, deadline=14.0,
+                adapter=("base", "tuned")[i % 2], sampling=sp)))
+        return out
+    return eng, trace
+
+
+def _stream_summary(eng, done):
+    return dict(
+        tokens={r.uid: list(r.generated) for r in done},
+        reasons={r.uid: r.finish_reason for r in done},
+        admissions=[(e.step, e.slot, e.uid, e.resumed, e.prefix_tokens)
+                    for e in eng.admission_events],
+        preemptions=[(e.step, e.slot, e.uid, e.resident_tokens)
+                     for e in eng.preemption_events],
+        kv=dict(eng.kv.stats))
+
+
+@pytest.mark.cuda
+def test_tiny_stream_card_matches_cpu(cuda_device):
+    """The sampling, preempting, chunking trace on the card and on the CPU:
+    identical tokens, finish reasons, admissions, preemptions and kv
+    stats, logprobs within 1e-4."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        eng, trace = _tiny_stream_engine(dev)
+        done = eng.run_stream(trace(), max_steps=400)
+        assert all(r.done for r in done) and eng.kv.pages_in_use() == 0
+        out[str(dev)[:4]] = (_stream_summary(eng, done),
+                             {r.uid: r.logprobs for r in done})
+    (want, want_lp), (got, got_lp) = out["cpu"], out["cuda"]
+    assert got == want
+    assert want["preemptions"] and any(r == "stop" for r in
+                                       want["reasons"].values())
+    for uid, lps in want_lp.items():
+        for a, b in zip(got_lp[uid], lps):
+            assert (a.token, a.top_tokens) == (b.token, b.top_tokens)
+            assert abs(a.logprob - b.logprob) <= 1e-4
+            assert np.allclose(a.top_logprobs, b.top_logprobs, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [1024, 128256])
+def test_sampler_on_the_card_matches_the_cpu(cuda_device, v):
+    """The sampler on CUDA tensors against the CPU sampler on the same
+    logits and parameters: identical tokens and top ids, logprobs within
+    1e-5; the all-greedy shortcut gives the argmax."""
+    from repro_torch.serve import sampling
+    rng = np.random.default_rng(v)
+    b = 8
+    logits = rng.normal(0, 3, (b, v)).astype(np.float32)
+    temps = rng.uniform(0.3, 1.5, b).astype(np.float32)
+    temps[:2] = 0.0
+    ks = rng.integers(0, 129, b).astype(np.int32)
+    ps = rng.uniform(0.3, 1.0, b).astype(np.float32)
+    seeds = rng.integers(0, 2 ** 32, b).astype(np.int64)
+    counters = rng.integers(0, 500, b).astype(np.int64)
+    host = [torch.from_numpy(a) for a in (logits, temps, ks, ps, seeds,
+                                          counters)]
+    want = sampling.to_host(*sampling.sample_tokens(*host,
+                                                    want_logprobs=True))
+    got = sampling.to_host(*sampling.sample_tokens(
+        *[t.to(cuda_device) for t in host], want_logprobs=True))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-5)
+    greedy = sampling.sample_tokens(host[0].to(cuda_device), None, None,
+                                    None, None, None, want_logprobs=False,
+                                    greedy_only=True)[0]
+    np.testing.assert_array_equal(greedy.cpu().numpy(), logits.argmax(-1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,41 @@
+"""The port's example twins on the CPU at reduced steps: the quickstart's
+Theorem 4.1 deviations stay at rounding level, its shifted-task loss falls
+and its merged tree serves the tuned tree's logits; the sampling twin's
+seeded tokens reproduce from run to run and its stop request ends on its
+stop id; the metrics twin's tracker sees its preemptions and deadlines."""
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny tensors: one intra-op thread, so the suite's parallel workers do not
+# contend with idle-spinning thread pools
+torch.set_num_threads(1)
+
+from repro_torch.examples import (  # noqa: E402
+    quickstart, serve_metrics, serve_sampling)
+
+
+def test_quickstart_twin(capsys):
+    out = quickstart.main(["--device", "cpu", "--pretrain-steps", "6",
+                           "--steps", "8"])
+    assert out["angle_dev"] < 1e-5 and out["norm_dev"] < 1e-5
+    assert out["losses"][-1] < out["losses"][0]
+    assert out["merge_dev"] < 1e-4
+    assert "Theorem 4.1" in capsys.readouterr().out
+
+
+def test_sampling_twin_reproduces_its_draws():
+    first = serve_sampling.main(["--device", "cpu"])
+    again = serve_sampling.main(["--device", "cpu"])
+    assert {u: r.generated for u, r in first.items()} == \
+        {u: r.generated for u, r in again.items()}
+    assert first[1].generated == first[2].generated
+    assert first[3].finish_reason == "stop"
+    assert len(first[4].logprobs) == len(first[4].generated) == 4
+
+
+def test_metrics_twin_sees_every_layer():
+    tracker = serve_metrics.main(["--device", "cpu"])
+    assert tracker.counter("engine/preemptions") >= 1
+    assert tracker.counter("engine/slo_met") == 4
+    assert tracker.counter("kv/suspends") == tracker.counter("kv/resumes")
+    assert tracker.values("sampler/batch_occupancy")

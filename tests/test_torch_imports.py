@@ -32,6 +32,9 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "src/repro_torch/serve/engine.py" in names
     assert "src/repro_torch/core/oft.py" in names
+    assert "src/repro_torch/serve/sampling.py" in names
+    assert "src/repro_torch/obs/tracker.py" in names
+    assert "src/repro_torch/examples/quickstart.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -47,7 +50,10 @@ def test_importing_the_port_loads_no_jax():
     pytest.importorskip("torch")
     code = ("import sys; import repro_torch.serve, repro_torch.interop, "
             "repro_torch.kernels.ops, repro_torch.core.oft, "
-            "repro_torch.core.lora, repro_torch.train.trainer; "
+            "repro_torch.core.lora, repro_torch.train.trainer, "
+            "repro_torch.obs, repro_torch.serve.sampling, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.serve_metrics; "
             "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro') "
             "if m in sys.modules]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
