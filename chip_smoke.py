@@ -91,7 +91,34 @@ Phases, each of which raises (non-zero exit) on a failed check:
     (fp32), preempting and chunking with sampled rows, on the card and on
     the CPU: identical tokens, finish reasons, admission and preemption
     events and kv stats, logprobs within 1e-4, every card prefill on
-    "simt".
+    "simt";
+12. spec (runs after 10, on 3's params and adapters, same depth): one
+    verify-shaped paged_prefill_attention call (8 rows of S = 5 over
+    prefixes that are not page-aligned) against its plain version at the
+    bf16 limit, a dropped prefix tail rejected; then 16 requests arriving
+    over steps 1-30 (prompts of 8-200 tokens, half behind a 40-token
+    system prompt, 32-64 new tokens; by uid mod 4 an ``n = 2`` fork, a
+    ``SpecConfig(k=0)`` opt-out, a draft on the request's own adapter,
+    the base draft; a third sampled with a seed, the rest greedy with
+    logprobs) through ``run_stream`` on ``ServeEngine(slots=8,
+    page_size=16, max_len=512, spec=SpecConfig(k=4),
+    tracker=InMemoryTracker())``; checks every request and branch done,
+    each parent back once, page conservation, branch admissions aliasing
+    pages, per draft pass 7 gather_delta_matmul and 1 decode launches per
+    layer per draft step, per verify call 1 prefill launch per layer on
+    "mma" and no other, per plain decode step 7 and 1 per layer, a second
+    run identical, self-drafted greedy rows accepting at least half their
+    drafts (a verify window shifted by one position must fail that), and
+    the greedy rows against the same traffic with spec off: identical up
+    to a row's first divergence, where the plain run's logprobs of the two
+    tokens lie within 0.25 nats (an accept-everything fault must break
+    that); prints spec and plain decode tokens/s and mean step, the draft
+    pass and verify call times, and the acceptance per draft policy;
+13. spec card vs CPU (runs after 11): a tiny (fp32) trace with spec
+    (k = 3), ``n = 2`` forks, preemption and chunked prefill on the card
+    and on the CPU: identical tokens, accepted lengths, ``engine/spec/*``
+    counters, events and kv stats, logprobs within 1e-4; on the card the
+    greedy rows equal plain decode; every card prefill on "simt".
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1239,6 +1266,520 @@ def stream_card_vs_cpu_phase(torch, configs, model, serve, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 12 / 13: speculative decoding and n > 1
+# ---------------------------------------------------------------------------
+
+#: draft window of the speculative serving phase
+SPEC_K = 4
+#: the bf16 divergence rule: greedy spec and plain decode agree up to a
+#: row's first divergence, and there the plain run's logprobs of the two
+#: tokens lie within this many nats (the verify's prefill path and the
+#: decode path round differently in bf16, so near ties may flip)
+SPEC_TIE_NATS = 0.25
+
+
+def spec_overlay(serve, reqs, k=None):
+    """The speculative mix by uid mod 4: 0 forks ``n = 2`` (on the
+    engine's default spec), 1 opts out (``k = 0``), 2 drafts ``k`` with
+    its own adapter, 3 drafts with the base weights (the engine's
+    default).  With ``k`` None only the forks (the same traffic for an
+    engine with spec off)."""
+    for r in reqs:
+        mix = r.uid % 4
+        if mix == 0:
+            r.n = 2
+        elif k is not None and mix == 1:
+            r.spec = serve.SpecConfig(k=0)
+        elif k is not None and mix == 2:
+            r.spec = serve.SpecConfig(k=k, draft_adapter=r.adapter)
+
+
+def spec_trace(serve, vocab, n, seed, spread, spec=True):
+    """The spec phase's arrival trace: ``n`` requests over steps
+    1..``spread``, prompts of 8-200 tokens (half behind a 40-token system
+    prompt), 32-64 new tokens, on base / tuned_a / tuned_b by uid // 4; a
+    third (uid mod 3 = 0) sampled with a seed, the rest greedy with the
+    widest logprobs (the divergence rule reads them); with ``spec`` the
+    mix of :func:`spec_overlay`, else only its forks."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 40).astype(np.int32)
+    adapters = ("base", "tuned_a", "tuned_b")
+    steps = np.sort(rng.integers(1, spread + 1, n))
+    out = []
+    for uid in range(n):
+        if uid % 2 == 0:
+            prompt = np.concatenate([system, rng.integers(
+                0, vocab, int(rng.integers(8, 161))).astype(np.int32)])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(
+                8, 201))).astype(np.int32)
+        sampling = (serve.SamplingParams(temperature=0.8, top_k=50,
+                                         top_p=0.95, seed=1000 + uid)
+                    if uid % 3 == 0 else
+                    serve.SamplingParams(temperature=0.0,
+                                         logprobs=serve.MAX_LOGPROBS))
+        out.append((int(steps[uid]), serve.Request(
+            uid=uid, prompt=prompt, max_new_tokens=int(rng.integers(32, 65)),
+            adapter=adapters[(uid // 4) % 3], sampling=sampling)))
+    spec_overlay(serve, [r for _, r in out], SPEC_K if spec else None)
+    return out
+
+
+def rows_of(done):
+    """Every served sequence of a run: the branches of an ``n > 1`` parent
+    in its place."""
+    return {b.uid: b for r in done for b in (r.branches or [r])}
+
+
+def spec_outcome(eng, done):
+    """What two runs of one spec trace must share."""
+    rows = rows_of(done)
+    tr = eng.tracker
+    return dict(
+        tokens={u: list(r.generated) for u, r in rows.items()},
+        reasons={u: r.finish_reason for u, r in rows.items()},
+        parents={r.uid: (r.done, r.finish_reason) for r in done},
+        admissions=[(e.step, e.slot, e.uid, e.resumed, e.prefix_tokens)
+                    for e in eng.admission_events],
+        preemptions=[(e.step, e.slot, e.uid, e.resident_tokens)
+                     for e in eng.preemption_events],
+        kv=dict(eng.kv.stats),
+        spec={name: tr.counter(name) for name in (
+            "engine/spec/draft_tokens", "engine/spec/accepted_tokens")},
+        accepted_len=list(tr.values("engine/spec/accepted_len")),
+        logprobs={u: [(lp.token, lp.logprob, lp.top_tokens,
+                       lp.top_logprobs) for lp in r.logprobs]
+                  for u, r in rows.items()})
+
+
+def check_spec_run(eng, done, trace, what):
+    """Every request and branch done, each parent back once, pages
+    conserved and none in use at the end."""
+    want = {r.uid for _, r in trace}
+    check(sorted(r.uid for r in done) == sorted(want),
+          f"{what}: every request comes back exactly once")
+    for r in done:
+        check(r.done, f"{what}: uid {r.uid} done")
+        if r.n > 1:
+            check(r.finish_reason == "branches" and not r.generated
+                  and len(r.branches) == r.n
+                  and all(b.done for b in r.branches),
+                  f"{what}: uid {r.uid} resolves once its {r.n} branches "
+                  f"are done")
+    cons = eng.kv.conservation()
+    check(cons["conserved"] == 1 and eng.kv.pages_in_use() == 0
+          and not eng.kv._pins,
+          f"{what}: pages conserved and none in use at the end ({cons})")
+
+
+def instrument_spec(eng, ops, layers, engine):
+    """Wrap ``eng``'s draft pass, verify call, plain decode and spec group
+    to hold every call to its launches: gather_delta_matmul 7 per layer
+    and paged_decode_attention 1 per layer per draft step and per plain
+    decode step, neither in a verify call; paged_prefill_attention 1 per
+    layer per verify call, every one on ``engine``, none in a draft pass.
+    Returns the log of per-row acceptances ``(request, k, accepted)``."""
+    log = dict(accept=[], draft_passes=0, draft_steps=0, verify_calls=0,
+               plain_steps=0)
+    draft, verify = eng._draft, eng._verify
+    decode, group = eng._decode_live, eng._spec_group
+
+    def counts():
+        return dict(ops.LAUNCHES), dict(ops.PREFILL_ENGINE_LAUNCHES)
+
+    def since(before):
+        now = counts()
+        return ({k: now[0][k] - before[0][k] for k in now[0]},
+                {k: now[1][k] - before[1][k] for k in now[1]})
+
+    def expect(d, steps, verifies, what):
+        want = {"gather_delta_matmul": 7 * layers * steps,
+                "paged_decode_attention": layers * steps,
+                "paged_prefill_attention": layers * verifies}
+        got = {k: d[0][k] for k in want}
+        check(got == want and d[1][engine] == layers * verifies,
+              f"spec: {what} launched {got}, prefill by engine {d[1]}; "
+              f"expected {want}, every prefill on {engine}")
+
+    def draft_w(grp, k):
+        before = counts()
+        out = draft(grp, k)
+        expect(since(before), k, 0, f"a draft pass of k = {k}")
+        log["draft_passes"] += 1
+        log["draft_steps"] += k
+        return out
+
+    def verify_w(grp, drafted):
+        before = counts()
+        out = verify(grp, drafted)
+        expect(since(before), 0, 1, f"a verify call over {len(grp)} rows")
+        log["verify_calls"] += 1
+        return out
+
+    def decode_w(live, step):
+        before = counts()
+        rows, live = decode(live, step)
+        expect(since(before), int(bool(live)), 0, "a plain decode step")
+        log["plain_steps"] += int(bool(live))
+        return rows, live
+
+    def group_w(grp, k):
+        handled = group(grp, k)
+        log["accept"] += [(pl[1], k, handled[pl[0]]) for pl in grp]
+        return handled
+
+    eng._draft, eng._verify = draft_w, verify_w
+    eng._decode_live, eng._spec_group = decode_w, group_w
+    return log
+
+
+def acceptance(entries):
+    """(mean accepted length, accept rate) over ``(request, k, accepted)``
+    entries: the rate counts accepted drafts, ``accepted - 1``, over
+    drafted ``k``."""
+    if not entries:
+        return None, None
+    return (sum(a for _, _, a in entries) / len(entries),
+            sum(a - 1 for _, _, a in entries)
+            / sum(k for _, k, _ in entries))
+
+
+def divergence_rule(spec_rows, plain_rows, limit):
+    """Greedy rows of a spec run against the same rows of a plain run:
+    identical up to the first divergence, where the plain run's logprobs
+    of its token and of the spec run's token lie within ``limit`` nats.
+    Returns (the gaps at the divergences, the rows breaking the rule)."""
+    gaps, broken = [], []
+    for uid, s in spec_rows.items():
+        p = plain_rows[uid]
+        t = next((i for i, (a, b) in enumerate(zip(p.generated,
+                                                   s.generated))
+                  if a != b), None)
+        if t is None:
+            continue
+        lp = p.logprobs[t]
+        tops = dict(zip(lp.top_tokens, lp.top_logprobs))
+        gap = lp.logprob - tops.get(s.generated[t], -math.inf)
+        gaps.append(gap)
+        if gap > limit:
+            broken.append((uid, t, p.generated[t], s.generated[t], gap))
+    return gaps, broken
+
+
+def greedy_rows(done):
+    """The greedy sequences of a run (branches included)."""
+    return {u: r for u, r in rows_of(done).items()
+            if r.sampling is None or r.sampling.temperature == 0.0}
+
+
+def shifted_verify(torch, eng, model):
+    """A planted fault: every verify call sees its window shifted one
+    position left (the row's last token dropped, the last draft
+    repeated), so each target draw answers the wrong context."""
+    verify = eng._verify
+
+    def run(grp, drafted):
+        real = model.paged_prefill
+
+        def shifted(params, batch, *a, **kw):
+            t = batch["tokens"]
+            return real(params, {"tokens": torch.cat([t[:, 1:], t[:, -1:]],
+                                                     1)}, *a, **kw)
+        model.paged_prefill = shifted
+        try:
+            return verify(grp, drafted)
+        finally:
+            model.paged_prefill = real
+    eng._verify = run
+
+
+def verify_prefill_check(torch, ops, ref, attention):
+    """One verify-shaped paged_prefill_attention call at llama32-3b width:
+    8 rows of S = k + 1 = 5 window positions over prefixes that are not
+    page-aligned, each window's KV written into its pages first, against
+    the plain version at the bf16 limit; dropping each prefix's last
+    (partial) page must break the limit in every row."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    prefix = [31, 45, 60, 13, 94, 77, 126, 109]
+    args = prefill_inputs(torch, torch.bfloat16, gen, prefix, SPEC_K + 1)
+    q, k, v, kp, vp, table, plen = args
+    positions = plen.long()[:, None] + torch.arange(SPEC_K + 1,
+                                                    device="cuda")
+    attention.paged_write(kp, k, table, positions)
+    attention.paged_write(vp, v, table, positions)
+    before = ops.PREFILL_ENGINE_LAUNCHES["mma"]
+    got = ops.paged_prefill_attention(*args)
+    want = ref.paged_prefill_attention(*args)
+    check(ops.PREFILL_ENGINE_LAUNCHES["mma"] == before + 1,
+          "spec: the verify-shaped prefill runs on the mma engine")
+    err = max_err(torch, got, want, "bfloat16",
+                  "spec: verify-shaped paged_prefill_attention")
+    must_reject(torch, ref.paged_prefill_attention(
+        q, k, v, kp, vp, table, last_page_dropped(plen, 16)), want,
+        "bfloat16", range(len(prefix)),
+        "spec: verify-shaped paged_prefill_attention, each prefix's last "
+        "page dropped")
+    return err
+
+
+def spec_phase(torch, configs, serve, ops, ref, model, params, adapters,
+               cfg, gpu_line):
+    """Phase 3's params and adapters under speculative decoding with
+    ``n > 1`` forks at full width: launches per draft pass, verify call
+    and plain step; run-to-run identity; acceptance per draft policy with
+    a shifted-window fault rejected; greedy rows against plain decode
+    under the bf16 divergence rule, with an accept-everything fault
+    rejected; plain decode of the same traffic timed in the same run."""
+    from repro_torch.models import attention
+    from repro_torch.serve import engine as engine_lib
+    layers = cfg.num_layers
+    kw = dict(slots=8, page_size=16, max_len=512)
+    spec = serve.SpecConfig(k=SPEC_K)
+    trace = lambda **a: spec_trace(  # noqa: E731
+        serve, cfg.vocab_size, 16, 0, 30, **a)
+    n_rows = sum(r.n for _, r in trace())
+    print(f"spec: {len(trace())} requests ({n_rows} sequences) over steps "
+          f"1-30, k = {SPEC_K}")
+    verify_err = verify_prefill_check(torch, ops, ref, attention)
+
+    def serve_trace(work, spec, faults=()):
+        eng = serve.ServeEngine(params, cfg, device="cuda", spec=spec,
+                                tracker=serve.InMemoryTracker(), **kw)
+        for name, tree in adapters.items():
+            eng.register_adapter(name, tree)
+        eng._banked_tree()
+        log = instrument_spec(eng, ops, layers, "mma")
+        for plant in faults:
+            plant(eng)
+        torch.cuda.synchronize()
+        done = eng.run_stream(work, max_steps=4096)
+        torch.cuda.synchronize()
+        return eng, done, log
+
+    ops.reset_launches()
+    eng, done, log = serve_trace(trace(), spec)
+    launches = dict(ops.LAUNCHES)
+    prefill_engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    check_spec_run(eng, done, trace(), "spec")
+    stats = dict(eng.last_run_stats)
+    check(log["draft_passes"] == stats["draft_passes"] > 0
+          and log["verify_calls"] == stats["verify_calls"]
+          and log["draft_steps"] == stats["draft_steps"],
+          f"spec: every draft pass and verify call counted ({log}, "
+          f"{stats})")
+    decode_calls = log["plain_steps"] + log["draft_steps"]
+    check(launches["gather_delta_matmul"] == 7 * layers * decode_calls,
+          f"spec: gather_delta_matmul launched "
+          f"{launches['gather_delta_matmul']} times in {decode_calls} "
+          f"plain and draft decode steps")
+    check(prefill_engines["simt"] == 0,
+          f"spec: every bf16 prefill on the tensor-core engine "
+          f"({prefill_engines})")
+    rows = rows_of(done)
+    for u, r in rows.items():
+        check(len(r.generated) == r.max_new_tokens,
+              f"spec: uid {u} generated max_new_tokens")
+    branch_hits = [e for e in eng.admission_events
+                   if isinstance(e.uid, tuple) and e.prefix_tokens > 0]
+    check(branch_hits, "spec: branches alias resident prompt pages")
+    first = spec_outcome(eng, done)
+    by_policy = {}
+    for r, k, a in log["accept"]:
+        # only the own-adapter drafts carry a spec of their own (the k = 0
+        # opt-outs never draft)
+        pol = "own" if r.spec is not None else "base"
+        by_policy.setdefault(pol, []).append((r, k, a))
+    own_greedy = [e for e in by_policy.get("own", [])
+                  if e[0].sampling.temperature == 0.0]
+    own_rate = acceptance(own_greedy)[1]
+    check(own_rate is not None and own_rate >= 0.5,
+          f"spec: self-drafted greedy rows accept {own_rate} of their "
+          f"drafts, at least half expected")
+    del eng, done
+    torch.cuda.empty_cache()
+    eng, again, _ = serve_trace(trace(), spec)
+    second = spec_outcome(eng, again)
+    for key in ("tokens", "reasons", "parents", "admissions", "kv", "spec",
+                "accepted_len"):
+        check(second[key] == first[key],
+              f"spec: a second identical run gives identical {key}")
+    del eng, again
+    torch.cuda.empty_cache()
+    # the same traffic with spec off, timed in this run
+    plain_eng, plain_done, plain_log = serve_trace(trace(spec=False), None)
+    plain_stats = dict(plain_eng.last_run_stats)
+    check(plain_log["draft_passes"] == 0 == plain_stats["draft_passes"],
+          "spec off: no draft pass")
+    plain_rows = greedy_rows(plain_done)
+    spec_greedy = {u: rows[u] for u in plain_rows}
+    gaps, broken = divergence_rule(spec_greedy, plain_rows, SPEC_TIE_NATS)
+    check(not broken, f"spec: greedy rows break the bf16 divergence rule "
+                      f"({SPEC_TIE_NATS} nats): {broken}")
+    del plain_eng, plain_done
+    torch.cuda.empty_cache()
+    # planted fault 1: accept every draft
+    faulty = [(s, r) for s, r in trace() if r.uid % 4 in (2, 3)
+              and r.sampling.temperature == 0.0]
+    for _, r in faulty:
+        r.max_new_tokens = 32
+    real_accept = engine_lib.accepted_prefix
+    engine_lib.accepted_prefix = lambda draft, target: [int(t)
+                                                        for t in target]
+    try:
+        _, fault_done, _ = serve_trace(faulty, spec)
+    finally:
+        engine_lib.accepted_prefix = real_accept
+    _, fault_broken = divergence_rule(greedy_rows(fault_done), plain_rows,
+                                      SPEC_TIE_NATS)
+    check(fault_broken, "spec: the divergence rule misses an "
+                        "accept-everything fault")
+    # planted fault 2: the verify window shifted by one position
+    shifted = [(s, r) for s, r in trace() if r.uid % 4 == 2
+               and r.sampling.temperature == 0.0]
+    for _, r in shifted:
+        r.max_new_tokens = 16
+    _, _, shift_log = serve_trace(
+        shifted, spec, faults=[lambda e: shifted_verify(torch, e, model)])
+    shift_rate = acceptance(shift_log["accept"])[1]
+    check(shift_rate < 0.5, f"spec: a window shifted by one position still "
+                            f"accepts {shift_rate} of its drafts")
+    torch.cuda.empty_cache()
+    tok_s = stats["decode_tokens"] / stats["decode_s"]
+    step_ms = 1e3 * stats["decode_s"] / stats["decode_steps"]
+    plain_tok_s = plain_stats["decode_tokens"] / plain_stats["decode_s"]
+    plain_step_ms = 1e3 * plain_stats["decode_s"] / \
+        plain_stats["decode_steps"]
+    policies = {}
+    for pol, es in by_policy.items():
+        for kind, sub in (("all", es),
+                          ("greedy", [e for e in es
+                                      if e[0].sampling.temperature == 0.0]),
+                          ("sampled", [e for e in es
+                                       if e[0].sampling.temperature > 0.0])):
+            policies[f"{pol}/{kind}"] = dict(
+                zip(("mean_accepted_len", "accept_rate"), acceptance(sub)),
+                windows=len(sub))
+    draft_ms = 1e3 * stats["draft_s"] / stats["draft_passes"]
+    verify_ms = 1e3 * stats["verify_s"] / stats["verify_calls"]
+    result = dict(
+        layers=layers, requests=len(trace()), sequences=n_rows, k=SPEC_K,
+        stats=stats, plain_stats=plain_stats, decode_tokens_per_s=tok_s,
+        mean_step_ms=step_ms, plain_decode_tokens_per_s=plain_tok_s,
+        plain_mean_step_ms=plain_step_ms, policies=policies,
+        own_greedy_accept_rate=own_rate, draft_pass_ms=draft_ms,
+        verify_call_ms=verify_ms, launches=launches,
+        prefill_engines=prefill_engines, kv=dict(first["kv"]),
+        branch_prefix_hits=len(branch_hits), divergence_gaps=gaps,
+        accept_all_fault_rows=len(fault_broken),
+        shifted_fault_accept_rate=shift_rate,
+        verify_prefill_max_err=verify_err, gpu=gpu_line)
+    print(f"spec: {stats['decode_steps']} steps, {tok_s:.1f} decode "
+          f"tokens/s, {step_ms:.2f} ms mean step ({stats['decode_tokens']} "
+          f"tokens, {stats['draft_passes']} draft passes of "
+          f"{stats['draft_steps'] / stats['draft_passes']:.2f} steps, "
+          f"{stats['verify_calls']} verify calls); the same traffic with "
+          f"spec off: {plain_stats['decode_steps']} steps, "
+          f"{plain_tok_s:.1f} decode tokens/s, {plain_step_ms:.2f} ms mean "
+          f"step [{gpu_line}]")
+    print(f"spec: draft pass {draft_ms:.2f} ms, verify call {verify_ms:.2f}"
+          f" ms (host clock, each ending in its transfer); acceptance by "
+          f"draft policy {policies}; self-drafted greedy rows "
+          f"{own_rate:.3f}, shifted-window fault {shift_rate:.3f}")
+    print(f"spec: {len(gaps)} greedy rows diverge from plain decode, gaps "
+          f"{[round(g, 4) for g in gaps]} nats (limit {SPEC_TIE_NATS}); the "
+          f"accept-everything fault breaks the rule in {len(fault_broken)} "
+          f"rows; branch admissions aliasing pages {len(branch_hits)}; "
+          f"launches {launches}, prefill by engine {prefill_engines}; "
+          f"verify-shaped prefill max err {verify_err:.3e}")
+    return result
+
+
+def spec_card_vs_cpu_phase(torch, configs, model, serve, ops):
+    """A tiny (fp32) spec + ``n > 1`` trace with preemption, chunked
+    prefill, sampled, stop and logprob rows, on the card and on the CPU:
+    identical tokens, accepted lengths, ``engine/spec/*`` counters,
+    events and kv stats, logprobs within 1e-4; on the card, greedy spec
+    equals plain decode; every card prefill on "simt"."""
+    cfg = configs.get_config("tiny")
+    params = model.init_params(cfg, seed=0, device="cpu")
+    adapters = {"tuned_a": nudged(torch, params, PSOFT_TRAINABLES, 1, 0.05,
+                                  "cpu"),
+                "tuned_b": nudged(torch, params, PSOFT_TRAINABLES, 2, 0.05,
+                                  "cpu")}
+    kw = dict(slots=4, page_size=16, max_len=192, prefill_chunk_tokens=24)
+    k = 3
+
+    def trace(spec=True):
+        t = stream_trace(serve, cfg.vocab_size, 16, 2, 120, 30)
+        spec_overlay(serve, [r for _, r in t], k if spec else None)
+        return t
+
+    pages = stream_pages(trace(), kw["slots"], kw["max_len"],
+                         kw["page_size"])
+
+    def to_cuda(tree):
+        if isinstance(tree, dict):
+            return {k: to_cuda(v) for k, v in tree.items()}
+        return tree.to("cuda")
+
+    outs = {}
+    for dev, p, ad in (("cpu", params, adapters),
+                       ("cuda", to_cuda(params),
+                        {k: to_cuda(v) for k, v in adapters.items()})):
+        ops.reset_launches()
+        eng, done = stream_once(serve, p, ad, cfg, trace(), dev,
+                                num_pages=pages, spec=serve.SpecConfig(k=k),
+                                **kw)
+        check_spec_run(eng, done, trace(), f"spec card vs cpu ({dev})")
+        check(eng.last_run_preemptions >= 1,
+              f"spec card vs cpu ({dev}): at least one preemption")
+        check(eng.last_run_stats["verify_calls"] > 0,
+              f"spec card vs cpu ({dev}): verify calls ran")
+        outs[dev] = (spec_outcome(eng, done), done)
+    engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    check(engines["simt"] == ops.LAUNCHES["paged_prefill_attention"] > 0
+          and engines["mma"] == 0,
+          f"spec card vs cpu: every fp32 prefill on the card on the simt "
+          f"engine ({engines})")
+    (want, _), (got, card_done) = outs["cpu"], outs["cuda"]
+    for key in ("tokens", "reasons", "parents", "admissions", "preemptions",
+                "kv", "spec", "accepted_len"):
+        check(got[key] == want[key], f"spec card vs cpu: identical {key}")
+    worst = 0.0
+    for uid, rows in want["logprobs"].items():
+        for (t, lp, tt, tl), (gt, glp, gtt, gtl) in zip(
+                rows, got["logprobs"][uid]):
+            check((t, tt) == (gt, gtt),
+                  f"spec card vs cpu: uid {uid} logprob token ids")
+            worst = max([worst, abs(lp - glp)]
+                        + [abs(a - b) for a, b in zip(tl, gtl)])
+    check(worst <= 1e-4, f"spec card vs cpu: logprobs within 1e-4 "
+          f"({worst:.2e})")
+    _, plain_done = stream_once(serve, to_cuda(params),
+                                {k: to_cuda(v) for k, v in adapters.items()},
+                                cfg, trace(spec=False), "cuda",
+                                num_pages=pages, **kw)
+    plain = {u: r.generated for u, r in greedy_rows(plain_done).items()}
+    check(plain and {u: rows_of(card_done)[u].generated for u in plain}
+          == plain, "spec card vs cpu: greedy spec equals plain decode on "
+                    "the card")
+    n_tok = sum(len(t) for t in want["tokens"].values())
+    print(f"spec card vs cpu: tiny fp32, {len(want['tokens'])} sequences, "
+          f"{n_tok} tokens, {len(want['accepted_len'])} spec windows, "
+          f"{len(want['admissions'])} admissions and "
+          f"{len(want['preemptions'])} preemptions identical, logprobs "
+          f"within {worst:.2e}; {len(plain)} greedy rows equal plain decode "
+          f"on the card; card prefills by engine {engines}")
+    return dict(sequences=len(want["tokens"]), tokens=n_tok,
+                windows=len(want["accepted_len"]),
+                preemptions=len(want["preemptions"]),
+                greedy_rows=len(plain), logprob_max_err=worst,
+                prefill_engines=engines)
+
+
+# ---------------------------------------------------------------------------
 # phase 2, training kernels: psoft_matmul and cayley_neumann
 # ---------------------------------------------------------------------------
 
@@ -2226,9 +2767,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     streamed = stream_phase(torch, configs, serve, ops, params, adapters,
                             serve_cfg, gpu_line)
-    del adapters
     torch.cuda.empty_cache()
     phase_s["stream"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    specced = spec_phase(torch, configs, serve, ops, ref, model, params,
+                         adapters, serve_cfg, gpu_line)
+    del adapters
+    torch.cuda.empty_cache()
+    phase_s["spec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cross = card_vs_cpu_phase(torch, configs, model, serve, ops)
     phase_s["card_vs_cpu"] = time.perf_counter() - t0
@@ -2236,6 +2782,9 @@ def main(argv=None) -> int:
     stream_cross = stream_card_vs_cpu_phase(torch, configs, model, serve,
                                             ops)
     phase_s["stream_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec_cross = spec_card_vs_cpu_phase(torch, configs, model, serve, ops)
+    phase_s["spec_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     trained = train_phase(torch, args, configs, trainer, data, tree, ops,
                           params, gpu_line)
@@ -2262,7 +2811,10 @@ def main(argv=None) -> int:
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
-    main_path = {**{k: served["launches"][k] for k in SERVE_KERNELS},
+    # each serving path is counted from zero just before its run: phase 3's
+    # run(), phase 10's stream and phase 12's spec run
+    main_path = {**{k: served["launches"][k] + streamed["launches"][k]
+                    + specced["launches"][k] for k in SERVE_KERNELS},
                  **{k: trained["launches"][k] for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
                      oft_trained["launches"]["blockdiag_rotate"]}
@@ -2282,9 +2834,10 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(gpu=gpu_line, kind=kind,
                                        kernels=kernels, serve=served,
-                                       stream=streamed,
+                                       stream=streamed, spec=specced,
                                        card_vs_cpu=cross,
                                        stream_card_vs_cpu=stream_cross,
+                                       spec_card_vs_cpu=spec_cross,
                                        train=trained,
                                        train_card_vs_cpu=train_cross,
                                        oft_train=oft_trained,

@@ -1,11 +1,12 @@
 """PyTorch/CUDA port of the PSOFT stack on one NVIDIA H100: multi-tenant
 paged PSOFT serving (slice 1), PEFT-masked PSOFT fine-tuning with its
 checkpoints (slice 2), every baseline method of the paper's PEFT registry
-(slice 3), Hopper designs of the six kernels (slices 4-6), and streaming
+(slice 3), Hopper designs of the six kernels (slices 4-6), streaming
 serving (slice 7): per-request sampling on the reference's counter-based
 threefry stream, ``run_stream`` with SLO-aware preemption, chunked
 prefill, and the :mod:`repro_torch.obs` Tracker every layer reports
-through.  :mod:`repro_torch.examples` holds the runnable twins of the
+through; and speculative decoding with ``n > 1`` parallel completions
+(slice 8).  :mod:`repro_torch.examples` holds the runnable twins of the
 reference's main-path examples.
 
 The reference package ``repro`` (JAX/Pallas) stays the source of truth; this

@@ -295,7 +295,8 @@ def _last_hidden(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
                   cache: Dict[str, torch.Tensor], cfg: ModelConfig,
                   lengths: torch.Tensor, prefix_lengths: torch.Tensor, *,
-                  adapter_ids: Optional[torch.Tensor] = None
+                  adapter_ids: Optional[torch.Tensor] = None,
+                  all_logits: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Suffix prefill through block-paged KV indirection.
 
@@ -303,7 +304,10 @@ def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
     (B, maxp) and ``"prefix_table"`` (B, 0 or maxp).  ``batch["tokens"]``
     holds only the right-padded suffix tokens; row i's token j runs at
     position ``prefix_lengths[i] + j``.  Pools are updated in place.
-    Returns (last-real-token logits (B, 1, V), the pools)."""
+    Returns (last-real-token logits (B, 1, V), the pools); with
+    ``all_logits=True`` the logits cover every suffix position, (B, S, V),
+    as the speculative-decode verify pass reads them (positions past a
+    row's length carry values the caller must ignore)."""
     cdt = torch_dtype(cfg.dtype)
     x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     s = x.shape[1]
@@ -321,8 +325,9 @@ def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
         x = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
                    adapter_ids)
     x = layers.apply_norm(params["final_norm"], x)
-    logits = lm_logits(params, _last_hidden(x, lengths), cfg)
-    return logits, {"k": cache["k"], "v": cache["v"]}
+    if not all_logits:
+        x = _last_hidden(x, lengths)
+    return lm_logits(params, x, cfg), {"k": cache["k"], "v": cache["v"]}
 
 
 def decode_step(params: Params, batch: Dict[str, torch.Tensor],

@@ -35,8 +35,18 @@ in one device-to-host transfer.  Every layer reports through a
 :class:`repro_torch.obs.Tracker` (``engine/…``, ``scheduler/…``,
 ``sampler/…``, ``kv/…``) under the reference's metric names.
 
-Speculative decode, ``n > 1``, the dense cache and the hot-swap lifecycle
-are later slices of the port.
+Decode can run speculatively (:mod:`repro_torch.serve.spec`): a slot with a
+:class:`SpecConfig` drafts ``k`` tokens with a cheap adapter (the base
+weights by default) in ``k`` chained decode steps whose tokens stay on the
+device, then verifies the ``k + 1`` window positions in one paged prefill
+over its own prefix pages.  The target draws use the request's own counter
+stream, so acceptance is token equality and the emitted tokens are those
+plain decode would emit.  A request with ``n > 1`` forks into ``n`` branch
+requests (uids ``(uid, b)``, seeds ``fold_in(seed, b)``) whose prompt pages
+alias through the prefix hashing; the parent comes back once, after its
+last branch.
+
+The dense cache and the hot-swap lifecycle are later slices of the port.
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve.kv_cache import OutOfPages, PagedKVCache, TRASH_PAGE
 from repro_torch.serve.sampling import SamplingParams, TokenLogprobs
 from repro_torch.serve.scheduler import StreamScheduler, TokenCostModel
+from repro_torch.serve.spec import SpecConfig, accepted_prefix
 
 #: adapter name every request uses unless it asks for another
 BASE_ADAPTER = "base"
@@ -73,6 +84,16 @@ class Request:
     adapter: str = BASE_ADAPTER
     #: per-request generation control; None inherits the engine default
     sampling: Optional[SamplingParams] = None
+    #: speculative-decode control; None inherits the engine default,
+    #: ``SpecConfig(k=0)`` opts out of it
+    spec: Optional[SpecConfig] = None
+    #: parallel completions: ``n > 1`` forks the request into ``n`` branch
+    #: requests over one set of prompt pages; the parent comes back once,
+    #: after its last branch, with them on :attr:`branches` (its own
+    #: ``generated`` stays empty)
+    n: int = 1
+    #: the branch requests of an ``n > 1`` fan-out (engine-populated)
+    branches: List["Request"] = dataclasses.field(default_factory=list)
     #: scheduling weight: higher-priority requests are admitted first and
     #: may preempt lower-priority running slots under page pressure
     priority: int = 0
@@ -81,8 +102,9 @@ class Request:
     deadline: Optional[float] = None
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    #: "stop" (emitted one of its stop ids, kept in ``generated``) or
-    #: "length" (max_new_tokens / max_len reached); None otherwise
+    #: "stop" (emitted one of its stop ids, kept in ``generated``),
+    #: "length" (max_new_tokens / max_len reached) or, for an ``n > 1``
+    #: parent, "branches" (every branch done); None otherwise
     finish_reason: Optional[str] = None
     #: per generated token, when ``sampling.logprobs > 0``
     logprobs: List[TokenLogprobs] = dataclasses.field(default_factory=list)
@@ -198,7 +220,9 @@ class ServeEngine:
     ``prefill_chunk_tokens`` splits admission prefill into chunks of at
     most that many tokens, one per engine step; ``cost_model`` is the
     deadline clock and optional step budget; ``bucket_multiple`` is the
-    prefill padding granularity (default 8)."""
+    prefill padding granularity (default 8).  ``spec`` is the default
+    :class:`SpecConfig` of requests that carry none (None: plain
+    decode)."""
 
     def __init__(self, params, cfg: ModelConfig, max_len: int = 256,
                  slots: int = 4, page_size: int = 16,
@@ -207,7 +231,8 @@ class ServeEngine:
                  sample_seed: int = 0, tracker: Optional[Tracker] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  cost_model: Optional[TokenCostModel] = None,
-                 bucket_multiple: Optional[int] = None):
+                 bucket_multiple: Optional[int] = None,
+                 spec: Optional[SpecConfig] = None):
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family only, not "
                              f"{cfg.family!r}")
@@ -230,6 +255,8 @@ class ServeEngine:
                                  else sampling)
         self.default_sampling.validate(self.cfg.vocab_size)
         self.sample_seed = int(sample_seed)
+        #: speculative-decode config of requests that carry none
+        self.default_spec = spec
         self.kv = PagedKVCache(self.cfg, slots, max_len, page_size=page_size,
                                num_pages=num_pages, device=self.device)
         #: deadline-clock / step-budget basis (shared with the scheduler)
@@ -260,9 +287,10 @@ class ServeEngine:
         self._step_spent = 0.0
         #: per-step (cost_spent, decoded slots) of the last run
         self.last_run_step_costs: List[Tuple[float, int]] = []
-        #: host-clock totals of the last run: prefill calls and decode steps
-        #: (a call that samples ends in the token transfer, so the device
-        #: work is included)
+        #: host-clock totals of the last run: prefill calls, decode steps
+        #: (plain and speculative), draft passes of ``draft_steps`` decode
+        #: steps in all, and verify calls (each ends in a device-to-host
+        #: transfer, so the device work is included)
         self.last_run_stats: Dict[str, float] = {}
         self._stats: Dict[str, float] = {}
         #: uids queued or active, and uids of an arrival trace not yet
@@ -294,17 +322,19 @@ class ServeEngine:
         self.scheduler.tracker = t
         self.kv.set_tracker(t)
 
-    def _observe_decode(self, live: List[int]) -> None:
+    def _observe_decode(self, served: Dict[int, Tuple[Request, int]]
+                        ) -> None:
         """Per-decode-step metrics from host-side slot bookkeeping only
-        (gated behind ``self._obs`` by the caller)."""
+        (gated behind ``self._obs`` by the caller): ``served`` maps each
+        slot this step decoded for to its request and the tokens it
+        emitted (speculative slots accept several)."""
         tr = self._tracker
         s = self._obs_step
-        tr.gauge("engine/live_slots", len(live), step=s)
+        tr.gauge("engine/live_slots", len(served), step=s)
         tr.gauge("scheduler/queue_depth", len(self.scheduler), step=s)
         by_adapter: Dict[str, int] = {}
-        for i in live:
-            a = self.active[i].adapter
-            by_adapter[a] = by_adapter.get(a, 0) + 1
+        for r, n in served.values():
+            by_adapter[r.adapter] = by_adapter.get(r.adapter, 0) + n
         for a, n in by_adapter.items():
             tr.count(f"engine/tokens/{a}", n, step=s)
         self.kv.observe_pool(step=s)
@@ -375,14 +405,39 @@ class ServeEngine:
         return sp.seed if sp.seed is not None \
             else sampling_lib.derive_seed(self.sample_seed, r.uid)
 
+    def _spec_for(self, r: Request) -> Optional[SpecConfig]:
+        """The request's effective speculative-decode config, or None when
+        it decodes plainly (no config, or the ``k = 0`` opt-out)."""
+        sc = r.spec if r.spec is not None else self.default_spec
+        return sc if sc is not None and sc.k > 0 else None
+
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, copied without waiting for
         the card."""
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, non_blocking=True)
 
+    def _sampler_args(self, entries) -> Tuple[bool, tuple]:
+        """``(greedy_only, per-row parameter tensors)`` of sampler rows
+        ``entries`` = ``(params, seed, counter)``: an all-greedy call takes
+        the argmax and needs no tensors."""
+        temps, ks, ps, seeds, counters = sampling_lib.stack(entries)
+        if bool((temps <= 0.0).all()):
+            return True, (None,) * 5
+        return False, tuple(self._put(a) for a in (temps, ks, ps, seeds,
+                                                   counters))
+
+    def _draw(self, logits_rows: torch.Tensor, entries, want_lp: bool):
+        """One sampler call on the device over rows ``entries``, its
+        outputs brought back in one device-to-host transfer."""
+        greedy_only, args = self._sampler_args(entries)
+        return sampling_lib.to_host(*sampling_lib.sample_tokens(
+            logits_rows, *args, want_logprobs=want_lp,
+            greedy_only=greedy_only))
+
     def _sample_rows(self, logits_rows: torch.Tensor,
-                     reqs: List[Optional[Request]]) -> np.ndarray:
+                     reqs: List[Optional[Request]],
+                     draft_rows: int = 0) -> np.ndarray:
         """Draw every row's next token in one sampler call on the device.
 
         ``logits_rows`` is the ``(B, vocab)`` last-position logits; ``reqs
@@ -391,8 +446,9 @@ class ServeEngine:
         predates their suspension).  Each live row's draw is
         ``fold_in(PRNGKey(seed), len(generated))``.  One device-to-host
         transfer brings back the tokens, plus the logprobs when a row asked
-        for them.  The caller MUST append the returned token for every
-        non-None row."""
+        for them.  ``draft_rows`` of the None rows belong to slots the
+        speculative path served this step (occupancy metrics only).  The
+        caller MUST append the returned token for every non-None row."""
         greedy = SamplingParams.greedy()
         entries = []
         for r in reqs:
@@ -401,22 +457,14 @@ class ServeEngine:
             else:
                 entries.append((self._sampling_for(r), self._seed_for(r),
                                 len(r.generated)))
-        temps, ks, ps, seeds, counters = sampling_lib.stack(entries)
         if self._obs:
             sampling_lib.record_occupancy(self._tracker, reqs,
-                                          step=self._obs_step)
+                                          step=self._obs_step,
+                                          draft_rows=draft_rows)
         want_lp = any(r is not None and self._sampling_for(r).logprobs
                       for r in reqs)
-        greedy_only = bool((temps <= 0.0).all())
-        if greedy_only:
-            args = (None,) * 5
-        else:
-            args = tuple(self._put(a) for a in (temps, ks, ps, seeds,
-                                                counters))
-        out = sampling_lib.sample_tokens(logits_rows, *args,
-                                         want_logprobs=want_lp,
-                                         greedy_only=greedy_only)
-        toks, chosen, top_ids, top_lps = sampling_lib.to_host(*out)
+        toks, chosen, top_ids, top_lps = self._draw(logits_rows, entries,
+                                                    want_lp)
         if want_lp:
             for j, r in enumerate(reqs):
                 n = 0 if r is None else self._sampling_for(r).logprobs
@@ -830,6 +878,189 @@ class ServeEngine:
             self._put(positions), self.cfg, adapter_ids=self._put(ids))
         return logits[:, -1, :self.cfg.vocab_size], live
 
+    # -- speculative decode ------------------------------------------------
+    def _spec_step(self, spec_live: List[int], step: int
+                   ) -> Tuple[Dict[int, int], List[int]]:
+        """One draft + verify pass over the speculative live slots.
+        Returns ``(handled, demoted)``: slot -> accepted token count for
+        the slots it served, and the slots whose window clamped below 1
+        this step (they decode plainly).
+
+        The window is clamped so it never overshoots: ``k + 1 <=
+        remaining_tokens`` (a full accept emits k + 1 tokens), positions
+        inside ``max_len``, and under pool pressure inside the pages the
+        slot already holds (speculation never preempts to grow a
+        window)."""
+        handled: Dict[int, int] = {}
+        demoted: List[int] = []
+        # the step's guaranteed write (position `pos`) takes the normal
+        # preempting path; only the window's extra pages are best-effort
+        spec_live = self._ensure_decode_pages(spec_live, step)
+        kv = self.kv
+        plans = []
+        for i in spec_live:
+            r = self.active[i]
+            sc = self._spec_for(r)
+            pos = int(self.positions[i])
+            n0 = int(kv.n_pages[i])
+            k = min(sc.k, r.remaining_tokens - 1, self.max_len - 2 - pos)
+            if k >= 1:
+                try:
+                    kv.ensure_position(i, pos + k)
+                except OutOfPages:
+                    k = min(k, int(kv.n_pages[i]) * kv.page_size - 1 - pos)
+            if k < 1:
+                demoted.append(i)
+                continue
+            plans.append((i, r, sc, pos, n0, k))
+        # one draft pass and one verify call per distinct window width
+        groups: Dict[int, list] = {}
+        for pl in plans:
+            groups.setdefault(pl[-1], []).append(pl)
+        for k in sorted(groups):
+            handled.update(self._spec_group(groups[k], k))
+        return handled, demoted
+
+    def _draft(self, group, k: int) -> np.ndarray:
+        """``k`` chained draft decode steps over every slot: ``(slots, k)``
+        drafted tokens.  Group rows decode on their draft adapter at their
+        own positions and draw on their own ``(seed, counter + j)``
+        streams; every other row rides as a greedy ghost at position ``j``
+        with its table row masked to the trash page.  The tokens stay on
+        the device between steps and come back in one transfer."""
+        kv = self.kv
+        greedy = SamplingParams.greedy()
+        tok0 = np.zeros((self.slots, 1), np.int32)
+        ids = np.zeros((self.slots,), np.int32)
+        positions = np.zeros((self.slots,), np.int32)
+        entries = [(greedy, 0, 0)] * self.slots
+        for i, r, sc, pos, _n0, _k in group:
+            tok0[i, 0] = r.generated[-1]
+            ids[i] = self._adapter_id(sc.draft_adapter)
+            positions[i] = pos
+            entries[i] = (self._sampling_for(r), self._seed_for(r),
+                          len(r.generated))
+        table = kv.tables.copy()
+        in_group = {pl[0] for pl in group}
+        table[[i for i in range(self.slots) if i not in in_group]] = \
+            TRASH_PAGE
+        cache = {"k": kv.pools["k"], "v": kv.pools["v"],
+                 "page_table": kv.table_tensor(table)}
+        greedy_only, (temps, ks, ps, seeds, counters) = \
+            self._sampler_args(entries)
+        tok, ids_t, pos_t = self._put(tok0), self._put(ids), \
+            self._put(positions)
+        drafted = []
+        for j in range(k):
+            logits, _ = model_lib.decode_step(
+                self._tree, {"tokens": tok}, cache, pos_t + j, self.cfg,
+                adapter_ids=ids_t)
+            nxt, _, _, _ = sampling_lib.sample_tokens(
+                logits[:, -1, :self.cfg.vocab_size], temps, ks, ps, seeds,
+                None if greedy_only else counters + j, want_logprobs=False,
+                greedy_only=greedy_only)
+            drafted.append(nxt)
+            tok = nxt[:, None]
+        self._stats["draft_steps"] += k
+        return torch.stack(drafted, dim=1).cpu().numpy()
+
+    def _verify(self, group, drafted: np.ndarray) -> torch.Tensor:
+        """One paged prefill over each group row's ``[last token,
+        drafts...]`` window at positions ``pos..pos + k``, on the row's
+        serving adapter, with its full page table as the prefix table and
+        ``pos`` as the prefix length: ``(g, k + 1, vocab)`` logits, one
+        target distribution per window position.  The window's KV writes
+        (over the draft's) land at positions ``>= pos``, so the prefix the
+        attention reads is committed target KV only."""
+        kv = self.kv
+        g, w = len(group), drafted.shape[1] + 1
+        toks = np.zeros((g, w), np.int32)
+        prefs = np.zeros((g,), np.int32)
+        ids = np.zeros((g,), np.int32)
+        rows = np.zeros((g, kv.pages_per_slot), np.int32)
+        for j, (i, r, _sc, pos, _n0, _k) in enumerate(group):
+            toks[j, 0] = r.generated[-1]
+            toks[j, 1:] = drafted[i]
+            prefs[j] = pos
+            ids[j] = self._adapter_id(r.adapter)
+            rows[j] = kv.tables[i]
+        table = kv.table_tensor(rows)
+        cache = {"k": kv.pools["k"], "v": kv.pools["v"],
+                 "page_table": table, "prefix_table": table}
+        logits, _ = model_lib.paged_prefill(
+            self._tree, {"tokens": self._put(toks)}, cache, self.cfg,
+            self._put(np.full((g,), w, np.int32)), self._put(prefs),
+            adapter_ids=self._put(ids), all_logits=True)
+        return logits[:, :, :self.cfg.vocab_size]
+
+    def _spec_group(self, group, k: int) -> Dict[int, int]:
+        """Draft, verify and accept one k-wide group of speculative slots:
+        one sampler call draws the target token at all ``g (k + 1)`` window
+        positions from the rows' own counter streams, and
+        :func:`accepted_prefix` keeps the draft prefix the target agrees
+        with (plus the bonus draw after a full match), cut at a stop id
+        and at ``remaining_tokens``.  Whole pages past the last kept
+        position go back to the pool."""
+        kv = self.kv
+        cm = self.cost_model
+        g, w = len(group), k + 1
+        t0 = time.perf_counter()
+        drafted = self._draft(group, k)
+        t1 = time.perf_counter()
+        self._step_spent += cm.draft_cost(k)
+        logits = self._verify(group, drafted)
+        self._step_spent += cm.verify_cost(g * w)
+        entries = []
+        for _i, r, _sc, _pos, _n0, _k in group:
+            sp, seed, m = self._sampling_for(r), self._seed_for(r), \
+                len(r.generated)
+            entries += [(sp, seed, m + t) for t in range(w)]
+        want_lp = any(self._sampling_for(pl[1]).logprobs for pl in group)
+        target, chosen, top_ids, top_lps = self._draw(
+            logits.reshape(g * w, -1), entries, want_lp)
+        st = self._stats
+        st["draft_s"] += t1 - t0
+        st["verify_s"] += time.perf_counter() - t1
+        st["draft_passes"] += 1
+        st["verify_calls"] += 1
+        target = target.reshape(g, w)
+        handled: Dict[int, int] = {}
+        for j, (i, r, _sc, pos, n0, _k) in enumerate(group):
+            acc = accepted_prefix(drafted[i], target[j])
+            sp = self._sampling_for(r)
+            for t, tok in enumerate(acc):
+                if tok in sp.stop_token_ids:
+                    acc = acc[:t + 1]          # keep the stop id itself
+                    break
+            # cut before appending: remaining_tokens reads generated
+            acc = acc[:r.remaining_tokens]
+            for t, tok in enumerate(acc):
+                r.generated.append(int(tok))
+                if sp.logprobs:
+                    row, n = j * w + t, sp.logprobs
+                    r.logprobs.append(TokenLogprobs(
+                        int(tok), float(chosen[row]),
+                        tuple(int(x) for x in top_ids[row, :n]),
+                        tuple(float(v) for v in top_lps[row, :n])))
+            a = len(acc)
+            self.positions[i] = pos + a
+            # positions past pos + a - 1 hold rejected-draft KV: return
+            # their whole pages; max(n0, ...) keeps run()'s worst-case
+            # reservation
+            kv.truncate_slot(i, max(n0, (pos + a - 1) // kv.page_size + 1))
+            handled[i] = a
+        if self._obs:
+            tr = self._tracker
+            s = self._obs_step
+            sum_a = sum(handled.values())
+            tr.count("engine/spec/draft_tokens", k * g, step=s)
+            tr.count("engine/spec/accepted_tokens", sum_a, step=s)
+            for a in handled.values():
+                tr.histogram("engine/spec/accepted_len", a, step=s)
+            tr.gauge("engine/spec/accept_rate", (sum_a - g) / (k * g),
+                     step=s)
+        return handled
+
     def _finish_slot(self, slot: int, finished: List[Request], step: int,
                      reason: str = "length") -> None:
         r = self.active[slot]
@@ -837,7 +1068,7 @@ class ServeEngine:
         r.finish_reason = reason
         r.finish_step = step
         r.finish_cost = self._cost_clock
-        finished.append(r)
+        self._resolve_finished(r, finished)
         self._inflight.discard(r.uid)
         self.active[slot] = None
         self.positions[slot] = 0
@@ -854,6 +1085,33 @@ class ServeEngine:
                 "tokens": len(r.generated),
                 "queueing_delay": r.queueing_delay,
                 "preemptions": r.preemptions, "slo_met": r.slo_met}, step=s)
+
+    def _resolve_finished(self, r: Request, finished: List[Request]) -> None:
+        """Deliver a finished or truncated request to the run's results.  A
+        branch of an ``n > 1`` fan-out resolves into its parent instead:
+        the parent comes back once, after its last branch, ``done`` if
+        every branch finished, ``truncated`` if any was, with the earliest
+        branch admission and the latest branch finish stamps."""
+        parent = getattr(r, "_parent", None)
+        if parent is None:
+            finished.append(r)
+            return
+        if any(not (b.done or b.truncated) for b in parent.branches):
+            return
+        parent.done = all(b.done for b in parent.branches)
+        parent.truncated = any(b.truncated for b in parent.branches)
+        parent.finish_reason = "branches" if parent.done else None
+        admits = [b.admit_step for b in parent.branches
+                  if b.admit_step is not None]
+        parent.admit_step = min(admits) if admits else None
+        steps = [b.finish_step for b in parent.branches
+                 if b.finish_step is not None]
+        parent.finish_step = max(steps) if steps else None
+        costs = [b.finish_cost for b in parent.branches
+                 if b.finish_cost is not None]
+        parent.finish_cost = max(costs) if costs else None
+        self._inflight.discard(parent.uid)
+        finished.append(parent)
 
     def _observe_truncated(self, r: Request) -> None:
         """Count a request returned as a partial; a deadlined one has
@@ -887,6 +1145,11 @@ class ServeEngine:
     # -- request intake ----------------------------------------------------
     def _validate(self, r: Request) -> None:
         self._adapter_id(r.adapter)
+        if r.n < 1:
+            raise ValueError(f"request {r.uid}: n must be >= 1, got {r.n}")
+        sc = self._spec_for(r)
+        if sc is not None:
+            self._adapter_id(sc.draft_adapter)     # unknown draft policy
         try:
             self._sampling_for(r).validate(self.cfg.vocab_size)
         except ValueError as e:
@@ -924,6 +1187,9 @@ class ServeEngine:
         request.finish_step = None
         request.finish_cost = None
         request.preemptions = 0
+        if request.n > 1:
+            self._submit_fanout(request, arrival_step)
+            return
         request._prefill_done = True
         request._prefill_pos = 0
         request._kv_pin = None
@@ -934,6 +1200,33 @@ class ServeEngine:
             else self.cost_model.steps_to_cost(request.arrival_step))
         self._inflight.add(request.uid)
         self.scheduler.push(request)
+
+    def _submit_fanout(self, request: Request,
+                       arrival_step: Optional[int]) -> None:
+        """Expand an ``n > 1`` request into ``n`` branch requests with
+        uids ``(uid, b)`` and explicit seeds ``fold_in(seed, b)`` of the
+        parent's effective seed, so a branch's draws depend on ``(parent
+        seed, branch, position)`` only.  The first branch to prefill
+        commits the prompt pages and later ones alias them.  The parent is
+        never served; it resolves when its last branch does
+        (:meth:`_resolve_finished`)."""
+        base_seed = self._seed_for(request)
+        sp = self._sampling_for(request)
+        request.branches = []
+        self._inflight.add(request.uid)
+        for b in range(request.n):
+            br = Request(uid=(request.uid, b), prompt=request.prompt,
+                         max_new_tokens=request.max_new_tokens,
+                         adapter=request.adapter,
+                         sampling=dataclasses.replace(
+                             sp, seed=sampling_lib.branch_seed(base_seed, b)),
+                         priority=request.priority,
+                         deadline=request.deadline, spec=request.spec)
+            br._parent = request
+            request.branches.append(br)
+            self.submit(br, arrival_step=arrival_step, _validated=True)
+        request.arrival_step = request.branches[0].arrival_step
+        request.arrival_cost = request.branches[0].arrival_cost
 
     # -- serving -----------------------------------------------------------
     def run(self, requests: List[Request], max_steps: int = 512
@@ -979,7 +1272,9 @@ class ServeEngine:
         self._banked_tree()
         self._pending_trace_uids = trace_uids
         self._stats = dict(prefill_s=0.0, prefill_calls=0, decode_s=0.0,
-                           decode_steps=0, decode_tokens=0)
+                           decode_steps=0, decode_tokens=0, draft_s=0.0,
+                           draft_passes=0, draft_steps=0, verify_s=0.0,
+                           verify_calls=0)
         finished: List[Request] = []
         steps = 0
         next_arrival = 0
@@ -1034,27 +1329,49 @@ class ServeEngine:
                                              step=self._obs_step)
                     if self._obs else NULL_SPAN)
             t0 = time.perf_counter()
+            #: slot -> (request, tokens emitted this step)
+            served: Dict[int, Tuple[Request, int]] = {}
+            plain = live
             with span:
-                rows, live = self._decode_live(live, steps)
-                if live:
-                    # mid-prefill slots ride the batch as ghosts: None rows
-                    # draw nothing and return no token
+                spec_live = [i for i in live
+                             if self._spec_for(self.active[i]) is not None]
+                if spec_live:
+                    handled, demoted = self._spec_step(spec_live, steps)
+                    served = {i: (self.active[i], a)
+                              for i, a in handled.items()}
+                    # demoted slots decode plainly this step; the spec
+                    # pass may have suspended slots under pool pressure
+                    plain = sorted(
+                        [i for i in live if i not in spec_live
+                         and self.active[i] is not None] + demoted)
+                if plain:
+                    rows, plain = self._decode_live(plain, steps)
+                if plain:
+                    # mid-prefill and spec-served slots ride the batch as
+                    # ghosts: None rows draw nothing and return no token
                     reqs: List[Optional[Request]] = [None] * self.slots
-                    for i in live:
+                    for i in plain:
                         reqs[i] = self.active[i]
-                    toks = self._sample_rows(rows, reqs)
-            if live:
+                    toks = self._sample_rows(rows, reqs,
+                                             draft_rows=len(served))
+            if plain:
+                self._step_spent += cm.decode_step_cost
+                for i in plain:
+                    r = self.active[i]
+                    r.generated.append(int(toks[i]))
+                    self.positions[i] += 1
+                    served[i] = (r, 1)
+            if served:
                 self._stats["decode_s"] += time.perf_counter() - t0
                 self._stats["decode_steps"] += 1
-                self._stats["decode_tokens"] += len(live)
-                self._step_spent += cm.decode_step_cost
-                for i in live:
-                    self.active[i].generated.append(int(toks[i]))
-                    self.positions[i] += 1
+                self._stats["decode_tokens"] += sum(
+                    n for _r, n in served.values())
                 if self._obs:
-                    self._observe_decode(live)
-            for i in live:
+                    self._observe_decode(served)
+            for i in sorted(served):
                 r = self.active[i]
+                if r is not served[i][0]:
+                    continue            # suspended by a later page fault
                 if self._hit_stop(r):
                     # stop id emitted: finish now, the slot refills at the
                     # next admission pass
@@ -1066,7 +1383,7 @@ class ServeEngine:
                 self._tracker.gauge("engine/step_budget_utilization",
                                     self._step_spent / cm.step_budget,
                                     step=self._obs_step)
-            self.last_run_step_costs.append((self._step_spent, len(live)))
+            self.last_run_step_costs.append((self._step_spent, len(served)))
         self.last_run_stats = dict(self._stats, steps=steps)
         #: suspensions this run
         self.last_run_preemptions = \
@@ -1102,7 +1419,7 @@ class ServeEngine:
                 continue
             r.truncated = True
             self._observe_truncated(r)
-            finished.append(r)
+            self._resolve_finished(r, finished)
             self._inflight.discard(r.uid)
             self.active[i] = None
             self.positions[i] = 0
@@ -1116,8 +1433,8 @@ class ServeEngine:
                 self.kv.release_pin(r._kv_pin)
                 r._kv_pin = None
             self._inflight.discard(r.uid)
-            finished.append(r)
+            self._resolve_finished(r, finished)
         for _, r in unarrived:
             r.truncated = True
             self._observe_truncated(r)
-            finished.append(r)
+            self._resolve_finished(r, finished)

@@ -39,6 +39,9 @@ reference's:
   the first prefill chunk) at admission and grows a slot's table through
   :meth:`PagedKVCache.ensure_position`; its :class:`OutOfPages` is what
   triggers a decode-time suspension.
+* **rollback**: speculative decode grows a slot's table to cover its draft
+  window and returns the rejected tail's whole pages through
+  :meth:`PagedKVCache.truncate_slot`.
 
 Allocation failure raises :class:`OutOfPages` (built by
 :meth:`PagedKVCache.oom`, which also gauges the pool pressure on the
@@ -343,6 +346,27 @@ class PagedKVCache:
             self.tables[slot, self.n_pages[slot]] = p
             self._owned[slot].append(p)
             self.n_pages[slot] += 1
+
+    def truncate_slot(self, slot: int, n_keep: int) -> None:
+        """Release ``slot``'s trailing pages beyond the first ``n_keep``
+        (speculative-decode rollback: pages grown for a draft window whose
+        tail was rejected go back to the pool).  Trailing pages are the
+        slot's most recently grown ones (aliased prefix pages sit at the
+        front of its table), and each release goes through the refcount."""
+        if n_keep < 1:
+            raise ValueError(f"slot {slot} must keep >= 1 page, got "
+                             f"{n_keep}")
+        while self.n_pages[slot] > n_keep:
+            idx = int(self.n_pages[slot]) - 1
+            p = int(self.tables[slot, idx])
+            owned = self._owned[slot].pop()
+            if owned != p:
+                raise RuntimeError(
+                    f"slot {slot} table/_owned order diverged at page index "
+                    f"{idx}: owned {owned} vs table {p}")
+            self.tables[slot, idx] = TRASH_PAGE
+            self.n_pages[slot] -= 1
+            self._release(p)
 
     def free_slot(self, slot: int) -> None:
         for p in self._owned[slot]:

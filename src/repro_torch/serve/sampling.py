@@ -246,15 +246,19 @@ def stack(entries: Sequence[Tuple[SamplingParams, int, int]]):
     return temps, top_ks, top_ps, seeds, counters
 
 
-def record_occupancy(tracker, reqs, step=None) -> None:
+def record_occupancy(tracker, reqs, step=None, draft_rows: int = 0) -> None:
     """Sampler batch occupancy metrics (:mod:`repro_torch.obs`): live rows
     over the rows drawn (dead slots decode as ghosts, resumed requests'
-    tail-rebuild draws are discarded); ``reqs`` holds None for those."""
+    tail-rebuild draws are discarded); ``reqs`` holds None for those.
+    ``draft_rows`` of the None rows belong to slots a speculative pass
+    already served this step: they leave both the ghost count and the
+    occupancy denominator."""
     live = sum(r is not None for r in reqs)
-    tracker.histogram("sampler/batch_occupancy", live / max(len(reqs), 1),
-                      step=step)
+    tracker.histogram("sampler/batch_occupancy",
+                      live / max(len(reqs) - draft_rows, 1), step=step)
     tracker.count("sampler/live_rows", live, step=step)
-    tracker.count("sampler/ghost_rows", len(reqs) - live, step=step)
+    tracker.count("sampler/ghost_rows", len(reqs) - live - draft_rows,
+                  step=step)
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,9 @@ class TokenCostModel:
     prefill_token_cost: float = 0.0
     prefill_fixed_cost: float = 0.0
     step_budget: Optional[float] = None
+    #: cost of one speculative draft decode step (None: priced like a full
+    #: decode step; a calibrated model may set it lower for a cheap draft)
+    draft_step_cost: Optional[float] = None
 
     def __post_init__(self):
         if self.decode_step_cost <= 0:
@@ -77,6 +80,9 @@ class TokenCostModel:
                              f"{self.decode_step_cost}")
         if self.prefill_token_cost < 0 or self.prefill_fixed_cost < 0:
             raise ValueError("prefill costs must be >= 0")
+        if self.draft_step_cost is not None and self.draft_step_cost <= 0:
+            raise ValueError(f"draft_step_cost must be > 0 or None, got "
+                             f"{self.draft_step_cost}")
         if self.step_budget is not None and self.step_budget <= 0:
             raise ValueError(f"step_budget must be > 0, got "
                              f"{self.step_budget}")
@@ -88,6 +94,18 @@ class TokenCostModel:
     def prefill_cost(self, tokens: int) -> float:
         """Cost of one prefill call over ``tokens`` suffix tokens."""
         return self.prefill_fixed_cost + tokens * self.prefill_token_cost
+
+    def draft_cost(self, k: int) -> float:
+        """Cost of drafting ``k`` speculative tokens (``k`` chained draft
+        decode steps)."""
+        c = self.draft_step_cost if self.draft_step_cost is not None \
+            else self.decode_step_cost
+        return k * c
+
+    def verify_cost(self, tokens: int) -> float:
+        """Cost of one speculative verify pass over ``tokens`` window
+        positions in all: one decode step plus prefill-rate token work."""
+        return self.decode_step_cost + tokens * self.prefill_token_cost
 
     @classmethod
     def calibrate(cls, decode_step_s: float, prefill_token_s: float,

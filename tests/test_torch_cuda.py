@@ -369,6 +369,85 @@ def test_serving_wrappers_never_sync_with_the_host(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_decode_syncs_once_per_draft_pass_and_accept(cuda_device,
+                                                          dtype):
+    """A speculating (k = 3), sampling, preempting, chunking ``run_stream``
+    of a tiny engine: the draft loop keeps its tokens on the card, so the
+    run synchronises once per draft pass (its drafted tokens) and once
+    per sampler call (the accept draw, plain decode, prefill), never per
+    draft step."""
+    import warnings
+    from repro_torch.serve import SpecConfig, sampling
+    cfg_dtype = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    spec = SpecConfig(k=3)
+    eng, trace = _tiny_stream_engine(cuda_device, cfg_dtype, spec=spec)
+    eng.run_stream(trace(), max_steps=400)          # build + warm up
+    calls = []
+    to_host = sampling.to_host
+
+    def counted(*a):
+        calls.append(1)
+        return to_host(*a)
+    eng, trace = _tiny_stream_engine(cuda_device, cfg_dtype, spec=spec)
+    eng._banked_tree()      # the bank build reads device values, once
+    sampling.to_host = counted
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            done = eng.run_stream(trace(), max_steps=400)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        sampling.to_host = to_host
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    st = eng.last_run_stats
+    assert all(r.done for r in done) and eng.kv.pages_in_use() == 0
+    assert st["draft_passes"] == st["verify_calls"] > 0
+    # draft steps outnumber draft passes: a per-step sync would show
+    assert st["draft_steps"] > st["draft_passes"]
+    assert len(syncs) == len(calls) + st["draft_passes"], (
+        len(syncs), len(calls), st["draft_passes"],
+        [str(w.message)[:80] for w in syncs[:3]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("s", [2, 4, 5, 6])
+def test_verify_shaped_prefill_matches_plain(cuda_device, dtype, tol, s):
+    """The speculative verify's prefill: 8 rows of S = k + 1 window
+    positions, G = 3, D = 128, over prefixes that are not page-aligned
+    (the window's first page is the prefix's last where the prefix ends
+    mid-page), each row's window KV written into its own pages first, as
+    the model writes it.  bf16 on "mma", fp32 on "simt"."""
+    from repro_torch.models import attention
+    b, kh, g, hd, pg, maxp = 8, 2, 3, 128, 16, 8
+    h, pages = g * kh, 1 + b * maxp
+    rng = np.random.default_rng(100 + s)
+    put = _on(cuda_device, dtype)
+    table = put((rng.permutation(pages - 1) + 1).reshape(b, maxp).astype(
+        np.int32))
+    plen = rng.integers(1, maxp * pg - s, size=b)
+    plen[:3] = (15, 16, 17)                 # before, at and past a seam
+    plen = put(plen.astype(np.int32))
+    q, k, v = (put(_normal(rng, (b, s, n, hd), sc))
+               for n, sc in ((h, 1.0), (kh, 0.5), (kh, 0.5)))
+    kp = put(_normal(rng, (pages, pg, kh, hd), 0.5))
+    vp = put(_normal(rng, (pages, pg, kh, hd), 0.5))
+    positions = plen.long()[:, None] + torch.arange(s, device=cuda_device)
+    attention.paged_write(kp, k, table, positions)
+    attention.paged_write(vp, v, table, positions)
+    args = (q, k, v, kp, vp, table, plen)
+    engine = "mma" if dtype == torch.bfloat16 else "simt"
+    ops.reset_launches()
+    got = ops.paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.PREFILL_ENGINE_LAUNCHES[engine] == 1
+    _close(got, ref.paged_prefill_attention(*args), tol)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((2, 4, 32), dtype=torch.float16, device=cuda_device)
     pool = torch.zeros((4, 8, 2, 32), dtype=torch.float16, device=cuda_device)
@@ -413,12 +492,13 @@ def test_tiny_serving_launches_every_kernel(cuda_device):
     assert all(ops.LAUNCHES[n] > 0 for n in serving), ops.LAUNCHES
 
 
-def _tiny_stream_engine(device, dtype="float32"):
+def _tiny_stream_engine(device, dtype="float32", **kw):
     """A tiny engine with a tight pool (6 usable pages of 8) and prefill
-    chunks of 5, and a trace factory: a big low-priority sampled request
-    with logprobs, then deadlined high-priority arrivals on two adapters,
-    greedy, sampled and stop rows (a quarter of the vocabulary stops them)
-    behind a shared 16-token prefix."""
+    chunks of 5 (``kw`` adds engine arguments), and a trace factory: a big
+    low-priority sampled request with logprobs, then deadlined
+    high-priority arrivals on two adapters, greedy, sampled and stop rows
+    (a quarter of the vocabulary stops them) behind a shared 16-token
+    prefix."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
     from repro_torch.serve import Request, SamplingParams, ServeEngine
@@ -430,7 +510,8 @@ def _tiny_stream_engine(device, dtype="float32"):
     put = (lambda t: {k: put(v) for k, v in t.items()}
            if isinstance(t, dict) else t.to(device))
     eng = ServeEngine(put(params), cfg, max_len=56, slots=2, page_size=8,
-                      num_pages=7, prefill_chunk_tokens=5, device=device)
+                      num_pages=7, prefill_chunk_tokens=5, device=device,
+                      **kw)
     eng.register_adapter("tuned", put(tuned))
     vocab = cfg.vocab_size
 

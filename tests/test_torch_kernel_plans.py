@@ -184,7 +184,7 @@ def test_gather_delta_plan_fills_the_card_at_every_llama_linear(name):
 # paged_prefill_attention: the tile plan and the engine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("s", [1, 17, 64, 130])
+@pytest.mark.parametrize("s", [1, 2, 4, 5, 6, 17, 64, 130])
 @pytest.mark.parametrize("g", [1, 3, 4])
 def test_prefill_tile_plan_covers_every_query_row_once(s, g):
     """Every flattened (position, group) row of a kv head in exactly one
