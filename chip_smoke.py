@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port (``src/repro_torch``): multi-tenant
-paged PSOFT serving, and fine-tuning with PSOFT and every baseline method
-of the paper, on one NVIDIA GPU.
+paged PSOFT serving, fine-tuning with PSOFT and every baseline method of
+the paper, and serving while training with live adapter swaps, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N] [--profile] [--out PATH]
 
@@ -118,7 +119,45 @@ Phases, each of which raises (non-zero exit) on a failed check:
     (k = 3), ``n = 2`` forks, preemption and chunked prefill on the card
     and on the CPU: identical tokens, accepted lengths, ``engine/spec/*``
     counters, events and kv stats, logprobs within 1e-4; on the card the
-    greedy rows equal plain decode; every card prefill on "simt".
+    greedy rows equal plain decode; every card prefill on "simt";
+14. lifecycle (runs after 12, on 3's params and adapters, same depth):
+    serve-while-train through ``ServeEngine(slots=8, page_size=16,
+    max_len=512, tracker=InMemoryTracker())``: 12 greedy requests arriving
+    over steps 1-40 on base and the two adapters, and 4 on "live"
+    submitted by a step hook; an attached ``AdapterFeed(engine, dir,
+    "live", template=state.trainable, extract=...)`` over a PSOFT train
+    state of the served params, and a step hook that runs one
+    ``make_train_step`` step (8 x 256 tokens) every 6 engine steps, 5 in
+    all, and checkpoints the trainable leaves with
+    ``publish=feed.notify``; tuned_b unregistered once its queue drains;
+    ``compact_banks()`` at the end.  Checks: every request done, pages
+    conserved, the feed applying every checkpoint in order (register, then
+    updates), exact launches (gather_delta_matmul 7 and
+    paged_decode_attention 1 per layer per decode step; per train step 3
+    psoft_matmul per linear and 7 cayley_neumann; 7 cayley_neumann per
+    bank extension, nothing else), one
+    full bank build and one extension walk per swap, each swap freeing the
+    old bank without the cycle collector, the serving base's source and
+    merged leaves bit-identical across the train steps (host copies), the
+    fed adapter sharing no storage with the train state, prefix hits on
+    "live" only within one version, the bank after compaction exactly the
+    live columns x 1.615 GB at 28 layers, the exactness probe (one decode
+    step's logits, bf16 and fp32, bit-equal after the bank grows by a
+    column, by a rank-384 column and by a dense column; one planted ulp
+    changes only its column's rows), the engine, bank and train state
+    freed without the cycle collector, and the same trace without swaps
+    (every pinned version registered up front) admitting the same way and
+    giving identical tokens; prints decode tokens/s and the mean decode
+    step during the swaps, each swap step's ms against the other steps',
+    the train step's ms in the hook, peak memory and bank bytes;
+15. lifecycle card vs CPU (runs after 13): a tiny (fp32) trace with
+    preemption and chunked prefill through which a register, an update
+    under pinned requests and a speculating request's pinned draft, a
+    register that fails and rolls back, a rank-16 LoRA column, a DoRA
+    column (mixed banks), an unregister, an ``n = 2`` fork and compaction
+    land mid-run, on the card and on the CPU: identical tokens, lifecycle
+    events, tracker swap and retire events and gauges, admission and
+    preemption events and kv stats, logprobs within 1e-4.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1780,6 +1819,823 @@ def spec_card_vs_cpu_phase(torch, configs, model, serve, ops):
 
 
 # ---------------------------------------------------------------------------
+# phase 14 / 15: the live adapter lifecycle
+# ---------------------------------------------------------------------------
+
+#: phase 14: the step hook trains one PSOFT step at every engine step
+#: congruent to 3 mod LIFECYCLE_TRAIN_EVERY, LIFECYCLE_TRAIN_STEPS in all;
+#: the feed swaps each checkpoint in at the next step
+LIFECYCLE_TRAIN_EVERY, LIFECYCLE_TRAIN_STEPS = 6, 5
+#: phase 14: the steps at which a request on "live" is submitted, in pairs
+#: behind one system prompt (the second may alias the first's pages only
+#: within one version of "live")
+LIFECYCLE_LIVE_AT = (6, 7, 18, 19)
+#: bytes of one PSOFT (r = 352) column of a llama32-3b layer's seven banks:
+#: left (26624 K-rows x 352, bf16) and right (352 x 27648 N-columns, fp32)
+PSOFT_COLUMN_LAYER_BYTES = 26624 * 352 * 2 + 352 * 27648 * 4
+
+
+def lifecycle_trace(serve, vocab, n=12, seed=4, spread=40):
+    """Phase 14's arrivals: ``n`` greedy requests over steps 1..``spread``
+    on base / tuned_a / tuned_b (tuned_b only up to step 16), prompts of
+    8-120 tokens (half behind a 40-token system prompt), 16-32 new
+    tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 40).astype(np.int32)
+    steps = np.sort(rng.integers(1, spread + 1, n))
+    adapters = ("base", "tuned_a", "tuned_b")
+    out = []
+    for uid in range(n):
+        adapter = adapters[uid % 3]
+        if adapter == "tuned_b" and steps[uid] > 16:
+            adapter = "base"
+        if uid % 2 == 0:
+            prompt = np.concatenate([system, rng.integers(
+                0, vocab, int(rng.integers(8, 81))).astype(np.int32)])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(
+                8, 121))).astype(np.int32)
+        out.append((int(steps[uid]), serve.Request(
+            uid=uid, prompt=prompt, max_new_tokens=int(rng.integers(16, 33)),
+            adapter=adapter)))
+    return out
+
+
+def lifecycle_live_requests(serve, vocab, seed=5):
+    """Phase 14's requests on "live", by submission step: 24 new tokens
+    after a shared 40-token system prompt and 24 tokens of their own."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 40).astype(np.int32)
+    return {step: serve.Request(
+        uid=100 + i, prompt=np.concatenate([system, rng.integers(
+            0, vocab, 24).astype(np.int32)]), max_new_tokens=24,
+        adapter="live") for i, step in enumerate(LIFECYCLE_LIVE_AT)}
+
+
+def map_tree(node, fn, path=()):
+    """``node`` with every linear's dict (one holding ``"w"``) replaced by
+    ``fn(path, linear)``."""
+    if isinstance(node, dict) and "w" in node:
+        return fn(path, node)
+    if isinstance(node, dict):
+        return {k: map_tree(v, fn, path + (k,)) for k, v in node.items()}
+    return node
+
+
+def ulp_up(torch, t):
+    """Every element one ulp further from zero (its bit pattern plus one)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype]
+    return (t.contiguous().view(bits) + 1).view(t.dtype)
+
+
+def exactness_probe(torch, registry, model, cfg, tree, gen):
+    """The hot-swap exactness contract at full width: one decode step's
+    logits over 8 rows on the bank's old columns, in bf16 and in fp32
+    compute, bit-equal after the bank grows by one column of the bank's
+    rank, by a column of rank 384 (every old column zero-padded) and by a
+    dense column on q and o (mixed banks); one ulp planted on column 1 of layer
+    0's q bank (``left`` in bf16, where an fp32 ulp of ``right`` is below
+    the output's rounding; ``right`` in fp32) must change that column's
+    rows and no other."""
+    import numpy as np
+    b, pg, per = 8, 16, 4
+    n_cols = tree["layers"]["attn"]["q"]["bank"]["right"].shape[1]
+    r_old = tree["layers"]["attn"]["q"]["bank"]["left"].shape[-1]
+    r_new = max(384, r_old + 32)
+    ids_np = np.asarray([0, 1, 2, 0, 1, 2, 1, 0], np.int32) % n_cols
+    ids = torch.from_numpy(ids_np).cuda()
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)).astype(
+        np.int32)).cuda()
+    pos = torch.from_numpy(rng.integers(8, pg * per, b).astype(
+        np.int32)).cuda()
+    table = torch.from_numpy((1 + np.arange(b * per)).reshape(b, per).astype(
+        np.int32)).cuda()
+    pools = {}
+    for dt in ("bfloat16", "float32"):
+        p = model.init_cache(cfg.replace(dtype=dt), b, pg * per, pg,
+                             device="cuda")
+        pools[dt] = {k: (torch.randn(v.shape, generator=gen, device="cuda")
+                         * 0.5).to(v.dtype) for k, v in p.items()}
+
+    def logits(t, dt):
+        cache = {"k": pools[dt]["k"].clone(), "v": pools[dt]["v"].clone(),
+                 "page_table": table}
+        out, _ = model.decode_step(t, {"tokens": toks}, cache, pos,
+                                   cfg.replace(dtype=dt), adapter_ids=ids)
+        return out[:, -1, :cfg.vocab_size]
+
+    base = {dt: logits(tree, dt) for dt in pools}
+
+    def grown(path, lin, how):
+        if "bank" not in lin or (how == "dense" and path[-1] not in
+                                 ("q", "o")):
+            return lin
+        w, bank = lin["w"], lin["bank"]
+        lead, (k, n) = w.shape[:-2], w.shape[-2:]
+        if how == "dense":
+            sub = {"delta": torch.randn(lead + (1, k, n), generator=gen,
+                                        device="cuda") * 0.01}
+        else:
+            r = r_old if how == "column" else r_new
+            sub = {"left": (torch.randn(lead + (1, k, r), generator=gen,
+                                        device="cuda") * k ** -0.5
+                            ).to(bank["left"].dtype),
+                   "right": torch.randn(lead + (1, r, n), generator=gen,
+                                        device="cuda") * 0.01}
+        return {"w": w, "bank": registry.extend_bank(w, bank, sub, n_cols)}
+
+    equal = {}
+    for how in ("column", "rank", "dense"):
+        ext = map_tree(tree, lambda path, lin: grown(path, lin, how))
+        forms, rank = bank_forms(ext)
+        check(("mixed" in forms) == (how == "dense")
+              and rank == (r_new if how == "rank" else r_old),
+              f"lifecycle probe: the {how} extension's banks "
+              f"({forms}, rank {rank})")
+        for dt in pools:
+            equal[f"{how} {dt}"] = bool(torch.equal(logits(ext, dt),
+                                                    base[dt]))
+        del ext
+    check(all(equal.values()), f"lifecycle probe: old columns' logits "
+                               f"bit-equal across extensions ({equal})")
+    on1 = torch.from_numpy(ids_np == 1).cuda()
+    fault = {}
+    for dt, key in (("bfloat16", "left"), ("float32", "right")):
+        def planted(path, lin):
+            if path != ("layers", "attn", "q"):
+                return lin
+            t = lin["bank"][key].clone()
+            t[0, 1] = ulp_up(torch, t[0, 1])
+            return {"w": lin["w"], "bank": {**lin["bank"], key: t}}
+        got = logits(map_tree(tree, planted), dt)
+        fault[dt] = (not bool(torch.equal(got[on1], base[dt][on1])),
+                     bool(torch.equal(got[~on1], base[dt][~on1])))
+    check(all(a and b for a, b in fault.values()),
+          f"lifecycle probe: one planted ulp on column 1 changes its rows "
+          f"and no other ({fault})")
+    return dict(equal=equal, fault=fault)
+
+
+def first_bank_tensor(tree):
+    return tree["layers"]["attn"]["q"]["bank"]["right"]
+
+
+def lifecycle_live_run(torch, configs, serve, ops, trainer, data, tree, cfg,
+                       params, adapters, ckpt_dir, gen):
+    """Phase 14's run with swaps: the engine, the feed and the hooks, the
+    checks that need them, and the exactness probe on its compacted tree.
+    Returns the results and weak references to the engine, its bank and
+    the train state; every other reference to them dies with this call
+    (the caller holds the cycle collector off)."""
+    import weakref
+    import numpy as np
+    from repro_torch.core import registry
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+    layers = cfg.num_layers
+    eng = serve.ServeEngine(params, cfg, device="cuda", slots=8,
+                            page_size=16, max_len=512,
+                            tracker=serve.InMemoryTracker())
+    for name, t in adapters.items():
+        eng.register_adapter(name, t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._banked_tree()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lc = eng.lifecycle
+    bytes_start = lc.bank_bytes()
+    # every leaf the train state could reach, on the host, to hold the
+    # serving side bit-identical across the hook's train steps
+    watched = {}
+    for t in tree.tree_leaves(eng._sources["base"][0]) + \
+            tree.tree_leaves(eng._merged_base):
+        watched.setdefault(id(t), t)
+    watched = list(watched.values())
+    t0 = time.perf_counter()
+    snapshot = [t.cpu() for t in watched]
+    snapshot_s = time.perf_counter() - t0
+    tcfg = cfg.replace(remat_policy="full")
+    tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
+    box = {"state": trainer.train_state_from_params(params, tcfg, tc),
+           "i": 0}
+    tstep = trainer.make_train_step(tcfg, tc)
+    ds = data.SyntheticLMDataset(tcfg, TRAIN_BATCH, TRAIN_SEQ)
+    frozen = box["state"].frozen
+    restored = []
+
+    def extract(trainable):
+        restored.append(trainable)
+        return adamw.combine(trainable, frozen)
+
+    marks, train_at, train_ms, save_ms, losses, train_launches = \
+        {}, [], [], [], [], []
+
+    def mark(e, step):
+        marks[step] = time.perf_counter()
+
+    eng.add_step_hook(mark)
+    feed = serve.AdapterFeed(eng, ckpt_dir, "live",
+                             template=box["state"].trainable,
+                             extract=extract).attach()
+
+    def train_hook(e, step):
+        if step % LIFECYCLE_TRAIN_EVERY != 3 \
+                or box["i"] >= LIFECYCLE_TRAIN_STEPS:
+            return
+        batch = ds.batch_at(box["i"])
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["state"], metrics = tstep(box["state"], batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_launches.append({k: ops.LAUNCHES[k] - before[k]
+                               for k in ops.LAUNCHES})
+        train_ms.append(1e3 * (t1 - t0))
+        losses.append(float(metrics["loss"]))
+        box["i"] += 1
+        checkpoint.save(box["state"].trainable, ckpt_dir,
+                        int(box["state"].step), keep=0, publish=feed.notify)
+        save_ms.append(1e3 * (time.perf_counter() - t1))
+        train_at.append(step)
+
+    live_reqs = lifecycle_live_requests(serve, cfg.vocab_size)
+    trace = lifecycle_trace(serve, cfg.vocab_size)
+    last_b = max(s for s, r in trace if r.adapter == "tuned_b")
+    unregistered = {}
+
+    def traffic_hook(e, step):
+        if step in live_reqs:
+            e.submit(live_reqs[step])
+        if not unregistered and step > last_b and "tuned_b" not in \
+                e.scheduler.demanded_adapters(e.default_spec):
+            e.unregister_adapter("tuned_b")
+            unregistered["step"] = step
+
+    eng.add_step_hook(train_hook)
+    eng.add_step_hook(traffic_hook)
+    refreshes = []
+    plain_refresh = eng._refresh_tree
+
+    def refresh():
+        if not lc.dirty:
+            return
+        n_ev, walks = len(lc.events), lc.extend_walks
+        cayley = ops.LAUNCHES["cayley_neumann"]
+        old = weakref.ref(first_bank_tensor(lc._tree))
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_refresh()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            old_alive = old() is not None
+        finally:
+            gc.enable()
+        refreshes.append(dict(
+            step=max(marks), ms=1e3 * dt, walks=lc.extend_walks - walks,
+            cayley=ops.LAUNCHES["cayley_neumann"] - cayley,
+            ops=[(ev.op, ev.name, ev.version) for ev in lc.events[n_ev:]],
+            old_bank_alive=old_alive))
+
+    eng._refresh_tree = refresh
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_stream(trace, max_steps=4096)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    del eng._refresh_tree, plain_refresh
+    marks[max(marks) + 1] = t0 + run_s
+    stats = dict(eng.last_run_stats)
+    results = dict(done=len(done), build_s=build_s, run_s=run_s,
+                   snapshot_s=snapshot_s, stats=stats, launches=launches,
+                   applied=list(feed.applied), train_at=train_at,
+                   train_ms=train_ms, save_ms=save_ms, losses=losses,
+                   refreshes=refreshes, unregistered=unregistered.get("step"),
+                   kv=dict(eng.kv.stats), bytes_start=bytes_start)
+
+    # -- checks on the run ---------------------------------------------------
+    check(len(done) == len(trace) + len(live_reqs)
+          and all(r.done for r in done), "lifecycle: every request done")
+    cons = eng.kv.conservation()
+    check(cons["conserved"] == 1 and eng.kv.pages_in_use() == 0
+          and not eng.kv._pins,
+          f"lifecycle: pages conserved and none in use at the end ({cons})")
+    check(len(feed.applied) >= 2 and feed.applied == sorted(feed.applied)
+          and feed.applied == [int(s) for s in range(1, len(train_at) + 1)],
+          f"lifecycle: the feed applied every checkpoint in order "
+          f"({feed.applied})")
+    live_ops = [e["op"] for e in eng.tracker.events_named("engine/bank/swap")
+                if e["adapter"] == "live"]
+    check(live_ops and live_ops[0] == "register"
+          and set(live_ops[1:]) == {"update"},
+          f"lifecycle: swaps of 'live' read register, then update "
+          f"({live_ops})")
+    check(unregistered and "tuned_b" not in eng.list_adapters(),
+          "lifecycle: tuned_b unregistered once its queue drained")
+    per_step = 7 * layers
+    check(launches["gather_delta_matmul"] == per_step * stats["decode_steps"]
+          and launches["paged_decode_attention"]
+          == layers * stats["decode_steps"],
+          f"lifecycle: {launches['gather_delta_matmul']} gather-delta and "
+          f"{launches['paged_decode_attention']} decode launches in "
+          f"{stats['decode_steps']} decode steps, expected {per_step} and "
+          f"{layers} a step")
+    for i, cnt in enumerate(train_launches):
+        check(cnt["psoft_matmul"] == 3 * per_step
+              and cnt["cayley_neumann"] == 7
+              and cnt["gather_delta_matmul"] == 0,
+              f"lifecycle: train step {i} in the hook launched {cnt}")
+    swaps = [r for r in refreshes if r["walks"]]
+    check(len(swaps) == len(feed.applied) and all(
+        r["cayley"] == 7 * r["walks"] and not r["old_bank_alive"]
+        for r in swaps),
+        f"lifecycle: each extension launches cayley_neumann once per stack "
+        f"and frees the old bank ({swaps})")
+    walks = sum(r["walks"] for r in refreshes)
+    check(launches["cayley_neumann"] == 7 * (len(train_ms) + walks),
+          f"lifecycle: cayley_neumann launched {launches['cayley_neumann']}"
+          f" times: 7 a train step ({len(train_ms)}) and a bank extension "
+          f"({walks}), none else")
+    check((lc.full_builds, lc.extend_walks) == (1, len(feed.applied)),
+          f"lifecycle: one full build and one extension walk per swap "
+          f"({lc.full_builds}, {lc.extend_walks})")
+    # no aliasing between training and serving
+    now = {}
+    for t in tree.tree_leaves(eng._sources["base"][0]) + \
+            tree.tree_leaves(eng._merged_base):
+        now.setdefault(id(t), t)
+    check([id(t) for t in now.values()] == [id(t) for t in watched]
+          and all(torch.equal(a.cpu(), b)
+                  for a, b in zip(now.values(), snapshot)),
+          "lifecycle: the train steps left the serving base's source and "
+          "merged leaves bit-identical")
+    del snapshot, watched, now
+    state = box["state"]
+    held = {t.untyped_storage().data_ptr() for t in
+            tree.tree_leaves(state.trainable) + tree.tree_leaves(state.opt)}
+    fed = [t.untyped_storage().data_ptr() for t in
+           tree.tree_leaves(restored[-1])]
+    check(fed and not held & set(fed),
+          "lifecycle: the fed adapter shares no storage with the live "
+          "train state")
+    # versioned prefixes: a hit on "live" only within one version
+    rows = {r.uid: r for r in done}
+    live_hits = 0
+    events = eng.admission_events
+    for i, ev in enumerate(events):
+        r = rows[ev.uid]
+        if r.adapter != "live" or not ev.prefix_tokens:
+            continue
+        live_hits += 1
+        check(any(rows[e.uid].adapter == "live" and e.uid != ev.uid
+                  and rows[e.uid]._kv_ver == r._kv_ver
+                  for e in events[:i]),
+              f"lifecycle: uid {ev.uid}'s prefix hit on live#{r._kv_ver} "
+              f"follows a request of that version")
+    results.update(
+        live_prefix_hits=live_hits,
+        versions={u: r._kv_ver for u, r in rows.items()
+                  if r.adapter == "live"},
+        tokens={u: list(r.generated) for u, r in rows.items()},
+        admitted={u: r.admit_step for u, r in rows.items()},
+        finished={u: r.finish_step for u, r in rows.items()},
+        admissions=[(e.step, e.slot, e.uid, e.prefix_tokens)
+                    for e in eng.admission_events],
+        events=[(e.step, e.op, e.name, e.version, e.epoch, e.columns,
+                 e.live_epochs) for e in lc.events])
+    # step times: the swap steps against the others, train time apart
+    trained = dict(zip(train_at, train_ms))
+    step_ms = {s: 1e3 * (marks[s + 1] - marks[s]) - trained.get(s, 0.0)
+               for s in marks if s + 1 in marks}
+    swap_steps = {r["step"] for r in swaps}
+    other = [v for s, v in step_ms.items()
+             if s not in swap_steps and s not in trained]
+    results.update(swap_step_ms=[step_ms[s] for s in sorted(swap_steps)],
+                   other_step_ms=sum(other) / len(other),
+                   refresh_ms=[r["ms"] for r in swaps])
+    # compaction to the live columns
+    before = lc.bank_bytes()
+    reclaimed = eng.compact_banks()
+    after = lc.bank_bytes()
+    want = len(lc.columns) * layers * PSOFT_COLUMN_LAYER_BYTES
+    check(after == want and len(lc.columns) == len(lc.current.index)
+          and (reclaimed == 0 or after < before),
+          f"lifecycle: compaction to {len(lc.columns)} live columns "
+          f"({before} -> {after} bytes, expected {want})")
+    results.update(bank_bytes_before_compaction=before,
+                   bank_bytes_after_compaction=after,
+                   columns_after_compaction=[c.name for c in lc.columns],
+                   compacted=reclaimed)
+    results["probe"] = exactness_probe(torch, registry, model, cfg,
+                                       eng._tree, gen)
+    refs = (weakref.ref(eng), weakref.ref(first_bank_tensor(eng._tree)),
+            weakref.ref(tree.tree_leaves(box["state"].opt)[0]))
+    gc.collect()
+    gc.disable()
+    return results, refs
+
+
+def lifecycle_phase(torch, configs, serve, ops, trainer, data, tree, params,
+                    adapters, cfg, gpu_line):
+    """Phase 14: serve-while-train at full width (see the docstring)."""
+    import shutil
+    from repro_torch.train import checkpoint
+    gc_freed_gib = free_cycles(torch)
+    layers = cfg.num_layers
+    ckpt_dir = ROOT / "build" / "lifecycle_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res, refs = lifecycle_live_run(torch, configs, serve, ops, trainer,
+                                       data, tree, cfg, params, adapters,
+                                       str(ckpt_dir), gen)
+        freed = [r() is None for r in refs]
+    finally:
+        gc.enable()
+    check(all(freed), f"lifecycle: the engine, its bank and the train "
+                      f"state are freed without the cycle collector "
+                      f"({freed})")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    live_s = time.perf_counter() - t0
+    # the same trace without the swaps: every adapter version a request
+    # pinned, registered up front under its own name
+    t0 = time.perf_counter()
+    tcfg = cfg.replace(remat_policy="full")
+    split = trainer.train_state_from_params(
+        params, tcfg, configs.TrainConfig(steps=100))
+    from repro_torch.optim import adamw
+    eng = serve.ServeEngine(params, cfg, device="cuda", slots=8,
+                            page_size=16, max_len=512)
+    for name, t in adapters.items():
+        eng.register_adapter(name, t)
+    for ver in sorted(set(res["versions"].values())):
+        t = checkpoint.restore(split.trainable, str(ckpt_dir),
+                               step=res["applied"][ver])
+        eng.register_adapter(f"live@{ver}", adamw.combine(t, split.frozen))
+    del split
+    live_reqs = lifecycle_live_requests(serve, cfg.vocab_size)
+    for r in live_reqs.values():
+        r.adapter = f"live@{res['versions'][r.uid]}"
+
+    def traffic_hook(e, step):
+        if step in live_reqs:
+            e.submit(live_reqs[step])
+
+    eng.add_step_hook(traffic_hook)
+    done = eng.run_stream(lifecycle_trace(serve, cfg.vocab_size),
+                          max_steps=4096)
+    control = {r.uid: list(r.generated) for r in done}
+    admissions = [(e.step, e.slot, e.uid, e.prefix_tokens)
+                  for e in eng.admission_events]
+    del eng, done
+    torch.cuda.empty_cache()
+    control_s = time.perf_counter() - t0
+    swap_steps = [ev[0] for ev in res["events"]
+                  if ev[1] in ("register", "update") and ev[2] == "live"]
+    across = sorted(u for u, a in res["admitted"].items()
+                    if any(a < s <= res["finished"][u] for s in swap_steps))
+    check(admissions == res["admissions"],
+          "lifecycle: the run without swaps admits the same way")
+    check(across and control == res["tokens"],
+          f"lifecycle: the {len(across)} requests in flight across a swap "
+          f"(and every other) generate the tokens of the run without the "
+          f"swaps")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    st = res["stats"]
+    tok_s = st["decode_tokens"] / st["decode_s"]
+    step_ms = 1e3 * st["decode_s"] / st["decode_steps"]
+    gb = 1e9
+    res.update(layers=layers, decode_tokens_per_s=tok_s,
+               mean_decode_step_ms=step_ms, peak_memory_gib=peak_gib,
+               inflight_across_swaps=len(across), live_s=live_s,
+               control_s=control_s, gc_freed_gib=gc_freed_gib,
+               gpu=gpu_line)
+    del res["tokens"], res["admitted"], res["finished"], res["admissions"]
+    print(f"lifecycle: llama32-3b {layers} layers, "
+          f"{len(lifecycle_trace(serve, cfg.vocab_size))} + "
+          f"{len(live_reqs)} requests, {st['decode_steps']} decode steps, "
+          f"{tok_s:.1f} decode tokens/s, {step_ms:.2f} ms mean decode step "
+          f"during the swaps; {len(res['applied'])} checkpoints fed "
+          f"{res['applied']}, tuned_b unregistered at step "
+          f"{res['unregistered']}; {len(across)} requests in flight across "
+          f"a swap identical to the run without swaps [{gpu_line}]")
+    print(f"lifecycle: swap step ms {[round(v, 1) for v in res['swap_step_ms']]}"
+          f" (the bank refresh itself {[round(v, 1) for v in res['refresh_ms']]}"
+          f") against {res['other_step_ms']:.1f} ms for the other steps; "
+          f"train step in the hook {[round(v, 1) for v in res['train_ms']]} "
+          f"ms, checkpoint save {[round(v, 1) for v in res['save_ms']]} ms; "
+          f"peak {peak_gib:.1f} GiB [{gpu_line}]")
+    print(f"lifecycle: bank bytes {res['bytes_start'] / gb:.3f} GB at the "
+          f"start, {res['bank_bytes_before_compaction'] / gb:.3f} GB at the "
+          f"end, {res['bank_bytes_after_compaction'] / gb:.3f} GB after "
+          f"compacting {res['compacted']} columns to "
+          f"{res['columns_after_compaction']}; live prefix hits "
+          f"{res['live_prefix_hits']} (versions {res['versions']}); probe "
+          f"{res['probe']}; launches {res['launches']}")
+    return res
+
+
+#: the serving linears every bank covers
+SERVE_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def linear_adapters(torch, configs, registry, merged, method, rank, seed,
+                    device="cpu"):
+    """An adapter of the merged base tree ``merged`` and its PEFT config:
+    every serving linear wrapped by LoRA-family ``method`` at ``rank``, its
+    ``b`` moved off zero by seeded noise; every other leaf, ``w`` included,
+    shared."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    pcfg = configs.PEFTConfig(method=method, rank=rank)
+    m = registry.get_method(method)
+
+    def rec(node, module):
+        if isinstance(node, dict) and set(node) == {"w"} \
+                and module in SERVE_LINEARS and node["w"].ndim >= 2:
+            p = m.init(gen, node["w"], pcfg, node["w"].dtype, torch.float32)
+            p["b"] = p["b"] + 0.05 * torch.randn(
+                p["b"].shape, generator=gen, device=device)
+            return p
+        if isinstance(node, dict):
+            return {k: rec(v, k) for k, v in node.items()}
+        return node
+    return rec(merged, None), pcfg
+
+
+def bank_forms(tree):
+    """The set of forms (``"left"``, ``"delta"``, ``"mixed"``) of the
+    banks in a serve tree, and the largest low-rank rank."""
+    forms, rank = set(), 0
+
+    def rec(node):
+        nonlocal rank
+        if isinstance(node, dict) and "bank" in node and "w" in node:
+            bank = node["bank"]
+            forms.add("mixed" if {"left", "delta"} <= set(bank)
+                      else "left" if "left" in bank else "delta")
+            if "left" in bank:
+                rank = max(rank, bank["left"].shape[-1])
+        elif isinstance(node, dict):
+            for v in node.values():
+                rec(v)
+    rec(tree)
+    return forms, rank
+
+
+def lifecycle_card_trace(serve, vocab):
+    """Phase 15's arrivals: :func:`stream_trace`'s kind of traffic (14
+    requests over steps 1-30, sampled, stop and logprob rows, deadlines),
+    tuned_b only before step 9; a greedy request that speculates (k = 3)
+    with ``tuned_a`` as its draft, arriving at step 2, and a sampled
+    ``n = 2`` fork on ``tuned_a`` at step 5."""
+    import numpy as np
+    trace = stream_trace(serve, vocab, 14, 3, 120, 30)
+    for s, r in trace:
+        if s > 8 and r.adapter == "tuned_b":
+            r.adapter = "base"
+    rng = np.random.default_rng(50)
+    trace.append((2, serve.Request(
+        uid=50, prompt=rng.integers(0, vocab, 30).astype(np.int32),
+        max_new_tokens=24, spec=serve.SpecConfig(k=3,
+                                                 draft_adapter="tuned_a"))))
+    trace.append((5, serve.Request(
+        uid=51, prompt=rng.integers(0, vocab, 20).astype(np.int32),
+        max_new_tokens=12, adapter="tuned_a", n=2,
+        sampling=serve.SamplingParams(temperature=0.8, top_k=50, seed=77,
+                                      logprobs=2))))
+    return trace
+
+
+def lifecycle_card_hooks(serve, vocab, trees, cfgs, notes):
+    """Phase 15's mutations, at fixed engine steps: register ``tuned_c``
+    (3), update ``tuned_a`` under its pinned requests and the speculating
+    request's pinned draft (6), a register that fails and rolls back (8),
+    a rank-16 LoRA column (9), a DoRA column that makes the banks mixed
+    (11), and unregistering ``tuned_b`` once no queued request needs it
+    (12 on); each new adapter gets a request."""
+    import numpy as np
+    rng = np.random.default_rng(60)
+
+    def late(uid, adapter):
+        return serve.Request(uid=uid, prompt=rng.integers(
+            0, vocab, 24).astype(np.int32), max_new_tokens=10,
+            adapter=adapter)
+
+    def hook(eng, step):
+        # one lifecycle run: the engine's later runs restart at step 1
+        if step in notes.setdefault("fired", set()):
+            return
+        notes["fired"].add(step)
+        if step == 3:
+            eng.register_adapter("tuned_c", trees["tuned_c"])
+            eng.submit(late(60, "tuned_c"))
+        elif step == 6:
+            notes["pinned"] = sorted(
+                str(r.uid) for r in eng._pinned_requests()
+                if r.adapter == "tuned_a")
+            spec = [r for r in eng._pinned_requests() if r.uid == 50]
+            notes["draft_col"] = spec[0]._draft_col if spec else None
+            eng.update_adapter("tuned_a", trees["tuned_a2"])
+        elif step == 7:
+            spec = [r for r in eng._pinned_requests() if r.uid == 50]
+            notes["draft_kept"] = bool(spec) and spec[0]._draft_col == \
+                notes["draft_col"] != eng._adapter_index["tuned_a"]
+        elif step == 8:
+            eng.register_adapter("bad", trees["bad"])
+        elif step == 9:
+            eng.register_adapter("lora", trees["lora"], cfgs["lora"])
+            eng.submit(late(61, "lora"))
+        elif step == 11:
+            eng.register_adapter("dora", trees["dora"], cfgs["dora"])
+            eng.submit(late(62, "dora"))
+        elif step == 12:
+            notes["forms"], notes["rank"] = bank_forms(eng._tree)
+        if step >= 12 and "unregistered" not in notes and "tuned_b" not in \
+                eng.scheduler.demanded_adapters(eng.default_spec):
+            eng.unregister_adapter("tuned_b")
+            notes["unregistered"] = step
+    return hook
+
+
+def lifecycle_outcome(eng, done):
+    """What the card's and the CPU's runs of phase 15 must share."""
+    out = stream_outcome(eng, done)
+    rows = rows_of(done)
+    tr = eng.tracker
+    out.update(
+        tokens={str(u): list(r.generated) for u, r in rows.items()},
+        reasons={str(u): r.finish_reason for u, r in rows.items()},
+        logprobs={str(u): [(lp.token, lp.logprob, lp.top_tokens,
+                            lp.top_logprobs) for lp in r.logprobs]
+                  for u, r in rows.items()},
+        events=[(e.step, e.op, e.name, e.version, e.epoch, e.columns,
+                 e.live_epochs) for e in eng.lifecycle.events],
+        swaps=tr.events_named("engine/bank/swap"),
+        retired=tr.events_named("engine/bank/epoch_retired"),
+        gauges={g: tr.gauges.get(g) for g in (
+            "engine/bank/epoch", "engine/bank/columns",
+            "engine/bank/live_epochs")},
+        swap_failed=tr.counter("engine/warnings/swap_failed"))
+    return out
+
+
+def lifecycle_card_run(torch, configs, model, serve, peft, registry, device):
+    """Phase 15's trace on ``device``: the engine, its results (the
+    lifecycle run, then one request each on tuned_a, lora and dora after
+    compaction) and the hook's notes."""
+    import warnings
+    cfg = configs.get_config("tiny")
+    params = model.init_params(cfg, seed=0, device="cpu")
+    trees = {name: nudged(torch, params, PSOFT_TRAINABLES, seed, 0.05, "cpu")
+             for name, seed in (("tuned_a", 1), ("tuned_b", 2),
+                                ("tuned_c", 4), ("tuned_a2", 3))}
+    merged = peft.merge_tree(params, cfg.peft)
+    cfgs = {}
+    trees["lora"], cfgs["lora"] = linear_adapters(
+        torch, configs, registry, merged, "lora", 16, 5)
+    trees["dora"], cfgs["dora"] = linear_adapters(
+        torch, configs, registry, merged, "dora", 4, 6)
+    trees["bad"] = {**params, "final_norm": {
+        k: v + 0.1 for k, v in params["final_norm"].items()}}
+
+    def put(tree):
+        if isinstance(tree, dict):
+            return {k: put(v) for k, v in tree.items()}
+        return tree.to(device)
+
+    trees = {k: put(v) for k, v in trees.items()}
+    kw = dict(slots=4, page_size=16, max_len=192, prefill_chunk_tokens=24)
+    trace = lifecycle_card_trace(serve, cfg.vocab_size)
+    pages = stream_pages(trace, kw["slots"], kw["max_len"], kw["page_size"])
+    eng = serve.ServeEngine(put(params), cfg, device=device,
+                            num_pages=pages, tracker=serve.InMemoryTracker(),
+                            **kw)
+    eng.register_adapter("tuned_a", trees["tuned_a"])
+    eng.register_adapter("tuned_b", trees["tuned_b"])
+    notes = {}
+    eng.add_step_hook(lifecycle_card_hooks(serve, cfg.vocab_size, trees,
+                                           cfgs, notes))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        done = eng.run_stream(trace, max_steps=4096)
+    notes["warnings"] = [str(w.message) for w in caught]
+    notes["compacted"] = eng.compact_banks()
+    notes["columns"] = [c.name for c in eng.lifecycle.columns]
+    import numpy as np
+    after = eng.run([serve.Request(uid=70 + i, prompt=(np.arange(
+        12, dtype=np.int32) * 7 + i) % cfg.vocab_size, max_new_tokens=8,
+        adapter=a) for i, a in enumerate(("tuned_a", "lora", "dora"))],
+        max_steps=256)
+    return eng, done, after, notes
+
+
+def check_lifecycle_card_run(eng, done, after, notes, trace_uids, what):
+    check(sorted(str(r.uid) for r in done)
+          == sorted(str(u) for u in trace_uids + [60, 61, 62])
+          and all(r.done for r in done),
+          f"{what}: every request comes back done")
+    check(all(r.done for r in after) and len(after) == 3,
+          f"{what}: tuned_a, lora and dora serve after compaction")
+    cons = eng.kv.conservation()
+    check(cons["conserved"] == 1 and eng.kv.pages_in_use() == 0
+          and not eng.kv._pins,
+          f"{what}: pages conserved and none in use at the end ({cons})")
+    check(len(eng.preemption_events) >= 1,
+          f"{what}: the lifecycle run preempted")
+    resumed = {e.uid for e in eng.admission_events if e.resumed}
+    check({e.uid for e in eng.preemption_events} <= resumed,
+          f"{what}: every preempted request resumes")
+    ops_seen = [e.op for e in eng.lifecycle.events]
+    for op in ("register", "update", "unregister", "register_failed",
+               "retire", "compact"):
+        check(op in ops_seen, f"{what}: a {op!r} event ({ops_seen})")
+    check(notes.get("pinned"), f"{what}: requests on tuned_a were pinned "
+                               f"when it was updated")
+    check(notes.get("draft_kept"), f"{what}: the speculating request kept "
+                                   f"its pinned draft column")
+    check("mixed" in notes.get("forms", ()) and notes.get("rank") == 16,
+          f"{what}: banks mixed and rank grown to 16 ({notes.get('forms')}, "
+          f"rank {notes.get('rank')})")
+    check(any("rolled back" in w for w in notes["warnings"]),
+          f"{what}: the failed register warned and rolled back")
+    check("bad" not in eng.list_adapters()
+          and "tuned_b" not in eng.list_adapters(),
+          f"{what}: the failed and the unregistered adapters are gone")
+    check(notes["compacted"] >= 1 and "tuned_b" not in notes["columns"],
+          f"{what}: compaction reclaimed the dead columns "
+          f"({notes['compacted']}, {notes['columns']})")
+
+
+def lifecycle_card_vs_cpu_phase(torch, configs, model, serve, ops, peft,
+                                registry):
+    """The tiny (fp32) lifecycle trace on the card and on the CPU:
+    identical tokens, lifecycle events, tracker swap and retire events and
+    gauges, admission and preemption events and kv stats, logprobs within
+    1e-4."""
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launches()
+        eng, done, after, notes = lifecycle_card_run(
+            torch, configs, model, serve, peft, registry, dev)
+        uids = [r.uid for _, r in lifecycle_card_trace(
+            serve, configs.get_config("tiny").vocab_size)]
+        check_lifecycle_card_run(eng, done, after, notes, uids,
+                                 f"lifecycle card vs cpu ({dev})")
+        outs[dev] = (lifecycle_outcome(eng, done),
+                     {r.uid: list(r.generated) for r in after}, notes)
+    launches = dict(ops.LAUNCHES)
+    check(all(launches[k] > 0 for k in SERVE_KERNELS),
+          f"lifecycle card vs cpu: every serving kernel launched on the "
+          f"card ({launches})")
+    (want, want_after, wn), (got, got_after, gn) = outs["cpu"], outs["cuda"]
+    for key in ("tokens", "reasons", "admissions", "preemptions", "kv",
+                "events", "swaps", "retired", "gauges", "swap_failed"):
+        check(got[key] == want[key],
+              f"lifecycle card vs cpu: identical {key}")
+    check(got_after == want_after and gn["unregistered"] ==
+          wn["unregistered"], "lifecycle card vs cpu: identical tokens "
+                              "after compaction")
+    worst = 0.0
+    for uid, rows in want["logprobs"].items():
+        for (t, lp, tt, tl), (gt, glp, gtt, gtl) in zip(
+                rows, got["logprobs"][uid]):
+            check((t, tt) == (gt, gtt),
+                  f"lifecycle card vs cpu: uid {uid} logprob token ids")
+            worst = max([worst, abs(lp - glp)]
+                        + [abs(a - b) for a, b in zip(tl, gtl)])
+    check(worst <= 1e-4, f"lifecycle card vs cpu: logprobs within 1e-4 "
+          f"({worst:.2e})")
+    n_tok = sum(len(t) for t in want["tokens"].values())
+    print(f"lifecycle card vs cpu: tiny fp32, {len(want['tokens'])} "
+          f"sequences, {n_tok} tokens, {len(want['events'])} lifecycle "
+          f"events ({', '.join(sorted({e[1] for e in want['events']}))}), "
+          f"{len(want['admissions'])} admissions and "
+          f"{len(want['preemptions'])} preemptions identical, logprobs "
+          f"within {worst:.2e}; tuned_b unregistered at step "
+          f"{wn['unregistered']}, banks {sorted(wn['forms'])} at rank "
+          f"{wn['rank']}, {wn['compacted']} columns compacted; card "
+          f"launches {launches}")
+    return dict(sequences=len(want["tokens"]), tokens=n_tok,
+                events=len(want["events"]),
+                preemptions=len(want["preemptions"]),
+                logprob_max_err=worst, launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 2, training kernels: psoft_matmul and cayley_neumann
 # ---------------------------------------------------------------------------
 
@@ -2650,7 +3506,7 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from repro_torch import configs
-    from repro_torch.core import peft
+    from repro_torch.core import peft, registry
     from repro_torch.data import pipeline as data
     from repro_torch.kernels import build, ops, ref
     from repro_torch.models import model
@@ -2772,9 +3628,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     specced = spec_phase(torch, configs, serve, ops, ref, model, params,
                          adapters, serve_cfg, gpu_line)
-    del adapters
     torch.cuda.empty_cache()
     phase_s["spec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lifecycle = lifecycle_phase(torch, configs, serve, ops, trainer, data,
+                                tree, params, adapters, serve_cfg, gpu_line)
+    del adapters
+    torch.cuda.empty_cache()
+    phase_s["lifecycle"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cross = card_vs_cpu_phase(torch, configs, model, serve, ops)
     phase_s["card_vs_cpu"] = time.perf_counter() - t0
@@ -2785,6 +3646,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     spec_cross = spec_card_vs_cpu_phase(torch, configs, model, serve, ops)
     phase_s["spec_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lifecycle_cross = lifecycle_card_vs_cpu_phase(torch, configs, model,
+                                                  serve, ops, peft, registry)
+    phase_s["lifecycle_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     trained = train_phase(torch, args, configs, trainer, data, tree, ops,
                           params, gpu_line)
@@ -2811,11 +3676,15 @@ def main(argv=None) -> int:
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
-    # each serving path is counted from zero just before its run: phase 3's
-    # run(), phase 10's stream and phase 12's spec run
+    # each path is counted from zero just before its run: phase 3's run(),
+    # phase 10's stream, phase 12's spec run, phase 5's train steps and
+    # phase 14's serve-while-train run (its train steps and bank
+    # extensions included)
     main_path = {**{k: served["launches"][k] + streamed["launches"][k]
-                    + specced["launches"][k] for k in SERVE_KERNELS},
-                 **{k: trained["launches"][k] for k in TRAIN_KERNELS},
+                    + specced["launches"][k] + lifecycle["launches"][k]
+                    for k in SERVE_KERNELS},
+                 **{k: trained["launches"][k] + lifecycle["launches"][k]
+                    for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
                      oft_trained["launches"]["blockdiag_rotate"]}
     line = {"kernels": [
@@ -2835,9 +3704,11 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(dict(gpu=gpu_line, kind=kind,
                                        kernels=kernels, serve=served,
                                        stream=streamed, spec=specced,
+                                       lifecycle=lifecycle,
                                        card_vs_cpu=cross,
                                        stream_card_vs_cpu=stream_cross,
                                        spec_card_vs_cpu=spec_cross,
+                                       lifecycle_card_vs_cpu=lifecycle_cross,
                                        train=trained,
                                        train_card_vs_cpu=train_cross,
                                        oft_train=oft_trained,

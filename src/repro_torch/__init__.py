@@ -5,8 +5,10 @@ checkpoints (slice 2), every baseline method of the paper's PEFT registry
 serving (slice 7): per-request sampling on the reference's counter-based
 threefry stream, ``run_stream`` with SLO-aware preemption, chunked
 prefill, and the :mod:`repro_torch.obs` Tracker every layer reports
-through; and speculative decoding with ``n > 1`` parallel completions
-(slice 8).  :mod:`repro_torch.examples` holds the runnable twins of the
+through; speculative decoding with ``n > 1`` parallel completions
+(slice 8); and the live adapter lifecycle: hot-swap banks that register,
+update and unregister adapters mid-run, and serve-while-train through
+``AdapterFeed``.  :mod:`repro_torch.examples` holds the runnable twins of the
 reference's main-path examples.
 
 The reference package ``repro`` (JAX/Pallas) stays the source of truth; this

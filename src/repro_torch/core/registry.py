@@ -9,8 +9,9 @@ is the fused ``psoft_matmul`` wrapper on every device, and the OFT
 family's rotations go through ``blockdiag_rotate``.  A method with
 ``supports_batched_delta`` also reports its weight update as exact low-rank
 factors (:meth:`PEFTMethod.delta_factors`); :func:`stack_deltas` stacks
-those into a per-linear bank and :func:`apply_batched` gathers one adapter
-column per batch row.
+those into a per-linear bank, :func:`apply_batched` gathers one adapter
+column per batch row, and :func:`extend_bank` / :func:`take_bank_columns`
+grow and compact a live bank without touching the columns they keep.
 
 Unlike the reference, which scopes the per-row adapter ids in a trace-time
 context, the port threads ``adapter_ids`` explicitly from the engine through
@@ -214,26 +215,129 @@ def apply_batched(params: Dict, x: torch.Tensor, compute_dtype,
     ``x``: (B, ..., d_in), leading dim = batch slots; ``adapter_ids``: (B,)
     int32 (None -> base weights only).  Decode-shaped inputs (B, 1, d_in) on
     a low-rank bank always go through the gather-delta wrapper: the kernel
-    on a GPU, its plain version on the CPU."""
+    on a GPU, its plain version on the CPU.  A MIXED bank
+    (``{"left", "right", "delta"}``, from :func:`extend_bank` growing a
+    low-rank bank with a dense newcomer) adds the dense term after either
+    low-rank path; every column holds an exact zero in the form it does not
+    use, so a pure column's output is unchanged by the other term."""
     x = x.to(compute_dtype)
     bank = params.get("bank")
     if bank is not None and adapter_ids is not None and "left" in bank \
             and x.ndim == 3 and x.shape[1] == 1:
-        return ops.gather_delta_matmul(
+        y = ops.gather_delta_matmul(
             x[:, 0], params["w"], bank["left"], bank["right"], adapter_ids,
             compute_dtype=compute_dtype)[:, None, :]
+        if "delta" in bank:
+            y = y + _dense_term(x, bank["delta"], adapter_ids, compute_dtype)
+        return y
     y = x @ params["w"].to(compute_dtype)
     if bank is None or adapter_ids is None:
         return y
     if "delta" in bank:
-        d = bank["delta"][adapter_ids]
-        y = y + torch.einsum("b...d,bdo->b...o", x, d.to(compute_dtype))
+        y = y + _dense_term(x, bank["delta"], adapter_ids, compute_dtype)
     if "left" in bank:
         left = bank["left"][adapter_ids]
         right = bank["right"][adapter_ids]
         u = torch.einsum("b...d,bdk->b...k", x, left.to(compute_dtype))
         y = y + torch.einsum("b...k,bko->b...o", u, right.to(compute_dtype))
     return y
+
+
+def _dense_term(x: torch.Tensor, delta: torch.Tensor,
+                adapter_ids: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x[b] @ delta[ids[b]]``, the dense half of a bank."""
+    d = delta[adapter_ids]
+    return torch.einsum("b...d,bdo->b...o", x, d.to(compute_dtype))
+
+
+def _pad_rank(left: torch.Tensor, right: torch.Tensor,
+              kmax: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad a low-rank pair to rank ``kmax``: the padded ranks add exact
+    +0.0 terms at the END of the contraction, so the live ranks' partial
+    sums are untouched."""
+    pad = kmax - left.shape[-1]
+    if pad:
+        left = F.pad(left, (0, pad))
+        right = F.pad(right, (0, 0, 0, pad))
+    return left, right
+
+
+def extend_bank(base_w: torch.Tensor, bank: Optional[Dict],
+                new_bank: Optional[Dict], n_existing: int,
+                n_new: Optional[int] = None) -> Optional[Dict]:
+    """Append adapter columns to one linear's bank without touching the
+    existing ones (the hot-swap exactness contract).
+
+    ``bank`` is the linear's current bank (None: its ``n_existing`` columns
+    all sit at the base weight); ``new_bank`` is :func:`stack_deltas` over
+    the new adapters alone (None: the new columns are all zero, and
+    ``n_new`` is required).  A side missing from either is filled with
+    exact zero columns in that side's dtype, so a dense newcomer on a
+    low-rank bank gives a MIXED bank instead of recomputing the live
+    columns in the dense form; rank growth zero-pads.  Existing arrays are
+    only concatenated onto.  Returns None only when both are None."""
+    if bank is None and new_bank is None:
+        return None
+    axis = base_w.ndim - 2          # adapter axis of every bank array
+    lead = tuple(base_w.shape[:-2])
+    d_in, d_out = base_w.shape[-2:]
+    if n_new is None:
+        if new_bank is None:
+            raise ValueError("n_new is required when new_bank is None")
+        probe = "left" if "left" in new_bank else "delta"
+        n_new = new_bank[probe].shape[axis]
+    out: Dict[str, torch.Tensor] = {}
+    old_lr = bank is not None and "left" in bank
+    new_lr = new_bank is not None and "left" in new_bank
+    if old_lr or new_lr:
+        ref = bank if old_lr else new_bank
+        kmax = max(bank["left"].shape[-1] if old_lr else 0,
+                   new_bank["left"].shape[-1] if new_lr else 0)
+
+        def lr_side(b, n):
+            if b is not None and "left" in b:
+                return _pad_rank(b["left"], b["right"], kmax)
+            return (ref["left"].new_zeros(lead + (n, d_in, kmax)),
+                    ref["right"].new_zeros(lead + (n, kmax, d_out)))
+
+        l_old, r_old = lr_side(bank, n_existing)
+        l_new, r_new = lr_side(new_bank, n_new)
+        out["left"] = torch.cat([l_old, l_new.to(l_old.dtype)], dim=axis)
+        out["right"] = torch.cat([r_old, r_new], dim=axis)
+    old_d = bank is not None and "delta" in bank
+    new_d = new_bank is not None and "delta" in new_bank
+    if old_d or new_d:
+        d_ref = (bank if old_d else new_bank)["delta"]
+
+        def dense_side(b, n):
+            if b is not None and "delta" in b:
+                return b["delta"]
+            return d_ref.new_zeros(lead + (n, d_in, d_out))
+
+        out["delta"] = torch.cat([dense_side(bank, n_existing),
+                                  dense_side(new_bank, n_new)], dim=axis)
+    return out
+
+
+def take_bank_columns(bank: Optional[Dict],
+                      idx: Sequence[int]) -> Optional[Dict]:
+    """Adapter columns ``idx`` (in order) of one linear's bank: a gather
+    along the adapter axis, so kept columns are bit-exact.  A form whose
+    kept columns are all zero is dropped (it added exact +0.0), and None
+    comes back when nothing remains: the linear reverts to its base
+    weight.  The zero checks read device values."""
+    if bank is None or not len(idx):
+        return None
+    out = {}
+    for k, v in bank.items():
+        ids = torch.as_tensor(list(idx), dtype=torch.long, device=v.device)
+        out[k] = torch.index_select(v, v.ndim - 3, ids)
+    if "delta" in out and not bool(out["delta"].any()):
+        del out["delta"]
+    if "right" in out and not bool(out["right"].any()):
+        out.pop("left", None)
+        out.pop("right", None)
+    return out or None
 
 
 def is_banked_linear(node) -> bool:

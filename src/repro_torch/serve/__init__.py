@@ -1,8 +1,11 @@
 """Multi-tenant paged serving of the PyTorch port: streaming admission
 with SLO-aware preemption, chunked prefill, per-request sampling,
-speculative decoding and ``n > 1`` parallel completions."""
+speculative decoding, ``n > 1`` parallel completions, and the live adapter
+lifecycle (hot-swap banks, serve-while-train)."""
 from repro_torch.serve.engine import (  # noqa: F401
     BASE_ADAPTER, AdmissionEvent, PreemptionEvent, Request, ServeEngine)
+from repro_torch.serve.lifecycle import (  # noqa: F401
+    AdapterFeed, AdapterLifecycle, BankSwapEvent)
 from repro_torch.serve.kv_cache import (  # noqa: F401
     OutOfPages, PagedKVCache, TRASH_PAGE)
 from repro_torch.serve.sampling import (  # noqa: F401

@@ -4,9 +4,13 @@ chunked prefill and per-request sampling.
 
 The engine merges the base tree once (PSOFT adapters fold into plain
 weights) and stacks every registered adapter's update into a per-linear
-bank (:func:`repro_torch.core.registry.stack_deltas`), built once when a run
-starts.  Prefill and decode pass a per-row ``adapter_ids`` vector down to
-every banked linear, so one decode step serves slots on different adapters.
+bank (:func:`repro_torch.core.registry.stack_deltas`), built when the first
+run starts and then grown, swapped and compacted by the versioned
+lifecycle (:mod:`repro_torch.serve.lifecycle`): adapters may be
+registered, updated and unregistered mid-run, each admitted request pinned
+to the bank epoch it started on.  Prefill and decode pass a per-row
+``adapter_ids`` vector down to every banked linear, so one decode step
+serves slots on different adapters.
 KV lives in refcounted pages (:class:`repro_torch.serve.kv_cache
 .PagedKVCache`); admissions whose prompt prefix hashes to resident pages
 alias them and prefill only their suffix.
@@ -46,7 +50,7 @@ requests (uids ``(uid, b)``, seeds ``fold_in(seed, b)``) whose prompt pages
 alias through the prefix hashing; the parent comes back once, after its
 last branch.
 
-The dense cache and the hot-swap lifecycle are later slices of the port.
+The dense cache is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -65,6 +69,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.obs import NOOP, NULL_SPAN, Tracker
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve.kv_cache import OutOfPages, PagedKVCache, TRASH_PAGE
+from repro_torch.serve.lifecycle import AdapterLifecycle
 from repro_torch.serve.sampling import SamplingParams, TokenLogprobs
 from repro_torch.serve.scheduler import StreamScheduler, TokenCostModel
 from repro_torch.serve.spec import SpecConfig, accepted_prefix
@@ -173,39 +178,6 @@ class PreemptionEvent:
     resident_tokens: int
 
 
-def _bank_tree(node, raws, pcs, names, cdt, path, kinds):
-    """``node`` of the merged base tree with a bank stacked from the
-    adapters' matching subtrees ``raws`` (PEFT configs ``pcs``, adapter
-    ``names`` in bank order) on every linear they update; ``kinds`` counts
-    the low-rank (``"left"``) and dense (``"delta"``) banks built.  A
-    module-level function, so that no closure ties the tree it builds to
-    the engine."""
-    if isinstance(node, dict):
-        module = path[-1] if path else None
-        if set(node) == {"w"} and module in _LINEAR_MODULES \
-                and node["w"].ndim >= 2:
-            bank = registry.stack_deltas(
-                node["w"], [(raw, pc, module) for raw, pc in zip(raws, pcs)])
-            if bank is None:
-                return node
-            kinds["left" if "left" in bank else "delta"] += 1
-            if "left" in bank:
-                bank["left"] = bank["left"].to(cdt)
-            return {"w": node["w"], "bank": bank}
-        return {k: _bank_tree(v, [r[k] for r in raws], pcs, names, cdt,
-                              path + (k,), kinds)
-                for k, v in node.items()}
-    # a non-linear leaf is shared by every slot: refuse adapters that
-    # changed it
-    for name, leaf in zip(names[1:], raws[1:]):
-        if not torch.equal(leaf, node):
-            raise ValueError(
-                f"adapter {name!r} differs from base at non-linear param "
-                f"{'/'.join(path)}; per-slot serving only covers "
-                f"linear-module updates")
-    return node
-
-
 class ServeEngine:
     """Fixed-slot continuous batcher over the paged decode step.
 
@@ -244,11 +216,24 @@ class ServeEngine:
         self.cfg = dataclasses.replace(
             cfg, peft=PEFTConfig(method="none", target_modules=()))
         self.base_peft = cfg.peft
+        # raw source trees by name (the bank build needs the unmerged
+        # factors); only the base is merged, since it is the serving tree:
+        # a merged copy of every adapter would cost the size of the
+        # model's linears each
         self._sources: Dict[str, Tuple[object, PEFTConfig]] = {
             BASE_ADAPTER: (params, cfg.peft)}
-        self._order: List[str] = [BASE_ADAPTER]      # bank index -> name
         self._merged_base = peft_lib.merge_tree(params, cfg.peft)
+        #: name -> bank column in the current epoch
+        self._adapter_index: Dict[str, int] = {BASE_ADAPTER: 0}
         self._tree = None                            # built at run start
+        #: the versioned hot-swap state machine: epoch-pinned bank
+        #: columns, mid-run mutations at step boundaries, compaction
+        self.lifecycle = AdapterLifecycle(self, BASE_ADAPTER,
+                                          _LINEAR_MODULES,
+                                          torch_dtype(self.cfg.dtype))
+        #: fns called as fn(engine, step) at the top of every run_stream
+        #: step, before queued bank mutations apply
+        self._step_hooks: List = []
         self.max_len = max_len
         self.slots = slots
         self.default_sampling = (SamplingParams.greedy() if sampling is None
@@ -301,6 +286,7 @@ class ServeEngine:
         # once-per-engine warnings (the tracker still counts every one)
         self._warned_dense_fallback = False
         self._warned_truncation = False
+        self._warned_swap_failed = False
         #: cumulative engine steps ever served — the tracker's step domain
         self._obs_step = 0
         self._tracker = NOOP
@@ -342,38 +328,142 @@ class ServeEngine:
     # -- adapters ----------------------------------------------------------
     def register_adapter(self, name: str, params,
                          peft_cfg: Optional[PEFTConfig] = None) -> None:
-        """Add one fine-tuned tree by name (before a run; the bank is
-        rebuilt at the next run start).  ``peft_cfg`` defaults to the
-        engine's construction-time PEFT config."""
+        """Make one fine-tuned tree servable by name.  ``peft_cfg``
+        defaults to the engine's construction-time PEFT config.
+
+        Safe mid-:meth:`run_stream`: the bank grows by one column at the
+        next step boundary (a new bank epoch) and only requests admitted
+        afterwards see the adapter.  A live name raises: swap its weights
+        with :meth:`update_adapter`."""
         if name in self._sources:
-            raise ValueError(f"adapter {name!r} is already registered")
-        self._sources[name] = (params, peft_cfg or self.base_peft)
-        self._order.append(name)
-        self._tree = None
+            if name == BASE_ADAPTER:
+                raise ValueError(
+                    "cannot re-register the 'base' adapter: every bank "
+                    "column stores a delta against the serving base — "
+                    "build a new engine to change base weights")
+            raise ValueError(
+                f"adapter {name!r} is already registered: call "
+                f"update_adapter() to swap in new weights (an explicit "
+                f"epoch bump; in-flight requests keep the old ones)")
+        pc = peft_cfg if peft_cfg is not None else self.base_peft
+        self._sources[name] = (params, pc)
+        self.lifecycle.queue_register(name, params, pc)
+
+    def update_adapter(self, name: str, params,
+                       peft_cfg: Optional[PEFTConfig] = None) -> None:
+        """Replace a live adapter's weights with a new fine-tune snapshot
+        (:class:`AdapterFeed` calls this).  ``peft_cfg`` defaults to the
+        adapter's previous config.  Mid-run the swap lands at the next step
+        boundary as a fresh column and epoch: admitted requests finish on
+        the weights (and KV) they started with, later ones serve the new
+        version; compaction reclaims the old column once its last pinned
+        request finishes."""
+        if name == BASE_ADAPTER:
+            raise ValueError(
+                "cannot update the 'base' adapter: every bank column "
+                "stores a delta against the serving base — build a new "
+                "engine to change base weights")
+        if name not in self._sources:
+            raise KeyError(
+                f"unknown adapter {name!r}; registered: "
+                f"{self.list_adapters()} (register_adapter adds new names)")
+        prev_source = self._sources[name]
+        pc = peft_cfg if peft_cfg is not None else prev_source[1]
+        self._sources[name] = (params, pc)
+        self.lifecycle.queue_update(name, params, pc, prev_source)
+
+    def unregister_adapter(self, name: str) -> None:
+        """Retire an adapter without draining: active and suspended
+        requests pinned to it finish on their admission epoch; its column
+        is reclaimed at the next compaction.  Raises while queued,
+        never-admitted requests still demand the name (they hold no pin to
+        finish on)."""
+        if name == BASE_ADAPTER:
+            raise ValueError("cannot unregister the 'base' adapter")
+        if name not in self._sources:
+            raise KeyError(
+                f"unknown adapter {name!r}; registered: "
+                f"{self.list_adapters()}")
+        if name in self.scheduler.demanded_adapters(self.default_spec):
+            raise ValueError(
+                f"cannot unregister adapter {name!r}: queued requests "
+                f"still demand it (serve or cancel them first; ACTIVE "
+                f"requests are fine — they finish on their pinned epoch)")
+        del self._sources[name]
+        self.lifecycle.queue_unregister(name)
+
+    def add_step_hook(self, fn) -> None:
+        """Run ``fn(engine, step)`` at the top of every :meth:`run_stream`
+        step, after that step's arrivals and before queued bank mutations
+        apply: the mid-run mutation point (:class:`AdapterFeed` attaches
+        here)."""
+        self._step_hooks.append(fn)
+
+    def compact_banks(self) -> int:
+        """Reclaim the bank columns no live epoch references (retired
+        adapter versions) now, instead of at the next swap.  Returns the
+        number of columns reclaimed."""
+        return self.lifecycle.compact()
+
+    def _pinned_requests(self) -> List[Request]:
+        """Every request holding a bank-column pin: the active slots and
+        the scheduler's resume lane (what compaction remaps)."""
+        out = [r for r in self.active if r is not None]
+        out.extend(self.scheduler.resume_requests())
+        return out
 
     def list_adapters(self) -> List[str]:
-        return sorted(self._order)
+        return sorted(self._sources)
 
-    def _adapter_id(self, name: str) -> int:
+    def _adapter_source(self, name: str):
         try:
-            return self._order.index(name)
-        except ValueError:
+            return self._sources[name]
+        except KeyError:
             raise KeyError(f"unknown adapter {name!r}; registered: "
                            f"{self.list_adapters()}") from None
 
+    def _adapter_id(self, name: str) -> int:
+        """name -> bank column in the current epoch, O(1)."""
+        try:
+            return self._adapter_index[name]
+        except KeyError:
+            self._adapter_source(name)   # raises the descriptive KeyError
+            raise
+
     def _banked_tree(self):
         """Merged base tree with a stacked adapter bank on every linear an
-        adapter updates.  The bank's ``left`` factors are stored in the
-        compute dtype: every consumer casts them to it before use."""
-        if self._tree is None:
-            entries = [self._sources[n] for n in self._order]
-            kinds = {"left": 0, "delta": 0}
-            self._tree = _bank_tree(
-                self._merged_base, [raw for raw, _ in entries],
-                [pc for _, pc in entries], self._order,
-                torch_dtype(self.cfg.dtype), (), kinds)
-            self._note_bank_kinds(kinds)
-        return self._tree
+        adapter updates: built once, then grown and compacted by the
+        lifecycle, whose queued mutations apply here.  The bank's ``left``
+        factors are stored in the compute dtype: every consumer casts them
+        to it before use."""
+        return self.lifecycle.tree()
+
+    def _refresh_tree(self) -> None:
+        """Apply queued bank mutations at a step boundary.  A failing one
+        must not take down the in-flight batch: the lifecycle rolls it
+        back, and the failure is a once-per-engine warning plus the
+        ``engine/bank/swap_failed`` event.  The pre-run build raises."""
+        if not self.lifecycle.dirty:
+            return
+        try:
+            self._banked_tree()
+        except Exception as err:
+            if not self._warned_swap_failed:
+                self._warned_swap_failed = True
+                warnings.warn(
+                    f"mid-run adapter bank swap failed and was rolled "
+                    f"back; the previous epoch keeps serving ({err})")
+
+    def _pin(self, r: Request) -> None:
+        """Pin a freshly admitted request to the current bank epoch."""
+        sc = self._spec_for(r)
+        self.lifecycle.pin(r, sc.draft_adapter if sc is not None else None)
+
+    def _slot_col(self, r: Request) -> int:
+        """The bank column a request computes with: its admission pin,
+        else the current epoch's column."""
+        col = getattr(r, "_bank_col", None)
+        return col if col is not None else self._adapter_id(r.adapter)
 
     def _note_bank_kinds(self, kinds: Dict[str, int]) -> None:
         """Count every dense-delta bank on the tracker; warn once per
@@ -392,9 +482,14 @@ class ServeEngine:
                 f"tree, or PiSSA/DoRA/OFT-family/full-FT adapters, all fall "
                 f"back.")
 
-    @staticmethod
-    def _kv_key(r: Request) -> str:
-        return f"{r.adapter}#1"
+    def _kv_key(self, r: Request) -> str:
+        """The version-qualified KV prefix-alias key ``name#version``: an
+        updated or re-registered adapter's requests never alias an earlier
+        version's pages, while one version's requests share prefixes."""
+        ver = getattr(r, "_kv_ver", None)
+        if ver is None:
+            ver = self.lifecycle.version_of(r.adapter)
+        return f"{r.adapter}#{ver}"
 
     # -- sampling ----------------------------------------------------------
     def _sampling_for(self, r: Request) -> SamplingParams:
@@ -673,6 +768,7 @@ class ServeEngine:
                 break          # retry after running slots free pages
             r, resumed, prefix, seq = pick
             self.scheduler.remove(r)
+            self._pin(r)       # a resumed request keeps its epoch
             slot = free.pop(0)
             frozen.add(slot)
             admitted.append((slot, r, prefix, seq, resumed))
@@ -717,7 +813,7 @@ class ServeEngine:
                 toks[j, :len(suffix)] = suffix
                 lens[j] = len(suffix)
                 prefs[j] = prefix
-                ids[j] = self._adapter_id(r.adapter)
+                ids[j] = self._slot_col(r)
                 rows[j] = kv.tables[slot]
             # the prefix table is empty (no aliasing in the group: the
             # exact chunked path) or the full table masked by prefix_len,
@@ -856,7 +952,7 @@ class ServeEngine:
         for i in live:
             r = self.active[i]
             toks[i, 0] = r.generated[-1]
-            ids[i] = self._adapter_id(r.adapter)
+            ids[i] = self._slot_col(r)
             positions[i] = self.positions[i]
         for i in range(self.slots):
             if self.active[i] is None and \
@@ -936,7 +1032,9 @@ class ServeEngine:
         entries = [(greedy, 0, 0)] * self.slots
         for i, r, sc, pos, _n0, _k in group:
             tok0[i, 0] = r.generated[-1]
-            ids[i] = self._adapter_id(sc.draft_adapter)
+            dcol = getattr(r, "_draft_col", None)
+            ids[i] = dcol if dcol is not None \
+                else self._adapter_id(sc.draft_adapter)
             positions[i] = pos
             entries[i] = (self._sampling_for(r), self._seed_for(r),
                           len(r.generated))
@@ -982,7 +1080,7 @@ class ServeEngine:
             toks[j, 0] = r.generated[-1]
             toks[j, 1:] = drafted[i]
             prefs[j] = pos
-            ids[j] = self._adapter_id(r.adapter)
+            ids[j] = self._slot_col(r)
             rows[j] = kv.tables[i]
         table = kv.table_tensor(rows)
         cache = {"k": kv.pools["k"], "v": kv.pools["v"],
@@ -1068,6 +1166,7 @@ class ServeEngine:
         r.finish_reason = reason
         r.finish_step = step
         r.finish_cost = self._cost_clock
+        self.lifecycle.release(r)
         self._resolve_finished(r, finished)
         self._inflight.discard(r.uid)
         self.active[slot] = None
@@ -1144,12 +1243,12 @@ class ServeEngine:
 
     # -- request intake ----------------------------------------------------
     def _validate(self, r: Request) -> None:
-        self._adapter_id(r.adapter)
+        self._adapter_source(r.adapter)
         if r.n < 1:
             raise ValueError(f"request {r.uid}: n must be >= 1, got {r.n}")
         sc = self._spec_for(r)
         if sc is not None:
-            self._adapter_id(sc.draft_adapter)     # unknown draft policy
+            self._adapter_source(sc.draft_adapter)  # unknown draft policy
         try:
             self._sampling_for(r).validate(self.cfg.vocab_size)
         except ValueError as e:
@@ -1193,6 +1292,12 @@ class ServeEngine:
         request._prefill_done = True
         request._prefill_pos = 0
         request._kv_pin = None
+        # epoch pins are per admission: a re-submitted request pins the
+        # epoch current at its next admission
+        request._epoch = None
+        request._bank_col = None
+        request._draft_col = None
+        request._kv_ver = None
         request.arrival_step = (self._step if arrival_step is None
                                 else arrival_step)
         request.arrival_cost = (
@@ -1303,6 +1408,12 @@ class ServeEngine:
                 self._pending_trace_uids.discard(r.uid)
                 self.submit(r, arrival_step=s, _validated=True)
                 next_arrival += 1
+            # the step's mutation point: hooks may register, update or
+            # unregister adapters; the queued mutations then apply in one
+            # refresh, never inside a step
+            for hook in tuple(self._step_hooks):
+                hook(self, steps)
+            self._refresh_tree()
             # mid-prefill slots advance a chunk before new admissions
             # compete for the step's budget
             self._continue_prefills(steps)
@@ -1419,6 +1530,7 @@ class ServeEngine:
                 continue
             r.truncated = True
             self._observe_truncated(r)
+            self.lifecycle.release(r)
             self._resolve_finished(r, finished)
             self._inflight.discard(r.uid)
             self.active[i] = None
@@ -1427,6 +1539,7 @@ class ServeEngine:
         for r in self.scheduler.drain():
             r.truncated = True
             self._observe_truncated(r)
+            self.lifecycle.release(r)
             if r._kv_pin is not None:
                 # abandoned suspension: its retained pages demote to
                 # ordinary residency

@@ -181,6 +181,12 @@ class StreamScheduler:
     def has_work(self) -> bool:
         return bool(self._pending or self._resume)
 
+    def resume_requests(self) -> List["Request"]:
+        """Suspended requests awaiting resumption.  They keep their
+        admission-time epoch pins, so bank compaction remaps their pinned
+        columns with the active slots'."""
+        return list(self._resume)
+
     def demanded_adapters(self, default_spec=None) -> set:
         """Adapter names queued NEVER-ADMITTED requests still need: their
         serving adapters plus their effective speculative draft adapters

@@ -956,3 +956,101 @@ def test_tiny_oft_family_step_launches_blockdiag_rotate(cuda_device, method):
                                                   rel=1e-4)
     assert float(m_gpu["grad_norm"]) == pytest.approx(
         float(m_cpu["grad_norm"]), rel=1e-4)
+
+
+def _ulp_up(t: torch.Tensor) -> torch.Tensor:
+    """Every element one ulp further from zero (its bit pattern plus
+    one)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype]
+    return (t.contiguous().view(bits) + 1).view(t.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,r_old,r_new", [(3072, 1024, 352, 384),
+                                             (512, 256, 8, 16),
+                                             (1024, 3072, 40, 72)])
+def test_bank_extension_keeps_old_rows_bit_equal(cuda_device, dtype, k, n,
+                                                 r_old, r_new):
+    """The hot-swap exactness contract on the card: a decode-shaped
+    banked linear's rows on old columns are bit-equal before and after the
+    bank grows by one column, by a column of higher rank (zero-padded
+    ranks, more r slices in the gather-delta plan) and by a dense column
+    (a mixed bank); the new column's rows match the plain version.  One
+    ulp planted on an old column (``right`` in fp32, ``left`` in bf16,
+    where an fp32 ulp of ``right`` is below the output's rounding) breaks
+    the equality of that column's rows and of no other."""
+    from repro_torch.core import registry
+    rng = np.random.default_rng(k + r_old)
+    a, b = 3, 8
+    put = _on(cuda_device, torch.float32)
+    w = put(_normal(rng, (k, n), k ** -0.5)).to(dtype)
+    bank = {"left": put(_normal(rng, (a, k, r_old), k ** -0.5)).to(dtype),
+            "right": put(_normal(rng, (a, r_old, n), 0.05))}
+    x = put(_normal(rng, (b, 1, k))).to(dtype)
+    ids = torch.tensor([0, 1, 2, 0, 1, 2, 1, 0], dtype=torch.int32,
+                       device=cuda_device)
+    before = ops.LAUNCHES["gather_delta_matmul"]
+    y0 = registry.apply_batched({"w": w, "bank": bank}, x, dtype, ids)
+    grown = {
+        "column": {"left": put(_normal(rng, (1, k, r_old), k ** -0.5)),
+                   "right": put(_normal(rng, (1, r_old, n), 0.05))},
+        "rank": {"left": put(_normal(rng, (1, k, r_new), k ** -0.5)),
+                 "right": put(_normal(rng, (1, r_new, n), 0.05))},
+        "dense": {"delta": put(_normal(rng, (1, k, n), 0.01))}}
+    new_ids = torch.full((b,), a, dtype=torch.int32, device=cuda_device)
+    for name, sub in grown.items():
+        if "left" in sub:
+            sub["left"] = sub["left"].to(dtype)
+        ext = registry.extend_bank(w, bank, sub, a)
+        assert ext["left"].shape[0] == a + 1
+        assert ("delta" in ext) == (name == "dense")
+        y = registry.apply_batched({"w": w, "bank": ext}, x, dtype, ids)
+        assert torch.equal(y, y0), name
+        got = registry.apply_batched({"w": w, "bank": ext}, x, dtype,
+                                     new_ids)
+        plain = registry.apply_batched(
+            {"w": w.cpu(), "bank": {kk: v.cpu() for kk, v in ext.items()}},
+            x.cpu(), dtype, new_ids.cpu())
+        _close(got.cpu()[:, 0], plain[:, 0], dict(DTYPES)[dtype])
+    assert ops.LAUNCHES["gather_delta_matmul"] == before + 7
+    bad = dict(bank)
+    key = "right" if dtype == torch.float32 else "left"
+    bad[key] = bank[key].clone()
+    bad[key][1] = _ulp_up(bank[key][1])
+    y = registry.apply_batched({"w": w, "bank": bad}, x, dtype, ids)
+    on1 = ids == 1
+    assert not torch.equal(y[on1], y0[on1]), "a planted ulp went unseen"
+    assert torch.equal(y[~on1], y0[~on1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("k,n,r", [(3072, 3072, 352), (256, 384, 8)])
+def test_mixed_bank_decode_matches_plain(cuda_device, dtype, tol, k, n, r):
+    """A decode row on a mixed bank takes the gather-delta kernel over
+    left and right plus the dense term of its column: every column's rows
+    against the whole banked linear on the CPU (the plain versions)."""
+    from repro_torch.core import registry
+    rng = np.random.default_rng(n + r)
+    put = _on(cuda_device, torch.float32)
+    w = put(_normal(rng, (k, n), k ** -0.5))
+    lowrank = {"left": put(_normal(rng, (2, k, r), k ** -0.5)),
+               "right": put(_normal(rng, (2, r, n), 0.05))}
+    mixed = registry.extend_bank(
+        w, lowrank, {"delta": put(_normal(rng, (2, k, n), 0.02))}, 2)
+    mixed["left"] = mixed["left"].to(dtype)
+    node = {"w": w.to(dtype), "bank": mixed}
+    x = put(_normal(rng, (8, 1, k))).to(dtype)
+    ids = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0], dtype=torch.int32,
+                       device=cuda_device)
+    before = ops.LAUNCHES["gather_delta_matmul"]
+    got = registry.apply_batched(node, x, dtype, ids)
+    assert ops.LAUNCHES["gather_delta_matmul"] == before + 1
+    plain = registry.apply_batched(
+        {"w": node["w"].cpu(),
+         "bank": {key: v.cpu() for key, v in mixed.items()}},
+        x.cpu(), dtype, ids.cpu())
+    _close(got.cpu()[:, 0], plain[:, 0], tol)
+    dense = (x[4, 0].float() @ (w + mixed["delta"][3])).to(dtype)
+    _close(got[4, 0].cpu(), dense.cpu(), tol)

@@ -2,7 +2,9 @@
 Theorem 4.1 deviations stay at rounding level, its shifted-task loss falls
 and its merged tree serves the tuned tree's logits; the sampling twin's
 seeded tokens reproduce from run to run and its stop request ends on its
-stop id; the metrics twin's tracker sees its preemptions and deadlines."""
+stop id; the metrics twin's tracker sees its preemptions and deadlines;
+the serve-while-train twin streams its checkpoints into the live bank and
+serves the newest one as a fresh engine would."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -11,7 +13,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.examples import (  # noqa: E402
-    quickstart, serve_metrics, serve_sampling)
+    quickstart, serve_metrics, serve_sampling, serve_while_train)
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.train import trainer  # noqa: E402
 
 
 def test_quickstart_twin(capsys):
@@ -39,3 +43,20 @@ def test_metrics_twin_sees_every_layer():
     assert tracker.counter("engine/slo_met") == 4
     assert tracker.counter("kv/suspends") == tracker.counter("kv/resumes")
     assert tracker.values("sampler/batch_occupancy")
+
+
+def test_serve_while_train_twin(tmp_path):
+    out = serve_while_train.main(["--device", "cpu", "--train-steps", "4",
+                                  "--ckpt-dir", str(tmp_path)])
+    assert out["inflight"].done and len(out["inflight"].generated) == 24
+    assert len(out["applied"]) >= 2 and out["applied"] == \
+        sorted(out["applied"])
+    ops = [e["op"] for e in out["swaps"] if e["adapter"] == "live"]
+    assert ops[0] == "register" and set(ops[1:]) == {"update"}
+    assert out["reclaimed"] >= 1 and out["bank_bytes"] > 0
+    fresh = ServeEngine(out["base"], out["cfg"], max_len=64, slots=2,
+                        device="cpu")
+    fresh.register_adapter("live", trainer.adapter_params(out["state"]))
+    want = fresh.run([Request(uid=1, prompt=out["live"].prompt,
+                              max_new_tokens=8, adapter="live")])
+    assert out["live"].generated == want[0].generated
