@@ -6,6 +6,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N] [--profile] [--out PATH]
 
+(``--layers`` cuts the depth of every full-width model; phase 17 runs at
+2 layers at most.)
+
 Phases, each of which raises (non-zero exit) on a failed check:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
@@ -158,6 +161,42 @@ Phases, each of which raises (non-zero exit) on a failed check:
     land mid-run, on the card and on the CPU: identical tokens, lifecycle
     events, tracker swap and retire events and gauges, admission and
     preemption events and kv stats, logprobs within 1e-4.
+16. MoE serve (runs last but two): deepseek-moe-16b at full width (28
+    layers unless ``--layers``), bf16, random weights from a seed, PSOFT
+    r 64 on q, k, v, o and plain expert stacks (multi-tenant banks carry
+    no expert adapters, in the reference either), two adapters sharing
+    every frozen tensor; phase 3's traffic through ``ServeEngine(slots=8,
+    page_size=16, max_len=512).run`` (every MoE call on the dense
+    dispatch); checks completion, pages, prefix hits, the merged base and
+    the served tree sharing every expert stack's storage (``data_ptr``),
+    exactly 4 gather_delta_matmul and 1 paged_decode_attention per layer
+    a decode step, every prefill on "mma", run-to-run token identity, and
+    an adapter that changes an expert stack refused with the reference's
+    message; prints decode tokens/s, the mean decode step beside the
+    expert-weight read floor, prefill time and peak memory;
+17. MoE train: deepseek-moe-16b at full width and 2 layers (the SVD split
+    of 192 expert matrices a layer takes ~20 s on the card), PSOFT r 64
+    on every default target (attention, shared experts, the three expert
+    stacks), ``remat_policy="full"``, capacity dispatch, 8 x 256 tokens a
+    step, one warm-up and 3 timed steps; the checks of 5, with exactly 30
+    psoft_matmul launches per layer a step (3 per linear or expert stack),
+    all on "wgmma", exactly one grouped launch per expert stack per pass
+    (no per-expert loop), 10 cayley_neumann a step on "smem", and the
+    tuned tree's logits equal its merged tree's (fp32, dense dispatch);
+    prints the SVD split's time, the step ms, tokens/s and peak memory;
+18. MoE card vs CPU: reduced deepseek-moe-16b (fp32): identical greedy
+    tokens and admissions card against CPU with the base and an
+    attention-only adapter; 3 capacity train steps with drops
+    (capacity_factor 0.25) within 1e-4 relative, the expert stacks on
+    grouped "simt" launches.
+
+Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
+psoft_matmul at both expert stacks (G 64, M 240, K/N 2048/1408, r 64; bf16
+on "wgmma", forward and transposed), one fp32 call, G 3 at M 100, and its
+grads, each limit rejecting an expert on its neighbour's W_res and an
+expert's last tile overhanging into the next expert; cayley_neumann at
+the expert stack (1792, 64); gather_delta_matmul at K = N = 2048, r 64;
+paged decode and prefill at 16 heads over 16 KV heads.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -165,6 +204,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -196,6 +236,9 @@ REPLACES = {
     "psoft_matmul": "src/repro/kernels/psoft_matmul.py:50",
     "cayley_neumann": "src/repro/kernels/cayley_kernel.py:31",
     "blockdiag_rotate": "src/repro/kernels/blockdiag_rotate.py:34",
+    # the same kernel's grouped launch (an MoE expert stack a launch),
+    # replacing the reference's vmap of it over the expert axis
+    "psoft_matmul_grouped": "src/repro/kernels/psoft_matmul.py:50",
 }
 SERVE_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
                  "gather_delta_matmul")
@@ -322,12 +365,12 @@ def fp32_products_bound(nbytes: float, flops: float):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def decode_inputs(torch, dtype, gen, lengths):
-    """llama32-3b decode: 8 slots, 24 heads over 8 KV heads, head_dim 128,
-    pages of 16, max_len 512.  Rows 2 and 3 share their first pages
-    (aliased prefix), ids are scattered over the pool, row lengths include
-    0 and 1."""
-    b, h, kh, d, pg, maxp = len(lengths), 24, 8, 128, 16, 32
+def decode_inputs(torch, dtype, gen, lengths, h=24, kh=8):
+    """llama32-3b decode: 8 slots, 24 heads over 8 KV heads (or ``h`` over
+    ``kh``), head_dim 128, pages of 16, max_len 512.  Rows 2 and 3 share
+    their first pages (aliased prefix), ids are scattered over the pool,
+    row lengths include 0 and 1."""
+    b, d, pg, maxp = len(lengths), 128, 16, 32
     pages = 1 + b * maxp
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
     kp = (torch.randn((pages, pg, kh, d), generator=gen, device="cuda")
@@ -341,11 +384,11 @@ def decode_inputs(torch, dtype, gen, lengths):
     return q, kp, vp, table, ln
 
 
-def prefill_inputs(torch, dtype, gen, prefix, s):
-    """llama32-3b prefill group: 4 rows of a 64-token suffix bucket over a
-    full-width prefix table; prefixes of two full pages, none, one ending
-    mid-page."""
-    b, h, kh, d, pg, maxp = len(prefix), 24, 8, 128, 16, 32
+def prefill_inputs(torch, dtype, gen, prefix, s, h=24, kh=8):
+    """llama32-3b prefill group (or ``h`` heads over ``kh``): 4 rows of a
+    64-token suffix bucket over a full-width prefix table; prefixes of two
+    full pages, none, one ending mid-page."""
+    b, d, pg, maxp = len(prefix), 128, 16, 32
     pages = 1 + b * maxp
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
     k = (torch.randn((b, s, kh, d), generator=gen, device="cuda")
@@ -2639,12 +2682,16 @@ def lifecycle_card_vs_cpu_phase(torch, configs, model, serve, ops, peft,
 # phase 2, training kernels: psoft_matmul and cayley_neumann
 # ---------------------------------------------------------------------------
 
-def psoft_inputs(torch, dtype, gen, m, k, n, r=RANK, transpose=False):
+def psoft_inputs(torch, dtype, gen, m, k, n, r=RANK, transpose=False,
+                 groups=None):
     """One PSOFT linear at the scales of an SVD split of W ~ N(0, 1/k): A's
     columns of unit norm, B's rows of norm ~2.4 (the top singular values of
-    a k x n Gaussian), R near the identity, alpha and beta near 1."""
+    a k x n Gaussian), R near the identity, alpha and beta near 1; or an
+    MoE expert stack of ``groups`` of them, every array leading with G."""
+    lead = () if groups is None else (groups,)
+
     def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device="cuda") * scale
+        return torch.randn(lead + shape, generator=gen, device="cuda") * scale
     x = randn(m, n if transpose else k, scale=0.5).to(dtype)
     w = randn(k, n, scale=k ** -0.5).to(dtype)
     a = randn(k, r, scale=k ** -0.5).to(dtype)
@@ -2782,11 +2829,12 @@ def cayley_grad_phase(torch, ops, ref, gen, n_mat, r, terms):
 
 #: (matrices, r) of one linear stack's cayley_neumann call on each path:
 #: PSOFT r = 352; OFT blocks of 32 (q/k/v/o/gate/up: 28 x 96, down: 28 x
-#: 256); BOFT blocks of 8 (m = 2: 28 x 2 x 384, and 28 x 2 x 1024); and the
-#: largest "smem" r
+#: 256); BOFT blocks of 8 (m = 2: 28 x 2 x 384, and 28 x 2 x 1024); one
+#: deepseek-moe-16b expert stack (28 layers x 64 experts, PSOFT r = 64);
+#: and the largest "smem" r
 CAYLEY_SHAPES = {"psoft": (28, 352), "oft": (2688, 32), "oft_down": (7168, 32),
                  "boft": (21504, 8), "boft_down": (57344, 8),
-                 "smem_max": (2, 128)}
+                 "moe_experts": (1792, 64), "smem_max": (2, 128)}
 CAYLEY_TERMS = 5
 
 
@@ -3192,12 +3240,13 @@ def free_cycles(torch) -> float:
 
 
 def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
-              timed: int, expected, what: str, profile=False):
+              timed: int, expected, what: str, profile=False, on_done=None):
     """``1 + timed`` steps of ``make_train_step`` on ``params`` (split by
     the PEFT mask; the first step is a warm-up), 8 x 256 synthetic tokens a
     step.  Checks finite losses and grad norms, frozen leaves bit-identical,
     every trainable leaf moved, and each kernel's launches in every step
-    equal to ``expected[kernel]``.  The caller drops its own references to
+    equal to ``expected[kernel]``; ``on_done(state)``'s result, if given,
+    goes under ``"after"``.  The caller drops its own references to
     ``params``, so that the run's end frees them."""
     tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
     state = trainer.train_state_from_params(params, cfg, tc)
@@ -3216,7 +3265,7 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    losses, gnorms, step_ms, per_step = [], [], [], []
+    losses, gnorms, auxes, step_ms, per_step = [], [], [], [], []
     for i, batch in enumerate(batches):
         before = dict(ops.LAUNCHES)
         t0 = time.perf_counter()
@@ -3227,6 +3276,7 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
                          for k in ops.LAUNCHES})
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
+        auxes.append(float(metrics["aux"]))
         if i:
             step_ms.append(dt_ms)
         else:
@@ -3234,8 +3284,9 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
     launches = dict(ops.LAUNCHES)
     engines = dict(ops.PSOFT_ENGINE_LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    check(all(math.isfinite(v) for v in losses + gnorms),
-          f"{what}: finite losses {losses} and grad norms {gnorms}")
+    check(all(math.isfinite(v) for v in losses + gnorms + auxes),
+          f"{what}: finite losses {losses}, aux {auxes} and grad norms "
+          f"{gnorms}")
     check(all(g > 0 for g in gnorms), f"{what}: grad norms {gnorms} > 0")
     for i, cnt in enumerate(per_step):
         for k, (n, why) in expected.items():
@@ -3263,14 +3314,16 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
         max_step_ms=max(step_ms),
         tokens_per_s=TRAIN_TOKENS / (mean_ms / 1e3),
         peak_memory_gib=peak_gib, losses=losses, grad_norms=gnorms,
-        launches=launches, launches_per_step=per_step[-1],
+        aux=auxes, launches=launches, launches_per_step=per_step[-1],
         psoft_engines=engines,
+        psoft_grouped=dict(ops.PSOFT_GROUPED_LAUNCHES),
         cayley_engines=dict(ops.CAYLEY_ENGINE_LAUNCHES),
         blockdiag_engines=dict(ops.BLOCKDIAG_ENGINE_LAUNCHES),
         frozen_copy_s=copy_s, verify_s=verify_s,
         profile=profile_train(torch, step, state, batches[0])
-        if profile else None)
-    print(f"{what}: llama32-3b {cfg.num_layers} layers, "
+        if profile else None,
+        after=on_done(state) if on_done is not None else None)
+    print(f"{what}: {cfg.name} {cfg.num_layers} layers, "
           f"{cfg.peft.method}, remat {cfg.remat_policy}, {TRAIN_BATCH}x"
           f"{TRAIN_SEQ} tokens a step, {n_train} trainable / {n_frozen} "
           f"frozen params; step ms mean {mean_ms:.1f} min "
@@ -3482,6 +3535,584 @@ def train_card_vs_cpu_phase(torch, configs, model, trainer, data, tree,
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the MoE family's shapes; phases 16-18: MoE serving and training
+# ---------------------------------------------------------------------------
+
+#: deepseek-moe-16b's expert stacks as the capacity dispatch hands them to
+#: psoft_matmul: (name, G experts, M = capacity rows, K, N) with M =
+#: int(2048 tokens * top-6 * 1.25 / 64) = 240 at 8 x 256 tokens a step
+MOE_STACKS = (("gate/up", 64, 240, 2048, 1408),
+              ("down", 64, 240, 1408, 2048))
+MOE_RANK = 64
+#: deepseek-moe-16b attention: 16 heads over 16 KV heads, D 128
+MOE_HEADS, MOE_KV_HEADS = 16, 16
+#: rows of one output tile of psoft_matmul's output product on the wgmma
+#: engine (hopper_gemm.cuh, two consumer warpgroups of 64 rows)
+PSOFT_OUT_TILE_ROWS = 128
+#: phase 16's PSOFT targets: multi-tenant banks cannot carry expert
+#: adapters (the reference refuses them too), so the experts stay plain
+MOE_SERVE_TARGETS = ("q", "k", "v", "o")
+#: the reference's refusal of an adapter that changes an expert linear
+MOE_REFUSAL = ("adapter updates MoE expert linear {path}; per-slot "
+               "heterogeneous serving does not support expert adapters yet "
+               "— serve them merged / single-adapter")
+#: phase 17's depth: its SVD split takes ~0.1 s a 2048 x 1408 expert matrix
+#: on the card (~21 s a layer, 192 expert matrices), so 28 layers would
+#: take ~10 minutes of the script's 20 before the first step
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3
+#: PSOFT linear stacks of one deepseek-moe-16b layer on phase 17's path:
+#: 4 attention, 3 shared-expert, 3 expert stacks (each one grouped launch)
+MOE_STACKS_PER_LAYER, MOE_GROUPED_PER_LAYER = 10, 3
+
+
+def grouped_faults(torch, ref, args, want, transpose):
+    """The two faults a grouped launch could make, as the plain version
+    computes them: each expert reading its neighbour's W_res (group
+    strides off by one), and each expert's last output tile storing its
+    overhang into the next expert's first rows (a 2-D map over the
+    flattened (G M, .) arrays instead of TMA's per-group clipping).
+    Returns ((what, wrong, rows to check in the flattened output), ...)."""
+    x, w, a, rot, b, s_in, s_out = args
+    g, m = x.shape[:2]
+    neighbour = ref.psoft_matmul_parts(x, w.roll(-1, 0), a, rot, b, s_in,
+                                       s_out, transpose)[0]
+    spill = -m % PSOFT_OUT_TILE_ROWS
+    out = [("each expert on its neighbour's W_res", neighbour,
+            range(0, g * m, max(1, g * m // 97)))]
+    if spill:
+        # expert e + 1's first rows through expert e's weights
+        over = ref.psoft_matmul_parts(x.roll(-1, 0)[:, :spill], w, a, rot, b,
+                                      s_in, s_out, transpose)[0]
+        clipped = want.clone()
+        clipped[1:, :spill] = over[:-1]
+        out.append((f"each expert's last tile overhanging {spill} rows into "
+                    f"the next expert", clipped,
+                    [(e + 1) * m + j for e in range(g - 1)
+                     for j in (0, spill - 1)]))
+    return out
+
+
+def grouped_check(torch, ops, ref, args, transpose, dname, what, engine):
+    """One grouped launch against the plain version: y at the dtype's
+    limit, u and t at fp32's, one launch on ``engine`` counted as grouped,
+    and the limit rejecting both planted faults."""
+    ops.reset_launches()
+    got = ops._psoft_mm(*args, transpose)
+    want = ref.psoft_matmul_parts(*args, transpose)
+    torch.cuda.synchronize()
+    check(ops.PSOFT_ENGINE_LAUNCHES[engine] == 1 ==
+          ops.PSOFT_GROUPED_LAUNCHES[engine] == ops.LAUNCHES["psoft_matmul"],
+          f"{what}: ran on {ops.PSOFT_ENGINE_LAUNCHES} (grouped "
+          f"{ops.PSOFT_GROUPED_LAUNCHES}), expected one grouped {engine} "
+          f"launch")
+    e = max_err(torch, got[0], want[0], dname, what)
+    for gp, wp, part in zip(got[1:], want[1:], ("u", "t")):
+        max_err(torch, gp, wp, "float32", f"{what} {part}")
+    flat = want[0].reshape(-1, want[0].shape[-1])
+    for fault, wrong, rows in grouped_faults(torch, ref, args, want[0],
+                                             transpose):
+        must_reject(torch, wrong.reshape(flat.shape), flat, dname, rows,
+                    f"{what}, {fault}")
+    return e
+
+
+def grouped_grad_check(torch, ops, ref, gen, g, m, k, n):
+    """``ops.psoft_matmul`` forward and backward on an expert stack in
+    bf16: the grads of x, R, alpha and beta against autograd of the plain
+    version in fp32 (dx at the bf16 limit, the r-sized grads at the scaled
+    fp32 limit)."""
+    args = psoft_inputs(torch, torch.bfloat16, gen, m, k, n, MOE_RANK,
+                        groups=g)
+    dy = (torch.randn((g, m, n), generator=gen, device="cuda")
+          * 0.5).to(torch.bfloat16)
+    idx = (0, 3, 5, 6)
+    leaves = [t.clone().requires_grad_(i in idx) for i, t in enumerate(args)]
+    got = torch.autograd.grad(ops.psoft_matmul(*leaves),
+                              [leaves[i] for i in idx], dy)
+    twins = [t.detach().float().requires_grad_(i in idx)
+             for i, t in enumerate(args)]
+    want = torch.autograd.grad(ref.psoft_matmul(*twins),
+                               [twins[i] for i in idx], dy.float())
+    torch.cuda.synchronize()
+    e = 0.0
+    for key, gv, wv in zip(("dx", "d_rot", "d_alpha", "d_beta"), got, want):
+        dname, scaled = ("bfloat16", None) if key == "dx" else \
+            ("float32", True)
+        check(tuple(gv.shape) == tuple(wv.shape),
+              f"grouped psoft_matmul grad {key}: shape {tuple(gv.shape)}")
+        e = max(e, max_err(torch, gv, wv, dname,
+                           f"grouped psoft_matmul grad {key} ({g}, {m}, {k},"
+                           f" {n})", scaled))
+    return e
+
+
+def moe_kernel_phase(torch, ops, ref, F):
+    """The kernels at deepseek-moe-16b's shapes: the grouped psoft_matmul
+    at both expert stacks (bf16 on wgmma, forward and transposed, each
+    limit rejecting both planted faults), one fp32 call, G 3 at M 100 (no
+    multiple of 64), its grads; gather_delta_matmul at K = N = 2048,
+    r = 64, B 8 over 3 adapters; paged decode and prefill at 16 heads over
+    16 KV heads, D 128 ("mma" prefill).  The Cayley expert stack (1792,
+    64) runs with the other stacks (:data:`CAYLEY_SHAPES`).  Times each
+    beside its bound and a library yardstick."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    out = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = {"bfloat16": 0.0, "float32": 0.0}
+    for name, g, m, k, n in MOE_STACKS:
+        for transpose in (False, True):
+            args = psoft_inputs(torch, bf16, gen, m, k, n, MOE_RANK,
+                                transpose, g)
+            err["bfloat16"] = max(err["bfloat16"], grouped_check(
+                torch, ops, ref, args, transpose, "bfloat16",
+                f"grouped psoft_matmul {name} ({g}, {m}, {k}, {n}) bf16"
+                + (" transposed" if transpose else ""), "wgmma"))
+            del args
+    g, m, k, n = MOE_STACKS[0][1:]
+    err["float32"] = grouped_check(
+        torch, ops, ref, psoft_inputs(torch, f32, gen, m, k, n, MOE_RANK,
+                                      groups=g),
+        False, "float32", f"grouped psoft_matmul ({g}, {m}, {k}, {n}) fp32",
+        "simt")
+    for dtype, engine in ((bf16, "wgmma"), (f32, "simt")):
+        dname = str(dtype).replace("torch.", "")
+        for transpose in (False, True):
+            err[dname] = max(err[dname], grouped_check(
+                torch, ops, ref, psoft_inputs(
+                    torch, dtype, gen, 100, 200, 136, MOE_RANK, transpose,
+                    3), transpose, dname,
+                f"grouped psoft_matmul (3, 100, 200, 136) {dname}"
+                + (" transposed" if transpose else ""), engine))
+    grad_err = grouped_grad_check(torch, ops, ref, gen, *MOE_STACKS[0][1:])
+    per_stack = {}
+    for name, g, m, k, n in MOE_STACKS:
+        x, w, a, rot, b, al, be = psoft_inputs(torch, bf16, gen, m, k, n,
+                                               MOE_RANK, groups=g)
+        dy = (torch.randn((g, m, n), generator=gen, device="cuda")
+              * 0.5).to(bf16)
+        merged = (w.float() + (a.float() * al[:, None, :]) @ rot
+                  @ (b.float() * be[:, :, None])).to(bf16)
+        nbytes, flops = psoft_bytes_flops(m, k, n, MOE_RANK, 2)
+        one = dict(
+            ms=time_ms(torch, lambda: ops._psoft_mm(x, w, a, rot, b, al, be,
+                                                    False)),
+            backward_ms=time_ms(torch, lambda: ops._psoft_mm(
+                dy, w, a, rot, b, be, al, True)),
+            plain_ms=time_ms(torch, lambda: ref.psoft_matmul_parts(
+                x, w, a, rot, b, al, be)),
+            library_ms=time_ms(torch, lambda: torch.bmm(x, merged)),
+            bytes=g * nbytes, flops=g * flops,
+            launch_ms=launch_split_ms(torch, lambda: ops._psoft_mm(
+                x, w, a, rot, b, al, be, False)))
+        one["bound_ms"], one["bound_by"] = bound(one["bytes"], one["flops"],
+                                                 "bfloat16")
+        per_stack[f"{name} ({g}, {m}, {k}, {n})"] = one
+        del x, w, a, rot, b, dy, merged
+    head = per_stack[next(iter(per_stack))]
+    g, m, k, n = MOE_STACKS[0][1:]
+    out["psoft_matmul_grouped"] = dict(
+        head, max_err_bfloat16=err["bfloat16"], max_err_float32=err["float32"],
+        grad_max_err=grad_err, per_stack=per_stack,
+        library="torch.bmm(x, W_final) over the expert stack, the merged "
+                "weights precomputed (untimed)",
+        shape=f"one deepseek-moe-16b expert stack: G={g} experts, M={m} "
+              f"capacity rows, K={k}, N={n}, r={MOE_RANK}, bf16; ms is the "
+              f"forward launch, backward_ms the transposed (dx) launch")
+
+    # gather-delta at the attention linears (K = N = 2048, r = 64)
+    ids = [0, 1, 2, 1, 0, 2, 2, 1]
+    e = {}
+    for dtype in (f32, bf16):
+        dname = str(dtype).replace("torch.", "")
+        x, w, left, right, idt = delta_inputs(torch, dtype, gen, 2048, 2048,
+                                              ids, r=MOE_RANK)
+        want = ref.gather_delta_matmul(idt, x, w, left, right)
+        e[dname] = max_err(torch, ops.gather_delta_matmul(
+            x, w, left, right, idt, compute_dtype=dtype), want, dname,
+            f"gather_delta_matmul deepseek attention {dname}")
+        must_reject(torch, ref.gather_delta_matmul(
+            (idt + 1) % left.shape[0], x, w, left, right), want, dname,
+            range(len(ids)), "gather_delta_matmul deepseek attention, each "
+                             "row on the wrong adapter")
+    bsz, kd, elt = len(ids), 2048, 2
+    gd = dict(ms=time_ms(torch, lambda: ops.gather_delta_matmul(
+        x, w, left, right, idt, compute_dtype=bf16)),
+        plain_ms=time_ms(torch, lambda: ref.gather_delta_matmul(
+            idt, x, w, left, right)),
+        library_ms=time_ms(torch, lambda: torch.matmul(x, w)),
+        bytes=(bsz * kd * elt + kd * kd * elt + 3 * kd * MOE_RANK * elt
+               + 3 * MOE_RANK * kd * 4 + bsz * 4 + bsz * kd * elt),
+        flops=2 * bsz * (kd * kd + 2 * kd * MOE_RANK),
+        max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+        shape=f"one deepseek-moe-16b attention linear: K=N=2048, B={bsz}, "
+              f"r={MOE_RANK}, 3 bank columns")
+    gd["bound_ms"], gd["bound_by"] = bound(gd["bytes"], gd["flops"],
+                                           "bfloat16")
+    out["gather_delta_matmul"] = gd
+
+    # paged attention at 16 heads over 16 KV heads
+    lengths = [0, 1, 77, 130, 256, 300, 511, 45]
+    h, kh, d = MOE_HEADS, MOE_KV_HEADS, 128
+    e = {}
+    for dtype in (f32, bf16):
+        dname = str(dtype).replace("torch.", "")
+        args = decode_inputs(torch, dtype, gen, lengths, h, kh)
+        want = ref.paged_decode_attention(*args)
+        e[dname] = max_err(torch, ops.paged_decode_attention(*args), want,
+                           dname, f"paged_decode_attention KH 16 {dname}")
+        q, kp, vp, table, ln = args
+        must_reject(torch, ref.paged_decode_attention(
+            q, kp, vp, table, last_page_dropped(ln, 16)), want, dname,
+            [i for i, n_ in enumerate(lengths) if n_ > 0],
+            "paged_decode_attention KH 16, each row's last page dropped")
+    q, kp, vp, table, ln = args
+    dec = dict(ms=time_ms(torch, lambda: ops.paged_decode_attention(
+        q, kp, vp, table, ln)),
+        plain_ms=time_ms(torch, lambda: ref.paged_decode_attention(
+            q, kp, vp, table, ln)),
+        bytes=(2 * q.numel() * 2 + 2 * distinct_slots(table, ln, 16) * kh * d
+               * 2 + table_entries(ln, 16) * 4 + ln.numel() * 4),
+        flops=4 * sum(lengths) * h * d,
+        max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+        shape=f"B={len(lengths)} H={h} KH={kh} D={d} pg=16 maxp=32 "
+              f"lengths={lengths}")
+    maxlen = max(lengths)
+    kg, vg = (ref_gather(torch, pool, table, maxlen, h // kh)
+              for pool in (kp, vp))
+    mask = (torch.arange(maxlen, device="cuda")[None, :]
+            < ln[:, None].long())[:, None, None, :]
+    dec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kg, vg, attn_mask=mask))
+    dec["bound_ms"], dec["bound_by"] = bound(dec["bytes"], dec["flops"],
+                                             "bfloat16")
+    out["paged_decode_attention"] = dec
+    prefix, s = [32, 0, 45, 32], 64
+    e = {}
+    for dtype, engine in ((f32, "simt"), (bf16, "mma")):
+        dname = str(dtype).replace("torch.", "")
+        args = prefill_inputs(torch, dtype, gen, prefix, s, h, kh)
+        ops.reset_launches()
+        got = ops.paged_prefill_attention(*args)
+        want = ref.paged_prefill_attention(*args)
+        check(ops.PREFILL_ENGINE_LAUNCHES[engine] == 1,
+              f"paged_prefill_attention KH 16 {dname}: ran on "
+              f"{ops.PREFILL_ENGINE_LAUNCHES}, expected {engine}")
+        e[dname] = max_err(torch, got, want, dname,
+                           f"paged_prefill_attention KH 16 {dname}")
+        q, k, v, kp, vp, table, plen = args
+        must_reject(torch, ref.paged_prefill_attention(
+            q, k, v, kp, vp, table, last_page_dropped(plen, 16)), want,
+            dname, [i for i, n_ in enumerate(prefix) if n_ > 0],
+            "paged_prefill_attention KH 16, each prefix's last page dropped")
+    pre_tok = sum(prefix)
+    pre = dict(ms=time_ms(torch, lambda: ops.paged_prefill_attention(*args)),
+               plain_ms=time_ms(torch, lambda: ref.paged_prefill_attention(
+                   *args)),
+               bytes=(2 * q.numel() * 2 + (k.numel() + v.numel()) * 2
+                      + 2 * distinct_slots(table, plen, 16) * kh * d * 2
+                      + table_entries(plen, 16) * 4 + len(prefix) * 4),
+               flops=4 * h * d * (s * pre_tok + len(prefix) * s * (s + 1)
+                                  // 2),
+               max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+               shape=f"B={len(prefix)} S={s} H={h} KH={kh} D={d} pg=16 "
+                     f"maxp=32 prefix={prefix}")
+    spre, grp = table.shape[1] * 16, h // kh
+    kc = torch.cat([ref_gather(torch, kp, table, spre, grp),
+                    k.transpose(1, 2).repeat_interleave(grp, dim=1)], 2)
+    vc = torch.cat([ref_gather(torch, vp, table, spre, grp),
+                    v.transpose(1, 2).repeat_interleave(grp, dim=1)], 2)
+    ar = torch.arange(s, device="cuda")
+    amask = torch.cat([
+        (torch.arange(spre, device="cuda")[None, None, :]
+         < plen[:, None, None].long()).expand(len(prefix), s, spre),
+        (ar[:, None] >= ar[None, :])[None].expand(len(prefix), s, s)],
+        -1)[:, None]
+    qt = q.transpose(1, 2)
+    pre["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kc, vc, attn_mask=amask))
+    pre["bound_ms"], pre["bound_by"] = bound(pre["bytes"], pre["flops"],
+                                             "bfloat16")
+    out["paged_prefill_attention"] = pre
+    return out
+
+
+def moe_adapter(torch, tree, modules, seed, scale, device="cuda"):
+    """An adapter of ``tree`` that moves PSOFT's trainables of the linears
+    named in ``modules`` only (every other leaf shared)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def rec(node, module):
+        if isinstance(node, dict):
+            return {k: v + (torch.randn(v.shape, generator=gen, device=device)
+                            * scale).to(v.dtype)
+                    if k in PSOFT_TRAINABLES and module in modules
+                    else rec(v, k) for k, v in node.items()}
+        return node
+    return rec(tree, None)
+
+
+def expert_refusal(torch, serve, params, cfg, kw):
+    """Registering an adapter that changes one expert stack must fail the
+    bank build with the reference's message.  Returns the message."""
+    moe = params["layers"]["moe"]
+    bad_w = moe["down"]["w"].clone()
+    bad_w.view(-1)[0] += 1
+    bad = {**params, "layers": {**params["layers"], "moe": {
+        **moe, "down": {"w": bad_w}}}}
+    import numpy as np
+    eng = serve.ServeEngine(params, cfg, device="cuda", **kw)
+    eng.register_adapter("experts", bad)
+    try:
+        eng.run([serve.Request(uid=0, prompt=np.arange(1, 9, dtype=np.int32),
+                               max_new_tokens=2, adapter="experts")])
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise CheckFailed("moe serve: an expert adapter was not refused")
+    want = MOE_REFUSAL.format(path="layers/moe/down")
+    check(msg == want, f"moe serve: refusal message {msg!r}, expected the "
+                       f"reference's {want!r}")
+    return msg
+
+
+def moe_serve_phase(torch, args, configs, model, serve, ops, gpu_line):
+    """Phase 16: deepseek-moe-16b at full width (28 layers unless
+    ``--layers``) served multi-tenant with PSOFT r 64 on q, k, v, o."""
+    gc_freed = free_cycles(torch)
+    cfg = configs.get_config("deepseek-moe-16b")
+    cfg = cfg.replace(peft=cfg.peft.replace(target_modules=MOE_SERVE_TARGETS))
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    nl = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"moe serve: init_params deepseek-moe-16b {nl} layers, 64 experts "
+          f"top-6 + 2 shared, PSOFT r={cfg.peft.rank} on q k v o (one "
+          f"batched fp32 SVD per attention stack on the card), plain expert "
+          f"stacks: {init_s:.1f} s")
+    adapters = {"tuned_a": moe_adapter(torch, params, MOE_SERVE_TARGETS, 1,
+                                       0.01),
+                "tuned_b": moe_adapter(torch, params, MOE_SERVE_TARGETS, 2,
+                                       0.01)}
+    moe = params["layers"]["moe"]
+    for name, ad in adapters.items():
+        q, bq = ad["layers"]["attn"]["q"], params["layers"]["attn"]["q"]
+        check(q["w_res"] is bq["w_res"] and q["A"] is bq["A"]
+              and q["B"] is bq["B"] and all(
+                  ad["layers"]["moe"][k]["w"] is moe[k]["w"]
+                  for k in ("up", "down", "gate")),
+              f"moe serve: {name} must share every frozen tensor")
+    reqs = workload(cfg.vocab_size, 24, seed=0)
+    kw = dict(slots=8, page_size=16, max_len=512)
+    ops.reset_launches()
+    eng, done, bank_s = serve_once(torch, serve, params, adapters, cfg, reqs,
+                                   "cuda", **kw)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    prefill_engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    stats = dict(eng.last_run_stats)
+    kv_stats = dict(eng.kv.stats)
+    check(len(done) == len(reqs) and all(
+        r.done and len(r.generated) == r.max_new_tokens for r in done),
+        "moe serve: every request finishes with max_new_tokens")
+    check(eng.kv.pages_in_use() == 0, "moe serve: every page is returned")
+    check(kv_stats["prefix_hits"] > 0, "moe serve: shared prefixes aliased")
+    served = eng._tree["layers"]["moe"]
+    check(all(eng._merged_base["layers"]["moe"][k]["w"].data_ptr()
+              == served[k]["w"].data_ptr() == moe[k]["w"].data_ptr()
+              for k in ("up", "down", "gate")),
+          "moe serve: the merged base and the served tree share every "
+          "expert stack's storage with the source params")
+    steps = stats["decode_steps"]
+    for kname, per in (("gather_delta_matmul", 4), ("paged_decode_attention",
+                                                    1)):
+        check(launches[kname] == per * nl * steps,
+              f"moe serve: {kname} launched {launches[kname]} times in "
+              f"{steps} decode steps, expected exactly {per} per layer a "
+              f"step")
+    check(prefill_engines["mma"] == launches["paged_prefill_attention"] > 0
+          and prefill_engines["simt"] == 0,
+          f"moe serve: every bf16 prefill on the tensor-core engine "
+          f"({prefill_engines})")
+    check(launches["psoft_matmul"] == 0,
+          "moe serve: merged serving launches no psoft_matmul")
+    toks = {r.uid: list(r.generated) for r in done}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del eng, done
+    torch.cuda.empty_cache()
+    _, again, _ = serve_once(torch, serve, params, adapters, cfg, reqs,
+                             "cuda", **kw)
+    check({r.uid: list(r.generated) for r in again} == toks,
+          "moe serve: a second identical run gives identical tokens")
+    del again
+    profile = profile_serve(torch, serve, params, adapters, cfg, reqs, kw,
+                            stats) if args.profile else None
+    refusal = expert_refusal(torch, serve, params, cfg, kw)
+    tok_s = stats["decode_tokens"] / stats["decode_s"]
+    step_ms = 1e3 * stats["decode_s"] / steps
+    expert_bytes = sum(moe[k]["w"].numel() * moe[k]["w"].element_size()
+                       for k in ("up", "down", "gate"))
+    result = dict(
+        layers=nl, requests=len(reqs), init_s=init_s, bank_build_s=bank_s,
+        prefill_calls=stats["prefill_calls"], prefill_s=stats["prefill_s"],
+        decode_steps=steps, decode_tokens=stats["decode_tokens"],
+        decode_s=stats["decode_s"], decode_tokens_per_s=tok_s,
+        mean_decode_step_ms=step_ms, launches=launches,
+        prefill_engines=prefill_engines, kv=kv_stats,
+        peak_memory_gib=peak_gib, gc_freed_gib=gc_freed,
+        expert_bytes=expert_bytes,
+        expert_read_floor_ms=expert_bytes / HBM_BYTES_PER_S * 1e3,
+        refusal=refusal, profile=profile, gpu=gpu_line)
+    print(f"moe serve: {len(reqs)} requests, {steps} decode steps, "
+          f"{tok_s:.1f} decode tokens/s, {step_ms:.2f} ms mean decode step "
+          f"(the dense dispatch reads all {expert_bytes / 1e9:.2f} GB of "
+          f"expert weights a step: >= {result['expert_read_floor_ms']:.2f} "
+          f"ms), {stats['prefill_calls']} prefill calls in "
+          f"{stats['prefill_s']:.2f} s, prefix hits "
+          f"{kv_stats['prefix_hits']}, peak {peak_gib:.1f} GiB [{gpu_line}]")
+    print(f"moe serve: launches {launches}; prefill by engine "
+          f"{prefill_engines}; expert adapter refused: {refusal!r}")
+    del params, adapters, moe, served
+    return result
+
+
+def moe_train_phase(torch, args, configs, model, trainer, data, tree, ops,
+                    peft, gpu_line):
+    """Phase 17: deepseek-moe-16b at full width, MOE_TRAIN_LAYERS layers,
+    PSOFT r 64 on every default target (attention, shared experts, every
+    expert stack), remat "full", capacity dispatch; 1 warm-up and
+    MOE_TRAIN_STEPS timed steps; then the tuned tree's logits against its
+    merged tree's (fp32, dense dispatch)."""
+    gc_freed = free_cycles(torch)
+    layers = min(MOE_TRAIN_LAYERS, args.layers or MOE_TRAIN_LAYERS)
+    cfg = configs.get_config("deepseek-moe-16b", remat_policy="full",
+                             num_layers=layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=7, device="cuda")
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t0
+    n_svd = layers * (4 + 3 + 3 * cfg.moe.num_experts)
+    print(f"moe train: init_params deepseek-moe-16b {layers} layers, PSOFT "
+          f"r={cfg.peft.rank} on every default target: the SVD split of "
+          f"{n_svd} matrices ({layers * 3 * cfg.moe.num_experts} of them "
+          f"experts, one batched fp32 SVD per layer of each expert stack) "
+          f"took {svd_s:.1f} s")
+    stacks = MOE_STACKS_PER_LAYER * layers
+    expected = {
+        "psoft_matmul": (3 * stacks, "forward, remat recompute and backward "
+                                     "of every PSOFT linear and expert "
+                                     "stack"),
+        "cayley_neumann": (MOE_STACKS_PER_LAYER, "one per linear stack"),
+        "blockdiag_rotate": (0, "no OFT linear")}
+
+    def logits_check(state):
+        tuned = tree.tree_map(lambda t: t.float(),
+                              trainer.adapter_params(state))
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        merged = peft.merge_tree(tuned, cfg.peft)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                         generator=gen, device="cuda")}
+        with torch.no_grad():
+            got = model.forward_logits(merged, batch, cfg32)
+            want = model.forward_logits(tuned, batch, cfg32)
+        return max_err(torch, got, want, "float32",
+                       "moe train: merged vs unmerged logits (fp32, dense "
+                       "dispatch)", scaled=True)
+
+    result = run_train(torch, configs, trainer, data, tree, ops, cfg,
+                       params, MOE_TRAIN_STEPS, expected, "moe train",
+                       args.profile, on_done=logits_check)
+    del params
+    steps = MOE_TRAIN_STEPS + 1
+    engines, grouped = result["psoft_engines"], result["psoft_grouped"]
+    check(engines["wgmma"] == result["launches"]["psoft_matmul"]
+          and engines["wmma"] == engines["simt"] == 0,
+          f"moe train: every bf16 psoft_matmul call on the wgmma engine "
+          f"({engines})")
+    want_grouped = 3 * MOE_GROUPED_PER_LAYER * layers * steps
+    check(grouped["wgmma"] == want_grouped and sum(grouped.values())
+          == want_grouped,
+          f"moe train: {grouped} grouped psoft_matmul launches, expected "
+          f"exactly one per expert stack per pass ({want_grouped})")
+    check_engines(result, "cayley_neumann", "smem", "moe train")
+    result.update(svd_s=svd_s, svd_matrices=n_svd, gc_freed_gib=gc_freed,
+                  gpu=gpu_line, merged_logits_max_err=result["after"])
+    print(f"moe train: psoft_matmul launches by engine {engines}, grouped "
+          f"{grouped}; merged-vs-unmerged logits max abs err "
+          f"{result['after']:.2e} [{gpu_line}]")
+    return result
+
+
+def moe_card_vs_cpu_phase(torch, configs, model, serve, trainer, data, tree,
+                          ops):
+    """Phase 18: reduced deepseek-moe-16b (fp32): greedy tokens and
+    admissions card against CPU with the base and an attention-only
+    adapter; 3 capacity train steps with drops within 1e-4 relative."""
+    cfg = configs.get_config("deepseek-moe-16b").reduced()
+    params = model.init_params(cfg, seed=0, device="cpu")
+    attn = moe_adapter(torch, params, MOE_SERVE_TARGETS, 1, 0.05, "cpu")
+    reqs = [(u, p, n, "attn" if a == "tuned_a" else "base")
+            for u, p, n, a in workload(cfg.vocab_size, 12, seed=2)]
+    kw = dict(slots=4, page_size=16, max_len=192)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        move = (lambda t: t) if dev == "cpu" else \
+            (lambda t: tree.tree_map(lambda x: x.to("cuda"), t))
+        ops.reset_launches()
+        eng, done, _ = serve_once(torch, serve, move(params),
+                                  {"attn": move(attn)}, cfg, reqs, dev, **kw)
+        outs[dev] = ({r.uid: list(r.generated) for r in done},
+                     [(e.step, e.slot, e.uid, e.adapter, e.prefix_tokens)
+                      for e in eng.admission_events])
+    engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    check(engines["simt"] == ops.LAUNCHES["paged_prefill_attention"] > 0,
+          f"moe card vs cpu: every fp32 prefill on simt ({engines})")
+    check(outs["cuda"] == outs["cpu"],
+          "moe card vs cpu: card and CPU give the same greedy tokens and "
+          "admissions")
+    cap_cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=0.25))
+    tc = configs.TrainConfig(steps=10, learning_rate=1e-2, warmup_ratio=0.2)
+    cpu = trainer.train_state_from_params(params, cap_cfg, tc)
+    gpu = tree.tree_map(lambda t: t.to("cuda"), cpu)
+    ds = data.SyntheticLMDataset(cap_cfg, 4, 32)
+    step = trainer.make_train_step(cap_cfg, tc)
+    losses = {"cpu": [], "cuda": []}
+    ops.reset_launches()
+    for i in range(3):
+        batch = ds.batch_at(i)
+        cpu, mc = step(cpu, batch)
+        gpu, mg = step(gpu, batch)
+        losses["cpu"].append(float(mc["loss"]))
+        losses["cuda"].append(float(mg["loss"]))
+    grouped = dict(ops.PSOFT_GROUPED_LAUNCHES)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                               losses["cpu"])]
+    check(max(rel) <= 1e-4, f"moe card vs cpu: capacity train losses "
+                            f"within 1e-4 relative ({losses})")
+    check(grouped["simt"] == 3 * 3 * cfg.num_layers * 3 > 0,
+          f"moe card vs cpu: fp32 expert stacks on grouped simt launches "
+          f"({grouped})")
+    n_tok = sum(len(t) for t in outs["cpu"][0].values())
+    print(f"moe card vs cpu: reduced deepseek-moe-16b fp32, {len(reqs)} "
+          f"requests, {n_tok} tokens and the admissions identical; 3 "
+          f"capacity steps (capacity_factor 0.25) losses {losses['cuda']} "
+          f"(max relative gap {max(rel):.2e}); grouped launches {grouped}")
+    return dict(requests=len(reqs), tokens=n_tok, prefill_engines=engines,
+                losses=losses, max_rel_gap=max(rel), grouped=grouped)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3553,6 +4184,10 @@ def main(argv=None) -> int:
     kernels = kernel_phase(torch, ops, ref, F)
     kernels.update(train_kernel_phase(torch, ops, ref))
     kernels.update(blockdiag_kernel_phase(torch, ops, ref))
+    moe_kernels = moe_kernel_phase(torch, ops, ref, F)
+    kernels["psoft_matmul_grouped"] = moe_kernels.pop("psoft_matmul_grouped")
+    for name, res in moe_kernels.items():
+        kernels[name]["deepseek"] = res
     phase_s["kernels"] = time.perf_counter() - t0
     print(f"kernels: phase took {phase_s['kernels']:.1f} s")
     for name, res in kernels.items():
@@ -3616,6 +4251,22 @@ def main(argv=None) -> int:
     print(f"kernels: cayley_neumann PSOFT stack {cn['ms']:.4f} ms (3xTF32) "
           f"against {cn['plain_tf32_ms']:.4f} ms for the plain series "
           f"through cuBLAS in plain TF32 in the same run")
+    pg = kernels["psoft_matmul_grouped"]
+    for k, v in pg["per_stack"].items():
+        print(f"kernels: grouped psoft_matmul {k}: forward {v['ms']:.4f} ms,"
+              f" transposed {v['backward_ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, torch.bmm on merged weights "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"{v['bound_by']} ({v['bytes'] / 1e6:.1f} MB, "
+              f"{v['flops'] / 1e9:.1f} GFLOP); launches (profiled) "
+              f"{v['launch_ms']}")
+    for name in ("gather_delta_matmul", "paged_decode_attention",
+                 "paged_prefill_attention"):
+        v = kernels[name]["deepseek"]
+        print(f"kernels: {name} at deepseek-moe-16b ({v['shape']}): "
+              f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, library "
+              f"{v['library_ms']:.4f} ms, "
+              f"bound {v['bound_ms']:.4f} ms by {v['bound_by']}")
     t0 = time.perf_counter()
     served, params, adapters, serve_cfg = serve_phase(
         torch, args, configs, model, serve, ops, gpu_line)
@@ -3673,23 +4324,43 @@ def main(argv=None) -> int:
         torch, configs, model, trainer, data, tree, peft, method, 3)
         for method in ("oft", "goft")]
     phase_s["baselines_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_served = moe_serve_phase(torch, args, configs, model, serve, ops,
+                                 gpu_line)
+    torch.cuda.empty_cache()
+    phase_s["moe_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_trained = moe_train_phase(torch, args, configs, model, trainer, data,
+                                  tree, ops, peft, gpu_line)
+    torch.cuda.empty_cache()
+    phase_s["moe_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_cross = moe_card_vs_cpu_phase(torch, configs, model, serve, trainer,
+                                      data, tree, ops)
+    phase_s["moe_card_vs_cpu"] = time.perf_counter() - t0
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
     # each path is counted from zero just before its run: phase 3's run(),
-    # phase 10's stream, phase 12's spec run, phase 5's train steps and
+    # phase 10's stream, phase 12's spec run, phase 5's train steps,
     # phase 14's serve-while-train run (its train steps and bank
-    # extensions included)
+    # extensions included), phase 16's MoE run() and phase 17's MoE train
+    # steps (whose expert stacks are the grouped launches)
     main_path = {**{k: served["launches"][k] + streamed["launches"][k]
                     + specced["launches"][k] + lifecycle["launches"][k]
+                    + moe_served["launches"][k]
                     for k in SERVE_KERNELS},
                  **{k: trained["launches"][k] + lifecycle["launches"][k]
+                    + moe_trained["launches"][k]
                     for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
-                     oft_trained["launches"]["blockdiag_rotate"]}
+                     oft_trained["launches"]["blockdiag_rotate"],
+                 "psoft_matmul_grouped":
+                     sum(moe_trained["psoft_grouped"].values())}
     line = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "source": f"src/repro_torch/kernels/csrc/"
+                   f"{name.replace('_grouped', '')}.cu",
          "replaces": REPLACES[name],
          "launches": main_path[name],
          "max_abs_err": res.get("max_err_bfloat16",
@@ -3714,6 +4385,9 @@ def main(argv=None) -> int:
                                        oft_train=oft_trained,
                                        baselines=baselines,
                                        baselines_card_vs_cpu=baseline_cross,
+                                       moe_serve=moe_served,
+                                       moe_train=moe_trained,
+                                       moe_card_vs_cpu=moe_cross,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)
     print(json.dumps(line))

@@ -2,8 +2,8 @@
 named architectures.
 
 This is the port's own copy of the reference package's config module (the
-port imports nothing of the reference package), cut to what the dense
-serving and training paths read (plus the data pipeline's
+port imports nothing of the reference package), cut to what the dense and
+MoE serving and training paths read (plus the data pipeline's
 :class:`DataConfig`), and :data:`DTYPES`, the map from the config's dtype
 strings to torch dtypes.
 """
@@ -86,9 +86,20 @@ class PEFTConfig:
 
 
 @dataclass
+class MoEConfig:
+    num_experts: int = 0            # routed experts (0 = dense)
+    num_shared_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    sharding: str = "ep"            # "ep" (experts over model axis) or "tp"
+    aux_loss_weight: float = 0.01
+
+
+@dataclass
 class ModelConfig:
     name: str = "tiny"
-    family: str = "dense"           # the port serves the dense family only
+    family: str = "dense"           # the port builds dense | moe
     num_layers: int = 2
     d_model: int = 128
     num_heads: int = 4
@@ -107,6 +118,7 @@ class ModelConfig:
     # remat: "full" recomputes each layer in the backward
     # (torch.utils.checkpoint), "none" keeps its activations
     remat_policy: str = "full"      # none | full
+    moe: MoEConfig = field(default_factory=MoEConfig)
     peft: PEFTConfig = field(default_factory=PEFTConfig)
 
     @property
@@ -118,6 +130,31 @@ class ModelConfig:
         return _round_up(self.vocab_size, VOCAB_PAD_MULTIPLE)
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self, **extra) -> "ModelConfig":
+        """A tiny same-family config for CPU tests: the reference's
+        ``reduced()`` for the families the port builds (an MoE config keeps
+        4 experts, top-2, at most one shared expert, ``d_ff`` 64)."""
+        kw: Dict = dict(
+            num_layers=min(self.num_layers, 2),
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2),
+            head_dim=16,
+            d_ff=128,
+            vocab_size=256,
+            max_seq_len=128,
+            dtype="float32",
+            param_dtype="float32",
+        )
+        if self.family == "moe":
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2,
+                num_shared_experts=min(self.moe.num_shared_experts, 1))
+            kw["d_ff"] = 64
+        kw["peft"] = dataclasses.replace(self.peft, rank=8)
+        kw.update(extra)
         return dataclasses.replace(self, **kw)
 
 
@@ -184,6 +221,33 @@ def lm_100m() -> ModelConfig:
         num_layers=12, d_model=768, num_heads=12, num_kv_heads=4, head_dim=64,
         d_ff=2048, vocab_size=32000, mlp_type="swiglu", max_seq_len=1024,
         peft=PEFTConfig(rank=46),
+    )
+
+
+@register("dbrx-132b")
+def dbrx_132b() -> ModelConfig:
+    # [hf:databricks/dbrx-base] 40L d=6144 48H kv=8 ffn=10752 vocab=100352,
+    # 16 experts top-4 fine-grained
+    return ModelConfig(
+        name="dbrx-132b", family="moe",
+        num_layers=40, d_model=6144, num_heads=48, num_kv_heads=8, head_dim=128,
+        d_ff=10752, vocab_size=100352, mlp_type="swiglu", norm_type="layernorm",
+        moe=MoEConfig(num_experts=16, top_k=4, capacity_factor=1.25, sharding="ep"),
+        peft=PEFTConfig(rank=128),
+    )
+
+
+@register("deepseek-moe-16b")
+def deepseek_moe_16b() -> ModelConfig:
+    # [arXiv:2401.06066] 28L d=2048 16H kv=16 ffn=1408/expert vocab=102400,
+    # 2 shared + 64 routed top-6
+    return ModelConfig(
+        name="deepseek-moe-16b", family="moe",
+        num_layers=28, d_model=2048, num_heads=16, num_kv_heads=16, head_dim=128,
+        d_ff=1408, vocab_size=102400, mlp_type="swiglu",
+        moe=MoEConfig(num_experts=64, num_shared_experts=2, top_k=6,
+                      capacity_factor=1.25, sharding="ep"),
+        peft=PEFTConfig(rank=64),
     )
 
 

@@ -7,11 +7,13 @@ Per linear ``y = x @ W`` with W_pre (d_in, d_out):
     forward:  y = x @ (A diag(α) R diag(β) B + W_res)
 
 Trainable: q (the r(r−1)/2 Cayley entries), α and β (ones at init, so
-training starts exactly at W_pre).  The forward of one linear runs through
-the ``psoft_matmul`` kernel wrapper (:func:`psoft_fused_apply`) on every
-device; :func:`psoft_apply` mirrors the reference's unfused apply.  The
-other functions broadcast over leading (layer-stack) dimensions, so a
-scan-stacked ``(L, d_in, d_out)`` weight is decomposed by one batched SVD.
+training starts exactly at W_pre).  The forward of one linear, or of an MoE
+layer's expert stack, runs through the ``psoft_matmul`` kernel wrapper
+(:func:`psoft_fused_apply`) on every device; :func:`psoft_apply` mirrors
+the reference's unfused apply.  The other functions broadcast over leading
+(layer-stack, expert) dimensions, so a scan-stacked ``(L, d_in, d_out)``
+weight is decomposed by one batched SVD, and an ``(L, E, d_in, d_out)``
+expert stack by one batched SVD per layer.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core import cayley
 from repro_torch.kernels import ops
+from repro_torch.tree import stack_filled
 
 Params = Dict[str, torch.Tensor]
 
@@ -29,7 +32,14 @@ def psoft_init(w_pre: torch.Tensor, rank: int, relax_vectors: bool = True,
                param_dtype=torch.bfloat16, peft_dtype=torch.float32,
                ) -> Params:
     """One-time SVD split (Algorithm 1 lines 4-5), in fp32 on w_pre's
-    device."""
+    device.  A stack of stacks (two or more leading dims, e.g. an
+    ``(L, E, d_in, d_out)`` expert stack) is split one leading index at a
+    time into preallocated outputs: one fp32 SVD over all 28 x 64 expert
+    matrices of deepseek-moe-16b would need ~21 GB of input and as much
+    again of factors."""
+    if w_pre.ndim >= 4:
+        return stack_filled(w_pre.shape[0], lambda i: psoft_init(
+            w_pre[i], rank, relax_vectors, param_dtype, peft_dtype))
     d_in, d_out = w_pre.shape[-2:]
     lead = w_pre.shape[:-2]
     r = min(rank, min(d_in, d_out))
@@ -80,18 +90,24 @@ def psoft_fused_apply(params: Params, x: torch.Tensor,
                       compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Forward of ONE linear (2-D ``w_res``) through the fused
     ``psoft_matmul`` wrapper, for any leading shape of ``x`` (flattened to
-    tokens).  A precomputed rotation under ``"rot"`` is used as is (the
-    model builds each layer stack's rotations once per forward); otherwise
-    it is built here."""
+    tokens); or of one expert stack (3-D ``w_res`` (E, d_in, d_out)) on
+    ``x`` (E, ..., d_in), expert e's tokens through linear e, in one grouped
+    launch set (the reference vmaps one linear over the expert axis).  A
+    precomputed rotation under ``"rot"`` is used as is (the model builds
+    each layer stack's rotations once per forward); otherwise it is built
+    here."""
     shape = tuple(params["w_res"].shape)
-    if len(shape) != 2:
-        raise ValueError(f"psoft_fused_apply takes one linear; index the "
-                         f"layer stack first (w_res {shape})")
+    if len(shape) not in (2, 3) or (len(shape) == 3 and (
+            x.ndim < 2 or x.shape[0] != shape[0])):
+        raise ValueError(f"psoft_fused_apply takes one linear or one expert "
+                         f"stack with x (E, ..., d_in); index the layer "
+                         f"stack first (w_res {shape}, x {tuple(x.shape)})")
     rot = params.get("rot")
     if rot is None:
         rot = psoft_rotation(params, neumann_terms, exact)
     lead = x.shape[:-1]
-    y = ops.psoft_matmul(x.reshape(-1, x.shape[-1]), params["w_res"],
+    rows = (shape[0], -1) if len(shape) == 3 else (-1,)
+    y = ops.psoft_matmul(x.reshape(*rows, x.shape[-1]), params["w_res"],
                          params["A"], rot, params["B"], params.get("alpha"),
                          params.get("beta"), compute_dtype=compute_dtype)
     return y.reshape(*lead, y.shape[-1])
@@ -99,7 +115,16 @@ def psoft_fused_apply(params: Params, x: torch.Tensor,
 
 def psoft_merge(params: Params, neumann_terms: int = 5,
                 exact: bool = False) -> torch.Tensor:
-    """W_final = A diag(α) R diag(β) B + W_res (Algorithm 1 line 12)."""
+    """W_final = A diag(α) R diag(β) B + W_res (Algorithm 1 line 12); a
+    stack of stacks (``(L, E, d_in, d_out)``) one leading index at a time,
+    into one preallocated output (its fp32 intermediates at once would be
+    ~21 GB at deepseek-moe-16b)."""
+    if params["w_res"].ndim >= 4:
+        out = torch.empty_like(params["w_res"])
+        for i in range(out.shape[0]):
+            out[i] = psoft_merge({k: v[i] for k, v in params.items()},
+                                 neumann_terms, exact)
+        return out
     rot = psoft_rotation(params, neumann_terms, exact)
     a = params["A"].float()
     b = params["B"].float()

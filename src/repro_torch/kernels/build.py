@@ -42,7 +42,7 @@ ENTRY_POINTS = {
         [_I] + [_P] * 8 + [_I] * 8 + [_P]),
     "psoft_matmul": (
         "psoft_matmul_launch",
-        [_I, _I, _I] + [_P] * 11 + [_I] * 4 + [_P]),
+        [_I, _I, _I] + [_P] * 11 + [_I] * 5 + [_P]),
     "cayley_neumann": (
         "cayley_neumann_launch",
         [_I, _P, _P, _P] + [_I] * 4 + [_P]),

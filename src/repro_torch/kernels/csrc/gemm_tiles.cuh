@@ -14,6 +14,13 @@
 // scale is 1.  Every ragged edge (M, N, D, the D1 seam) is masked: elements
 // outside are read as 0 and never written.
 //
+// Grouped products (a stack of G independent products, one per expert of an
+// MoE layer) put the group on the grid's z axis: group g reads every
+// pointer advanced by g times its group stride (in elements) and writes C
+// advanced by g times C's, so one launch covers the stack and no block ever
+// reads or writes another group's rows.  Group strides of 0 (the default)
+// are the single product.
+//
 // Two engines:
 //   * tc_gemm: bf16 tensor cores through WMMA (16x16x16 bf16 fragments,
 //     fp32 accumulators).  128x128 block tile, 32-deep steps, 8 warps of
@@ -43,6 +50,7 @@ struct ASrc {
   const float* s2;
   int M, D1, D;
   bool vec1, vec2;  // 16-byte vector loads allowed for part 1 / part 2
+  long g1, gs1, g2, gs2;  // group strides of p1, s1, p2, s2
 };
 
 template <typename T1, typename T2>
@@ -53,7 +61,24 @@ struct BSrc {
   long sd2, sc2;
   int D1, D, N;
   bool vec1, vec2;  // 16-byte vector loads along the contiguous index
+  long g1, g2;      // group strides of p1, p2
 };
+
+// the operands of group g (a null pointer stays null)
+template <typename T1>
+__device__ __forceinline__ ASrc<T1> group_of(ASrc<T1> s, int g) {
+  s.p1 += g * s.g1;
+  if (s.s1) s.s1 += g * s.gs1;
+  if (s.p2) s.p2 += g * s.g2;
+  if (s.s2) s.s2 += g * s.gs2;
+  return s;
+}
+template <typename T1, typename T2>
+__device__ __forceinline__ BSrc<T1, T2> group_of(BSrc<T1, T2> s, int g) {
+  s.p1 += g * s.g1;
+  if (s.p2) s.p2 += g * s.g2;
+  return s;
+}
 
 template <typename T1>
 __device__ __forceinline__ float a_at(const ASrc<T1>& s, int m, int d) {
@@ -178,7 +203,7 @@ __device__ __forceinline__ uint4 tc_load_b_cols(
 template <bool kTransB, typename TC>
 __global__ void __launch_bounds__(kTcThreads)
     tc_gemm(ASrc<__nv_bfloat16> a, BSrc<__nv_bfloat16, __nv_bfloat16> b,
-            TC* __restrict__ c, long ldc) {
+            TC* __restrict__ c, long ldc, long c_group) {
   using namespace nvcuda;
   __shared__ __align__(128) unsigned char smem[kTcSmemBytes];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -186,6 +211,9 @@ __global__ void __launch_bounds__(kTcThreads)
   constexpr int lda = kTcBK + kTcPad;                          // 40
   constexpr int ldb = kTransB ? kTcBK + kTcPad : kTcBN + kTcPad;  // 40/136
 
+  a = group_of(a, blockIdx.z);
+  b = group_of(b, blockIdx.z);
+  c += blockIdx.z * c_group;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
@@ -300,10 +328,14 @@ constexpr int kSimtThreads = 256;
 
 template <typename T1, typename TB1, typename TB2, typename TC>
 __global__ void __launch_bounds__(kSimtThreads)
-    simt_gemm(ASrc<T1> a, BSrc<TB1, TB2> b, TC* __restrict__ c, long ldc) {
+    simt_gemm(ASrc<T1> a, BSrc<TB1, TB2> b, TC* __restrict__ c, long ldc,
+              long c_group) {
   __shared__ __align__(16) float As[kSimtBK][kSimtBM + 4];
   __shared__ __align__(16) float Bs[kSimtBK][kSimtBN + 4];
   const bool b_trans = b.sd1 == 1 && b.sc1 != 1;  // contiguous along depth
+  a = group_of(a, blockIdx.z);
+  b = group_of(b, blockIdx.z);
+  c += blockIdx.z * c_group;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -356,25 +388,31 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long>(p) & 15u) == 0;
 }
 
+// ``groups`` products, C's group stride ``c_group`` elements
 template <typename T1, typename TB1, typename TB2, typename TC>
 cudaError_t launch_simt(const ASrc<T1>& a, const BSrc<TB1, TB2>& b, TC* c,
-                        long ldc, cudaStream_t stream) {
+                        long ldc, cudaStream_t stream, int groups = 1,
+                        long c_group = 0) {
   const dim3 grid((b.N + kSimtBN - 1) / kSimtBN,
-                  (a.M + kSimtBM - 1) / kSimtBM);
-  simt_gemm<T1, TB1, TB2, TC><<<grid, kSimtThreads, 0, stream>>>(a, b, c,
-                                                                 ldc);
+                  (a.M + kSimtBM - 1) / kSimtBM, groups);
+  simt_gemm<T1, TB1, TB2, TC><<<grid, kSimtThreads, 0, stream>>>(
+      a, b, c, ldc, c_group);
   return cudaGetLastError();
 }
 
 template <typename TC>
 cudaError_t launch_tc(const ASrc<__nv_bfloat16>& a,
                       const BSrc<__nv_bfloat16, __nv_bfloat16>& b,
-                      bool trans_b, TC* c, long ldc, cudaStream_t stream) {
-  const dim3 grid((b.N + kTcBN - 1) / kTcBN, (a.M + kTcBM - 1) / kTcBM);
+                      bool trans_b, TC* c, long ldc, cudaStream_t stream,
+                      int groups = 1, long c_group = 0) {
+  const dim3 grid((b.N + kTcBN - 1) / kTcBN, (a.M + kTcBM - 1) / kTcBM,
+                  groups);
   if (trans_b)
-    tc_gemm<true, TC><<<grid, kTcThreads, 0, stream>>>(a, b, c, ldc);
+    tc_gemm<true, TC><<<grid, kTcThreads, 0, stream>>>(a, b, c, ldc,
+                                                       c_group);
   else
-    tc_gemm<false, TC><<<grid, kTcThreads, 0, stream>>>(a, b, c, ldc);
+    tc_gemm<false, TC><<<grid, kTcThreads, 0, stream>>>(a, b, c, ldc,
+                                                        c_group);
   return cudaGetLastError();
 }
 

@@ -14,6 +14,15 @@
 // store.  TMA's rules: 16-byte-aligned bases and row pitches (every row
 // length a multiple of 8 elements); the caller checks them.
 //
+// Grouped products: every operand is a stack of G arrays (one per expert of
+// an MoE layer), described to TMA as a 3-D tensor with the group as its
+// outer dimension and boxes 1 deep there, and the grid's y axis is the
+// group.  TMA clips a box at the edge of its own group's array (zero fill
+// past the last row or column), so a tile that overhangs an expert's M = C
+// rows (C = 240 at deepseek-moe-16b is not a multiple of 64) reads zeros,
+// never the next expert's rows, and its store is masked at the group's M.
+// The single product is the G = 1 case of the same maps.
+//
 // Block: NC consumer warpgroups (BM = 64 * NC rows, one m64nBNk16 wgmma
 // row band each) and one producer warp.  One thread of the producer warp
 // issues the TMA loads of each stage (A: one 64-wide box of BM rows; B: one
@@ -85,15 +94,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// 2-D TMA load of the box at (c0 inner, c1 outer) into shared memory,
-// counted on ``bar``
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
+// 3-D TMA load of the box at (c0 inner, c1 outer, group g) into shared
+// memory, counted on ``bar``
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int g) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
+      "r"(c1), "r"(g)
       : "memory");
 }
 
@@ -227,8 +237,9 @@ struct Plan {
   static constexpr int kBytes = kBarOffset + 2 * STAGES * 8 + 1024;
 };
 
-// One BM x BN tile of C per block.  Tiles are numbered M-fastest (the blocks
-// in flight share B's columns) or N-fastest (they share A's rows).
+// One BM x BN tile of C per block, of group blockIdx.y (C of group g starts
+// g M N elements on).  Tiles are numbered M-fastest (the blocks in flight
+// share B's columns) or N-fastest (they share A's rows).
 template <int NC, int BN, bool kBKMajor, int STAGES, typename TOut>
 __global__ void __launch_bounds__(NC * 128 + 32, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tm_a1,
@@ -247,6 +258,8 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
   const int m_tiles = (M + P::kBM - 1) / P::kBM;
   const int n_tiles = (N + BN - 1) / BN;
   const int tile = blockIdx.x;
+  const int g = blockIdx.y;
+  c += (long)g * M * N;
   const int mt = m_fastest ? tile % m_tiles : tile / n_tiles;
   const int nt = m_fastest ? tile / m_tiles : tile % n_tiles;
   const int m0 = mt * P::kBM, n0 = nt * BN;
@@ -275,14 +288,14 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1)
         const CUtensorMap* ma = seg1 ? &tm_a1 : &tm_a2;
         const CUtensorMap* mb = seg1 ? &tm_b1 : &tm_b2;
         mbar_expect_tx(&full[s], P::kStageBytes);
-        tma_load_2d(a_s, ma, &full[s], k0, m0);
+        tma_load_3d(a_s, ma, &full[s], k0, m0, g);
         if constexpr (kBKMajor) {
-          tma_load_2d(b_s, mb, &full[s], k0, n0);
+          tma_load_3d(b_s, mb, &full[s], k0, n0, g);
         } else {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load_2d(b_s + j * 64 * kStageRowBytes, mb, &full[s],
-                        n0 + 64 * j, k0);
+            tma_load_3d(b_s + j * 64 * kStageRowBytes, mb, &full[s],
+                        n0 + 64 * j, k0, g);
         }
       }
     }
@@ -377,23 +390,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A dense row-major bf16 array of ``outer`` rows of ``inner`` elements.
+// A stack of ``groups`` dense row-major bf16 arrays of ``outer`` rows of
+// ``inner`` elements each, one after another.
 struct Operand {
   const void* ptr;
   long inner, outer;
+  long groups;
 };
 
-// TMA map of ``op`` in boxes of box_inner x box_outer, 128-byte swizzle,
-// zeros outside the array
+// TMA map of ``op`` in boxes of box_inner x box_outer x 1 group, 128-byte
+// swizzle, zeros outside each group's array
 inline bool encode(CUtensorMap* map, const Operand& op, uint32_t box_inner,
                    uint32_t box_outer) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)op.inner, (cuuint64_t)op.outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)op.inner * 2};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const cuuint64_t dims[3] = {(cuuint64_t)op.inner, (cuuint64_t)op.outer,
+                              (cuuint64_t)op.groups};
+  const cuuint64_t strides[2] = {(cuuint64_t)op.inner * 2,
+                                 (cuuint64_t)op.inner * op.outer * 2};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(op.ptr), dims, strides, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -402,12 +419,13 @@ inline bool encode(CUtensorMap* map, const Operand& op, uint32_t box_inner,
 
 // C (M x N) = [A1 | A2] . [B1 ; B2]: A1 (M x d1) and A2 (M x d2) row-major;
 // B K-major (stored N x d) or MN-major (stored d x N).  d2 = 0 leaves out
-// the second segment (a2, b2 unused).
+// the second segment (a2, b2 unused).  Every operand holds ``groups``
+// arrays (its ``groups`` field must say so) and C groups x M x N.
 template <int NC, int BN, bool kBKMajor, int STAGES, typename TOut>
 cudaError_t launch_gemm(const Operand& a1, const Operand& b1,
                         const Operand& a2, const Operand& b2, int d1, int d2,
                         TOut* c, int M, int N, bool m_fastest,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int groups = 1) {
   using P = Plan<NC, BN, STAGES, TOut>;
   // the encoder is a driver call: it needs the device's context current on
   // this thread (autograd runs backwards on threads of its own, where only
@@ -426,13 +444,13 @@ cudaError_t launch_gemm(const Operand& a1, const Operand& b1,
         is_a ? encode(&maps[i], *ops[i], kBK, P::kBM)
              : (kBKMajor ? encode(&maps[i], *ops[i], kBK, BN)
                          : encode(&maps[i], *ops[i], 64, kBK));
-    if (!ok) return cudaErrorInvalidValue;
+    if (!ok || ops[i]->groups != groups) return cudaErrorInvalidValue;
   }
   auto kernel = gemm_kernel<NC, BN, kBKMajor, STAGES, TOut>;
   err = allow_smem(kernel, P::kBytes);
   if (err != cudaSuccess) return err;
   const int tiles = ((M + P::kBM - 1) / P::kBM) * ((N + BN - 1) / BN);
-  kernel<<<tiles, P::kThreads, P::kBytes, stream>>>(
+  kernel<<<dim3(tiles, groups), P::kThreads, P::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], (d1 + kBK - 1) / kBK,
       d2 > 0 ? (d2 + kBK - 1) / kBK : 0, c, M, N, m_fastest ? 1 : 0);
   return cudaGetLastError();

@@ -16,6 +16,19 @@
 //   u and t are written as (M, r) fp32: the autograd function keeps them
 //   (forward: u1 = x A and u3; backward: du4 and du2) for the rank-r grads.
 //
+// Grouped (G > 1): every array is a stack of G of the above, one per expert
+// of an MoE layer's expert stack (x (G, M, K), W_res (G, K, N), A (G, K, r),
+// R (G, r, r), B (G, r, N), alpha and beta (G, r); u, t (G, M, r); y
+// (G, M, N)), and group g computes the function above on its own slices.
+// The reference vmaps one PSOFT linear over the expert axis
+// (src/repro/models/moe.py, apply_linear_stacked); here the group is a grid
+// axis of every launch, so a stack of 64 experts takes the same launches
+// as one linear (the projection, the rotation, the output product) and its
+// 64 x (M / 128) x (N / 128) output tiles fill the card together, where a
+// launch per expert would leave most SMs idle (at deepseek-moe-16b's
+// capacity buffer, M = 240 rows, one expert is 2 x 11 tiles on 132 SMs).
+// The 2-D call is G = 1.
+//
 // What bounds it on the H100: operations.  At a llama32-3b gate/up linear
 // (M = 2048 tokens, K = 3072, N = 8192, r = 352) the launch does ~120 GFLOP
 // on ~105 MB, ~1100 flops per byte, far above the ~295 flops/byte ridge of
@@ -67,11 +80,17 @@
 
 namespace repro_torch {
 
+// a pointer whose every group's slice starts 16-byte aligned
+template <typename T>
+bool aligned16_groups(const T* p, long group_elems, int G) {
+  return aligned16(p) && (G == 1 || (group_elems * sizeof(T)) % 16 == 0);
+}
+
 template <typename T>
 cudaError_t launch_psoft(bool transpose, const T* x, const T* w_res,
                          const T* a, const float* rot, const T* b,
                          const float* s_in, const float* s_out, float* u,
-                         float* t, T* y, int M, int K, int N, int r,
+                         float* t, T* y, int G, int M, int K, int N, int r,
                          cudaStream_t stream) {
   const int din = transpose ? N : K, dout = transpose ? K : N;
   // P_in (din x r): A (K, r) row-major, or B^T with B (r, N) row-major
@@ -84,41 +103,50 @@ cudaError_t launch_psoft(bool transpose, const T* x, const T* w_res,
   // P_out (r x dout): B (r, N), or A^T with A (K, r)
   const T* p_out = transpose ? a : b;
   const long pout_sd = transpose ? 1 : N, pout_sc = transpose ? r : 1;
+  // elements per group of each stacked array
+  const long gx = (long)M * din, gw = (long)K * N, ga = (long)K * r,
+             gb = (long)r * N, gr = (long)r * r, gu = (long)M * r,
+             gy = (long)M * dout;
+  const long gpin = transpose ? gb : ga, gpout = transpose ? ga : gb;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   cudaError_t err;
 
   if (r > 0) {
     ASrc<T> a1{x, din, nullptr, nullptr, 0, nullptr, M, din, din,
-               false, false};
+               false, false, gx, 0, 0, 0};
     BSrc<T, T> b1{p_in, pin_sd, pin_sc, nullptr, 0, 0, din, din, r,
-                  false, false};
+                  false, false, gpin, 0};
     if constexpr (kBf16) {
-      a1.vec1 = din % 8 == 0 && aligned16(x);
-      b1.vec1 = (transpose ? pin_sc : pin_sd) % 8 == 0 && aligned16(p_in);
-      err = launch_tc(a1, b1, transpose, u, r, stream);
+      a1.vec1 = din % 8 == 0 && aligned16_groups(x, gx, G);
+      b1.vec1 = (transpose ? pin_sc : pin_sd) % 8 == 0 &&
+                aligned16_groups(p_in, gpin, G);
+      err = launch_tc(a1, b1, transpose, u, r, stream, G, gu);
     } else {
-      err = launch_simt(a1, b1, u, r, stream);
+      err = launch_simt(a1, b1, u, r, stream, G, gu);
     }
     if (err != cudaSuccess) return err;
-    ASrc<float> a2{u, r, s_in, nullptr, 0, nullptr, M, r, r, false, false};
+    ASrc<float> a2{u, r, s_in, nullptr, 0, nullptr, M, r, r, false, false,
+                   gu, r, 0, 0};
     BSrc<float, float> b2{rot, rot_sd, rot_sc, nullptr, 0, 0, r, r, r,
-                          false, false};
-    err = launch_simt(a2, b2, t, r, stream);
+                          false, false, gr, 0};
+    err = launch_simt(a2, b2, t, r, stream, G, gu);
     if (err != cudaSuccess) return err;
   }
-  ASrc<T> a3{x, din, nullptr, t, r, s_out, M, din, din + r, false, false};
+  ASrc<T> a3{x, din, nullptr, t, r, s_out, M, din, din + r, false, false,
+             gx, 0, gu, r};
   BSrc<T, T> b3{w_res, w_sd, w_sc, p_out, pout_sd, pout_sc, din, din + r,
-                dout, false, false};
+                dout, false, false, gw, gpout};
   if constexpr (kBf16) {
-    a3.vec1 = din % 8 == 0 && aligned16(x);
-    a3.vec2 = r % 4 == 0 && din % 4 == 0 && aligned16(t) && aligned16(s_out);
-    b3.vec1 = N % 8 == 0 && aligned16(w_res);
+    a3.vec1 = din % 8 == 0 && aligned16_groups(x, gx, G);
+    a3.vec2 = r % 4 == 0 && din % 4 == 0 && aligned16_groups(t, gu, G) &&
+              aligned16_groups(s_out, r, G);
+    b3.vec1 = N % 8 == 0 && aligned16_groups(w_res, gw, G);
     b3.vec2 = (transpose ? pout_sc % 8 == 0 && din % 8 == 0
                          : pout_sd % 8 == 0) &&
-              aligned16(p_out);
-    return launch_tc(a3, b3, transpose, y, dout, stream);
+              aligned16_groups(p_out, gpout, G);
+    return launch_tc(a3, b3, transpose, y, dout, stream, G, gy);
   } else {
-    return launch_simt(a3, b3, y, dout, stream);
+    return launch_simt(a3, b3, y, dout, stream, G, gy);
   }
 }
 
@@ -184,7 +212,8 @@ __device__ __forceinline__ void rotate_store(float (*as)[kRotBM + 4],
 }
 
 // t = (u . s_in) R' (R' = R, or R^T read in place) and v = bf16(t . s_out),
-// fp32 on the CUDA cores; r a multiple of 4 and u, R, t 16-byte aligned.
+// fp32 on the CUDA cores, for group blockIdx.z of a stack; r a multiple of
+// 4 and u, R, t 16-byte aligned.
 // Each thread computes 4 x 4 outputs; the next depth step is loaded into
 // registers while the current one multiplies out of shared memory.  Two
 // blocks per SM named: without a minimum ptxas capped it at 64 registers
@@ -197,6 +226,13 @@ __global__ void __launch_bounds__(kRotThreads, 2)
                   __nv_bfloat16* __restrict__ v, int M, int r) {
   __shared__ __align__(16) float As[2][kRotBK][kRotBM + 4];
   __shared__ __align__(16) float Bs[2][kRotBK][kRotBN + 4];
+  const long g = blockIdx.z;
+  u += g * M * r;
+  t += g * M * r;
+  v += g * M * r;
+  rot += g * r * r;
+  s_in += g * r;
+  s_out += g * r;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * kRotBM, n0 = blockIdx.x * kRotBN;
   float acc[4][4] = {};
@@ -246,25 +282,26 @@ cudaError_t launch_psoft_wgmma(bool transpose, const __nv_bfloat16* x,
                                const __nv_bfloat16* a, const float* rot,
                                const __nv_bfloat16* b, const float* s_in,
                                const float* s_out, float* u, float* t,
-                               __nv_bfloat16* v, __nv_bfloat16* y, int M,
-                               int K, int N, int r, cudaStream_t stream) {
+                               __nv_bfloat16* v, __nv_bfloat16* y, int G,
+                               int M, int K, int N, int r,
+                               cudaStream_t stream) {
   using hopper::launch_gemm;
   using hopper::Operand;
   using bf16 = __nv_bfloat16;
   const int din = transpose ? N : K, dout = transpose ? K : N;
-  // every operand as stored: x (M, din), W_res (K, N), A (K, r), B (r, N),
-  // v (M, r); the engine reads B-side arrays MN-major (forward) or K-major
-  // (transposed) from the same storage
-  const Operand xs{x, din, M}, ws{w_res, N, K}, as{a, r, K}, bs{b, N, r},
-      vs{v, r, M};
+  // every operand as stored, G of each: x (M, din), W_res (K, N), A (K, r),
+  // B (r, N), v (M, r); the engine reads B-side arrays MN-major (forward)
+  // or K-major (transposed) from the same storage
+  const Operand xs{x, din, M, G}, ws{w_res, N, K, G}, as{a, r, K, G},
+      bs{b, N, r, G}, vs{v, r, M, G};
   cudaError_t err =
       transpose
           ? launch_gemm<1, 64, true, 4, float>(xs, bs, xs, xs, din, 0, u, M,
-                                               r, false, stream)
+                                               r, false, stream, G)
           : launch_gemm<1, 64, false, 4, float>(xs, as, xs, xs, din, 0, u,
-                                                M, r, false, stream);
+                                                M, r, false, stream, G);
   if (err != cudaSuccess) return err;
-  const dim3 grid((r + kRotBN - 1) / kRotBN, (M + kRotBM - 1) / kRotBM);
+  const dim3 grid((r + kRotBN - 1) / kRotBN, (M + kRotBM - 1) / kRotBM, G);
   if (transpose)
     rotate_kernel<true><<<grid, kRotThreads, 0, stream>>>(u, s_in, rot, s_out,
                                                          t, v, M, r);
@@ -274,9 +311,10 @@ cudaError_t launch_psoft_wgmma(bool transpose, const __nv_bfloat16* x,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return transpose ? launch_gemm<2, 128, true, 5, bf16>(
-                         xs, ws, vs, as, din, r, y, M, dout, true, stream)
+                         xs, ws, vs, as, din, r, y, M, dout, true, stream, G)
                    : launch_gemm<2, 128, false, 5, bf16>(
-                         xs, ws, vs, bs, din, r, y, M, dout, true, stream);
+                         xs, ws, vs, bs, din, r, y, M, dout, true, stream,
+                         G);
 }
 
 }  // namespace repro_torch
@@ -292,16 +330,18 @@ static bool aligned16_all(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-// v: (M, r) bf16 scratch, used by the wgmma engine only
+// G stacked products (G = 1: one linear); v: (G, M, r) bf16 scratch, used
+// by the wgmma engine only
 extern "C" int psoft_matmul_launch(int dtype, int engine, int transpose,
                                    const void* x, const void* w_res,
                                    const void* a, const void* rot,
                                    const void* b, const void* s_in,
                                    const void* s_out, void* u, void* t,
-                                   void* v, void* y, int M, int K, int N,
-                                   int r, void* stream) {
-  if (M == 0 || (transpose ? K : N) == 0) return 0;
-  if (M < 0 || K <= 0 || N <= 0 || r < 0) return (int)cudaErrorInvalidValue;
+                                   void* v, void* y, int G, int M, int K,
+                                   int N, int r, void* stream) {
+  if (G == 0 || M == 0 || (transpose ? K : N) == 0) return 0;
+  if (G < 0 || G > 65535 || M < 0 || K <= 0 || N <= 0 || r < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* rf = static_cast<const float*>(rot);
   const float* si = static_cast<const float*>(s_in);
@@ -314,13 +354,13 @@ extern "C" int psoft_matmul_launch(int dtype, int engine, int transpose,
         transpose != 0, static_cast<const float*>(x),
         static_cast<const float*>(w_res), static_cast<const float*>(a), rf,
         static_cast<const float*>(b), si, so, uf, tf, static_cast<float*>(y),
-        M, K, N, r, s);
+        G, M, K, N, r, s);
   if (dtype == REPRO_DTYPE_BF16 && engine == PSOFT_ENGINE_WMMA)
     return (int)repro_torch::launch_psoft<bf16>(
         transpose != 0, static_cast<const bf16*>(x),
         static_cast<const bf16*>(w_res), static_cast<const bf16*>(a), rf,
-        static_cast<const bf16*>(b), si, so, uf, tf, static_cast<bf16*>(y), M,
-        K, N, r, s);
+        static_cast<const bf16*>(b), si, so, uf, tf, static_cast<bf16*>(y), G,
+        M, K, N, r, s);
   if (dtype == REPRO_DTYPE_BF16 && engine == PSOFT_ENGINE_WGMMA) {
     // TMA's rules: 16-byte row pitches and bases
     if (r == 0 || K % 8 != 0 || N % 8 != 0 || r % 8 != 0 ||
@@ -330,7 +370,7 @@ extern "C" int psoft_matmul_launch(int dtype, int engine, int transpose,
         transpose != 0, static_cast<const bf16*>(x),
         static_cast<const bf16*>(w_res), static_cast<const bf16*>(a), rf,
         static_cast<const bf16*>(b), si, so, uf, tf, static_cast<bf16*>(v),
-        static_cast<bf16*>(y), M, K, N, r, s);
+        static_cast<bf16*>(y), G, M, K, N, r, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -42,7 +42,11 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "blockdiag_rotate": 0}
 
 #: psoft_matmul launches per engine since the last :func:`reset_launches`
+#: (grouped launches included)
 PSOFT_ENGINE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wmma": 0, "simt": 0}
+#: the grouped psoft_matmul launches (an expert stack each) among them, per
+#: engine
+PSOFT_GROUPED_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wmma": 0, "simt": 0}
 #: paged_prefill_attention launches per engine since the last
 #: :func:`reset_launches`
 PREFILL_ENGINE_LAUNCHES: Dict[str, int] = {"mma": 0, "simt": 0}
@@ -85,8 +89,9 @@ PREFILL_MMA_HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PSOFT_ENGINE_LAUNCHES, PREFILL_ENGINE_LAUNCHES,
-                   CAYLEY_ENGINE_LAUNCHES, BLOCKDIAG_ENGINE_LAUNCHES):
+    for counts in (LAUNCHES, PSOFT_ENGINE_LAUNCHES, PSOFT_GROUPED_LAUNCHES,
+                   PREFILL_ENGINE_LAUNCHES, CAYLEY_ENGINE_LAUNCHES,
+                   BLOCKDIAG_ENGINE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -401,7 +406,9 @@ def _psoft_engine(dtype: torch.dtype, k: int, n: int, r: int,
     where TMA can read every operand in place (k, n and r > 0 multiples of
     8 elements, so every row pitch is a multiple of 16 bytes, and every
     pointer 16-byte aligned); ``"wmma"`` for any other bf16 shape.  The
-    orientation does not enter: both read the same arrays."""
+    orientation does not enter: both read the same arrays, and neither does
+    a group axis: with k, n and r multiples of 8 every group's slice of
+    every array starts 16 bytes on from the last."""
     if dtype == torch.float32:
         return "simt"
     if r > 0 and k % 8 == 0 and n % 8 == 0 and r % 8 == 0 and \
@@ -416,40 +423,51 @@ def _psoft_mm(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
     """One PSOFT-linear launch: (y, u, t) of
     :func:`repro_torch.kernels.ref.psoft_matmul_parts`.  ``transpose`` reads
     W_res, A, B and R transposed in place (x is then dy (M, N) and y is dx
-    (M, K))."""
+    (M, K)).  A 3-D ``w_res`` (G, K, N) is an expert stack: every argument
+    then leads with G (x (G, M, K|N), s_in and s_out (G, r)), and the
+    grouped kernel takes the whole stack in one launch."""
     if _on_cpu(x, w_res, a, rot, b, s_in, s_out):
         return ref.psoft_matmul_parts(x, w_res, a, rot, b, s_in, s_out,
                                       transpose)
     code = _compute_code(x.dtype)
     f32 = torch.float32
-    kdim, n = w_res.shape
+    grouped = w_res.ndim == 3
+    lead = tuple(w_res.shape[:1]) if grouped else ()
+    kdim, n = w_res.shape[-2:]
     r = a.shape[-1]
     din, dout = (n, kdim) if transpose else (kdim, n)
-    m = x.shape[0]
-    if x.ndim != 2 or x.shape[1] != din or tuple(a.shape) != (kdim, r) \
-            or tuple(b.shape) != (r, n) or tuple(rot.shape) != (r, r) \
-            or tuple(s_in.shape) != (r,) or tuple(s_out.shape) != (r,):
-        raise ValueError(f"shapes x {tuple(x.shape)}, w_res {(kdim, n)}, "
-                         f"a {tuple(a.shape)}, rot {tuple(rot.shape)}, b "
-                         f"{tuple(b.shape)}, scales {tuple(s_in.shape)} "
-                         f"{tuple(s_out.shape)} (transpose={transpose})")
-    ptrs = [_float_arg(x, "x", x.dtype, 2),
-            _float_arg(w_res, "w_res", x.dtype, 2),
-            _float_arg(a, "A", x.dtype, 2), _float_arg(rot, "rot", f32, 2),
-            _float_arg(b, "B", x.dtype, 2)]
+    m = x.shape[-2]
+    if w_res.ndim not in (2, 3) or tuple(x.shape) != lead + (m, din) \
+            or tuple(a.shape) != lead + (kdim, r) \
+            or tuple(b.shape) != lead + (r, n) \
+            or tuple(rot.shape) != lead + (r, r) \
+            or tuple(s_in.shape) != lead + (r,) \
+            or tuple(s_out.shape) != lead + (r,):
+        raise ValueError(f"shapes x {tuple(x.shape)}, w_res "
+                         f"{tuple(w_res.shape)}, a {tuple(a.shape)}, rot "
+                         f"{tuple(rot.shape)}, b {tuple(b.shape)}, scales "
+                         f"{tuple(s_in.shape)} {tuple(s_out.shape)} "
+                         f"(transpose={transpose})")
+    nd = w_res.ndim
+    ptrs = [_float_arg(x, "x", x.dtype, nd),
+            _float_arg(w_res, "w_res", x.dtype, nd),
+            _float_arg(a, "A", x.dtype, nd), _float_arg(rot, "rot", f32, nd),
+            _float_arg(b, "B", x.dtype, nd)]
     engine = _psoft_engine(x.dtype, kdim, n, r, ptrs)
-    u = torch.empty((m, r), dtype=f32, device=x.device)
-    t = torch.empty((m, r), dtype=f32, device=x.device)
+    u = torch.empty(lead + (m, r), dtype=f32, device=x.device)
+    t = torch.empty(lead + (m, r), dtype=f32, device=x.device)
     # the wgmma engine's bf16 copy of v = t . s_out, for TMA to read
-    v = torch.empty((m, r), dtype=x.dtype, device=x.device) \
+    v = torch.empty(lead + (m, r), dtype=x.dtype, device=x.device) \
         if engine == "wgmma" else None
-    y = torch.empty((m, dout), dtype=x.dtype, device=x.device)
+    y = torch.empty(lead + (m, dout), dtype=x.dtype, device=x.device)
     _launch("psoft_matmul", code, _PSOFT_ENGINE_CODE[engine],
-            int(transpose), *ptrs, _float_arg(s_in, "s_in", f32, 1),
-            _float_arg(s_out, "s_out", f32, 1), u.data_ptr(), t.data_ptr(),
-            None if v is None else v.data_ptr(), y.data_ptr(), m, kdim, n,
-            r, _stream(x.device))
+            int(transpose), *ptrs, _float_arg(s_in, "s_in", f32, nd - 1),
+            _float_arg(s_out, "s_out", f32, nd - 1), u.data_ptr(),
+            t.data_ptr(), None if v is None else v.data_ptr(), y.data_ptr(),
+            lead[0] if grouped else 1, m, kdim, n, r, _stream(x.device))
     PSOFT_ENGINE_LAUNCHES[engine] += 1
+    if grouped:
+        PSOFT_GROUPED_LAUNCHES[engine] += 1
     return y, u, t
 
 
@@ -458,7 +476,8 @@ class _PSoftMatmul(torch.autograd.Function):
     input.  The backward's dx is the kernel's transposed launch (which also
     yields du4 = dy B^T and du2 = du3 R^T); the r-sized products for R,
     alpha and beta and, where asked for, the frozen factors' grads are
-    plain torch products.  An input nothing asks a grad of gets None."""
+    plain torch products (batched over the group axis of an expert
+    stack).  An input nothing asks a grad of gets None."""
 
     @staticmethod
     def forward(ctx, x, w_res, a, rot, b, alpha, beta):
@@ -473,22 +492,24 @@ class _PSoftMatmul(torch.autograd.Function):
             ctx.needs_input_grad
         dy = dy.contiguous()
         dx = dw = da = drot = db = dal = dbe = None
+        # (r,) or (G, r) scales against (M, r) or (G, M, r) rows
+        al, be = alpha.unsqueeze(-2), beta.unsqueeze(-2)
         if need_x or need_a or need_rot or need_al or need_be:
             dxk, du4, du2 = _psoft_mm(dy, w_res, a, rot, b, beta, alpha, True)
             dx = dxk if need_x else None
-            du3 = du4 * beta
+            du3 = du4 * be
             if need_rot:
-                drot = (u1 * alpha).T @ du3
+                drot = (u1 * al).mT @ du3
             if need_al:
-                dal = (du2 * u1).sum(0)
+                dal = (du2 * u1).sum(-2)
             if need_be:
-                dbe = (du4 * u3).sum(0)
+                dbe = (du4 * u3).sum(-2)
             if need_a:
-                da = (x.float().T @ (du2 * alpha)).to(a.dtype)
+                da = (x.float().mT @ (du2 * al)).to(a.dtype)
         if need_w:
-            dw = (x.T @ dy).to(w_res.dtype)
+            dw = (x.mT @ dy).to(w_res.dtype)
         if need_b:
-            db = ((u3 * beta).T @ dy.float()).to(b.dtype)
+            db = ((u3 * be).mT @ dy.float()).to(b.dtype)
         return dx, dw, da, drot, db, dal, dbe
 
 
@@ -497,7 +518,10 @@ def psoft_matmul(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
                  alpha: Optional[torch.Tensor] = None,
                  beta: Optional[torch.Tensor] = None, *,
                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Fused PSOFT linear for 2-D x (tokens, d_in).
+    """Fused PSOFT linear for 2-D x (tokens, d_in), or grouped: an expert
+    stack of G linears (W_res (G, d_in, d_out), A, R, B, alpha and beta
+    with the same leading G) applied to x (G, tokens, d_in), group g
+    through linear g, in one launch set.
 
     y = x (W_res + A diag(alpha) R diag(beta) B): x, W_res, A and B are cast
     to ``compute_dtype`` (default x's), R, alpha and beta to fp32 (missing
@@ -508,7 +532,7 @@ def psoft_matmul(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
     r = a.shape[-1]
     ones = None
     if alpha is None or beta is None:
-        ones = torch.ones(r, dtype=f32, device=x.device)
+        ones = torch.ones(a.shape[:-2] + (r,), dtype=f32, device=x.device)
     alpha = ones if alpha is None else alpha.to(f32)
     beta = ones if beta is None else beta.to(f32)
     return _PSoftMatmul.apply(

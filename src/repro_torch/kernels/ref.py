@@ -123,15 +123,20 @@ def psoft_matmul_parts(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
     x (M, K|N), W_res (K, N), A (K, r), B (r, N) in the compute dtype; rot
     (r, r), s_in, s_out (r,) fp32.  fp32 accumulation; v = t . s_out is
     rounded to x's dtype before its product, as the kernel rounds it when it
-    enters a tile.  Returns (y in x's dtype, u fp32, t fp32)."""
+    enters a tile.  Returns (y in x's dtype, u fp32, t fp32).
+
+    Grouped: every argument may carry one leading group axis G (x (G, M,
+    K|N), W_res (G, K, N), ..., s_in and s_out (G, r)), and group g is the
+    function above on its own slices, as the kernel's grouped launch
+    computes it for an MoE layer's expert stack."""
     f32 = torch.float32
     w, p_in, p_out, r_mat = w_res.to(f32), a.to(f32), b.to(f32), rot.to(f32)
     if transpose:
-        w, p_in, p_out, r_mat = w.T, p_out.T, p_in.T, r_mat.T
+        w, p_in, p_out, r_mat = w.mT, p_out.mT, p_in.mT, r_mat.mT
     x32 = x.to(f32)
     u = x32 @ p_in
-    t = (u * s_in.to(f32)) @ r_mat
-    v = (t * s_out.to(f32)).to(x.dtype).to(f32)
+    t = (u * s_in.to(f32).unsqueeze(-2)) @ r_mat
+    v = (t * s_out.to(f32).unsqueeze(-2)).to(x.dtype).to(f32)
     y = x32 @ w + v @ p_out
     return y.to(x.dtype), u, t
 
@@ -145,9 +150,11 @@ def psoft_matmul(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
     rounding.  Where x is bf16, the rank-r operand v = t . beta is rounded
     to bf16 before its product with B, as the kernel rounds it; the
     reference keeps that term in fp32.  In fp32 the two are the same
-    function."""
+    function.  A leading group axis on every argument gives the grouped
+    function (see :func:`psoft_matmul_parts`)."""
     r = a.shape[-1]
-    ones = torch.ones(r, dtype=torch.float32, device=x.device)
+    ones = torch.ones(a.shape[:-2] + (r,), dtype=torch.float32,
+                      device=x.device)
     alpha = ones if alpha is None else alpha
     beta = ones if beta is None else beta
     return psoft_matmul_parts(x, w_res, a, rot, b, alpha, beta)[0]

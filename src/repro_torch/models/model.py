@@ -1,5 +1,5 @@
-"""Dense decoder of the port: init, the training forward and loss, paged
-prefill and paged decode, and the PEFT trainability mask.
+"""Decoder of the port, dense and MoE: init, the training forward and loss,
+paged prefill and paged decode, and the PEFT trainability mask.
 
 Params are nested dicts of tensors in the reference's scan-stacked layout:
 every per-layer leaf has a leading ``(L, ...)`` axis, so a reference tree
@@ -9,6 +9,10 @@ engine's per-row ``adapter_ids``, threaded explicitly through every call.
 The training forward builds every PSOFT, OFT and BOFT layer stack's
 rotations once per call (one ``cayley_neumann`` launch per stack), outside
 the per-layer recompute boundary, so remat does not build them twice.
+An MoE block holds ``"moe"`` (:mod:`repro_torch.models.moe`) where a dense
+one holds ``"mlp"``; training dispatches tokens with capacity, serving and
+logits run every expert on every token (``moe_impl``), as the reference
+does.
 """
 from __future__ import annotations
 
@@ -23,13 +27,15 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import peft as peft_lib
 from repro_torch.core import registry
 from repro_torch.models import attention, layers
+from repro_torch.models import moe as moe_lib
 
 Params = Dict[str, Any]
 
 _MLP = ("up", "down", "gate")
 _ATTN = ("q", "k", "v", "o")
-#: logical module names a param path of the dense decoder can name
-_MODULE_NAMES = frozenset(_ATTN + _MLP)
+#: logical module names a param path of the decoder can name (the router
+#: names a module, as in the reference, but is never PEFT-wrapped)
+_MODULE_NAMES = frozenset(_ATTN + _MLP + ("router",))
 
 
 def _layer(tree, i: int):
@@ -43,44 +49,62 @@ def _layer(tree, i: int):
 # init
 # ---------------------------------------------------------------------------
 
+def _linear_init(generator, cfg: ModelConfig, shape, name, param_dtype,
+                 peft_dtype, targets, device) -> Params:
+    """One linear stack of ``shape`` (lead..., d_in, d_out) drawn in fp32
+    and PEFT-wrapped when ``name`` is a target."""
+    w = layers.truncated_normal_init(generator, shape, torch.float32, device)
+    return peft_lib.init_linear(generator, w, cfg.peft, name in targets,
+                                param_dtype, peft_dtype, module=name)
+
+
+def mlp_init(generator, cfg: ModelConfig, d_ff: int, param_dtype,
+             peft_dtype, targets, device, lead: Tuple[int, ...] = ()
+             ) -> Params:
+    """A (gated) MLP of width ``d_ff`` for ``lead`` stacked layers."""
+    d = cfg.d_model
+    shapes = {"up": (d, d_ff), "down": (d_ff, d), "gate": (d, d_ff)}
+    names = _MLP if cfg.mlp_type == "swiglu" else _MLP[:2]
+    return {n: _linear_init(generator, cfg, tuple(lead) + shapes[n], n,
+                            param_dtype, peft_dtype, targets, device)
+            for n in names}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random dense-decoder params from ``seed`` (a ``torch.Generator`` on
-    ``device``), PEFT-wrapped per ``cfg.peft`` (any registered method);
-    the SVD methods (PSOFT, PiSSA, LoRA-XS) split each linear stack by one
-    batched fp32 SVD, on ``device``."""
-    if cfg.family != "dense":
-        raise ValueError(f"the port builds the dense family only, not "
-                         f"{cfg.family!r}")
+    """Random decoder params (dense or MoE) from ``seed`` (a
+    ``torch.Generator`` on ``device``), PEFT-wrapped per ``cfg.peft`` (any
+    registered method); the SVD methods (PSOFT, PiSSA, LoRA-XS) split each
+    linear stack by one batched fp32 SVD, on ``device``, and each MoE
+    expert stack one layer at a time."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port builds the dense and MoE families only, "
+                         f"not {cfg.family!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     pdt, edt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.peft_dtype)
-    f32 = torch.float32
     nl, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     targets = cfg.peft.target_modules
-
-    def lin(d_in, d_out, name):
-        w = layers.truncated_normal_init(gen, (nl, d_in, d_out), f32, dev)
-        p = peft_lib.init_linear(gen, w, cfg.peft, name in targets, pdt, edt,
-                                 module=name)
-        del w
-        return p
-
     shapes = {"q": (d, h * hd), "k": (d, kh * hd), "v": (d, kh * hd),
-              "o": (h * hd, d), "up": (d, f), "down": (f, d), "gate": (d, f)}
-    mlp_names = _MLP if cfg.mlp_type == "swiglu" else _MLP[:2]
+              "o": (h * hd, d)}
     p: Params = {
         "embed": {"w": layers.truncated_normal_init(
             gen, (cfg.padded_vocab_size, d), pdt, dev)},
         "final_norm": layers.norm_init(d, cfg.norm_type, pdt, dev),
         "layers": {
             "ln1": layers.norm_init(d, cfg.norm_type, pdt, dev, (nl,)),
-            "attn": {n: lin(*shapes[n], n) for n in _ATTN},
+            "attn": {n: _linear_init(gen, cfg, (nl,) + shapes[n], n, pdt,
+                                     edt, targets, dev) for n in _ATTN},
             "ln2": layers.norm_init(d, cfg.norm_type, pdt, dev, (nl,)),
-            "mlp": {n: lin(*shapes[n], n) for n in mlp_names},
         },
     }
+    if cfg.family == "moe":
+        p["layers"]["moe"] = moe_lib.moe_init(gen, cfg, pdt, edt, targets,
+                                              dev, nl)
+    else:
+        p["layers"]["mlp"] = mlp_init(gen, cfg, f, pdt, edt, targets, dev,
+                                      (nl,))
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": layers.truncated_normal_init(
             gen, (d, cfg.padded_vocab_size), pdt, dev)}
@@ -171,11 +195,15 @@ def attn_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
     return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
 
 
-def _block(lp, x, cfg, cdt, attn_fn, adapter_ids):
+def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense"):
+    """(y, the layer's MoE aux loss, or None for a dense layer)."""
     h = layers.apply_norm(lp["ln1"], x)
     x = x + attn_fn(lp["attn"], h)
     h = layers.apply_norm(lp["ln2"], x)
-    return x + mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids)
+    if "moe" in lp:
+        m, aux = moe_lib.moe_apply(lp["moe"], h, cfg, cdt, moe_impl)
+        return x + m, aux
+    return x + mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids), None
 
 
 def attn_apply(params, x, cfg: ModelConfig, cdt, positions) -> torch.Tensor:
@@ -186,10 +214,10 @@ def attn_apply(params, x, cfg: ModelConfig, cdt, positions) -> torch.Tensor:
                 None)
 
 
-def _train_block(lp, cfg, cdt, positions, x):
+def _train_block(lp, cfg, cdt, positions, moe_impl, x):
     def attn_fn(ap, h):
         return attn_apply(ap, h, cfg, cdt, positions)
-    return _block(lp, x, cfg, cdt, attn_fn, None)
+    return _block(lp, x, cfg, cdt, attn_fn, None, moe_impl)
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -226,18 +254,24 @@ def _with_rotations(tree, cfg: ModelConfig, path: Tuple[str, ...] = ()):
 # ---------------------------------------------------------------------------
 
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig) -> torch.Tensor:
-    """Final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S):
-    causal chunked attention, one remat boundary per layer."""
+                   cfg: ModelConfig, moe_impl: str = "capacity"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S),
+    the MoE aux loss summed over layers (0 for a dense model)): causal
+    chunked attention, one remat boundary per layer."""
     cdt = torch_dtype(cfg.dtype)
     x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     stack = _with_rotations(params["layers"], cfg)
     block = _remat(functools.partial(_train_block, cfg=cfg, cdt=cdt,
-                                     positions=positions), cfg)
+                                     positions=positions,
+                                     moe_impl=moe_impl), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = block(_layer(stack, i), x=x)
-    return layers.apply_norm(params["final_norm"], x)
+        x, layer_aux = block(_layer(stack, i), x=x)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return layers.apply_norm(params["final_norm"], x), aux
 
 
 def chunked_ce_loss(params: Params, h: torch.Tensor, labels: torch.Tensor,
@@ -264,18 +298,23 @@ def chunked_ce_loss(params: Params, h: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """(loss, {"loss", "aux", "tokens"}) of a token batch with labels."""
-    h = forward_hidden(params, batch, cfg)
+            cfg: ModelConfig, moe_impl: str = "capacity"
+            ) -> Tuple[torch.Tensor, Dict]:
+    """(loss, {"loss", "aux", "tokens"}) of a token batch with labels; an
+    MoE model adds ``aux_loss_weight`` times its aux loss."""
+    h, aux = forward_hidden(params, batch, cfg, moe_impl)
     loss, n_tok = chunked_ce_loss(params, h, batch["labels"], cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "moe":
+        loss = loss + cfg.moe.aux_loss_weight * aux
     return loss, {"loss": loss, "aux": aux, "tokens": n_tok}
 
 
 def forward_logits(params: Params, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, moe_impl: str = "dense"
+                   ) -> torch.Tensor:
     """Full logits (B, S, V): small-scale and eval use only."""
-    return lm_logits(params, forward_hidden(params, batch, cfg), cfg)
+    h, _ = forward_hidden(params, batch, cfg, moe_impl)
+    return lm_logits(params, h, cfg)
 
 
 def lm_logits(params: Params, h: torch.Tensor,
@@ -322,8 +361,11 @@ def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
         def attn_fn(ap, h, kv=kv):
             return attn_prefill(ap, h, cfg, cdt, positions, kv, shared,
                                 adapter_ids)
-        x = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
-                   adapter_ids)
+        # moe_impl "dense": capacity dispatch couples the rows of a batch
+        # through the shared expert buffer; the dense impl keeps every
+        # row's output independent of its batch mates
+        x, _ = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
+                      adapter_ids, "dense")
     x = layers.apply_norm(params["final_norm"], x)
     if not all_logits:
         x = _last_hidden(x, lengths)
@@ -351,8 +393,8 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor],
         def attn_fn(ap, h, kv=kv):
             return attn_decode(ap, h, cfg, cdt, positions, kv, pt,
                                adapter_ids)
-        x = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
-                   adapter_ids)
+        x, _ = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
+                      adapter_ids, "dense")
     x = layers.apply_norm(params["final_norm"], x)
     return lm_logits(params, x, cfg), cache
 
@@ -389,12 +431,15 @@ def trainable_mask(cfg: ModelConfig, params: Params,
 def rewrap_peft(merged_params: Params, cfg: ModelConfig) -> Params:
     """Wrap every plain ``{"w"}`` linear of a merged or pre-trained tree
     with the ``cfg.peft`` structure (PSOFT: the SVD split), layer stacks
-    in one batched call: the "load a checkpoint, attach PSOFT" entry."""
+    in one batched call and expert stacks one layer at a time: the "load a
+    checkpoint, attach PSOFT" entry.  The MoE router stays as it is (fp32,
+    never wrapped: ``moe_apply`` reads its weight directly)."""
     pdt, edt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.peft_dtype)
 
     def rec(node, path):
         if isinstance(node, dict) and set(node) == {"w"} and \
-                node["w"].ndim >= 2 and path and path[-1] in _MODULE_NAMES:
+                node["w"].ndim >= 2 and path and path[-1] in _MODULE_NAMES \
+                and path[-1] != "router":
             module = path[-1]
             return peft_lib.init_linear(None, node["w"], cfg.peft,
                                         cfg.peft.is_target(module), pdt, edt,

@@ -77,8 +77,14 @@ from repro_torch.serve.spec import SpecConfig, accepted_prefix
 #: adapter name every request uses unless it asks for another
 BASE_ADAPTER = "base"
 
-#: logical linears the bank path serves
+#: logical linears the bank path serves.  "router" is excluded: moe_apply
+#: reads its weight directly, so a banked router would silently serve the
+#: base (a router diff instead hits the lifecycle's non-linear-leaf check)
 _LINEAR_MODULES = frozenset({"q", "k", "v", "o", "gate", "up", "down"})
+
+#: families the paged engine serves (every MoE call runs the dense
+#: dispatch: capacity dispatch couples the rows of a batch)
+_SERVED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -205,9 +211,9 @@ class ServeEngine:
                  cost_model: Optional[TokenCostModel] = None,
                  bucket_multiple: Optional[int] = None,
                  spec: Optional[SpecConfig] = None):
-        if cfg.family != "dense":
-            raise ValueError(f"the port serves the dense family only, not "
-                             f"{cfg.family!r}")
+        if cfg.family not in _SERVED_FAMILIES:
+            raise ValueError(f"the port serves the {' and '.join(_SERVED_FAMILIES)}"
+                             f" families only, not {cfg.family!r}")
         self.device = resolve_device(device)
         if params["embed"]["w"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed']['w'].device}, "

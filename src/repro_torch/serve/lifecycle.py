@@ -23,8 +23,9 @@ Adapters may be registered, updated and unregistered in the middle of
   (``engine/bank/swap`` on the engine's tracker, mirrored on
   :attr:`AdapterLifecycle.events`) and the epoch and column gauges.  A
   mid-run mutation whose extension fails (an adapter that changed a
-  non-linear param) rolls back: the previous epoch keeps serving and the
-  failure is a warning plus an ``engine/bank/swap_failed`` event.
+  non-linear param, or an MoE expert or shared-expert linear) rolls back:
+  the previous epoch keeps serving and the failure is a warning plus an
+  ``engine/bank/swap_failed`` event.
 
 * **KV never goes stale.**  Prefix-alias keys are ``name#version``, the
   version monotone per name across re-registration.
@@ -49,6 +50,15 @@ import torch
 from repro_torch.core import registry
 
 PyTree = Any
+
+
+def _differs(a, b) -> bool:
+    """Whether two param subtrees differ: in structure, or in a leaf that
+    is neither the same tensor nor equal."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return not (isinstance(a, dict) and isinstance(b, dict)) or \
+            a.keys() != b.keys() or any(_differs(a[k], b[k]) for k in a)
+    return a is not b and not torch.equal(a, b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,6 +326,21 @@ class AdapterLifecycle:
         return set(node) == {"w"} and module in self.linear_modules \
             and node["w"].ndim >= 2
 
+    @staticmethod
+    def _refuse_moe(path, base_raw, raws) -> None:
+        """A linear under ``"moe"`` (an expert stack or a shared expert) is
+        never banked: expert linears see expert-major activations, not
+        slot-major ones, so a per-slot gather would pick deltas by buffer
+        row.  An adapter whose params for it differ from the base's is
+        refused with the reference's message.  The decision reads the
+        params and builds no delta: one fp32 delta of one deepseek-moe-16b
+        expert stack would be 20.7 GB."""
+        if any(_differs(raw, base_raw) for raw in raws):
+            raise ValueError(
+                f"adapter updates MoE expert linear {'/'.join(path)}; "
+                f"per-slot heterogeneous serving does not support expert "
+                f"adapters yet — serve them merged / single-adapter")
+
     def _full_build(self):
         """Every column's bank at once: one :func:`stack_deltas` per
         updated linear over every column's raw source."""
@@ -339,6 +364,9 @@ class AdapterLifecycle:
         if isinstance(node, dict):
             module = path[-1] if path else None
             if self._is_linear(node, module):
+                if "moe" in path:
+                    self._refuse_moe(path, raws[0], raws[1:])
+                    return node
                 bank = registry.stack_deltas(
                     node["w"], [(raw, pc, module)
                                 for raw, pc in zip(raws, pcs)])
@@ -392,6 +420,12 @@ class AdapterLifecycle:
             module = path[-1] if path else None
             if registry.is_banked_linear(node) or self._is_linear(node,
                                                                   module):
+                if "moe" in path:
+                    base_raw = self.engine._sources[self.base_name][0]
+                    for k in path:
+                        base_raw = base_raw[k]
+                    self._refuse_moe(path, base_raw, [raw])
+                    return node
                 sub = registry.stack_deltas(node["w"], [(raw, cfg, module)])
                 if sub is not None:
                     kinds["left" if "left" in sub else "delta"] += 1

@@ -100,10 +100,13 @@ def _device_of(state: TrainState) -> torch.device:
     return leaves[0].device
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tc: TrainConfig,
+                    moe_impl: str = "capacity") -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
     holds ``tokens`` and ``labels`` (B, S) as numpy arrays or tensors; they
-    move to the state's device.  Metrics are 0-d tensors (no host sync)."""
+    move to the state's device.  Metrics are 0-d tensors (no host sync),
+    the MoE aux loss under ``"aux"``; ``moe_impl`` is the MoE layers'
+    dispatch ("capacity" or "dense")."""
     schedule = adamw.make_schedule(tc.schedule, tc.learning_rate, tc.steps,
                                    tc.warmup_ratio)
 
@@ -116,7 +119,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
             return t
         tr = tree_map(leaf, state.trainable)
         params = adamw.combine(tr, state.frozen)
-        loss, metrics = model_lib.loss_fn(params, batch, cfg)
+        loss, metrics = model_lib.loss_fn(params, batch, cfg, moe_impl)
         grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
         with torch.no_grad():
             out = tree_map(

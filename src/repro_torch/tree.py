@@ -63,3 +63,18 @@ def tree_leaves_with_path(tree: PyTree, path: Path = ()
 def tree_leaves(tree: PyTree) -> List[Any]:
     """Leaves in the reference's flattening order (dict keys sorted)."""
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def stack_filled(n: int, one: Callable[[int], dict]) -> dict:
+    """``one(i)``'s flat dict of tensors for ``i < n``, stacked on a new
+    leading axis into outputs allocated once from ``one(0)`` and filled in
+    place: no list of parts and no second copy (an expert stack's fp32
+    intermediates are too large to hold twice)."""
+    first = one(0)
+    out = {k: v.new_empty((n,) + tuple(v.shape)) for k, v in first.items()}
+    for i in range(n):
+        part = first if i == 0 else one(i)
+        for k, v in part.items():
+            out[k][i].copy_(v)
+        del part
+    return out

@@ -1054,3 +1054,168 @@ def test_mixed_bank_decode_matches_plain(cuda_device, dtype, tol, k, n, r):
     _close(got.cpu()[:, 0], plain[:, 0], tol)
     dense = (x[4, 0].float() @ (w + mixed["delta"][3])).to(dtype)
     _close(got[4, 0].cpu(), dense.cpu(), tol)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: grouped psoft_matmul and deepseek-moe-16b's shapes
+# ---------------------------------------------------------------------------
+
+def _stack_inputs(rng, device, dtype, g, m, k, n, r, transpose=False):
+    """An expert stack of G linears at :func:`_psoft_inputs`' scales, every
+    array leading with G."""
+    parts = [_psoft_inputs(rng, _on(device, dtype), m, k, n, r, transpose)
+             for _ in range(g)]
+    return tuple(torch.stack(arrays) for arrays in zip(*parts))
+
+
+GROUPED_SHAPES = [(3, 100, 200, 136, 64), (3, 37, 96, 40, 12),
+                  (2, 130, 72, 200, 8), (64, 240, 2048, 1408, 64),
+                  (64, 240, 1408, 2048, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("g,m,k,n,r", GROUPED_SHAPES)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_grouped_psoft_matmul_matches_plain(cuda_device, dtype, tol, g, m, k,
+                                            n, r, transpose):
+    """One grouped launch per expert stack (M not a multiple of 64, G 3,
+    the wmma engine at r 12, deepseek-moe-16b's two stacks): y, u and t
+    against the plain version, each expert also against the 2-D call on
+    its own slices, and no expert's rows touched by another's tile."""
+    rng = np.random.default_rng(g * m + k + n + r)
+    args = _stack_inputs(rng, cuda_device, dtype, g, m, k, n, r, transpose)
+    ops.reset_launches()
+    got = ops._psoft_mm(*args, transpose)
+    torch.cuda.synchronize()
+    engine = "simt" if dtype == torch.float32 else \
+        ("wgmma" if r % 8 == 0 and k % 8 == 0 and n % 8 == 0 else "wmma")
+    assert ops.PSOFT_ENGINE_LAUNCHES[engine] == 1 == \
+        ops.PSOFT_GROUPED_LAUNCHES[engine] == ops.LAUNCHES["psoft_matmul"]
+    want = ref.psoft_matmul_parts(*args, transpose)
+    assert got[0].shape == (g, m, k if transpose else n)
+    _close(got[0], want[0], tol)
+    for gv, wv in zip(got[1:], want[1:]):
+        rms = float(wv.square().mean().sqrt())
+        torch.testing.assert_close(gv, wv, rtol=1e-4, atol=1e-4 * rms)
+    if g <= 3:
+        for e in range(g):
+            one = ops._psoft_mm(*(a[e].contiguous() for a in args),
+                                transpose)[0]
+            _close(got[0][e], one, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("g,m,k,n,r", [(3, 100, 200, 136, 64),
+                                       (4, 240, 256, 192, 64)])
+def test_grouped_psoft_matmul_grads_match_autograd_of_plain(
+        cuda_device, dtype, tol, g, m, k, n, r):
+    """Every grad of the autograd function on an expert stack (the r-sized
+    grads as batched products over G) against autograd of the plain
+    version in fp32 on the same values."""
+    rng = np.random.default_rng(g + m + r)
+    args = _stack_inputs(rng, cuda_device, dtype, g, m, k, n, r)
+    dy = torch.from_numpy(_normal(rng, (g, m, n))).to(cuda_device).to(dtype)
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    twins = [a.detach().float().requires_grad_(True) for a in args]
+    ops.reset_launches()
+    y = ops.psoft_matmul(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert sum(ops.PSOFT_GROUPED_LAUNCHES.values()) == 2
+    want = torch.autograd.grad(ref.psoft_matmul(*twins), twins, dy.float())
+    for gv, wv, leaf in zip(got, want, leaves):
+        assert gv.dtype == leaf.dtype and gv.shape == leaf.shape
+        _close(gv, wv, tol)
+
+
+@pytest.mark.cuda
+def test_cayley_kernel_at_the_expert_stack(cuda_device):
+    """deepseek-moe-16b's expert stack: 28 layers x 64 experts of r = 64,
+    one launch on "smem"."""
+    rng = np.random.default_rng(64)
+    q = _normal(rng, (1792, 64, 64), 0.03)
+    q = torch.from_numpy(q - q.transpose(0, 2, 1)).to(cuda_device)
+    ops.reset_launches()
+    rot, series = ops._cayley(q, 5)
+    torch.cuda.synchronize()
+    assert ops.CAYLEY_ENGINE_LAUNCHES == {"smem": 1, "tc": 0}
+    want, want_series = ref.cayley_neumann_series(q, 5)
+    torch.testing.assert_close(rot, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(series, want_series, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_serving_kernels_at_deepseek_shapes(cuda_device, dtype, tol):
+    """gather-delta at K = N = 2048, r 64, B 8 over 3 adapters; paged
+    decode and prefill at 16 heads over 16 KV heads, D 128 (prefill on
+    "mma" in bf16)."""
+    rng = np.random.default_rng(16)
+    put = _on(cuda_device, dtype)
+    x = put(_normal(rng, (8, 2048)))
+    w = put(_normal(rng, (2048, 2048), 2048 ** -0.5))
+    left = put(_normal(rng, (3, 2048, 64), 2048 ** -0.5))
+    right = _on(cuda_device, torch.float32)(_normal(rng, (3, 64, 2048), 0.01))
+    ids = torch.tensor([0, 1, 2, 1, 0, 2, 2, 1], dtype=torch.int32,
+                       device=cuda_device)
+    _close(ops.gather_delta_matmul(x, w, left, right, ids,
+                                   compute_dtype=dtype),
+           ref.gather_delta_matmul(ids, x, w, left, right), tol)
+    pages, pg, maxp = 257, 16, 32
+    table = torch.from_numpy(rng.permutation(pages - 1)[:8 * maxp].reshape(
+        8, maxp).astype(np.int32) + 1).to(cuda_device)
+    lengths = torch.tensor([0, 1, 77, 130, 256, 300, 511, 45],
+                           dtype=torch.int32, device=cuda_device)
+    kp = put(_normal(rng, (pages, pg, 16, 128), 0.5))
+    vp = put(_normal(rng, (pages, pg, 16, 128), 0.5))
+    q = put(_normal(rng, (8, 16, 128)))
+    _close(ops.paged_decode_attention(q, kp, vp, table, lengths),
+           ref.paged_decode_attention(q, kp, vp, table, lengths), tol)
+    qs = put(_normal(rng, (4, 64, 16, 128)))
+    ks = put(_normal(rng, (4, 64, 16, 128), 0.5))
+    vs = put(_normal(rng, (4, 64, 16, 128), 0.5))
+    plen = torch.tensor([32, 0, 45, 32], dtype=torch.int32,
+                        device=cuda_device)
+    ops.reset_launches()
+    got = ops.paged_prefill_attention(qs, ks, vs, kp, vp, table[:4], plen)
+    torch.cuda.synchronize()
+    engine = "mma" if dtype == torch.bfloat16 else "simt"
+    assert ops.PREFILL_ENGINE_LAUNCHES[engine] == 1
+    _close(got, ref.paged_prefill_attention(qs, ks, vs, kp, vp, table[:4],
+                                            plen), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["capacity", "dense"])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, impl):
+    """A reduced deepseek-moe-16b MoE layer (fp32, PSOFT expert stacks,
+    a shared expert) with capacity 0.25 (drops) and with the dense
+    dispatch: the card's output and aux against the CPU's, the expert
+    stacks on grouped launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model, moe
+    cfg = get_config("deepseek-moe-16b").reduced()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.25))
+    params = model.init_params(cfg, seed=0, device="cpu")
+    layer = {k: {kk: (vv[0] if not isinstance(vv, dict) else
+                      {a: b[0] for a, b in vv.items()})
+                 for kk, vv in v.items()}
+             for k, v in params["layers"]["moe"].items()}
+    x = torch.from_numpy(_normal(np.random.default_rng(1),
+                                 (4, 32, cfg.d_model)))
+
+    def on(tree, dev):
+        if isinstance(tree, dict):
+            return {k: on(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+    want, want_aux = moe.moe_apply(layer, x, cfg, torch.float32, impl)
+    ops.reset_launches()
+    got, aux = moe.moe_apply(on(layer, cuda_device), x.to(cuda_device), cfg,
+                             torch.float32, impl)
+    torch.cuda.synchronize()
+    assert ops.PSOFT_GROUPED_LAUNCHES["simt"] == 3
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
