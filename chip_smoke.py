@@ -7,7 +7,8 @@ NVIDIA GPU.
     python3 chip_smoke.py [--layers N] [--profile] [--out PATH]
 
 (``--layers`` cuts the depth of every full-width model; phase 17 runs at
-2 layers at most.)
+2 layers at most.)  Phases 19-21 serve and train the SSM and hybrid
+families on the dense cache.
 
 Phases, each of which raises (non-zero exit) on a failed check:
 
@@ -189,6 +190,30 @@ Phases, each of which raises (non-zero exit) on a failed check:
     attention-only adapter; 3 capacity train steps with drops
     (capacity_factor 0.25) within 1e-4 relative, the expert stacks on
     grouped "simt" launches.
+19. ssm: mamba2-1.3b at full width (48 layers unless ``--layers``), bf16,
+    random weights from a seed, PSOFT r 64 on in_proj and out_proj; phase
+    3's traffic served with two adapters through ``ServeEngine(slots=8,
+    max_len=512)`` on the dense cache ("auto"): completion, run-to-run
+    token identity, no paged kernel, exactly 2 gather_delta_matmul per
+    layer a decode step; then trained on the same params (remat "full",
+    8 x 256 tokens, one warm-up and 3 timed steps): the checks of 5 with
+    exactly 3 psoft_matmul per linear a step on "wgmma" and 2
+    cayley_neumann a step; prints init, decode tokens/s and step ms,
+    prefill time, train step ms and tokens/s, peak memory (``--profile``
+    adds the device-busy share and the SSD scan's device time);
+20. hybrid: zamba2-1.2b at full width (38 layers: 32 Mamba2 and the shared
+    attention block at 6 positions), PSOFT r 64 on its nine targets, the
+    same serve and train: per decode step exactly 2 gather_delta_matmul
+    per Mamba2 layer and 7 per shared-block position (fuse carries no
+    bank) and one paged_decode_attention per position through the dense
+    cache viewed as pages; per train step 3 psoft_matmul per Mamba2 linear
+    and per shared linear per position, and one cayley_neumann per
+    unstacked PSOFT linear;
+21. recurrent card vs CPU (fp32): reduced mamba2 and zamba2, base and one
+    PSOFT adapter on the dense engine: identical greedy tokens and
+    admissions card against CPU; 3 PSOFT train steps each within 1e-4
+    relative; ``tiny`` on the card with ``cache_mode="dense"`` giving the
+    paged cache's tokens.
 
 Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
 psoft_matmul at both expert stacks (G 64, M 240, K/N 2048/1408, r 64; bf16
@@ -196,7 +221,14 @@ on "wgmma", forward and transposed), one fp32 call, G 3 at M 100, and its
 grads, each limit rejecting an expert on its neighbour's W_res and an
 expert's last tile overhanging into the next expert; cayley_neumann at
 the expert stack (1792, 64); gather_delta_matmul at K = N = 2048, r 64;
-paged decode and prefill at 16 heads over 16 KV heads.
+paged decode and prefill at 16 heads over 16 KV heads.  And at the recurrent
+families' shapes: psoft_matmul at mamba2's and zamba2's in_proj (M 2048,
+K 2048, N 8512 / 8384, r 64; bf16 on "wgmma", forward and transposed, and
+its grads), gather_delta_matmul at (B 8, K 2048, N 8512, r 64) and at
+out_proj (K 4096, N 2048) and a 2-D input through ``apply_batched``, and
+the dense-view decode at zamba2's 32 over 32 heads of 64 (max_len 512);
+each limit rejecting the last, partial 64-column tile of N dropped (both
+kernels) and a dense-view row reading its neighbour's buffer.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -754,17 +786,16 @@ def nudged(torch, tree, keys, seed, scale, device="cuda"):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
-    def rec(node):
-        if isinstance(node, dict) and not any(isinstance(v, dict)
-                                              for v in node.values()):
-            return {k: v + (torch.randn(v.shape, generator=gen,
-                                        device=device) * scale
-                            ).to(v.dtype) if k in keys else v
-                    for k, v in node.items()}
-        if isinstance(node, dict):
-            return {k: rec(v) for k, v in node.items()}
-        return node
-    return rec(tree)
+    from repro_torch.tree import map_dicts
+
+    def one(node, _path):
+        if any(isinstance(v, dict) for v in node.values()):
+            return None
+        return {k: v + (torch.randn(v.shape, generator=gen,
+                                    device=device) * scale
+                        ).to(v.dtype) if k in keys else v
+                for k, v in node.items()}
+    return map_dicts(one, tree)
 
 
 def workload(vocab: int, n: int, seed: int):
@@ -907,19 +938,24 @@ def marked(torch, fn, label):
     return run
 
 
-def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
+def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats,
+                  marked_ranges=()):
     """One more run under torch.profiler: device time by kernel name, the
     device's busy share of the UNPROFILED run's prefill + decode time
     (``stats``; the profiler itself slows the host), and the device time of
     each decode step: the PyTorch kernels launched inside the engine's
-    decode call (a profiler range) plus the port's decode kernels."""
+    decode call (a profiler range) plus the port's decode kernels; and the
+    device time of the PyTorch kernels inside each CPU range of
+    ``marked_ranges`` the caller marked (per call and per decode step)."""
     from torch.profiler import ProfilerActivity, profile
     eng = serve.ServeEngine(params, cfg, device="cuda", **kw)
     for name, tree in adapters.items():
         eng.register_adapter(name, tree)
     eng._banked_tree()
-    eng._run_prefill_groups = marked(torch, eng._run_prefill_groups,
-                                     SERVE_RANGES["prefill"])
+    prefill_fn = "_run_prefill_groups" if eng.cache_mode == "paged" \
+        else "_admit_dense"
+    setattr(eng, prefill_fn, marked(torch, getattr(eng, prefill_fn),
+                                    SERVE_RANGES["prefill"]))
     eng._decode_live = marked(torch, eng._decode_live,
                               SERVE_RANGES["decode"])
     torch.cuda.synchronize()
@@ -937,7 +973,8 @@ def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
             for e in events
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0
-            and e.key not in SERVE_RANGES.values()]
+            and e.key not in SERVE_RANGES.values()
+            and e.key not in marked_ranges]
     rows.sort(key=lambda r: -r[1])
     if not rows:
         print("profile: the trace holds no device time (not measured)")
@@ -963,6 +1000,10 @@ def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
                if decode else None,
                unprofiled_decode_step_ms=1e3 * stats["decode_s"]
                / stats["decode_steps"],
+               marked={k: dict(device_ms=ms, calls=n,
+                               per_decode_step_ms=ms / stats["decode_steps"])
+                       for k, (ms, n) in range_device_ms(
+                           events, marked_ranges).items()},
                top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:15]],
                serving_kernels=[dict(name=k[:90], ms=ms, calls=n)
                                 for k, ms, n in rows
@@ -987,6 +1028,10 @@ def profile_serve(torch, serve, params, adapters, cfg, reqs, kw, stats):
     else:
         print("profile: the decode range holds no device time (decode step "
               "device time not measured)")
+    for k, v in out["marked"].items():
+        print(f"profile: range {k}: {v['device_ms']:.1f} ms of device time "
+              f"in {v['calls']} calls, {v['per_decode_step_ms']:.3f} ms per "
+              f"decode step of the run")
     for r in out["top"]:
         print(f"profile:   {r['ms']:9.2f} ms  {r['calls']:6d}x  {r['name']}")
     for r in out["serving_kernels"]:
@@ -3240,14 +3285,16 @@ def free_cycles(torch) -> float:
 
 
 def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
-              timed: int, expected, what: str, profile=False, on_done=None):
+              timed: int, expected, what: str, profile=False, on_done=None,
+              marked_ranges=()):
     """``1 + timed`` steps of ``make_train_step`` on ``params`` (split by
     the PEFT mask; the first step is a warm-up), 8 x 256 synthetic tokens a
     step.  Checks finite losses and grad norms, frozen leaves bit-identical,
     every trainable leaf moved, and each kernel's launches in every step
     equal to ``expected[kernel]``; ``on_done(state)``'s result, if given,
-    goes under ``"after"``.  The caller drops its own references to
-    ``params``, so that the run's end frees them."""
+    goes under ``"after"``; ``marked_ranges`` are the CPU ranges the
+    profiled step reports the device time of.  The caller drops its own references
+    to ``params``, so that the run's end frees them."""
     tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
     state = trainer.train_state_from_params(params, cfg, tc)
     del params
@@ -3320,7 +3367,8 @@ def run_train(torch, configs, trainer, data, tree, ops, cfg, params,
         cayley_engines=dict(ops.CAYLEY_ENGINE_LAUNCHES),
         blockdiag_engines=dict(ops.BLOCKDIAG_ENGINE_LAUNCHES),
         frozen_copy_s=copy_s, verify_s=verify_s,
-        profile=profile_train(torch, step, state, batches[0])
+        profile=profile_train(torch, step, state, batches[0],
+                              marked_ranges)
         if profile else None,
         after=on_done(state) if on_done is not None else None)
     print(f"{what}: {cfg.name} {cfg.num_layers} layers, "
@@ -3465,8 +3513,9 @@ def baselines_phase(torch, args, configs, model, trainer, data, tree, ops,
     return out
 
 
-def profile_train(torch, step, state, batch):
-    """One more step under torch.profiler: device time by kernel name."""
+def profile_train(torch, step, state, batch, marked_ranges=()):
+    """One more step under torch.profiler: device time by kernel name, and
+    of the PyTorch kernels inside each CPU range of ``marked_ranges``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3475,20 +3524,29 @@ def profile_train(torch, step, state, batch):
         step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # a marked range's device-side row spans its kernels: leave it out
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in events
             if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and e.key not in marked_ranges]
     rows.sort(key=lambda r: -r[1])
     if not rows:
         print("profile: the train trace holds no device time (not measured)")
         return None
     device_ms = sum(r[1] for r in rows)
     out = dict(profiled_wall_ms=wall_ms, device_ms=device_ms,
+               marked={k: dict(device_ms=ms, calls=n)
+                       for k, (ms, n) in range_device_ms(
+                           events, marked_ranges).items()},
                top=[dict(name=k[:90], ms=ms, calls=n)
                     for k, ms, n in rows[:15]])
     print(f"profile: train step device busy {device_ms:.1f} ms of a "
           f"profiled {wall_ms:.1f} ms step")
+    for k, v in out["marked"].items():
+        print(f"profile: train step range {k}: {v['device_ms']:.2f} ms of "
+              f"device time in {v['calls']} calls")
     for r in out["top"]:
         print(f"profile:   {r['ms']:9.2f} ms  {r['calls']:6d}x  {r['name']}")
     return out
@@ -4114,6 +4172,554 @@ def moe_card_vs_cpu_phase(torch, configs, model, serve, trainer, data, tree,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the SSM and hybrid families on the dense cache
+# ---------------------------------------------------------------------------
+
+#: the PSOFT rank of both recurrent configs (archs: r 64)
+SSM_RANK = 64
+#: in_proj of each recurrent config at full width: K -> N, neither N a
+#: multiple of 128, so the wgmma engine's last 128-column tile is half full
+SSM_IN_PROJ = (("mamba2-1.3b in_proj", 2048, 8512),
+               ("zamba2-1.2b in_proj", 2048, 8384))
+#: out_proj of both: d_inner 4096 -> d_model 2048
+SSM_OUT_PROJ = ("out_proj", 4096, 2048)
+#: zamba2's shared attention: 32 heads over 32 KV heads of 64
+HYBRID_HEADS, HYBRID_KV_HEADS, HYBRID_HEAD_DIM = 32, 32, 64
+RECURRENT_TRAIN_STEPS = 3
+#: ranges the recurrent profiles mark: the plain-torch SSD scan (training
+#: and prefill) and its one-token step (decode)
+SSD_RANGES = {"ssd_chunked": "chip_smoke.ssd_chunked",
+              "ssd_step": "chip_smoke.ssd_step"}
+
+
+def last_columns_dropped(t, cols):
+    """``t`` with its last ``cols`` columns zeroed: a planted fault."""
+    out = t.clone()
+    out[..., -cols:] = 0
+    return out
+
+
+def psoft_grad_check(torch, ops, ref, gen, m, k, n, r, what):
+    """``ops.psoft_matmul`` forward and backward in bf16 at one linear: the
+    grads of x, R, alpha and beta against autograd of the plain version in
+    fp32 (dx at the bf16 limit, the r-sized grads at the scaled fp32
+    limit)."""
+    args = psoft_inputs(torch, torch.bfloat16, gen, m, k, n, r)
+    dy = (torch.randn((m, n), generator=gen, device="cuda")
+          * 0.5).to(torch.bfloat16)
+    idx = (0, 3, 5, 6)
+    leaves = [t.clone().requires_grad_(i in idx) for i, t in enumerate(args)]
+    got = torch.autograd.grad(ops.psoft_matmul(*leaves),
+                              [leaves[i] for i in idx], dy)
+    twins = [t.detach().float().requires_grad_(i in idx)
+             for i, t in enumerate(args)]
+    want = torch.autograd.grad(ref.psoft_matmul(*twins),
+                               [twins[i] for i in idx], dy.float())
+    torch.cuda.synchronize()
+    e = 0.0
+    for key, gv, wv in zip(("dx", "d_rot", "d_alpha", "d_beta"), got, want):
+        dname, scaled = ("bfloat16", None) if key == "dx" else \
+            ("float32", True)
+        e = max(e, max_err(torch, gv, wv, dname, f"{what} grad {key}",
+                           scaled))
+    return e
+
+
+def dense_view_inputs(torch, dtype, gen, lengths, max_len=512):
+    """Dense per-slot buffers (B, max_len, KH, D) at zamba2's attention
+    shape and a one-token query per row."""
+    b, h, kh, d = (len(lengths), HYBRID_HEADS, HYBRID_KV_HEADS,
+                   HYBRID_HEAD_DIM)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
+    kb = (torch.randn((b, max_len, kh, d), generator=gen, device="cuda")
+          * 0.5).to(dtype)
+    vb = (torch.randn((b, max_len, kh, d), generator=gen, device="cuda")
+          * 0.5).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kb, vb, ln
+
+
+def ssd_scan_timing(torch, ssm_lib, gen):
+    """The plain-torch SSD scan at mamba2-1.3b's shapes (no kernel of the
+    reference's to port): one layer's ``ssd_chunked`` forward at the train
+    step's 8 x 256 tokens (64 heads of 64, state 128, one chunk of 256)
+    and one ``ssd_step`` at 8 decode rows, beside the least time the card
+    could take for the forward (fp32 operations: the intra-chunk,
+    inter-chunk and state products; bytes: each input and output once).
+    Its backward is timed inside a profiled train step only."""
+    b, s, h, p, n = 8, 256, 64, 64, 128
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    x, dt = randn(b, s, h, p, dtype=bf16), randn(b, s, h)
+    bm, cm = randn(b, s, 1, n, dtype=bf16), randn(b, s, 1, n, dtype=bf16)
+    d_skip, dt_bias = randn(h), randn(h)
+    state = randn(b, h, n, p)
+    x1, dt1 = randn(b, h, p, dtype=bf16), randn(b, h)
+    b1, c1 = randn(b, 1, n, dtype=bf16), randn(b, 1, n, dtype=bf16)
+    flops = 2 * b * s * (s * n + s * h * p + 2 * h * n * p)
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + 2 * bm.numel() * 2
+              + b * h * n * p * 4)
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: ssm_lib.ssd_chunked(
+            x, dt, a_log, bm, cm, d_skip, dt_bias, s))
+        step_ms = time_ms(torch, lambda: ssm_lib.ssd_step(
+            x1, dt1, a_log, b1, c1, d_skip, dt_bias, state))
+    out = dict(forward_ms=fwd_ms, decode_step_ms=step_ms, flops=flops,
+               bytes=nbytes,
+               bound_ms=max(flops / PEAK_FLOPS["float32"],
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+               shape=f"B {b}, S {s}, H {h}, P {p}, N {n}, chunk {s}; the "
+                     f"step at B {b}")
+    print(f"kernels: the plain-torch SSD scan at mamba2-1.3b (one layer, "
+          f"{out['shape']}): forward {fwd_ms:.3f} ms (bound "
+          f"{out['bound_ms']:.4f} ms, fp32 operations), one decode step "
+          f"{step_ms:.4f} ms")
+    return out
+
+
+def ssm_kernel_phase(torch, ops, ref, F, registry, attention, ssm_lib):
+    """The kernels at the recurrent families' shapes: psoft_matmul at both
+    in_proj widths (M 2048, K 2048, N 8512 / 8384, r 64; bf16 on "wgmma",
+    forward and transposed, and its grads), each limit rejecting the last,
+    partial 64-column tile of N dropped (the transposed launch: the last
+    64 columns of its depth N); gather_delta_matmul at in_proj (B 8, K
+    2048, N 8512, r 64) and out_proj (K 4096, N 2048), the first limit
+    rejecting the last 64 columns of N dropped, and a 2-D decode input
+    reaching the kernel through ``registry.apply_batched``; the dense-view
+    decode (zamba2's 32 over 32 heads of 64, max_len 512) against the
+    plain ``decode_attention``, its limit rejecting each row reading its
+    neighbour's buffer.  Times each beside its bound and a library
+    yardstick."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    bf16, f32 = torch.bfloat16, torch.float32
+    m = TRAIN_TOKENS
+    out = {"psoft_matmul": {}, "gather_delta_matmul": {}}
+    for name, k, n in SSM_IN_PROJ:
+        tail = n % 128
+        check(tail == 64, f"{name}: N {n} leaves a 64-column last tile")
+        one = {}
+        for transpose in (False, True):
+            what = f"psoft_matmul {name} ({m}, {k}, {n}, r {SSM_RANK}) bf16" \
+                + (" transposed" if transpose else "")
+            args = psoft_inputs(torch, bf16, gen, m, k, n, SSM_RANK,
+                                transpose)
+            ops.reset_launches()
+            got = ops._psoft_mm(*args, transpose)
+            want = ref.psoft_matmul_parts(*args, transpose)
+            torch.cuda.synchronize()
+            check(ops.PSOFT_ENGINE_LAUNCHES["wgmma"] == 1 ==
+                  ops.LAUNCHES["psoft_matmul"],
+                  f"{what}: ran on {ops.PSOFT_ENGINE_LAUNCHES}, expected "
+                  f"one wgmma launch")
+            one["max_err" + ("_transposed" if transpose else "")] = max_err(
+                torch, got[0], want[0], "bfloat16", what)
+            for gp, wp, part in zip(got[1:], want[1:], ("u", "t")):
+                max_err(torch, gp, wp, "float32", f"{what} {part}")
+            if transpose:
+                x = last_columns_dropped(args[0], tail)
+                wrong = ref.psoft_matmul_parts(x, *args[1:], True)[0]
+                fault = "the last 64 columns of its depth N dropped"
+            else:
+                wrong = last_columns_dropped(want[0], tail)
+                fault = "the last, partial 64-column tile of N dropped"
+            must_reject(torch, wrong, want[0], "bfloat16",
+                        range(0, m, 97), f"{what}, {fault}")
+            del got, want, wrong
+        x, w, a, rot, b, al, be = psoft_inputs(torch, bf16, gen, m, k, n,
+                                               SSM_RANK)
+        dy = (torch.randn((m, n), generator=gen, device="cuda")
+              * 0.5).to(bf16)
+        merged = (w.float() + (a.float() * al) @ rot
+                  @ (b.float() * be[:, None])).to(bf16)
+        nbytes, flops = psoft_bytes_flops(m, k, n, SSM_RANK, 2)
+        one.update(
+            ms=time_ms(torch, lambda: ops._psoft_mm(x, w, a, rot, b, al, be,
+                                                    False)),
+            backward_ms=time_ms(torch, lambda: ops._psoft_mm(
+                dy, w, a, rot, b, be, al, True)),
+            plain_ms=time_ms(torch, lambda: ref.psoft_matmul_parts(
+                x, w, a, rot, b, al, be)),
+            library_ms=time_ms(torch, lambda: torch.matmul(x, merged)),
+            bytes=nbytes, flops=flops,
+            grad_max_err=psoft_grad_check(torch, ops, ref, gen, m, k, n,
+                                          SSM_RANK, f"psoft_matmul {name}"))
+        one["bound_ms"], one["bound_by"] = bound(nbytes, flops, "bfloat16")
+        out["psoft_matmul"][name] = one
+        del x, w, a, rot, b, dy, merged
+    ids = [0, 1, 2, 1, 0, 2, 2, 1]
+    bsz, elt = len(ids), 2
+    for (name, k, n), fault_cols in ((SSM_IN_PROJ[0], 64),
+                                     (SSM_OUT_PROJ, None)):
+        e = {}
+        for dtype in (f32, bf16):
+            dname = str(dtype).replace("torch.", "")
+            x, w, left, right, idt = delta_inputs(torch, dtype, gen, k, n,
+                                                  ids, r=SSM_RANK)
+            want = ref.gather_delta_matmul(idt, x, w, left, right)
+            what = f"gather_delta_matmul {name} (B {bsz}, K {k}, N {n}) " \
+                   f"{dname}"
+            e[dname] = max_err(torch, ops.gather_delta_matmul(
+                x, w, left, right, idt, compute_dtype=dtype), want, dname,
+                what)
+            if fault_cols:
+                must_reject(torch, last_columns_dropped(want, fault_cols),
+                            want, dname, range(bsz),
+                            f"{what}, the last 64 columns of N dropped")
+        one = dict(
+            max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+            ms=time_ms(torch, lambda: ops.gather_delta_matmul(
+                x, w, left, right, idt, compute_dtype=bf16)),
+            plain_ms=time_ms(torch, lambda: ref.gather_delta_matmul(
+                idt, x, w, left, right)),
+            library_ms=time_ms(torch, lambda: torch.matmul(x, w)),
+            bytes=(bsz * k * elt + k * n * elt + 3 * k * SSM_RANK * elt
+                   + 3 * SSM_RANK * n * 4 + bsz * 4 + bsz * n * elt),
+            flops=2 * bsz * (k * n + k * SSM_RANK + SSM_RANK * n))
+        one["bound_ms"], one["bound_by"] = bound(one["bytes"], one["flops"],
+                                                 "bfloat16")
+        out["gather_delta_matmul"][name] = one
+    # a 2-D decode input (the Mamba2 decode's rows) reaches the kernel
+    lin = {"w": w, "bank": {"left": left, "right": right}}
+    ops.reset_launches()
+    got = registry.apply_batched(lin, x, bf16, idt)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["gather_delta_matmul"] == 1 and got.shape == (bsz, n),
+          f"apply_batched on a 2-D input: {ops.LAUNCHES} launches, shape "
+          f"{tuple(got.shape)}")
+    out["two_d_input_max_err"] = max_err(
+        torch, got, ref.gather_delta_matmul(idt, x, w, left, right),
+        "bfloat16", "apply_batched on a 2-D input")
+    # the dense-view decode
+    lengths = [1, 17, 100, 255, 256, 300, 511, 512]
+    e = {}
+    for dtype in (f32, bf16):
+        dname = str(dtype).replace("torch.", "")
+        q, kb, vb, ln = dense_view_inputs(torch, dtype, gen, lengths)
+        table = attention.dense_view_table(len(lengths), kb.shape[1], "cuda")
+        ops.reset_launches()
+        got = attention.dense_decode_attention(q, kb, vb, ln, table)
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["paged_decode_attention"] == 1,
+              f"dense-view decode {dname}: {ops.LAUNCHES}")
+        want = attention.decode_attention(q, kb, vb, ln)
+        what = f"dense-view decode (B 8, H 32, KH 32, D 64, max_len 512) " \
+               f"{dname}"
+        e[dname] = max_err(torch, got, want, dname, what)
+        must_reject(torch, attention.decode_attention(
+            q, kb.roll(1, 0), vb.roll(1, 0), ln), want, dname,
+            range(len(lengths)), f"{what}, each row reading its "
+                                 f"neighbour's buffer")
+    b, mx, kh, d = kb.shape
+    h = q.shape[2]
+    dec = dict(
+        max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+        ms=time_ms(torch, lambda: attention.dense_decode_attention(
+            q, kb, vb, ln, table)),
+        plain_ms=time_ms(torch, lambda: attention.decode_attention(
+            q, kb, vb, ln)),
+        bytes=2 * q.numel() * 2 + 2 * sum(lengths) * kh * d * 2
+        + table.numel() * 4 + b * 4,
+        flops=4 * sum(lengths) * h * d)
+    mask = (torch.arange(mx, device="cuda")[None, :]
+            < ln[:, None].long())[:, None, None, :]
+    kt, vt = kb.transpose(1, 2), vb.transpose(1, 2)
+    dec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kt, vt, attn_mask=mask))
+    dec["bound_ms"], dec["bound_by"] = bound(dec["bytes"], dec["flops"],
+                                             "bfloat16")
+    out["paged_decode_attention"] = dec
+    out["ssd_scan"] = ssd_scan_timing(torch, ssm_lib, gen)
+    for name, v in out["psoft_matmul"].items():
+        print(f"kernels: psoft_matmul at {name} (M {m}, r {SSM_RANK}): "
+              f"forward {v['ms']:.4f} ms, transposed {v['backward_ms']:.4f}"
+              f" ms, plain {v['plain_ms']:.4f} ms, torch.matmul on the "
+              f"merged weight {v['library_ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms by {v['bound_by']}; max err "
+              f"{v['max_err']:.3g} / {v['max_err_transposed']:.3g}, grads "
+              f"{v['grad_max_err']:.3g}")
+    for name, v in out["gather_delta_matmul"].items():
+        print(f"kernels: gather_delta_matmul at {name} (B {bsz}, r "
+              f"{SSM_RANK}): {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms,"
+              f" torch.matmul(x, W) {v['library_ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms by {v['bound_by']}")
+    print(f"kernels: dense-view decode (zamba2 attention, lengths "
+          f"{lengths}): {dec['ms']:.4f} ms, plain decode_attention "
+          f"{dec['plain_ms']:.4f} ms, SDPA {dec['library_ms']:.4f} ms, "
+          f"bound {dec['bound_ms']:.5f} ms by {dec['bound_by']}")
+    return out
+
+
+def recurrent_counts(cfg):
+    """(Mamba2 layers, shared-block positions) of ``cfg``'s pattern."""
+    pattern = cfg.layer_pattern()
+    return pattern.count("M"), pattern.count("A")
+
+
+def marked_ssd(torch, ssm_lib):
+    """Mark the SSD scan and its step with profiler ranges (the model
+    looks them up in :mod:`repro_torch.models.ssm` at each call); returns
+    the function that restores them."""
+    real = {k: getattr(ssm_lib, k) for k in SSD_RANGES}
+    for k, label in SSD_RANGES.items():
+        setattr(ssm_lib, k, marked(torch, real[k], label))
+
+    def restore():
+        for k, fn in real.items():
+            setattr(ssm_lib, k, fn)
+    return restore
+
+
+def range_device_ms(events, labels):
+    """{label: (device ms of the ops launched inside, calls)} of the CPU
+    ranges ``labels`` among a profile's ``key_averages()``."""
+    out = {}
+    for e in events:
+        if e.key in labels and str(e.device_type).endswith("CPU"):
+            out[e.key] = (e.device_time_total / 1e3, e.count)
+    return out
+
+
+def recurrent_phase(torch, args, configs, model, serve, trainer, data, tree,
+                    ops, ssm_lib, arch, what, gpu_line):
+    """Phases 19 and 20: ``arch`` at full width (its full depth unless
+    ``--layers``; a hybrid at ``hybrid_attn_every`` layers at least), bf16, random weights from a seed, PSOFT r 64 on its
+    targets.  Serve: two adapters sharing the frozen factors, phase 3's
+    traffic through ``ServeEngine(slots=8, max_len=512)`` with
+    ``cache_mode`` resolving to "dense"; exact launches per decode step
+    (2 gather_delta_matmul per Mamba2 layer, 7 per shared-block position,
+    one paged_decode_attention per position through the dense view; no
+    paged prefill), run-to-run token identity.  Train on the same params:
+    remat "full", 8 x 256 tokens, one warm-up and 3 timed steps, exactly 3
+    psoft_matmul per PSOFT linear (per position for the shared block) a
+    step, all on "wgmma", and one cayley_neumann per linear stack (per
+    unstacked linear for the hybrid) on ``ops._cayley_engine(64)``'s
+    engine."""
+    gc_freed = free_cycles(torch)
+    cfg = configs.get_config(arch, remat_policy="full")
+    if args.layers:
+        # a cut hybrid keeps one shared-block position at least
+        cfg = cfg.replace(num_layers=args.layers if cfg.family == "ssm"
+                          else max(args.layers, cfg.hybrid_attn_every))
+    n_m, n_a = recurrent_counts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"{what}: init_params {arch} {cfg.num_layers} layers ({n_m} "
+          f"Mamba2, {n_a} shared-block positions), PSOFT r={cfg.peft.rank} "
+          f"on {', '.join(cfg.peft.target_modules)} (one fp32 SVD per "
+          f"linear stack{'' if cfg.family == 'ssm' else ' or linear'} on "
+          f"the card): {init_s:.1f} s")
+    adapters = {"tuned_a": nudged(torch, params, PSOFT_TRAINABLES, 1, 0.01),
+                "tuned_b": nudged(torch, params, PSOFT_TRAINABLES, 2, 0.01)}
+    first = params["layers"] if cfg.family == "ssm" else params["layers"][0]
+    for name, ad in adapters.items():
+        got = ad["layers"] if cfg.family == "ssm" else ad["layers"][0]
+        check(all(got["ssm"][k]["w_res"] is first["ssm"][k]["w_res"]
+                  and got["ssm"][k]["A"] is first["ssm"][k]["A"]
+                  for k in ("in_proj", "out_proj")),
+              f"{what}: {name} must share the frozen factors")
+    reqs = workload(cfg.vocab_size, 24, seed=0)
+    kw = dict(slots=8, max_len=512)
+    ops.reset_launches()
+    eng, done, bank_s = serve_once(torch, serve, params, adapters, cfg, reqs,
+                                   "cuda", **kw)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    stats = dict(eng.last_run_stats)
+    steps = stats["decode_steps"]
+    check(eng.cache_mode == "dense" and eng.kv is None,
+          f"{what}: cache_mode 'auto' resolves to the dense cache")
+    check(len(done) == len(reqs) and all(
+        r.done and len(r.generated) == r.max_new_tokens for r in done),
+        f"{what}: every request finishes with max_new_tokens")
+    per_step = {"gather_delta_matmul": 2 * n_m + 7 * n_a,
+                "paged_decode_attention": n_a}
+    for kname, per in per_step.items():
+        check(launches[kname] == per * steps,
+              f"{what}: {kname} launched {launches[kname]} times in {steps} "
+              f"decode steps, expected exactly {per} a step")
+    check(launches["paged_prefill_attention"] == 0
+          and launches["psoft_matmul"] == 0,
+          f"{what}: no paged prefill and no psoft_matmul when serving "
+          f"({launches})")
+    toks = {r.uid: list(r.generated) for r in done}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del eng, done
+    torch.cuda.empty_cache()
+    _, again, _ = serve_once(torch, serve, params, adapters, cfg, reqs,
+                             "cuda", **kw)
+    check({r.uid: list(r.generated) for r in again} == toks,
+          f"{what}: a second identical run gives identical tokens")
+    del again
+    profile = None
+    if args.profile:
+        restore = marked_ssd(torch, ssm_lib)
+        try:
+            profile = profile_serve(torch, serve, params, adapters, cfg,
+                                    reqs, kw, stats,
+                                    tuple(SSD_RANGES.values()))
+        finally:
+            restore()
+    del adapters
+    torch.cuda.empty_cache()
+    tok_s = stats["decode_tokens"] / stats["decode_s"]
+    step_ms = 1e3 * stats["decode_s"] / steps
+    serve_res = dict(
+        layers=cfg.num_layers, mamba_layers=n_m, attention_positions=n_a,
+        requests=len(reqs), init_s=init_s, bank_build_s=bank_s,
+        prefill_calls=stats["prefill_calls"], prefill_s=stats["prefill_s"],
+        decode_steps=steps, decode_tokens=stats["decode_tokens"],
+        decode_s=stats["decode_s"], decode_tokens_per_s=tok_s,
+        mean_decode_step_ms=step_ms, launches=launches,
+        launches_per_decode_step={k: launches[k] / steps for k in per_step},
+        peak_memory_gib=peak_gib, gc_freed_gib=gc_freed, profile=profile)
+    print(f"{what}: {len(reqs)} requests, {steps} decode steps, "
+          f"{tok_s:.1f} decode tokens/s, {step_ms:.2f} ms mean decode step, "
+          f"{stats['prefill_calls']} prefill calls in "
+          f"{stats['prefill_s']:.2f} s, peak {peak_gib:.1f} GiB "
+          f"[{gpu_line}]")
+    print(f"{what}: launches {launches}; per decode step "
+          f"{serve_res['launches_per_decode_step']}")
+    psoft_linears = 2 * n_m + 7 * n_a
+    rotations = 2 if cfg.family == "ssm" else 2 * n_m + 7
+    expected = {
+        "psoft_matmul": (3 * psoft_linears,
+                         "forward, remat recompute and backward of every "
+                         "PSOFT linear (of the shared block at every "
+                         "position)"),
+        "cayley_neumann": (rotations, "one per linear stack" if
+                           cfg.family == "ssm" else
+                           "one per unstacked PSOFT linear"),
+        "blockdiag_rotate": (0, "no OFT linear")}
+    train_ranges = ()
+    restore = None
+    if args.profile:
+        restore = marked_ssd(torch, ssm_lib)
+        train_ranges = (SSD_RANGES["ssd_chunked"],)
+    try:
+        trained = run_train(torch, configs, trainer, data, tree, ops, cfg,
+                            params, RECURRENT_TRAIN_STEPS, expected,
+                            f"{what} train", args.profile,
+                            marked_ranges=train_ranges)
+    finally:
+        if restore is not None:
+            restore()
+    del params
+    engines = trained["psoft_engines"]
+    check(engines["wgmma"] == trained["launches"]["psoft_matmul"]
+          and engines["wmma"] == engines["simt"] == 0,
+          f"{what} train: every bf16 psoft_matmul call on the wgmma engine "
+          f"({engines})")
+    check_engines(trained, "cayley_neumann", ops._cayley_engine(SSM_RANK),
+                  f"{what} train")
+    torch.cuda.empty_cache()
+    return dict(serve=serve_res, train=trained, gpu=gpu_line)
+
+
+def recurrent_traffic(vocab, n, seed):
+    """Greedy requests whose prompts the reduced configs' SSD chunk (32)
+    covers in one piece: 4-32 prompt tokens, 8-23 new, base and "attn"
+    alternating."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(uid, rng.integers(0, vocab, int(rng.integers(4, 33))).astype(
+                np.int32), int(rng.integers(8, 24)),
+             "attn" if uid % 2 else "base") for uid in range(n)]
+
+
+def recurrent_card_vs_cpu_phase(torch, configs, model, serve, trainer, data,
+                                tree, ops):
+    """Phase 21 (fp32): reduced mamba2 and zamba2, base and one PSOFT
+    adapter, on the dense engine: identical greedy tokens and admissions
+    card against CPU; 3 PSOFT train steps each within 1e-4 relative; and
+    ``tiny`` on the card with ``cache_mode="dense"`` against "paged":
+    identical tokens."""
+    out = {}
+    kw = dict(slots=4, max_len=96)
+
+    def to_cuda(t):
+        return tree.tree_map(lambda x: x.to("cuda"), t)
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        cfg = configs.get_config(arch).reduced()
+        params = model.init_params(cfg, seed=0, device="cpu")
+        attn = nudged(torch, params, PSOFT_TRAINABLES, 1, 0.05, "cpu")
+        reqs = recurrent_traffic(cfg.vocab_size, 10, seed=3)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            move = (lambda t: t) if dev == "cpu" else to_cuda
+            ops.reset_launches()
+            eng, done, _ = serve_once(torch, serve, move(params),
+                                      {"attn": move(attn)}, cfg, reqs, dev,
+                                      **kw)
+            outs[dev] = ({r.uid: list(r.generated) for r in done},
+                         [(e.step, e.slot, e.uid, e.adapter)
+                          for e in eng.admission_events])
+            launches = dict(ops.LAUNCHES)
+        check(launches["gather_delta_matmul"] > 0,
+              f"{arch} card vs cpu: the card's decode went through "
+              f"gather_delta_matmul ({launches})")
+        check(outs["cuda"] == outs["cpu"],
+              f"{arch} card vs cpu: card and CPU give the same greedy tokens "
+              f"and admissions")
+        tc = configs.TrainConfig(steps=10, learning_rate=1e-2,
+                                 warmup_ratio=0.2)
+        cpu = trainer.train_state_from_params(params, cfg, tc)
+        gpu = to_cuda(cpu)
+        ds = data.SyntheticLMDataset(cfg, 4, 32)
+        step = trainer.make_train_step(cfg, tc)
+        losses = {"cpu": [], "cuda": []}
+        for i in range(3):
+            batch = ds.batch_at(i)
+            cpu, mc = step(cpu, batch)
+            gpu, mg = step(gpu, batch)
+            losses["cpu"].append(float(mc["loss"]))
+            losses["cuda"].append(float(mg["loss"]))
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"])]
+        check(all(math.isfinite(v) for v in losses["cuda"])
+              and max(rel) <= 1e-4,
+              f"{arch} card vs cpu: PSOFT train losses within 1e-4 relative "
+              f"({losses})")
+        n_tok = sum(len(t) for t in outs["cpu"][0].values())
+        print(f"recurrent card vs cpu: reduced {arch} fp32, {len(reqs)} "
+              f"requests, {n_tok} tokens and the admissions identical; 3 "
+              f"PSOFT steps, losses {losses['cuda']} (max relative gap "
+              f"{max(rel):.2e})")
+        out[arch] = dict(requests=len(reqs), tokens=n_tok, losses=losses,
+                         max_rel_gap=max(rel))
+    cfg = configs.get_config("tiny")
+    params = to_cuda(model.init_params(cfg, seed=0, device="cpu"))
+    reqs = recurrent_traffic(cfg.vocab_size, 10, seed=4)
+    toks = {}
+    for mode in ("dense", "paged"):
+        ops.reset_launches()
+        eng, done, _ = serve_once(torch, serve, params, {"attn": params},
+                                  cfg, reqs, "cuda", cache_mode=mode,
+                                  slots=4, max_len=96)
+        check(eng.cache_mode == mode and ops.LAUNCHES[
+            "paged_decode_attention"] > 0,
+            f"tiny {mode}: decode through the paged-decode kernel "
+            f"({ops.LAUNCHES})")
+        toks[mode] = {r.uid: list(r.generated) for r in done}
+    check(toks["dense"] == toks["paged"],
+          "tiny on the card: the dense cache gives the paged cache's tokens")
+    print(f"recurrent card vs cpu: tiny on the card, dense against paged "
+          f"cache: {sum(len(t) for t in toks['dense'].values())} tokens "
+          f"identical")
+    out["tiny_dense_vs_paged_tokens"] = sum(len(t)
+                                            for t in toks["dense"].values())
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -4140,7 +4746,8 @@ def main(argv=None) -> int:
     from repro_torch.core import peft, registry
     from repro_torch.data import pipeline as data
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.models import model
+    from repro_torch.models import attention, model
+    from repro_torch.models import ssm as ssm_lib
     from repro_torch import serve
     from repro_torch.train import trainer
     from repro_torch import tree
@@ -4188,6 +4795,12 @@ def main(argv=None) -> int:
     kernels["psoft_matmul_grouped"] = moe_kernels.pop("psoft_matmul_grouped")
     for name, res in moe_kernels.items():
         kernels[name]["deepseek"] = res
+    ssm_kernels = ssm_kernel_phase(torch, ops, ref, F, registry, attention,
+                                   ssm_lib)
+    for name in ("psoft_matmul", "gather_delta_matmul",
+                 "paged_decode_attention"):
+        kernels[name]["recurrent"] = ssm_kernels[name]
+    ssd_scan = ssm_kernels["ssd_scan"]
     phase_s["kernels"] = time.perf_counter() - t0
     print(f"kernels: phase took {phase_s['kernels']:.1f} s")
     for name, res in kernels.items():
@@ -4338,6 +4951,18 @@ def main(argv=None) -> int:
     moe_cross = moe_card_vs_cpu_phase(torch, configs, model, serve, trainer,
                                       data, tree, ops)
     phase_s["moe_card_vs_cpu"] = time.perf_counter() - t0
+    recurrent = {}
+    for arch, what, key in (("mamba2-1.3b", "ssm", "ssm"),
+                            ("zamba2-1.2b", "hybrid", "hybrid")):
+        t0 = time.perf_counter()
+        recurrent[key] = recurrent_phase(
+            torch, args, configs, model, serve, trainer, data, tree, ops,
+            ssm_lib, arch, what, gpu_line)
+        phase_s[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recurrent_cross = recurrent_card_vs_cpu_phase(
+        torch, configs, model, serve, trainer, data, tree, ops)
+    phase_s["recurrent_card_vs_cpu"] = time.perf_counter() - t0
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
@@ -4345,13 +4970,18 @@ def main(argv=None) -> int:
     # phase 10's stream, phase 12's spec run, phase 5's train steps,
     # phase 14's serve-while-train run (its train steps and bank
     # extensions included), phase 16's MoE run() and phase 17's MoE train
-    # steps (whose expert stacks are the grouped launches)
+    # steps (whose expert stacks are the grouped launches), and phases 19
+    # and 20's dense-cache runs and train steps
     main_path = {**{k: served["launches"][k] + streamed["launches"][k]
                     + specced["launches"][k] + lifecycle["launches"][k]
                     + moe_served["launches"][k]
+                    + sum(r["serve"]["launches"][k]
+                          for r in recurrent.values())
                     for k in SERVE_KERNELS},
                  **{k: trained["launches"][k] + lifecycle["launches"][k]
                     + moe_trained["launches"][k]
+                    + sum(r["train"]["launches"][k]
+                          for r in recurrent.values())
                     for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
                      oft_trained["launches"]["blockdiag_rotate"],
@@ -4388,6 +5018,10 @@ def main(argv=None) -> int:
                                        moe_serve=moe_served,
                                        moe_train=moe_trained,
                                        moe_card_vs_cpu=moe_cross,
+                                       ssm=recurrent["ssm"],
+                                       hybrid=recurrent["hybrid"],
+                                       recurrent_card_vs_cpu=recurrent_cross,
+                                       ssd_scan=ssd_scan,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)
     print(json.dumps(line))

@@ -8,8 +8,10 @@ prefill, and the :mod:`repro_torch.obs` Tracker every layer reports
 through; speculative decoding with ``n > 1`` parallel completions
 (slice 8); and the live adapter lifecycle: hot-swap banks that register,
 update and unregister adapters mid-run, and serve-while-train through
-``AdapterFeed``.  :mod:`repro_torch.examples` holds the runnable twins of the
-reference's main-path examples.
+``AdapterFeed`` (slice 9); the MoE family (slice 10); and the SSM (Mamba2)
+and hybrid families on the engine's dense per-slot cache (slice 11).
+:mod:`repro_torch.examples` holds the runnable twins of the reference's
+main-path examples.
 
 The reference package ``repro`` (JAX/Pallas) stays the source of truth; this
 package mirrors its module names and its scan-stacked ``(L, ...)`` parameter

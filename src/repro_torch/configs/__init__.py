@@ -1,5 +1,5 @@
 """Model/PEFT configs of the PyTorch port (its own copy of the registry)."""
 from repro_torch.configs.base import (  # noqa: F401
     DTYPES, PEFT_METHODS, DataConfig, ModelConfig, MoEConfig, PEFTConfig,
-    TrainConfig, get_config, register, torch_dtype,
+    SSMConfig, TrainConfig, get_config, register, torch_dtype,
 )

@@ -2,8 +2,8 @@
 named architectures.
 
 This is the port's own copy of the reference package's config module (the
-port imports nothing of the reference package), cut to what the dense and
-MoE serving and training paths read (plus the data pipeline's
+port imports nothing of the reference package), cut to what the dense, MoE,
+SSM and hybrid serving and training paths read (plus the data pipeline's
 :class:`DataConfig`), and :data:`DTYPES`, the map from the config's dtype
 strings to torch dtypes.
 """
@@ -97,9 +97,19 @@ class MoEConfig:
 
 
 @dataclass
+class SSMConfig:
+    state_size: int = 128           # N, the SSD state dimension
+    head_dim: int = 64              # P, per-head channel dim
+    expand: int = 2                 # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk_size: int = 256           # SSD intra-chunk block length
+    ngroups: int = 1                # B/C groups
+
+
+@dataclass
 class ModelConfig:
     name: str = "tiny"
-    family: str = "dense"           # the port builds dense | moe
+    family: str = "dense"           # the port builds dense | moe | ssm | hybrid
     num_layers: int = 2
     d_model: int = 128
     num_heads: int = 4
@@ -119,6 +129,10 @@ class ModelConfig:
     # (torch.utils.checkpoint), "none" keeps its activations
     remat_policy: str = "full"      # none | full
     moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    # hybrid (zamba2-style): one shared attention block applied every k
+    # layers
+    hybrid_attn_every: int = 6
     peft: PEFTConfig = field(default_factory=PEFTConfig)
 
     @property
@@ -129,15 +143,28 @@ class ModelConfig:
     def padded_vocab_size(self) -> int:
         return _round_up(self.vocab_size, VOCAB_PAD_MULTIPLE)
 
+    def layer_pattern(self) -> str:
+        """One char per decoder layer: M (Mamba2 SSD) or A (attention)."""
+        if self.family == "ssm":
+            return "M" * self.num_layers
+        if self.family == "hybrid":
+            k = self.hybrid_attn_every
+            return "".join("A" if i % k == k - 1 else "M"
+                           for i in range(self.num_layers))
+        return "A" * self.num_layers
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self, **extra) -> "ModelConfig":
         """A tiny same-family config for CPU tests: the reference's
         ``reduced()`` for the families the port builds (an MoE config keeps
-        4 experts, top-2, at most one shared expert, ``d_ff`` 64)."""
+        4 experts, top-2, at most one shared expert, ``d_ff`` 64; SSM and
+        hybrid state 16, head_dim 16, chunk 32, and a hybrid 4 layers with
+        attention every 2)."""
         kw: Dict = dict(
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers,
+                           2 if self.family != "hybrid" else 4),
             d_model=64,
             num_heads=4,
             num_kv_heads=min(self.num_kv_heads, 2),
@@ -153,6 +180,10 @@ class ModelConfig:
                 self.moe, num_experts=4, top_k=2,
                 num_shared_experts=min(self.moe.num_shared_experts, 1))
             kw["d_ff"] = 64
+        if self.family in ("ssm", "hybrid"):
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, state_size=16, head_dim=16, chunk_size=32)
+            kw["hybrid_attn_every"] = 2
         kw["peft"] = dataclasses.replace(self.peft, rank=8)
         kw.update(extra)
         return dataclasses.replace(self, **kw)
@@ -248,6 +279,36 @@ def deepseek_moe_16b() -> ModelConfig:
         moe=MoEConfig(num_experts=64, num_shared_experts=2, top_k=6,
                       capacity_factor=1.25, sharding="ep"),
         peft=PEFTConfig(rank=64),
+    )
+
+
+@register("mamba2-1.3b")
+def mamba2_1p3b() -> ModelConfig:
+    # [arXiv:2405.21060] 48L d_model=2048, attention-free SSD,
+    # ssm_state=128, vocab 50280
+    return ModelConfig(
+        name="mamba2-1.3b", family="ssm",
+        num_layers=48, d_model=2048, num_heads=64, num_kv_heads=64, head_dim=64,
+        d_ff=0, vocab_size=50280, mlp_type="swiglu", norm_type="rmsnorm",
+        ssm=SSMConfig(state_size=128, head_dim=64, expand=2, conv_width=4,
+                      chunk_size=256),
+        peft=PEFTConfig(rank=64, target_modules=("in_proj", "out_proj")),
+    )
+
+
+@register("zamba2-1.2b")
+def zamba2_1p2b() -> ModelConfig:
+    # [arXiv:2411.15242] 38L d=2048 Mamba2 backbone + one shared attention
+    # block, 32H kv=32 ffn=8192 vocab=32000 ssm_state=64
+    return ModelConfig(
+        name="zamba2-1.2b", family="hybrid",
+        num_layers=38, d_model=2048, num_heads=32, num_kv_heads=32, head_dim=64,
+        d_ff=8192, vocab_size=32000, mlp_type="swiglu",
+        ssm=SSMConfig(state_size=64, head_dim=64, expand=2, conv_width=4,
+                      chunk_size=256),
+        hybrid_attn_every=6,
+        peft=PEFTConfig(rank=64, target_modules=(
+            "q", "k", "v", "o", "gate", "up", "down", "in_proj", "out_proj")),
     )
 
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import PEFTConfig
 from repro_torch.core import registry
+from repro_torch.tree import map_dicts
 
 
 def init_linear(generator: Optional[torch.Generator], w_pre: torch.Tensor,
@@ -69,12 +70,11 @@ def is_peft_linear(node) -> bool:
 def merge_tree(params, cfg: PEFTConfig):
     """Collapse every PEFT linear into a plain ``{"w": W_final}``; layer-
     stacked linears merge in one batched call.  The dict key naming a linear
-    is its module name, so per-module method maps merge correctly."""
-    def rec(node, path):
-        if is_peft_linear(node):
-            module = path[-1] if path else None
-            return {"w": merge_linear(node, cfg, module=module)}
-        if isinstance(node, dict):
-            return {k: rec(v, path + (k,)) for k, v in node.items()}
-        return node
-    return rec(params, ())
+    is its module name, so per-module method maps merge correctly.  Lists
+    (a hybrid's per-layer dicts) are walked like dicts."""
+    def one(node, path):
+        if not is_peft_linear(node):
+            return None
+        return {"w": merge_linear(node, cfg,
+                                  module=path[-1] if path else None)}
+    return map_dicts(one, params)

@@ -213,9 +213,10 @@ def apply_batched(params: Dict, x: torch.Tensor, compute_dtype,
     """One banked linear: ``y[b] = x[b] @ (W + delta[ids[b]])``.
 
     ``x``: (B, ..., d_in), leading dim = batch slots; ``adapter_ids``: (B,)
-    int32 (None -> base weights only).  Decode-shaped inputs (B, 1, d_in) on
-    a low-rank bank always go through the gather-delta wrapper: the kernel
-    on a GPU, its plain version on the CPU.  A MIXED bank
+    int32 (None -> base weights only).  Decode-shaped inputs, (B, 1, d_in)
+    or the Mamba2 decode's (B, d_in) rows, on a low-rank bank always go
+    through the gather-delta wrapper: the kernel on a GPU, its plain
+    version on the CPU.  A MIXED bank
     (``{"left", "right", "delta"}``, from :func:`extend_bank` growing a
     low-rank bank with a dense newcomer) adds the dense term after either
     low-rank path; every column holds an exact zero in the form it does not
@@ -223,13 +224,15 @@ def apply_batched(params: Dict, x: torch.Tensor, compute_dtype,
     x = x.to(compute_dtype)
     bank = params.get("bank")
     if bank is not None and adapter_ids is not None and "left" in bank \
-            and x.ndim == 3 and x.shape[1] == 1:
+            and (x.ndim == 2 or (x.ndim == 3 and x.shape[1] == 1)):
+        rows = x.reshape(x.shape[0], x.shape[-1])
         y = ops.gather_delta_matmul(
-            x[:, 0], params["w"], bank["left"], bank["right"], adapter_ids,
-            compute_dtype=compute_dtype)[:, None, :]
+            rows, params["w"], bank["left"], bank["right"], adapter_ids,
+            compute_dtype=compute_dtype)
         if "delta" in bank:
-            y = y + _dense_term(x, bank["delta"], adapter_ids, compute_dtype)
-        return y
+            y = y + _dense_term(rows, bank["delta"], adapter_ids,
+                                compute_dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     y = x @ params["w"].to(compute_dtype)
     if bank is None or adapter_ids is None:
         return y

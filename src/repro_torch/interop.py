@@ -2,7 +2,8 @@
 
 The reference hands its tree over as nested dicts of numpy arrays (the
 caller does the ``jax -> numpy`` step; this module never imports jax).  Both
-packages keep the same nested-dict, scan-stacked ``(L, ...)`` layout, so the
+packages keep the same layout (nested dicts, scan-stacked ``(L, ...)``
+leaves, the hybrid's list of per-layer dicts with its 0-d markers), so the
 conversion is leaf by leaf over :mod:`repro_torch.tree`.  ``None`` leaves
 stay ``None`` and NamedTuples keep their type, so a whole train state
 crosses (:func:`repro_torch.train.trainer.train_state_from_numpy` rebuilds
@@ -41,8 +42,8 @@ def _to_numpy(t: torch.Tensor, bf16_dtype) -> np.ndarray:
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
-    """Nested dicts / lists / NamedTuples of numpy arrays -> the same tree
-    of tensors on ``device``."""
+    """Nested dicts / lists / NamedTuples of numpy arrays (0-d ones
+    included) -> the same tree of tensors on ``device``."""
     dev = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, dev), tree)
 

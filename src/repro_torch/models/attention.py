@@ -3,7 +3,10 @@ writes and gathers, and the paged prefill / decode paths.
 
 The paged prefill (with an aliased prefix) and paged decode go through the
 wrappers of :mod:`repro_torch.kernels.ops`: the hand-written kernels on a
-GPU, their plain versions on the CPU.  ``chunked_attention`` mirrors the
+GPU, their plain versions on the CPU.  A decode over a dense per-slot
+buffer (:func:`dense_decode_attention`) is the reference's plain
+:func:`decode_attention` on the CPU and, on the card, the paged-decode
+kernel over the buffer viewed as pages through an identity table.  ``chunked_attention`` mirrors the
 reference's masked online softmax in fp32 (no fused library attention), so
 a prefill with no aliased prefix matches the reference path.
 """
@@ -169,3 +172,45 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def dense_page_size(max_len: int) -> int:
+    """Page size of a dense cache's paged view: the largest power of two
+    <= 16 that divides ``max_len``."""
+    pg = 16
+    while max_len % pg:
+        pg //= 2
+    return pg
+
+
+def dense_view_table(batch: int, max_len: int, device) -> torch.Tensor:
+    """The identity page table of a dense ``(batch, max_len, KH, D)``
+    buffer viewed as pages of :func:`dense_page_size` rows: row b lists
+    pages ``b * max_len / pg + j``."""
+    per = max_len // dense_page_size(max_len)
+    return torch.arange(batch * per, dtype=torch.int32,
+                        device=device).reshape(batch, per)
+
+
+def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor,
+                           view_table: Optional[torch.Tensor]
+                           ) -> torch.Tensor:
+    """One-token attention over dense per-slot buffers (B, S, KH, D) up to
+    ``lengths`` (B,).  On the CPU the plain :func:`decode_attention`; on
+    the card the paged-decode kernel over the contiguous buffers viewed
+    (no copy) as ``(B * S / pg, pg, KH, D)`` pages through ``view_table``
+    (:func:`dense_view_table`)."""
+    if not q.is_cuda:
+        return decode_attention(q, k_cache, v_cache, lengths)
+    b, s, kh, d = k_cache.shape
+    pg = s // view_table.shape[1]
+    if tuple(view_table.shape) != (b, s // pg) or s % pg \
+            or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"dense view: buffers {tuple(k_cache.shape)} "
+                         f"(contiguous: {k_cache.is_contiguous()}, "
+                         f"{v_cache.is_contiguous()}), table "
+                         f"{tuple(view_table.shape)}")
+    pages = (b * (s // pg), pg, kh, d)
+    return paged_decode_attention(q, k_cache.view(pages),
+                                  v_cache.view(pages), view_table, lengths)

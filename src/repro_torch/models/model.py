@@ -1,10 +1,13 @@
-"""Decoder of the port, dense and MoE: init, the training forward and loss,
-paged prefill and paged decode, and the PEFT trainability mask.
+"""Decoder of the port, dense, MoE, SSM (Mamba2) and hybrid (Mamba2 with
+one shared attention block): init, the training forward and loss, paged
+and dense-cache prefill and decode, and the PEFT trainability mask.
 
-Params are nested dicts of tensors in the reference's scan-stacked layout:
-every per-layer leaf has a leading ``(L, ...)`` axis, so a reference tree
-converts 1:1 (:mod:`repro_torch.interop`).  A Python loop over the layer
-axis takes the place of ``lax.scan``.  Banked serve linears take the
+Params are nested dicts of tensors in the reference's layout: the dense,
+MoE and SSM families scan-stack every per-layer leaf on a leading
+``(L, ...)`` axis; the hybrid keeps a Python list of per-layer dicts (an
+attention position holds only a 0-d ``"marker"``) beside ``"shared_attn"``.
+A reference tree converts 1:1 (:mod:`repro_torch.interop`).  A Python loop
+over the layers takes the place of ``lax.scan``.  Banked serve linears take the
 engine's per-row ``adapter_ids``, threaded explicitly through every call.
 The training forward builds every PSOFT, OFT and BOFT layer stack's
 rotations once per call (one ``cayley_neumann`` launch per stack), outside
@@ -13,6 +16,14 @@ An MoE block holds ``"moe"`` (:mod:`repro_torch.models.moe`) where a dense
 one holds ``"mlp"``; training dispatches tokens with capacity, serving and
 logits run every expert on every token (``moe_impl``), as the reference
 does.
+
+The dense cache (:func:`init_cache` without a page size) is the SSM and
+hybrid families' cache, and a baseline for the attention families: per
+layer a ``(B, max_len, KH, hd)`` K/V buffer, or the Mamba2 conv and SSD
+states.  Recurrent families prefill at the exact prompt length (pad tokens
+would enter the states).  On the card a dense decode attends through the
+paged-decode kernel over the buffer viewed as pages
+(:func:`repro_torch.models.attention.dense_decode_attention`).
 """
 from __future__ import annotations
 
@@ -28,14 +39,18 @@ from repro_torch.core import peft as peft_lib
 from repro_torch.core import registry
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.tree import map_dicts, tree_map_with_path
 
 Params = Dict[str, Any]
 
 _MLP = ("up", "down", "gate")
 _ATTN = ("q", "k", "v", "o")
-#: logical module names a param path of the decoder can name (the router
-#: names a module, as in the reference, but is never PEFT-wrapped)
-_MODULE_NAMES = frozenset(_ATTN + _MLP + ("router",))
+#: logical module names a param path of the decoder can name, the
+#: reference's set (the router names a module but is never PEFT-wrapped:
+#: ``moe_apply`` reads its weight directly)
+_MODULE_NAMES = frozenset(_ATTN + _MLP + ("router", "in_proj", "out_proj",
+                                          "fuse"))
 
 
 def _layer(tree, i: int):
@@ -70,61 +85,114 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: int, param_dtype,
             for n in names}
 
 
+def _block_init(gen, cfg: ModelConfig, pdt, edt, targets, dev,
+                lead: Tuple[int, ...]) -> Params:
+    """One attention + MLP (or MoE) block, stacked over ``lead`` layers."""
+    d, f = cfg.d_model, cfg.d_ff
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    shapes = {"q": (d, h * hd), "k": (d, kh * hd), "v": (d, kh * hd),
+              "o": (h * hd, d)}
+    p: Params = {
+        "ln1": layers.norm_init(d, cfg.norm_type, pdt, dev, lead),
+        "attn": {n: _linear_init(gen, cfg, lead + shapes[n], n, pdt, edt,
+                                 targets, dev) for n in _ATTN},
+        "ln2": layers.norm_init(d, cfg.norm_type, pdt, dev, lead),
+    }
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.moe_init(gen, cfg, pdt, edt, targets, dev,
+                                    lead[0])
+    else:
+        p["mlp"] = mlp_init(gen, cfg, f, pdt, edt, targets, dev, lead)
+    return p
+
+
+def _mamba_layer_init(gen, cfg: ModelConfig, pdt, edt, dev,
+                      lead: Tuple[int, ...]) -> Params:
+    return {"ssm": ssm_lib.mamba_block_init(
+                gen, cfg, pdt, edt, cfg.peft.is_target("in_proj"),
+                cfg.peft.is_target("out_proj"), dev, lead),
+            "ln": layers.norm_init(cfg.d_model, cfg.norm_type, pdt, dev,
+                                   lead)}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random decoder params (dense or MoE) from ``seed`` (a
-    ``torch.Generator`` on ``device``), PEFT-wrapped per ``cfg.peft`` (any
-    registered method); the SVD methods (PSOFT, PiSSA, LoRA-XS) split each
-    linear stack by one batched fp32 SVD, on ``device``, and each MoE
-    expert stack one layer at a time."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the port builds the dense and MoE families only, "
-                         f"not {cfg.family!r}")
+    """Random decoder params from ``seed`` (a ``torch.Generator`` on
+    ``device``), PEFT-wrapped per ``cfg.peft`` (any registered method); the
+    SVD methods (PSOFT, PiSSA, LoRA-XS) split each linear stack by one
+    batched fp32 SVD, on ``device``, each MoE expert stack one layer at a
+    time, and each of the hybrid's unstacked linears alone.  The hybrid's
+    shared block's ``fuse`` is never wrapped, as in the reference."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"the port builds the dense, MoE, SSM and hybrid "
+                         f"families only, not {cfg.family!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     pdt, edt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.peft_dtype)
-    nl, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    nl, d = cfg.num_layers, cfg.d_model
     targets = cfg.peft.target_modules
-    shapes = {"q": (d, h * hd), "k": (d, kh * hd), "v": (d, kh * hd),
-              "o": (h * hd, d)}
     p: Params = {
         "embed": {"w": layers.truncated_normal_init(
             gen, (cfg.padded_vocab_size, d), pdt, dev)},
         "final_norm": layers.norm_init(d, cfg.norm_type, pdt, dev),
-        "layers": {
-            "ln1": layers.norm_init(d, cfg.norm_type, pdt, dev, (nl,)),
-            "attn": {n: _linear_init(gen, cfg, (nl,) + shapes[n], n, pdt,
-                                     edt, targets, dev) for n in _ATTN},
-            "ln2": layers.norm_init(d, cfg.norm_type, pdt, dev, (nl,)),
-        },
     }
-    if cfg.family == "moe":
-        p["layers"]["moe"] = moe_lib.moe_init(gen, cfg, pdt, edt, targets,
-                                              dev, nl)
+    if cfg.family in ("dense", "moe"):
+        p["layers"] = _block_init(gen, cfg, pdt, edt, targets, dev, (nl,))
+    elif cfg.family == "ssm":
+        p["layers"] = _mamba_layer_init(gen, cfg, pdt, edt, dev, (nl,))
     else:
-        p["layers"]["mlp"] = mlp_init(gen, cfg, f, pdt, edt, targets, dev,
-                                      (nl,))
+        p["layers"] = [
+            _mamba_layer_init(gen, cfg, pdt, edt, dev, ()) if ch == "M"
+            else {"marker": torch.zeros((), dtype=torch.float32, device=dev)}
+            for ch in cfg.layer_pattern()]
+        p["shared_attn"] = {
+            "fuse": _linear_init(gen, cfg, (2 * d, d), "fuse", pdt, edt, (),
+                                 dev),
+            "block": _block_init(gen, cfg, pdt, edt, targets, dev, ())}
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": layers.truncated_normal_init(
             gen, (d, cfg.padded_vocab_size), pdt, dev)}
     return p
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, page_size: int,
-               num_pages: Optional[int] = None, device="cuda"
-               ) -> Dict[str, torch.Tensor]:
-    """Block-paged KV pools ``{"k","v"}: (L, num_pages, page_size, KH, hd)``
-    in the compute dtype.  Page 0 is the reserved trash page; ``num_pages``
-    defaults to dense-equivalent capacity plus the trash page."""
-    if num_pages is None:
-        num_pages = 1 + batch * -(-max_len // page_size)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               page_size: Optional[int] = None,
+               num_pages: Optional[int] = None, device="cuda"):
+    """The decode cache.  With ``page_size``: block-paged KV pools
+    ``{"k","v"}: (L, num_pages, page_size, KH, hd)`` in the compute dtype
+    (page 0 is the reserved trash page; ``num_pages`` defaults to
+    dense-equivalent capacity plus the trash page), for the attention
+    families only.  Without: the dense cache, zeros, layer-stacked for the
+    dense, MoE and SSM families (``{"k","v"}: (L, batch, max_len, KH, hd)``;
+    ``{"conv_state": (L, batch, K-1, C), "ssm_state": (L, batch, H, N, P)}``
+    with the SSD state in fp32) and a per-layer list for the hybrid."""
     dev = resolve_device(device)
     cdt = torch_dtype(cfg.dtype)
-    return {"k": torch.zeros(shape, dtype=cdt, device=dev),
-            "v": torch.zeros(shape, dtype=cdt, device=dev)}
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if page_size is not None:
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"paged KV cache supports attention families only, not "
+                f"{cfg.family!r} — SSM/hybrid state caches stay dense")
+        if num_pages is None:
+            num_pages = 1 + batch * -(-max_len // page_size)
+        shape = (cfg.num_layers, num_pages, page_size, kh, hd)
+        return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                "v": torch.zeros(shape, dtype=cdt, device=dev)}
+
+    def attn_cache(lead):
+        shape = lead + (batch, max_len, kh, hd)
+        return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                "v": torch.zeros(shape, dtype=cdt, device=dev)}
+    if cfg.family in ("dense", "moe"):
+        return attn_cache((cfg.num_layers,))
+    if cfg.family == "ssm":
+        return ssm_lib.mamba_cache_init(cfg, batch, cdt, dev,
+                                        (cfg.num_layers,))
+    if cfg.family == "hybrid":
+        return [ssm_lib.mamba_cache_init(cfg, batch, cdt, dev) if ch == "M"
+                else attn_cache(()) for ch in cfg.layer_pattern()]
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +263,38 @@ def attn_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
     return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
 
 
+def attn_dense_prefill(params, x, cfg: ModelConfig, cdt, positions, kv,
+                       adapter_ids=None) -> torch.Tensor:
+    """Prefill of one layer into a dense per-layer buffer ``kv`` (B,
+    max_len, KH, hd): the prompt's K/V are written at positions [0, S) in
+    place (the reference pad-writes the buffer), then the chunked causal
+    path."""
+    q, k, v = _qkv(params, x, cfg, cdt, positions, adapter_ids)
+    s = x.shape[1]
+    kv["k"][:, :s] = k.to(kv["k"].dtype)
+    kv["v"][:, :s] = v.to(kv["v"].dtype)
+    out = attention.chunked_attention(q, k, v, causal=True)
+    return _lin(params["o"], out.reshape(*x.shape[:-1], -1), cfg, cdt, "o",
+                adapter_ids)
+
+
+def attn_dense_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
+                      view_table, adapter_ids=None) -> torch.Tensor:
+    """One-token decode of one layer over a dense buffer ``kv`` (B,
+    max_len, KH, hd): the token's K/V written at ``[b, positions[b]]`` in
+    place, then one-token attention over ``positions + 1`` (the paged-decode
+    kernel over the buffer viewed as pages on the card, through
+    ``view_table``)."""
+    q, k, v = _qkv(params, x_t, cfg, cdt, positions[:, None], adapter_ids)
+    bidx = torch.arange(x_t.shape[0], device=x_t.device)
+    kv["k"][bidx, positions] = k[:, 0].to(kv["k"].dtype)
+    kv["v"][bidx, positions] = v[:, 0].to(kv["v"].dtype)
+    out = attention.dense_decode_attention(q, kv["k"], kv["v"], positions + 1,
+                                           view_table)
+    out = out.reshape(x_t.shape[0], 1, -1)
+    return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
+
+
 def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense"):
     """(y, the layer's MoE aux loss, or None for a dense layer)."""
     h = layers.apply_norm(lp["ln1"], x)
@@ -204,6 +304,18 @@ def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense"):
         m, aux = moe_lib.moe_apply(lp["moe"], h, cfg, cdt, moe_impl)
         return x + m, aux
     return x + mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids), None
+
+
+def shared_block_apply(params, x, h0, cfg: ModelConfig, cdt, attn_fn,
+                       adapter_ids=None) -> torch.Tensor:
+    """The hybrid's shared attention + MLP block at one position: its input
+    is ``fuse([x, h0])`` (h0 the token embeddings), its output added to
+    ``x``.  ``attn_fn(attn_params, h)`` is the attention of the path
+    (training, prefill or decode)."""
+    inp = _lin(params["fuse"], torch.cat([x, h0], dim=-1), cfg, cdt, "fuse",
+               adapter_ids)
+    y, _ = _block(params["block"], inp, cfg, cdt, attn_fn, adapter_ids)
+    return x + y
 
 
 def attn_apply(params, x, cfg: ModelConfig, cdt, positions) -> torch.Tensor:
@@ -220,6 +332,17 @@ def _train_block(lp, cfg, cdt, positions, moe_impl, x):
     return _block(lp, x, cfg, cdt, attn_fn, None, moe_impl)
 
 
+def _train_mamba(lp, cfg, cdt, x):
+    hn = layers.apply_norm(lp["ln"], x)
+    return x + ssm_lib.mamba_block_apply(lp["ssm"], hn, cfg, cdt)
+
+
+def _train_shared(sp, cfg, cdt, positions, x, h0):
+    def attn_fn(ap, h):
+        return attn_apply(ap, h, cfg, cdt, positions)
+    return shared_block_apply(sp, x, h0, cfg, cdt, attn_fn)
+
+
 def _remat(fn, cfg: ModelConfig):
     """``remat_policy`` "full": recompute the layer in the backward
     (non-reentrant checkpoint); "none": keep its activations."""
@@ -233,20 +356,19 @@ def _remat(fn, cfg: ModelConfig):
                      f"(the port has 'none' and 'full')")
 
 
-def _with_rotations(tree, cfg: ModelConfig, path: Tuple[str, ...] = ()):
+def _with_rotations(tree, cfg: ModelConfig):
     """``tree`` with every rotation a PEFT linear builds ahead (PSOFT's
     r x r rotation, the OFT/BOFT Cayley blocks (L, d/b, b, b) or
     (L, m, d/b, b, b)) under ``"rot"``: one ``cayley_neumann`` call per
-    layer stack."""
-    if isinstance(tree, dict):
-        if peft_lib.is_peft_linear(tree):
-            method = registry.resolve(tree, cfg.peft,
-                                      module=path[-1] if path else None)
-            rot = method.rotations(tree, cfg.peft)
-            return tree if rot is None else {**tree, "rot": rot}
-        return {k: _with_rotations(v, cfg, path + (k,))
-                for k, v in tree.items()}
-    return tree
+    layer stack, or per unstacked linear of a hybrid."""
+    def one(node, path):
+        if not peft_lib.is_peft_linear(node):
+            return None
+        method = registry.resolve(node, cfg.peft,
+                                  module=path[-1] if path else None)
+        rot = method.rotations(node, cfg.peft)
+        return node if rot is None else {**node, "rot": rot}
+    return map_dicts(one, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -258,15 +380,33 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S),
     the MoE aux loss summed over layers (0 for a dense model)): causal
-    chunked attention, one remat boundary per layer."""
+    chunked attention or the chunked SSD scan, one remat boundary per
+    layer (a hybrid's shared-block positions included)."""
     cdt = torch_dtype(cfg.dtype)
     x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        h0 = x
+        lays = _with_rotations(params["layers"], cfg)
+        shared = _with_rotations(params["shared_attn"], cfg)
+        mamba = _remat(functools.partial(_train_mamba, cfg=cfg, cdt=cdt),
+                       cfg)
+        attn = _remat(functools.partial(_train_shared, cfg=cfg, cdt=cdt,
+                                        positions=positions), cfg)
+        for i, ch in enumerate(cfg.layer_pattern()):
+            x = mamba(lays[i], x=x) if ch == "M" else attn(shared, x=x, h0=h0)
+        return layers.apply_norm(params["final_norm"], x), aux
     stack = _with_rotations(params["layers"], cfg)
+    if cfg.family == "ssm":
+        block = _remat(functools.partial(_train_mamba, cfg=cfg, cdt=cdt),
+                       cfg)
+        for i in range(cfg.num_layers):
+            x = block(_layer(stack, i), x=x)
+        return layers.apply_norm(params["final_norm"], x), aux
     block = _remat(functools.partial(_train_block, cfg=cfg, cdt=cdt,
                                      positions=positions,
                                      moe_impl=moe_impl), cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         x, layer_aux = block(_layer(stack, i), x=x)
         if layer_aux is not None:
@@ -347,6 +487,9 @@ def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
     ``all_logits=True`` the logits cover every suffix position, (B, S, V),
     as the speculative-decode verify pass reads them (positions past a
     row's length carry values the caller must ignore)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"paged prefill supports attention families only, "
+                         f"not {cfg.family!r}")
     cdt = torch_dtype(cfg.dtype)
     x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     s = x.shape[1]
@@ -372,29 +515,131 @@ def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
     return lm_logits(params, x, cfg), {"k": cache["k"], "v": cache["v"]}
 
 
-def decode_step(params: Params, batch: Dict[str, torch.Tensor],
-                cache: Dict[str, torch.Tensor], pos, cfg: ModelConfig, *,
-                adapter_ids: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def prefill(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, max_len: int,
+            lengths: Optional[torch.Tensor] = None, *,
+            adapter_ids: Optional[torch.Tensor] = None):
+    """Prompt prefill into a fresh dense cache (:func:`init_cache` with no
+    page size): returns (the logits at each row's last real token (B, 1,
+    V), the cache).  ``lengths`` (B,) are the true prompt lengths of
+    right-padded attention-family rows (None: every row is full); the
+    recurrent families' states take every token in, so their rows must
+    all be exactly ``lengths`` long.  Every MoE layer runs the dense
+    dispatch."""
+    cdt = torch_dtype(cfg.dtype)
+    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    b, s = x.shape[:2]
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.long, device=x.device)
+    positions = torch.arange(s, device=x.device)[None, :]
+    cache = init_cache(cfg, b, max_len, device=x.device)
+
+    def attn_fn_for(kv):
+        def attn_fn(ap, h):
+            return attn_dense_prefill(ap, h, cfg, cdt, positions, kv,
+                                      adapter_ids)
+        return attn_fn
+    if cfg.family in ("dense", "moe"):
+        for i in range(cfg.num_layers):
+            kv = {"k": cache["k"][i], "v": cache["v"][i]}
+            x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
+                          attn_fn_for(kv), adapter_ids, "dense")
+    elif cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            hn = layers.apply_norm(lp["ln"], x)
+            y, c = ssm_lib.mamba_block_apply(lp["ssm"], hn, cfg, cdt, True,
+                                             adapter_ids)
+            x = x + y
+            for k, v in c.items():
+                cache[k][i] = v
+    elif cfg.family == "hybrid":
+        h0 = x
+        for i, ch in enumerate(cfg.layer_pattern()):
+            if ch == "M":
+                lp = params["layers"][i]
+                hn = layers.apply_norm(lp["ln"], x)
+                y, cache[i] = ssm_lib.mamba_block_apply(
+                    lp["ssm"], hn, cfg, cdt, True, adapter_ids)
+                x = x + y
+            else:
+                x = shared_block_apply(params["shared_attn"], x, h0, cfg, cdt,
+                                       attn_fn_for(cache[i]), adapter_ids)
+    else:
+        raise ValueError(cfg.family)
+    x = layers.apply_norm(params["final_norm"], x)
+    return lm_logits(params, _last_hidden(x, lengths), cfg), cache
+
+
+def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
+                pos, cfg: ModelConfig, *,
+                adapter_ids: Optional[torch.Tensor] = None,
+                view_table: Optional[torch.Tensor] = None):
     """One-token serve step.  ``batch["tokens"]`` (B, 1); ``pos`` a scalar
-    or (B,) per-slot positions; ``cache``: pools plus ``"page_table"``
-    (shared by every layer).  Pools are updated in place.  Returns
-    (logits (B, 1, V), cache)."""
+    or (B,) per-slot positions; ``cache``: paged pools plus
+    ``"page_table"`` (shared by every layer), or a dense cache
+    (:func:`init_cache` with no page size).  The cache is updated in
+    place.  ``view_table`` is the dense cache's paged view on the card
+    (:func:`repro_torch.models.attention.dense_view_table`, built here
+    when None).  Returns (logits (B, 1, V), cache)."""
     cdt = torch_dtype(cfg.dtype)
     x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     b = x.shape[0]
     positions = torch.as_tensor(pos, device=x.device).long()
     if positions.ndim == 0:
         positions = positions.expand(b)
-    pt = cache["page_table"]
-    for i in range(cfg.num_layers):
-        kv = {"k": cache["k"][i], "v": cache["v"][i]}
+    if isinstance(cache, dict) and "page_table" in cache:
+        pt = cache["page_table"]
+        for i in range(cfg.num_layers):
+            kv = {"k": cache["k"][i], "v": cache["v"][i]}
 
-        def attn_fn(ap, h, kv=kv):
-            return attn_decode(ap, h, cfg, cdt, positions, kv, pt,
-                               adapter_ids)
-        x, _ = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
-                      adapter_ids, "dense")
+            def attn_fn(ap, h, kv=kv):
+                return attn_decode(ap, h, cfg, cdt, positions, kv, pt,
+                                   adapter_ids)
+            x, _ = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
+                          adapter_ids, "dense")
+        x = layers.apply_norm(params["final_norm"], x)
+        return lm_logits(params, x, cfg), cache
+
+    table = view_table
+
+    def attn_fn_for(kv):
+        nonlocal table
+        if table is None and kv["k"].is_cuda:
+            table = attention.dense_view_table(b, kv["k"].shape[1],
+                                               x.device)
+
+        def attn_fn(ap, h):
+            return attn_dense_decode(ap, h, cfg, cdt, positions, kv, table,
+                                     adapter_ids)
+        return attn_fn
+
+    def mamba_step(lp, x, c):
+        hn = layers.apply_norm(lp["ln"], x)
+        y, nc = ssm_lib.mamba_block_decode(lp["ssm"], hn, c, cfg, cdt,
+                                           adapter_ids)
+        for k, v in nc.items():
+            c[k].copy_(v)
+        return x + y
+    if cfg.family in ("dense", "moe"):
+        for i in range(cfg.num_layers):
+            kv = {"k": cache["k"][i], "v": cache["v"][i]}
+            x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
+                          attn_fn_for(kv), adapter_ids, "dense")
+    elif cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x = mamba_step(_layer(params["layers"], i), x,
+                           _layer(cache, i))
+    elif cfg.family == "hybrid":
+        h0 = x
+        for i, ch in enumerate(cfg.layer_pattern()):
+            if ch == "M":
+                x = mamba_step(params["layers"][i], x, cache[i])
+            else:
+                x = shared_block_apply(params["shared_attn"], x, h0, cfg, cdt,
+                                       attn_fn_for(cache[i]), adapter_ids)
+    else:
+        raise ValueError(cfg.family)
     x = layers.apply_norm(params["final_norm"], x)
     return lm_logits(params, x, cfg), cache
 
@@ -414,37 +659,41 @@ def _module_of(names: Tuple[str, ...]) -> Optional[str]:
 
 def trainable_mask(cfg: ModelConfig, params: Params,
                    full_finetune: bool = False):
-    """Per-leaf trainability (the same tree of bools), resolved per module
-    through the registry: a leaf trains when its key is one of its
-    module's method's ``trainable_names``."""
-    def rec(node, path):
-        if isinstance(node, dict):
-            return {k: rec(v, path + (k,)) for k, v in node.items()}
+    """Per-leaf trainability (the same tree of bools, lists included),
+    resolved per module through the registry: a leaf trains when its key
+    is one of its module's method's ``trainable_names``."""
+    def one(path, _leaf):
         if full_finetune:
             return True
         module = _module_of(path)
         method = cfg.peft.method_for(module) if module else "none"
         return path[-1] in peft_lib.trainable_names(method, cfg.peft)
-    return rec(params, ())
+    return tree_map_with_path(one, params)
 
 
 def rewrap_peft(merged_params: Params, cfg: ModelConfig) -> Params:
     """Wrap every plain ``{"w"}`` linear of a merged or pre-trained tree
     with the ``cfg.peft`` structure (PSOFT: the SVD split), layer stacks
     in one batched call and expert stacks one layer at a time: the "load a
-    checkpoint, attach PSOFT" entry.  The MoE router stays as it is (fp32,
-    never wrapped: ``moe_apply`` reads its weight directly)."""
+    checkpoint, attach PSOFT" entry.  As in the reference, an untargeted
+    linear goes through the ``"none"`` method, which casts it to
+    ``param_dtype``: the MoE router too (``moe_apply`` reads it in fp32
+    either way).  A router in ``target_modules`` raises: ``moe_apply``
+    reads its weight directly, so a wrapped router could not route."""
     pdt, edt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.peft_dtype)
 
-    def rec(node, path):
-        if isinstance(node, dict) and set(node) == {"w"} and \
-                node["w"].ndim >= 2 and path and path[-1] in _MODULE_NAMES \
-                and path[-1] != "router":
+    def one(node, path):
+        if set(node) == {"w"} and node["w"].ndim >= 2 and path \
+                and path[-1] in _MODULE_NAMES:
             module = path[-1]
+            if module == "router" and cfg.peft.is_target(module):
+                raise ValueError(
+                    f"rewrap_peft: target module 'router' "
+                    f"({'/'.join(path)}) cannot be PEFT-wrapped: moe_apply "
+                    f"reads the router's weight directly; drop 'router' "
+                    f"from target_modules")
             return peft_lib.init_linear(None, node["w"], cfg.peft,
                                         cfg.peft.is_target(module), pdt, edt,
                                         module=module)
-        if isinstance(node, dict):
-            return {k: rec(v, path + (k,)) for k, v in node.items()}
-        return node
-    return rec(merged_params, ())
+        return None
+    return map_dicts(one, merged_params)

@@ -1,6 +1,6 @@
 """Serving engine of the port: multi-tenant continuous batching over a
-block-paged KV cache, with streaming admission, SLO-aware preemption,
-chunked prefill and per-request sampling.
+block-paged KV cache (or a dense per-slot cache), with streaming
+admission, SLO-aware preemption, chunked prefill and per-request sampling.
 
 The engine merges the base tree once (PSOFT adapters fold into plain
 weights) and stacks every registered adapter's update into a per-linear
@@ -13,7 +13,14 @@ to the bank epoch it started on.  Prefill and decode pass a per-row
 serves slots on different adapters.
 KV lives in refcounted pages (:class:`repro_torch.serve.kv_cache
 .PagedKVCache`); admissions whose prompt prefix hashes to resident pages
-alias them and prefill only their suffix.
+alias them and prefill only their suffix.  ``cache_mode="dense"`` keeps
+one per-slot cache instead (:func:`repro_torch.models.model.init_cache`
+with no page size): the SSM and hybrid families' recurrent states do not
+page, so ``"auto"`` gives them the dense cache and the attention families
+pages.  A dense cache admits without page accounting, prefills each
+same-length group of prompts in one call (recurrent families at the exact
+prompt length) and copies each row into its slot, and has no preemption,
+chunked prefill or speculative decoding, as in the reference.
 
 Admission is streaming (:meth:`ServeEngine.run_stream`): requests are
 ``submit()``-ed as they arrive — mid-run included — and a
@@ -49,8 +56,6 @@ plain decode would emit.  A request with ``n > 1`` forks into ``n`` branch
 requests (uids ``(uid, b)``, seeds ``fold_in(seed, b)``) whose prompt pages
 alias through the prefix hashing; the parent comes back once, after its
 last branch.
-
-The dense cache is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -65,7 +70,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, PEFTConfig, torch_dtype
 from repro_torch.core import peft as peft_lib, registry
-from repro_torch.models import model as model_lib
+from repro_torch.models import attention, model as model_lib
 from repro_torch.obs import NOOP, NULL_SPAN, Tracker
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve.kv_cache import OutOfPages, PagedKVCache, TRASH_PAGE
@@ -73,18 +78,22 @@ from repro_torch.serve.lifecycle import AdapterLifecycle
 from repro_torch.serve.sampling import SamplingParams, TokenLogprobs
 from repro_torch.serve.scheduler import StreamScheduler, TokenCostModel
 from repro_torch.serve.spec import SpecConfig, accepted_prefix
+from repro_torch.tree import tree_map
 
 #: adapter name every request uses unless it asks for another
 BASE_ADAPTER = "base"
 
-#: logical linears the bank path serves.  "router" is excluded: moe_apply
-#: reads its weight directly, so a banked router would silently serve the
-#: base (a router diff instead hits the lifecycle's non-linear-leaf check)
-_LINEAR_MODULES = frozenset({"q", "k", "v", "o", "gate", "up", "down"})
+#: logical linears the bank path serves, the reference's set: every module
+#: name but "router" (moe_apply reads its weight directly, so a banked
+#: router would silently serve the base; a router diff instead hits the
+#: lifecycle's non-linear-leaf check)
+_LINEAR_MODULES = model_lib._MODULE_NAMES - {"router"}
 
-#: families the paged engine serves (every MoE call runs the dense
-#: dispatch: capacity dispatch couples the rows of a batch)
-_SERVED_FAMILIES = ("dense", "moe")
+#: families served on block-paged KV (every MoE call runs the dense
+#: dispatch: capacity dispatch couples the rows of a batch); the SSM and
+#: hybrid families' recurrent states stay on the dense cache
+_PAGED_FAMILIES = ("dense", "moe")
+_SERVED_FAMILIES = _PAGED_FAMILIES + ("ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -185,7 +194,8 @@ class PreemptionEvent:
 
 
 class ServeEngine:
-    """Fixed-slot continuous batcher over the paged decode step.
+    """Fixed-slot continuous batcher over the paged (or dense-cache) decode
+    step.
 
     ``params`` is the (PEFT-wrapped) tree served as the ``"base"`` adapter;
     :meth:`register_adapter` adds fine-tunes of the same architecture.
@@ -200,11 +210,14 @@ class ServeEngine:
     deadline clock and optional step budget; ``bucket_multiple`` is the
     prefill padding granularity (default 8).  ``spec`` is the default
     :class:`SpecConfig` of requests that carry none (None: plain
-    decode)."""
+    decode).  ``cache_mode`` is ``"paged"``, ``"dense"`` or ``"auto"``
+    (paged for the attention families, dense for SSM and hybrid); a dense
+    cache takes no ``spec`` and no ``prefill_chunk_tokens``."""
 
     def __init__(self, params, cfg: ModelConfig, max_len: int = 256,
                  slots: int = 4, page_size: int = 16,
                  num_pages: Optional[int] = None, device="cuda",
+                 cache_mode: str = "auto",
                  sampling: Optional[SamplingParams] = None,
                  sample_seed: int = 0, tracker: Optional[Tracker] = None,
                  prefill_chunk_tokens: Optional[int] = None,
@@ -246,10 +259,41 @@ class ServeEngine:
                                  else sampling)
         self.default_sampling.validate(self.cfg.vocab_size)
         self.sample_seed = int(sample_seed)
+        if cache_mode == "auto":
+            cache_mode = ("paged" if cfg.family in _PAGED_FAMILIES
+                          else "dense")
+        if cache_mode not in ("paged", "dense"):
+            raise ValueError(f"cache_mode must be 'auto', 'paged' or "
+                             f"'dense', not {cache_mode!r}")
+        if cache_mode == "paged" and cfg.family not in _PAGED_FAMILIES:
+            raise ValueError(
+                f"cache_mode='paged' supports attention families "
+                f"{_PAGED_FAMILIES}, not {cfg.family!r} — SSM/hybrid state "
+                f"caches stay dense (use cache_mode='dense' or 'auto')")
+        self.cache_mode = cache_mode
         #: speculative-decode config of requests that carry none
         self.default_spec = spec
-        self.kv = PagedKVCache(self.cfg, slots, max_len, page_size=page_size,
-                               num_pages=num_pages, device=self.device)
+        if spec is not None and spec.k > 0 and cache_mode != "paged":
+            raise ValueError(
+                "speculative decoding needs the paged KV cache (the verify "
+                "pass runs paged_prefill over the draft window and rollback "
+                "releases window pages) — use cache_mode='paged' or drop "
+                "spec")
+        self.kv: Optional[PagedKVCache] = None
+        #: the dense cache (dense mode): one row per slot, and its paged
+        #: view's identity table on the card
+        self.cache = None
+        self._view_table = None
+        if cache_mode == "paged":
+            self.kv = PagedKVCache(self.cfg, slots, max_len,
+                                   page_size=page_size, num_pages=num_pages,
+                                   device=self.device)
+        else:
+            self.cache = model_lib.init_cache(self.cfg, slots, max_len,
+                                              device=self.device)
+            if self.device.type == "cuda":
+                self._view_table = attention.dense_view_table(
+                    slots, max_len, self.device)
         #: deadline-clock / step-budget basis (shared with the scheduler)
         self.cost_model = cost_model if cost_model is not None \
             else TokenCostModel()
@@ -257,10 +301,15 @@ class ServeEngine:
         #: engine step, interleaved with decode (None = one-shot prefill)
         self.prefill_chunk_tokens = (None if prefill_chunk_tokens is None
                                      else int(prefill_chunk_tokens))
-        if self.prefill_chunk_tokens is not None \
-                and self.prefill_chunk_tokens < 1:
-            raise ValueError(f"prefill_chunk_tokens must be >= 1, got "
-                             f"{self.prefill_chunk_tokens}")
+        if self.prefill_chunk_tokens is not None:
+            if self.prefill_chunk_tokens < 1:
+                raise ValueError(f"prefill_chunk_tokens must be >= 1, got "
+                                 f"{self.prefill_chunk_tokens}")
+            if cache_mode != "paged":
+                raise ValueError(
+                    "chunked prefill needs the paged KV cache (a partial "
+                    "prompt holds its completed chunks as pages) — use "
+                    "cache_mode='paged' or drop prefill_chunk_tokens")
         self.bucket_multiple = (8 if bucket_multiple is None
                                 else int(bucket_multiple))
         if self.bucket_multiple < 1:
@@ -312,7 +361,8 @@ class ServeEngine:
         self._tracker = t
         self._obs = not t.is_noop
         self.scheduler.tracker = t
-        self.kv.set_tracker(t)
+        if self.kv is not None:
+            self.kv.set_tracker(t)
 
     def _observe_decode(self, served: Dict[int, Tuple[Request, int]]
                         ) -> None:
@@ -329,7 +379,8 @@ class ServeEngine:
             by_adapter[r.adapter] = by_adapter.get(r.adapter, 0) + n
         for a, n in by_adapter.items():
             tr.count(f"engine/tokens/{a}", n, step=s)
-        self.kv.observe_pool(step=s)
+        if self.kv is not None:
+            self.kv.observe_pool(step=s)
 
     # -- adapters ----------------------------------------------------------
     def register_adapter(self, name: str, params,
@@ -584,7 +635,11 @@ class ServeEngine:
     # -- admission ---------------------------------------------------------
     def _bucket(self, plen: int) -> int:
         """Right-pad prefill length to a ``bucket_multiple`` multiple (pads
-        are never attended: logits read the last real token)."""
+        are never attended: logits read the last real token).  Recurrent
+        families prefill at the exact length: their states would take the
+        pad tokens in."""
+        if self.cfg.family in ("ssm", "hybrid"):
+            return plen
         m = self.bucket_multiple
         return min(self.max_len, -(-plen // m) * m)
 
@@ -662,7 +717,58 @@ class ServeEngine:
                 and self._step_spent >= cm.step_budget
                 and any(r is not None for r in self.active)):
             return
-        self._admit_paged(free, step)
+        if self.cache_mode == "paged":
+            self._admit_paged(free, step)
+        else:
+            self._admit_dense(free, step)
+
+    def _admit_dense(self, free: List[int], step: int) -> None:
+        """Dense slots always fit: admit straight down the policy order,
+        one prefill call per bucket (a recurrent family's bucket is the
+        exact prompt length), each row then copied into its slot."""
+        admitted = []
+        while free and self.scheduler.has_work():
+            r, _resumed = self.scheduler.window(self._cost_clock)[0]
+            self.scheduler.remove(r)
+            self._pin(r)
+            seq = np.asarray(r.prompt, np.int32)
+            admitted.append((free.pop(0), r, 0, seq, False, len(seq), True))
+        groups: Dict[int, list] = {}
+        for entry in admitted:
+            groups.setdefault(self._bucket(len(entry[3])), []).append(entry)
+        for bucket, group in groups.items():
+            g = len(group)
+            toks = np.zeros((g, bucket), np.int32)
+            lens = np.zeros((g,), np.int32)
+            ids = np.zeros((g,), np.int32)
+            for j, (_slot, r, _pref, seq, _res, _end, _fin) in \
+                    enumerate(group):
+                toks[j, :len(seq)] = seq
+                lens[j] = len(seq)
+                ids[j] = self._slot_col(r)
+            self._step_spent += self.cost_model.prefill_cost(int(lens.sum()))
+            t0 = time.perf_counter()
+            with self._tracker.time_block("engine/prefill_s",
+                                          step=self._obs_step):
+                logits, cache = model_lib.prefill(
+                    self._tree, {"tokens": self._put(toks)}, self.cfg,
+                    self.max_len, self._put(lens),
+                    adapter_ids=self._put(ids))
+                nxt = self._sample_rows(logits[:, -1, :self.cfg.vocab_size],
+                                        [e[1] for e in group])
+            self._stats["prefill_s"] += time.perf_counter() - t0
+            self._stats["prefill_calls"] += 1
+            for j, (slot, *_rest) in enumerate(group):
+                self._install_cache(slot, cache, j)
+            self._record_admissions(step, group, nxt)
+
+    def _install_cache(self, slot: int, cache, j: int) -> None:
+        """Copy prefill row ``j`` into slot ``slot`` of the dense cache, on
+        each leaf's batch axis: axis 1 of a layer-stacked leaf, axis 0 of a
+        hybrid's per-layer leaf."""
+        axis = 0 if isinstance(self.cache, list) else 1
+        tree_map(lambda dst, src: dst.select(axis, slot).copy_(
+            src.select(axis, j)), self.cache, cache)
 
     # -- preemption --------------------------------------------------------
     def _suspend(self, slot: int, step: int) -> None:
@@ -948,10 +1054,12 @@ class ServeEngine:
         surviving live slots).  Dead slots ride as ghosts (token 0, adapter
         0, position 0, all-trash table); so do mid-prefill slots, whose
         real table rows are redirected to the trash page in the call's
-        table copy."""
-        live = self._ensure_decode_pages(live, step)
-        if not live:
-            return None, live
+        table copy.  On a dense cache a dead slot's ghost write lands in its
+        own row, which the next admission overwrites."""
+        if self.cache_mode == "paged":
+            live = self._ensure_decode_pages(live, step)
+            if not live:
+                return None, live
         toks = np.zeros((self.slots, 1), np.int32)
         ids = np.zeros((self.slots,), np.int32)
         positions = np.zeros((self.slots,), np.int32)
@@ -960,24 +1068,29 @@ class ServeEngine:
             toks[i, 0] = r.generated[-1]
             ids[i] = self._slot_col(r)
             positions[i] = self.positions[i]
-        for i in range(self.slots):
-            if self.active[i] is None and \
-                    not (self.kv.tables[i] == TRASH_PAGE).all():
-                raise RuntimeError(
-                    f"dead slot {i} still maps pages "
-                    f"{self.kv.tables[i].tolist()}; its ghost write would "
-                    f"corrupt live KV")
-        ghosted = [i for i in range(self.slots)
-                   if self.active[i] is not None and i not in live]
-        table = self.kv.tables
-        if ghosted:
-            table = table.copy()
-            table[ghosted] = TRASH_PAGE
-        cache = {"k": self.kv.pools["k"], "v": self.kv.pools["v"],
-                 "page_table": self.kv.table_tensor(table)}
+        if self.cache_mode == "dense":
+            cache, view = self.cache, self._view_table
+        else:
+            for i in range(self.slots):
+                if self.active[i] is None and \
+                        not (self.kv.tables[i] == TRASH_PAGE).all():
+                    raise RuntimeError(
+                        f"dead slot {i} still maps pages "
+                        f"{self.kv.tables[i].tolist()}; its ghost write "
+                        f"would corrupt live KV")
+            ghosted = [i for i in range(self.slots)
+                       if self.active[i] is not None and i not in live]
+            table = self.kv.tables
+            if ghosted:
+                table = table.copy()
+                table[ghosted] = TRASH_PAGE
+            cache = {"k": self.kv.pools["k"], "v": self.kv.pools["v"],
+                     "page_table": self.kv.table_tensor(table)}
+            view = None
         logits, _ = model_lib.decode_step(
             self._tree, {"tokens": self._put(toks)}, cache,
-            self._put(positions), self.cfg, adapter_ids=self._put(ids))
+            self._put(positions), self.cfg, adapter_ids=self._put(ids),
+            view_table=view)
         return logits[:, -1, :self.cfg.vocab_size], live
 
     # -- speculative decode ------------------------------------------------
@@ -1177,7 +1290,8 @@ class ServeEngine:
         self._inflight.discard(r.uid)
         self.active[slot] = None
         self.positions[slot] = 0
-        self.kv.free_slot(slot)
+        if self.kv is not None:
+            self.kv.free_slot(slot)
         if self._obs:
             tr = self._tracker
             s = self._obs_step
@@ -1254,6 +1368,12 @@ class ServeEngine:
             raise ValueError(f"request {r.uid}: n must be >= 1, got {r.n}")
         sc = self._spec_for(r)
         if sc is not None:
+            if self.cache_mode != "paged":
+                raise ValueError(
+                    f"request {r.uid}: speculative decoding needs the "
+                    f"paged KV cache (verify runs paged_prefill over the "
+                    f"draft window; rollback releases window pages) — use "
+                    f"cache_mode='paged' or SpecConfig(k=0)")
             self._adapter_source(sc.draft_adapter)  # unknown draft policy
         try:
             self._sampling_for(r).validate(self.cfg.vocab_size)
@@ -1263,6 +1383,16 @@ class ServeEngine:
             raise ValueError(
                 f"request {r.uid}: prompt length {len(r.prompt)} must be in "
                 f"[1, max_len) = [1, {self.max_len})")
+        if self.cfg.family not in _PAGED_FAMILIES:
+            chunk, n = self.cfg.ssm.chunk_size, len(r.prompt)
+            if n > chunk and n % chunk:
+                raise ValueError(
+                    f"request {r.uid}: prompt length {n} is not a multiple "
+                    f"of the SSD chunk {chunk} (a recurrent family prefills "
+                    f"at the exact prompt length, and ssd_chunked needs the "
+                    f"chunk to divide a length above it)")
+        if self.kv is None:
+            return
         reserve = min(len(r.prompt) + r.max_new_tokens, self.max_len)
         need = -(-reserve // self.kv.page_size)
         if need > self.kv.num_pages - 1:
@@ -1368,8 +1498,10 @@ class ServeEngine:
         (on top of anything already submitted).  ``lookahead`` bounds
         out-of-order admission past a head that doesn't fit; ``preempt``
         enables SLO-aware suspension, with prompt-only reservation and
-        decode-time page growth.  Returns every request served this run
-        (the completion/truncation contract of :meth:`run`)."""
+        decode-time page growth (paged mode only).  Returns every request
+        served this run (the completion/truncation contract of
+        :meth:`run`)."""
+        preempt = preempt and self.cache_mode == "paged"
         self.scheduler.configure(lookahead, preempt)
         trace = sorted(arrivals, key=lambda a: a[0]) if arrivals else []
         trace_uids = set()
@@ -1429,7 +1561,8 @@ class ServeEngine:
             live = [i for i in busy
                     if getattr(self.active[i], "_prefill_done", True)]
             if not live:
-                if (not busy and self.scheduler.has_work()
+                if (not busy and self.cache_mode == "paged"
+                        and self.scheduler.has_work()
                         and next_arrival >= len(trace)):
                     head = self.scheduler.window(self._cost_clock)[0][0]
                     raise self.kv.oom(
@@ -1541,7 +1674,8 @@ class ServeEngine:
             self._inflight.discard(r.uid)
             self.active[i] = None
             self.positions[i] = 0
-            self.kv.free_slot(i)
+            if self.kv is not None:
+                self.kv.free_slot(i)
         for r in self.scheduler.drain():
             r.truncated = True
             self._observe_truncated(r)

@@ -48,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.core import registry
+from repro_torch.tree import map_dicts, tree_leaves_with_path
 
 PyTree = Any
 
@@ -58,6 +59,9 @@ def _differs(a, b) -> bool:
     if isinstance(a, dict) or isinstance(b, dict):
         return not (isinstance(a, dict) and isinstance(b, dict)) or \
             a.keys() != b.keys() or any(_differs(a[k], b[k]) for k in a)
+    if isinstance(a, list) or isinstance(b, list):
+        return not (isinstance(a, list) and isinstance(b, list)) or \
+            len(a) != len(b) or any(_differs(x, y) for x, y in zip(a, b))
     return a is not b and not torch.equal(a, b)
 
 
@@ -377,6 +381,10 @@ class AdapterLifecycle:
             return {k: self._build_walk(v, [r[k] for r in raws], pcs, names,
                                         kinds, path + (k,))
                     for k, v in node.items()}
+        if isinstance(node, list):
+            return [self._build_walk(v, [r[i] for r in raws], pcs, names,
+                                     kinds, path + (str(i),))
+                    for i, v in enumerate(node)]
         # a non-linear leaf is shared by every slot: refuse adapters that
         # changed it
         for name, leaf in zip(names[1:], raws[1:]):
@@ -423,7 +431,8 @@ class AdapterLifecycle:
                 if "moe" in path:
                     base_raw = self.engine._sources[self.base_name][0]
                     for k in path:
-                        base_raw = base_raw[k]
+                        base_raw = base_raw[int(k) if isinstance(
+                            base_raw, list) else k]
                     self._refuse_moe(path, base_raw, [raw])
                     return node
                 sub = registry.stack_deltas(node["w"], [(raw, cfg, module)])
@@ -437,6 +446,10 @@ class AdapterLifecycle:
                 return {"w": node["w"], "bank": bank}
             return {k: self._extend_walk(v, raw[k], cfg, kinds, path + (k,))
                     for k, v in node.items()}
+        if isinstance(node, list):
+            return [self._extend_walk(v, raw[i], cfg, kinds,
+                                      path + (str(i),))
+                    for i, v in enumerate(node)]
         # a non-linear leaf: the new adapter's value must equal it
         if not torch.equal(raw, node):
             raise ValueError(
@@ -502,24 +515,20 @@ class AdapterLifecycle:
         return dead
 
     def _compact_tree(self, node, keep: Sequence[int]):
-        if isinstance(node, dict):
-            if registry.is_banked_linear(node):
-                bank = registry.take_bank_columns(node["bank"], keep)
-                if bank is None:
-                    return {"w": node["w"]}
-                return {"w": node["w"], "bank": bank}
-            return {k: self._compact_tree(v, keep) for k, v in node.items()}
-        return node
+        def one(linear, _path):
+            if not registry.is_banked_linear(linear):
+                return None
+            bank = registry.take_bank_columns(linear["bank"], keep)
+            if bank is None:
+                return {"w": linear["w"]}
+            return {"w": linear["w"], "bank": bank}
+        return map_dicts(one, node)
 
 
 def _bank_bytes(node) -> int:
     """Bytes of the bank tensors under ``node`` of a serve tree."""
-    if not isinstance(node, dict):
-        return 0
-    if registry.is_banked_linear(node):
-        return sum(t.numel() * t.element_size()
-                   for t in node["bank"].values())
-    return sum(_bank_bytes(v) for v in node.values())
+    return sum(t.numel() * t.element_size()
+               for path, t in tree_leaves_with_path(node) if "bank" in path)
 
 
 # ---------------------------------------------------------------------------

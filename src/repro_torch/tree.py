@@ -37,6 +37,24 @@ def tree_map_with_path(fn: Callable, tree: PyTree, *rest: PyTree,
     return fn(path, tree, *rest)
 
 
+def map_dicts(fn: Callable, node: PyTree, path: Path = ()) -> PyTree:
+    """``node`` rebuilt top-down by ``fn(dict, path)``, which returns the
+    dict's replacement, or None to recurse into it; dicts and lists are
+    walked (list indices enter the path as strings), every other node is
+    kept.  The walk for rewriting whole subtrees, such as a PEFT linear,
+    where :func:`tree_map_with_path` rewrites leaves."""
+    if isinstance(node, dict):
+        out = fn(node, path)
+        if out is not None:
+            return out
+        return {k: map_dicts(fn, v, path + (str(k),))
+                for k, v in node.items()}
+    if isinstance(node, list):
+        return [map_dicts(fn, v, path + (str(i),))
+                for i, v in enumerate(node)]
+    return node
+
+
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
     ``rest``); ``None`` stays ``None``."""

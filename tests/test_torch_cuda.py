@@ -4,7 +4,8 @@ output's RMS), both engines of the prefill kernel, the serving wrappers
 under ``torch.cuda.set_sync_debug_mode("error")``, plus a tiny paged
 serving run that must launch every serving kernel, a tiny PSOFT train step
 that must launch both of its training kernels and tiny OFT-family train
-steps that must launch blockdiag_rotate.  Imports nothing of the reference
+steps that must launch blockdiag_rotate, and the recurrent families'
+shapes and dense-cache engine.  Imports nothing of the reference
 package, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -1219,3 +1220,179 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, impl):
     assert ops.PSOFT_GROUPED_LAUNCHES["simt"] == 3
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,h,kh,d,max_len", [(8, 32, 32, 64, 512),
+                                              (3, 8, 2, 16, 40),
+                                              (2, 4, 4, 64, 45)])
+def test_dense_view_decode_matches_plain(cuda_device, dtype, tol, b, h, kh,
+                                         d, max_len):
+    """The dense cache's decode on the card: the paged-decode kernel over
+    the buffers viewed as pages (zamba2's 32 over 32 heads of 64 at
+    max_len 512, pages of 16; a GQA case at pages of 8; an odd max_len at
+    pages of 1) against the plain ``decode_attention``, one launch."""
+    from repro_torch.models import attention
+    rng = np.random.default_rng(b * h + max_len)
+    put = _on(cuda_device, dtype)
+    q = put(_normal(rng, (b, 1, h, d)))
+    kb = put(_normal(rng, (b, max_len, kh, d), 0.5))
+    vb = put(_normal(rng, (b, max_len, kh, d), 0.5))
+    lengths = torch.from_numpy(rng.integers(1, max_len + 1, b).astype(
+        np.int32)).to(cuda_device)
+    lengths[-1] = max_len
+    table = attention.dense_view_table(b, max_len, cuda_device)
+    assert table.shape == (b, max_len // attention.dense_page_size(max_len))
+    ops.reset_launches()
+    got = attention.dense_decode_attention(q, kb, vb, lengths, table)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_decode_attention"] == 1
+    _close(got, attention.decode_attention(q, kb, vb, lengths), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n", [8512, 8384])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_psoft_matmul_at_the_recurrent_in_proj(cuda_device, dtype, tol, n,
+                                               transpose):
+    """psoft_matmul at mamba2's (N 8512) and zamba2's (N 8384) in_proj, K
+    2048, r 64, M 256: N is no multiple of 128, so the wgmma engine's last
+    column tile is half full; against the plain version."""
+    rng = np.random.default_rng(n + transpose)
+    args = _psoft_inputs(rng, _on(cuda_device, dtype), 256, 2048, n, 64,
+                         transpose)
+    ops.reset_launches()
+    got = ops._psoft_mm(*args, transpose)
+    torch.cuda.synchronize()
+    engine = "simt" if dtype == torch.float32 else "wgmma"
+    assert ops.PSOFT_ENGINE_LAUNCHES[engine] == 1
+    want = ref.psoft_matmul_parts(*args, transpose)
+    _close(got[0], want[0], tol)
+    _close(got[0][:, -64:], want[0][:, -64:], tol)
+    for gv, wv in zip(got[1:], want[1:]):
+        rms = float(wv.square().mean().sqrt())
+        torch.testing.assert_close(gv, wv, rtol=1e-4, atol=1e-4 * rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("k,n", [(2048, 8512), (2048, 8384), (4096, 2048)])
+def test_gather_delta_at_the_recurrent_widths(cuda_device, dtype, tol, k, n):
+    """gather_delta_matmul at the recurrent families' in_proj (N 8512,
+    8384) and out_proj (K 4096, N 2048), r 64, B 8 over 3 adapters."""
+    rng = np.random.default_rng(k + n)
+    put = _on(cuda_device, dtype)
+    x = put(_normal(rng, (8, k)))
+    w = put(_normal(rng, (k, n), k ** -0.5))
+    left = put(_normal(rng, (3, k, 64), k ** -0.5))
+    right = _on(cuda_device, torch.float32)(_normal(rng, (3, 64, n), 0.01))
+    ids = torch.tensor([0, 1, 2, 1, 0, 2, 2, 1], dtype=torch.int32,
+                       device=cuda_device)
+    got = ops.gather_delta_matmul(x, w, left, right, ids, compute_dtype=dtype)
+    want = ref.gather_delta_matmul(ids, x, w, left, right)
+    _close(got, want, tol)
+    _close(got[:, -64:], want[:, -64:], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("mixed", [False, True])
+def test_two_d_decode_input_reaches_the_kernel(cuda_device, dtype, tol,
+                                               mixed):
+    """A Mamba2 decode's 2-D (B, d_in) rows on a low-rank bank go through
+    the gather-delta kernel (one launch), and a mixed bank keeps its dense
+    term; against the plain version."""
+    from repro_torch.core import registry
+    rng = np.random.default_rng(2 + mixed)
+    put = _on(cuda_device, dtype)
+    f32 = _on(cuda_device, torch.float32)
+    x = put(_normal(rng, (5, 256)))
+    bank = {"left": put(_normal(rng, (3, 256, 16), 256 ** -0.5)),
+            "right": f32(_normal(rng, (3, 16, 384), 0.01))}
+    if mixed:
+        bank["delta"] = f32(_normal(rng, (3, 256, 384), 0.01))
+    lin = {"w": put(_normal(rng, (256, 384), 256 ** -0.5)), "bank": bank}
+    ids = torch.tensor([0, 2, 1, 2, 0], dtype=torch.int32,
+                       device=cuda_device)
+    ops.reset_launches()
+    got = registry.apply_batched(lin, x, dtype, ids)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gather_delta_matmul"] == 1
+    assert got.shape == (5, 384)
+    cpu = {"w": lin["w"].cpu(), "bank": {k: v.cpu() for k, v in
+                                         bank.items()}}
+    want = registry.apply_batched(cpu, x.cpu(), dtype, ids.cpu())
+    _close(got.cpu(), want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_recurrent_dense_engine_on_the_card_matches_the_cpu(cuda_device,
+                                                            arch):
+    """Reduced mamba2 / zamba2 (fp32) on the dense-cache engine, base and
+    one PSOFT adapter: the card gives the CPU's greedy tokens, its decode
+    through gather_delta_matmul (and, for the hybrid, the paged-decode
+    kernel over the dense view)."""
+    from repro_torch import serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    params = model.init_params(cfg, seed=0, device="cpu")
+    tuned = tree_map(lambda t: t, params)
+    for lay in (tuned["layers"] if isinstance(tuned["layers"], list)
+                else [tuned["layers"]]):
+        if "ssm" in lay:
+            lay["ssm"]["in_proj"]["q"] = lay["ssm"]["in_proj"]["q"] + 0.05
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 32, 9)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        move = (lambda t: tree_map(lambda x: x.to(dev), t))
+        eng = serve.ServeEngine(move(params), cfg, max_len=64, slots=2,
+                                device=dev)
+        eng.register_adapter("tuned", move(tuned))
+        ops.reset_launches()
+        done = eng.run([serve.Request(uid=i, prompt=p, max_new_tokens=6,
+                                      adapter="tuned" if i % 2 else "base")
+                        for i, p in enumerate(prompts)])
+        out[str(dev)] = {r.uid: r.generated for r in done}
+    assert eng.cache_mode == "dense"
+    assert ops.LAUNCHES["gather_delta_matmul"] > 0
+    assert (ops.LAUNCHES["paged_decode_attention"] > 0) == \
+        (cfg.family == "hybrid")
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_recurrent_prefill_and_decode_never_sync(cuda_device, arch):
+    """The dense-cache prefill (the SSD scan) and decode step of reduced
+    mamba2 / zamba2 on a merged serving tree read no device value on the
+    host: under ``set_sync_debug_mode("error")`` a synchronising call
+    would raise."""
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.core import peft
+    from repro_torch.models import attention, model
+    cfg = get_config(arch).reduced()
+    params = peft.merge_tree(model.init_params(cfg, seed=0,
+                                               device=cuda_device), cfg.peft)
+    cfg = cfg.replace(peft=PEFTConfig(method="none", target_modules=()))
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda_device)
+    lengths = torch.full((2,), 32, dtype=torch.long, device=cuda_device)
+    step = torch.randint(0, cfg.vocab_size, (2, 1), device=cuda_device)
+    table = attention.dense_view_table(2, 64, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.prefill(params, {"tokens": toks}, cfg, 64,
+                                      lengths)
+        nxt, cache = model.decode_step(params, {"tokens": step}, cache,
+                                       lengths, cfg, view_table=table)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all() and torch.isfinite(nxt).all()

@@ -50,6 +50,7 @@ def test_importing_the_port_loads_no_jax():
     pytest.importorskip("torch")
     code = ("import sys; import repro_torch.serve, repro_torch.interop, "
             "repro_torch.kernels.ops, repro_torch.core.oft, "
+            "repro_torch.models.ssm, "
             "repro_torch.core.lora, repro_torch.train.trainer, "
             "repro_torch.obs, repro_torch.serve.sampling, "
             "repro_torch.examples.quickstart, "

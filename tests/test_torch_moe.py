@@ -355,3 +355,41 @@ def test_moe_state_crosses_interop_and_checkpoints(model_pair, tmp_path):
                                str(tmp_path / "ref"))
     for a, b in zip(tree.tree_leaves(again), tree.tree_leaves(state)):
         assert torch.equal(a, b)
+
+
+def _merged_numpy(jcfg, seed):
+    """A merged (plain ``{"w"}``) numpy tree of ``jcfg``'s structure."""
+    plain = jcfg.replace(peft=jcfg.peft.replace(method="none",
+                                                target_modules=()))
+    shapes = jax.eval_shape(lambda k: jmodel.init_params(k, plain),
+                            jax.random.PRNGKey(0))
+    return _numpy_params(shapes, seed)
+
+
+def test_rewrap_casts_the_router_like_reference():
+    """Reduced deepseek-moe-16b at bf16 ``param_dtype``, PSOFT on the
+    default targets: each package's ``rewrap_peft`` of one merged tree
+    casts the router to bf16 (the ``"none"`` method), bit for bit, and the
+    two rewrapped models pick the same greedy tokens; a router named in
+    ``target_modules`` makes the port's ``rewrap_peft`` raise."""
+    jcfg = jget_config("deepseek-moe-16b").reduced(param_dtype="bfloat16")
+    cfg = get_config("deepseek-moe-16b").reduced(param_dtype="bfloat16")
+    merged = _merged_numpy(jcfg, 6)
+    want = jmodel.rewrap_peft(jax.tree.map(jnp.asarray, merged), jcfg)
+    got = model.rewrap_peft(interop.params_from_numpy(merged, "cpu"), cfg)
+    wr = np.asarray(want["layers"]["moe"]["router"]["w"])
+    gr = got["layers"]["moe"]["router"]["w"]
+    assert wr.dtype.name == "bfloat16" and gr.dtype == torch.bfloat16
+    assert interop.params_to_numpy(gr).tobytes() == wr.tobytes()
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size,
+                                             (2, 12)).astype(np.int32)
+    jl = _compiled(lambda p, t: jmodel.forward_logits(p, {"tokens": t},
+                                                      jcfg), want, toks)(
+        want, toks)
+    tl = model.forward_logits(got, {"tokens": torch.as_tensor(toks)}, cfg)
+    np.testing.assert_array_equal(
+        tl[..., :cfg.vocab_size].argmax(-1).numpy(),
+        np.asarray(jl)[..., :cfg.vocab_size].argmax(-1))
+    with pytest.raises(ValueError, match="'router'"):
+        model.rewrap_peft(interop.params_from_numpy(merged, "cpu"), cfg.replace(
+            peft=cfg.peft.replace(target_modules=("q", "router"))))
