@@ -8,8 +8,9 @@ prefill, and the :mod:`repro_torch.obs` Tracker every layer reports
 through; speculative decoding with ``n > 1`` parallel completions
 (slice 8); and the live adapter lifecycle: hot-swap banks that register,
 update and unregister adapters mid-run, and serve-while-train through
-``AdapterFeed`` (slice 9); the MoE family (slice 10); and the SSM (Mamba2)
-and hybrid families on the engine's dense per-slot cache (slice 11).
+``AdapterFeed`` (slice 9); the MoE family (slice 10); the SSM (Mamba2)
+and hybrid families on the engine's dense per-slot cache (slice 11); and
+the VLM and audio encoder-decoder families (slice 12).
 :mod:`repro_torch.examples` holds the runnable twins of the reference's
 main-path examples.
 

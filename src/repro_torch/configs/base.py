@@ -3,7 +3,7 @@ named architectures.
 
 This is the port's own copy of the reference package's config module (the
 port imports nothing of the reference package), cut to what the dense, MoE,
-SSM and hybrid serving and training paths read (plus the data pipeline's
+SSM, hybrid, VLM and audio encoder-decoder serving and training paths read (plus the data pipeline's
 :class:`DataConfig`), and :data:`DTYPES`, the map from the config's dtype
 strings to torch dtypes.
 """
@@ -109,7 +109,8 @@ class SSMConfig:
 @dataclass
 class ModelConfig:
     name: str = "tiny"
-    family: str = "dense"           # the port builds dense | moe | ssm | hybrid
+    # the port builds dense | moe | ssm | hybrid | vlm | audio
+    family: str = "dense"
     num_layers: int = 2
     d_model: int = 128
     num_heads: int = 4
@@ -133,6 +134,12 @@ class ModelConfig:
     # hybrid (zamba2-style): one shared attention block applied every k
     # layers
     hybrid_attn_every: int = 6
+    # vlm: number of prepended patch-embedding positions (precomputed
+    # vision-encoder outputs, a stub frontend)
+    num_patch_tokens: int = 0
+    # audio / encoder-decoder: the source is precomputed frame embeddings
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
     peft: PEFTConfig = field(default_factory=PEFTConfig)
 
     @property
@@ -161,7 +168,8 @@ class ModelConfig:
         ``reduced()`` for the families the port builds (an MoE config keeps
         4 experts, top-2, at most one shared expert, ``d_ff`` 64; SSM and
         hybrid state 16, head_dim 16, chunk 32, and a hybrid 4 layers with
-        attention every 2)."""
+        attention every 2; a VLM 8 patch tokens; an encoder-decoder 2
+        encoder layers)."""
         kw: Dict = dict(
             num_layers=min(self.num_layers,
                            2 if self.family != "hybrid" else 4),
@@ -184,6 +192,10 @@ class ModelConfig:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, state_size=16, head_dim=16, chunk_size=32)
             kw["hybrid_attn_every"] = 2
+        if self.family == "vlm":
+            kw["num_patch_tokens"] = 8
+        if self.is_encoder_decoder:
+            kw["num_encoder_layers"] = 2
         kw["peft"] = dataclasses.replace(self.peft, rank=8)
         kw.update(extra)
         return dataclasses.replace(self, **kw)
@@ -309,6 +321,31 @@ def zamba2_1p2b() -> ModelConfig:
         hybrid_attn_every=6,
         peft=PEFTConfig(rank=64, target_modules=(
             "q", "k", "v", "o", "gate", "up", "down", "in_proj", "out_proj")),
+    )
+
+
+@register("internvl2-26b")
+def internvl2_26b() -> ModelConfig:
+    # [arXiv:2404.16821] InternViT (stub) + InternLM2 backbone:
+    # 48L d=6144 48H kv=8 ffn=16384 vocab=92553
+    return ModelConfig(
+        name="internvl2-26b", family="vlm",
+        num_layers=48, d_model=6144, num_heads=48, num_kv_heads=8, head_dim=128,
+        d_ff=16384, vocab_size=92553, mlp_type="swiglu",
+        num_patch_tokens=256,  # precomputed InternViT patch embeddings (stub)
+        peft=PEFTConfig(rank=128),
+    )
+
+
+@register("seamless-m4t-medium")
+def seamless_m4t_medium() -> ModelConfig:
+    # [arXiv:2308.11596] enc-dec 12L d=1024 16H kv=16 ffn=4096 vocab=256206
+    return ModelConfig(
+        name="seamless-m4t-medium", family="audio",
+        num_layers=12, num_encoder_layers=12, is_encoder_decoder=True,
+        d_model=1024, num_heads=16, num_kv_heads=16, head_dim=64,
+        d_ff=4096, vocab_size=256206, mlp_type="gelu", norm_type="layernorm",
+        peft=PEFTConfig(rank=48),
     )
 
 

@@ -1,5 +1,6 @@
 """Deterministic synthetic LM data: the reference's Markov-chain token
-sequences, in numpy.
+sequences (with a VLM's patch embeddings or an encoder-decoder's source
+frames), in numpy.
 
 Batch ``step`` is a pure function of (seed, step, host), so the port draws
 exactly the reference's batches for the same seed; the trainer moves them to
@@ -17,7 +18,8 @@ from repro_torch.configs.base import DataConfig, ModelConfig
 
 class SyntheticLMDataset:
     """Markov-chain token sequences; ``batch_at(step)`` -> batch dict of
-    int32 ``tokens`` and ``labels`` (B, S)."""
+    int32 ``tokens`` and ``labels`` (B, S), plus ``patch_embeds`` or
+    ``src_embeds`` for the VLM and encoder-decoder families."""
 
     def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
                  data_cfg: Optional[DataConfig] = None):
@@ -43,7 +45,9 @@ class SyntheticLMDataset:
         choices = rng.integers(0, self.dc.branching, size=(b, s))
         for t in range(s):
             toks[:, t + 1] = self.succ[toks[:, t], choices[:, t]]
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch.update(_modality_extras(self.cfg, b, s, rng))
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0
@@ -51,3 +55,16 @@ class SyntheticLMDataset:
             yield self.batch_at(step)
             step += 1
 
+
+def _modality_extras(cfg: ModelConfig, b: int, s: int, rng) -> Dict:
+    """The stub frontends' inputs, drawn after the tokens from the same
+    generator: a VLM's ``patch_embeds`` (B, num_patch_tokens, d_model) and
+    an encoder-decoder's ``src_embeds`` (B, S, d_model), fp32."""
+    out = {}
+    if cfg.family == "vlm" and cfg.num_patch_tokens:
+        out["patch_embeds"] = rng.standard_normal(
+            (b, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["src_embeds"] = rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
+    return out

@@ -6,7 +6,9 @@ wrappers of :mod:`repro_torch.kernels.ops`: the hand-written kernels on a
 GPU, their plain versions on the CPU.  A decode over a dense per-slot
 buffer (:func:`dense_decode_attention`) is the reference's plain
 :func:`decode_attention` on the CPU and, on the card, the paged-decode
-kernel over the buffer viewed as pages through an identity table.  ``chunked_attention`` mirrors the
+kernel over the buffer viewed as pages through an identity table: an
+encoder-decoder's self cache, and its cross K/V, whose buffers the model
+pads to a multiple of 16 rows so that they view as whole pages of 16.  ``chunked_attention`` mirrors the
 reference's masked online softmax in fp32 (no fused library attention), so
 a prefill with no aliased prefix matches the reference path.
 """

@@ -1,6 +1,7 @@
-"""Decoder of the port, dense, MoE, SSM (Mamba2) and hybrid (Mamba2 with
-one shared attention block): init, the training forward and loss, paged
-and dense-cache prefill and decode, and the PEFT trainability mask.
+"""Decoder of the port, dense, MoE, SSM (Mamba2), hybrid (Mamba2 with one
+shared attention block), VLM (patch embeddings in front of the tokens) and
+audio encoder-decoder: init, the training forward and loss, paged and
+dense-cache prefill and decode, and the PEFT trainability mask.
 
 Params are nested dicts of tensors in the reference's layout: the dense,
 MoE and SSM families scan-stack every per-layer leaf on a leading
@@ -16,6 +17,18 @@ An MoE block holds ``"moe"`` (:mod:`repro_torch.models.moe`) where a dense
 one holds ``"mlp"``; training dispatches tokens with capacity, serving and
 logits run every expert on every token (``moe_impl``), as the reference
 does.
+
+The VLM's stub frontend hands in ``patch_embeds`` (B, P, d_model), put in
+front of the token embeddings: positions run over the patches, then the
+text, and the loss pads the labels with -1 over the patches.  The audio
+encoder-decoder's stub frontend hands in ``src_embeds`` (B, S_src,
+d_model): a non-causal encoder (``"enc_layers"``, ``"enc_final_norm"``)
+feeds every decoder block's cross-attention (``"ln_cross"``, ``"cross"``
+{q, k, v, o}; no RoPE, K/V from the encoder output).  Its cache is
+``{"self": the dense decoder cache, "cross": {"k", "v", "len"}}``, the
+cross K/V built once per prefill and padded to a multiple of
+:data:`CROSS_PAD` rows (read only up to ``len``), so that the card's decode
+views it as full pages of 16.
 
 The dense cache (:func:`init_cache` without a page size) is the SSM and
 hybrid families' cache, and a baseline for the attention families: per
@@ -51,6 +64,15 @@ _ATTN = ("q", "k", "v", "o")
 #: ``moe_apply`` reads its weight directly)
 _MODULE_NAMES = frozenset(_ATTN + _MLP + ("router", "in_proj", "out_proj",
                                           "fuse"))
+#: families the port builds
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+#: families whose layers are the stacked attention block
+_ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
+#: families with a block-paged KV cache (an encoder-decoder's cross cache
+#: and the recurrent states stay dense)
+PAGED_FAMILIES = ("dense", "moe", "vlm")
+#: rows the cross K/V buffers are padded to a multiple of
+CROSS_PAD = 16
 
 
 def _layer(tree, i: int):
@@ -86,16 +108,21 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: int, param_dtype,
 
 
 def _block_init(gen, cfg: ModelConfig, pdt, edt, targets, dev,
-                lead: Tuple[int, ...]) -> Params:
-    """One attention + MLP (or MoE) block, stacked over ``lead`` layers."""
+                lead: Tuple[int, ...], cross: bool = False) -> Params:
+    """One attention + MLP (or MoE) block, stacked over ``lead`` layers;
+    ``cross`` adds a decoder block's ``ln_cross`` and cross-attention (its
+    k and v take the encoder's ``d_model`` outputs)."""
     d, f = cfg.d_model, cfg.d_ff
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     shapes = {"q": (d, h * hd), "k": (d, kh * hd), "v": (d, kh * hd),
               "o": (h * hd, d)}
+
+    def attn():
+        return {n: _linear_init(gen, cfg, lead + shapes[n], n, pdt, edt,
+                                targets, dev) for n in _ATTN}
     p: Params = {
         "ln1": layers.norm_init(d, cfg.norm_type, pdt, dev, lead),
-        "attn": {n: _linear_init(gen, cfg, lead + shapes[n], n, pdt, edt,
-                                 targets, dev) for n in _ATTN},
+        "attn": attn(),
         "ln2": layers.norm_init(d, cfg.norm_type, pdt, dev, lead),
     }
     if cfg.family == "moe":
@@ -103,6 +130,9 @@ def _block_init(gen, cfg: ModelConfig, pdt, edt, targets, dev,
                                     lead[0])
     else:
         p["mlp"] = mlp_init(gen, cfg, f, pdt, edt, targets, dev, lead)
+    if cross:
+        p["ln_cross"] = layers.norm_init(d, cfg.norm_type, pdt, dev, lead)
+        p["cross"] = attn()
     return p
 
 
@@ -121,9 +151,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     SVD methods (PSOFT, PiSSA, LoRA-XS) split each linear stack by one
     batched fp32 SVD, on ``device``, each MoE expert stack one layer at a
     time, and each of the hybrid's unstacked linears alone.  The hybrid's
-    shared block's ``fuse`` is never wrapped, as in the reference."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(f"the port builds the dense, MoE, SSM and hybrid "
+    shared block's ``fuse`` is never wrapped, as in the reference.  An
+    encoder-decoder adds ``"enc_layers"`` (stacked, no cross-attention) and
+    ``"enc_final_norm"``."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"the port builds the {', '.join(FAMILIES)} "
                          f"families only, not {cfg.family!r}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -136,8 +168,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
             gen, (cfg.padded_vocab_size, d), pdt, dev)},
         "final_norm": layers.norm_init(d, cfg.norm_type, pdt, dev),
     }
-    if cfg.family in ("dense", "moe"):
-        p["layers"] = _block_init(gen, cfg, pdt, edt, targets, dev, (nl,))
+    if cfg.family in _ATTENTION_FAMILIES:
+        p["layers"] = _block_init(gen, cfg, pdt, edt, targets, dev, (nl,),
+                                  cross=cfg.is_encoder_decoder)
+        if cfg.is_encoder_decoder:
+            p["enc_layers"] = _block_init(gen, cfg, pdt, edt, targets, dev,
+                                          (cfg.num_encoder_layers,))
+            p["enc_final_norm"] = layers.norm_init(d, cfg.norm_type, pdt,
+                                                   dev)
     elif cfg.family == "ssm":
         p["layers"] = _mamba_layer_init(gen, cfg, pdt, edt, dev, (nl,))
     else:
@@ -161,16 +199,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """The decode cache.  With ``page_size``: block-paged KV pools
     ``{"k","v"}: (L, num_pages, page_size, KH, hd)`` in the compute dtype
     (page 0 is the reserved trash page; ``num_pages`` defaults to
-    dense-equivalent capacity plus the trash page), for the attention
-    families only.  Without: the dense cache, zeros, layer-stacked for the
-    dense, MoE and SSM families (``{"k","v"}: (L, batch, max_len, KH, hd)``;
-    ``{"conv_state": (L, batch, K-1, C), "ssm_state": (L, batch, H, N, P)}``
-    with the SSD state in fp32) and a per-layer list for the hybrid."""
+    dense-equivalent capacity plus the trash page), for the decoder-only
+    attention families (dense, MoE, VLM) only.  Without: the dense cache,
+    zeros, layer-stacked for the dense, MoE, VLM and SSM families
+    (``{"k","v"}: (L, batch, max_len, KH, hd)``; ``{"conv_state": (L,
+    batch, K-1, C), "ssm_state": (L, batch, H, N, P)}`` with the SSD state
+    in fp32), ``{"self": those K/V buffers, "cross": None}`` for the audio
+    encoder-decoder (the cross K/V come with its prefill) and a per-layer
+    list for the hybrid."""
     dev = resolve_device(device)
     cdt = torch_dtype(cfg.dtype)
     kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if page_size is not None:
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in PAGED_FAMILIES:
             raise ValueError(
                 f"paged KV cache supports attention families only, not "
                 f"{cfg.family!r} — SSM/hybrid state caches stay dense")
@@ -184,8 +225,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         shape = lead + (batch, max_len, kh, hd)
         return {"k": torch.zeros(shape, dtype=cdt, device=dev),
                 "v": torch.zeros(shape, dtype=cdt, device=dev)}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in PAGED_FAMILIES:
         return attn_cache((cfg.num_layers,))
+    if cfg.family == "audio":
+        return {"self": attn_cache((cfg.num_layers,)), "cross": None}
     if cfg.family == "ssm":
         return ssm_lib.mamba_cache_init(cfg, batch, cdt, dev,
                                         (cfg.num_layers,))
@@ -295,10 +338,54 @@ def attn_dense_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
     return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
 
 
-def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense"):
-    """(y, the layer's MoE aux loss, or None for a dense layer)."""
+def cross_kv(params, enc_out, cfg: ModelConfig, cdt, adapter_ids=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross-attention K and V (B, S_src, KH, hd) from
+    the encoder output (no RoPE)."""
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    b, s = enc_out.shape[:2]
+    k = _lin(params["k"], enc_out, cfg, cdt, "k", adapter_ids)
+    v = _lin(params["v"], enc_out, cfg, cdt, "v", adapter_ids)
+    return k.reshape(b, s, kh, hd), v.reshape(b, s, kh, hd)
+
+
+def _cross_q(params, h, cfg: ModelConfig, cdt, adapter_ids):
+    b, s = h.shape[:2]
+    q = _lin(params["q"], h, cfg, cdt, "q", adapter_ids)
+    return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def cross_apply(params, h, k, v, cfg: ModelConfig, cdt, adapter_ids=None
+                ) -> torch.Tensor:
+    """Non-causal cross-attention of ``h``'s queries (no RoPE) over the
+    encoder's K/V (the training and prefill path)."""
+    out = attention.chunked_attention(_cross_q(params, h, cfg, cdt,
+                                               adapter_ids), k, v,
+                                      causal=False)
+    return _lin(params["o"], out.reshape(*h.shape[:-1], -1), cfg, cdt, "o",
+                adapter_ids)
+
+
+def cross_decode(params, h_t, k, v, lengths, view_table, cfg: ModelConfig,
+                 cdt, adapter_ids=None) -> torch.Tensor:
+    """One-token cross-attention over one layer's cross K/V buffers (B,
+    S_pad, KH, hd) up to ``lengths`` (B,) (the paged-decode kernel over the
+    buffers viewed as pages on the card, through ``view_table``)."""
+    q = _cross_q(params, h_t, cfg, cdt, adapter_ids)
+    out = attention.dense_decode_attention(q, k, v, lengths, view_table)
+    return _lin(params["o"], out.reshape(h_t.shape[0], 1, -1), cfg, cdt,
+                "o", adapter_ids)
+
+
+def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense",
+           cross_fn=None):
+    """(y, the layer's MoE aux loss, or None for a dense layer);
+    ``cross_fn(cross_params, h)``, for a decoder block of an
+    encoder-decoder, is the cross-attention of the path."""
     h = layers.apply_norm(lp["ln1"], x)
     x = x + attn_fn(lp["attn"], h)
+    if cross_fn is not None:
+        x = x + cross_fn(lp["cross"], layers.apply_norm(lp["ln_cross"], x))
     h = layers.apply_norm(lp["ln2"], x)
     if "moe" in lp:
         m, aux = moe_lib.moe_apply(lp["moe"], h, cfg, cdt, moe_impl)
@@ -318,18 +405,49 @@ def shared_block_apply(params, x, h0, cfg: ModelConfig, cdt, attn_fn,
     return x + y
 
 
-def attn_apply(params, x, cfg: ModelConfig, cdt, positions) -> torch.Tensor:
-    """Full-sequence causal attention of one layer (the training path)."""
+def attn_apply(params, x, cfg: ModelConfig, cdt, positions,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention of one layer (the training path;
+    non-causal in an encoder)."""
     q, k, v = _qkv(params, x, cfg, cdt, positions, None)
-    out = attention.chunked_attention(q, k, v, causal=True)
+    out = attention.chunked_attention(q, k, v, causal=causal)
     return _lin(params["o"], out.reshape(*x.shape[:-1], -1), cfg, cdt, "o",
                 None)
 
 
-def _train_block(lp, cfg, cdt, positions, moe_impl, x):
+def _train_block(lp, cfg, cdt, positions, moe_impl, x, enc_out=None):
     def attn_fn(ap, h):
         return attn_apply(ap, h, cfg, cdt, positions)
-    return _block(lp, x, cfg, cdt, attn_fn, None, moe_impl)
+    cross_fn = None
+    if enc_out is not None:
+        def cross_fn(cp, h):
+            k, v = cross_kv(cp, enc_out, cfg, cdt)
+            return cross_apply(cp, h, k, v, cfg, cdt)
+    return _block(lp, x, cfg, cdt, attn_fn, None, moe_impl, cross_fn)
+
+
+def _encoder_block(lp, cfg, cdt, positions, x):
+    def attn_fn(ap, h):
+        return attn_apply(ap, h, cfg, cdt, positions, causal=False)
+    return _block(lp, x, cfg, cdt, attn_fn, None)[0]
+
+
+def run_encoder(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """The encoder-decoder's encoder over ``src_embeds`` (B, S_src,
+    d_model), cast to the compute dtype: non-causal self-attention (RoPE
+    over the source positions, as the reference's block applies it), one
+    remat boundary per layer, every rotation of its stacks built once;
+    returns the final-norm output (B, S_src, d_model)."""
+    cdt = torch_dtype(cfg.dtype)
+    x = src_embeds.to(cdt)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    stack = _with_rotations(params["enc_layers"], cfg)
+    block = _remat(functools.partial(_encoder_block, cfg=cfg, cdt=cdt,
+                                     positions=positions), cfg)
+    for i in range(cfg.num_encoder_layers):
+        x = block(_layer(stack, i), x=x)
+    return layers.apply_norm(params["enc_final_norm"], x)
 
 
 def _train_mamba(lp, cfg, cdt, x):
@@ -375,15 +493,29 @@ def _with_rotations(tree, cfg: ModelConfig):
 # entry points
 # ---------------------------------------------------------------------------
 
+def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, cdt) -> torch.Tensor:
+    """Token embeddings (B, S, D); a VLM batch's ``patch_embeds`` (B, P,
+    D), cast to the compute dtype, go in front of them."""
+    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
+    return x
+
+
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, moe_impl: str = "capacity"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S),
-    the MoE aux loss summed over layers (0 for a dense model)): causal
-    chunked attention or the chunked SSD scan, one remat boundary per
-    layer (a hybrid's shared-block positions included)."""
+    behind a VLM's patches (B, P + S, D), the MoE aux loss summed over
+    layers (0 for a dense model)): causal chunked attention or the chunked
+    SSD scan, one remat boundary per layer (a hybrid's shared-block
+    positions and an encoder's layers included); an encoder-decoder runs
+    its encoder over ``batch["src_embeds"]`` first."""
     cdt = torch_dtype(cfg.dtype)
-    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    enc_out = run_encoder(params, batch["src_embeds"], cfg) \
+        if cfg.is_encoder_decoder else None
+    x = _embed_inputs(params, batch, cfg, cdt)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
@@ -408,7 +540,7 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
                                      positions=positions,
                                      moe_impl=moe_impl), cfg)
     for i in range(cfg.num_layers):
-        x, layer_aux = block(_layer(stack, i), x=x)
+        x, layer_aux = block(_layer(stack, i), x=x, enc_out=enc_out)
         if layer_aux is not None:
             aux = aux + layer_aux
     return layers.apply_norm(params["final_norm"], x), aux
@@ -441,9 +573,15 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, moe_impl: str = "capacity"
             ) -> Tuple[torch.Tensor, Dict]:
     """(loss, {"loss", "aux", "tokens"}) of a token batch with labels; an
-    MoE model adds ``aux_loss_weight`` times its aux loss."""
+    MoE model adds ``aux_loss_weight`` times its aux loss; a VLM's patch
+    positions carry no loss (their labels are -1)."""
     h, aux = forward_hidden(params, batch, cfg, moe_impl)
-    loss, n_tok = chunked_ce_loss(params, h, batch["labels"], cfg)
+    labels = batch["labels"]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pad = torch.full((labels.shape[0], batch["patch_embeds"].shape[1]),
+                         -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss, n_tok = chunked_ce_loss(params, h, labels, cfg)
     if cfg.family == "moe":
         loss = loss + cfg.moe.aux_loss_weight * aux
     return loss, {"loss": loss, "aux": aux, "tokens": n_tok}
@@ -487,11 +625,11 @@ def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
     ``all_logits=True`` the logits cover every suffix position, (B, S, V),
     as the speculative-decode verify pass reads them (positions past a
     row's length carry values the caller must ignore)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in PAGED_FAMILIES:
         raise ValueError(f"paged prefill supports attention families only, "
                          f"not {cfg.family!r}")
     cdt = torch_dtype(cfg.dtype)
-    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    x = _embed_inputs(params, batch, cfg, cdt)
     s = x.shape[1]
     prefix = prefix_lengths.long()
     positions = prefix[:, None] + torch.arange(s, device=x.device)[None, :]
@@ -522,12 +660,14 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor],
     """Prompt prefill into a fresh dense cache (:func:`init_cache` with no
     page size): returns (the logits at each row's last real token (B, 1,
     V), the cache).  ``lengths`` (B,) are the true prompt lengths of
-    right-padded attention-family rows (None: every row is full); the
-    recurrent families' states take every token in, so their rows must
-    all be exactly ``lengths`` long.  Every MoE layer runs the dense
-    dispatch."""
+    right-padded attention-family rows, a VLM's patches included (None:
+    every row is full); the recurrent families' states take every token
+    in, so their rows must all be exactly ``lengths`` long.  Every MoE
+    layer runs the dense dispatch.  An encoder-decoder runs its encoder
+    over ``batch["src_embeds"]`` and builds each decoder layer's cross K/V
+    once (:func:`cross_cache`), which its cross-attention reads."""
     cdt = torch_dtype(cfg.dtype)
-    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    x = _embed_inputs(params, batch, cfg, cdt)
     b, s = x.shape[:2]
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.long, device=x.device)
@@ -539,11 +679,25 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor],
             return attn_dense_prefill(ap, h, cfg, cdt, positions, kv,
                                       adapter_ids)
         return attn_fn
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in PAGED_FAMILIES:
         for i in range(cfg.num_layers):
             kv = {"k": cache["k"][i], "v": cache["v"][i]}
             x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
                           attn_fn_for(kv), adapter_ids, "dense")
+    elif cfg.family == "audio":
+        enc_out = run_encoder(params, batch["src_embeds"], cfg)
+        s_src = enc_out.shape[1]
+        cross = cache["cross"] = cross_cache(params, enc_out, cfg,
+                                             adapter_ids)
+        for i in range(cfg.num_layers):
+            kv = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
+
+            def cross_fn(cp, h, i=i):
+                return cross_apply(cp, h, cross["k"][i][:, :s_src],
+                                   cross["v"][i][:, :s_src], cfg, cdt,
+                                   adapter_ids)
+            x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
+                          attn_fn_for(kv), adapter_ids, "dense", cross_fn)
     elif cfg.family == "ssm":
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
@@ -571,6 +725,32 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor],
     return lm_logits(params, _last_hidden(x, lengths), cfg), cache
 
 
+def cross_cache(params: Params, enc_out: torch.Tensor, cfg: ModelConfig,
+                adapter_ids: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The decoder's cross K/V, built once from the encoder output:
+    ``{"k","v"}: (L, B, S_pad, KH, hd)`` in the compute dtype, the source's
+    ``S_src`` rows followed by zeros up to ``S_pad``, the next multiple of
+    :data:`CROSS_PAD`; ``"len"`` (B,) int32, ``S_src`` in every row (the
+    reference keeps one scalar).  Padded, the buffers view as whole pages
+    of 16 rows on the card (:func:`repro_torch.models.attention
+    .dense_page_size`) at any source length."""
+    cdt = torch_dtype(cfg.dtype)
+    b, s = enc_out.shape[:2]
+    s_pad = -(-s // CROSS_PAD) * CROSS_PAD
+    shape = (cfg.num_layers, b, s_pad, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    k = torch.zeros(shape, dtype=cdt, device=enc_out.device)
+    v = torch.zeros(shape, dtype=cdt, device=enc_out.device)
+    for i in range(cfg.num_layers):
+        k[i, :, :s], v[i, :, :s] = cross_kv(
+            _layer(params["layers"]["cross"], i), enc_out, cfg, cdt,
+            adapter_ids)
+    return {"k": k, "v": v,
+            "len": torch.full((b,), s, dtype=torch.int32,
+                              device=enc_out.device)}
+
+
 def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
                 pos, cfg: ModelConfig, *,
                 adapter_ids: Optional[torch.Tensor] = None,
@@ -578,10 +758,12 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
     """One-token serve step.  ``batch["tokens"]`` (B, 1); ``pos`` a scalar
     or (B,) per-slot positions; ``cache``: paged pools plus
     ``"page_table"`` (shared by every layer), or a dense cache
-    (:func:`init_cache` with no page size).  The cache is updated in
-    place.  ``view_table`` is the dense cache's paged view on the card
+    (:func:`init_cache` with no page size; an encoder-decoder's after its
+    :func:`prefill`).  The cache is updated in place.  ``view_table`` is
+    the dense cache's paged view on the card
     (:func:`repro_torch.models.attention.dense_view_table`, built here
-    when None).  Returns (logits (B, 1, V), cache)."""
+    when None; an encoder-decoder's cross cache gets its own here).
+    Returns (logits (B, 1, V), cache)."""
     cdt = torch_dtype(cfg.dtype)
     x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     b = x.shape[0]
@@ -621,11 +803,24 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
         for k, v in nc.items():
             c[k].copy_(v)
         return x + y
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in PAGED_FAMILIES:
         for i in range(cfg.num_layers):
             kv = {"k": cache["k"][i], "v": cache["v"][i]}
             x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
                           attn_fn_for(kv), adapter_ids, "dense")
+    elif cfg.family == "audio":
+        cross = cache["cross"]
+        cross_table = attention.dense_view_table(
+            b, cross["k"].shape[2], x.device) if x.is_cuda else None
+        for i in range(cfg.num_layers):
+            kv = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
+
+            def cross_fn(cp, h, i=i):
+                return cross_decode(cp, h, cross["k"][i], cross["v"][i],
+                                    cross["len"], cross_table, cfg, cdt,
+                                    adapter_ids)
+            x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
+                          attn_fn_for(kv), adapter_ids, "dense", cross_fn)
     elif cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x = mamba_step(_layer(params["layers"], i), x,

@@ -20,7 +20,9 @@ page, so ``"auto"`` gives them the dense cache and the attention families
 pages.  A dense cache admits without page accounting, prefills each
 same-length group of prompts in one call (recurrent families at the exact
 prompt length) and copies each row into its slot, and has no preemption,
-chunked prefill or speculative decoding, as in the reference.
+chunked prefill or speculative decoding, as in the reference.  A VLM
+serves text prompts on pages; the audio encoder-decoder is refused at
+construction (no request carries source frames).
 
 Admission is streaming (:meth:`ServeEngine.run_stream`): requests are
 ``submit()``-ed as they arrive — mid-run included — and a
@@ -90,10 +92,18 @@ BASE_ADAPTER = "base"
 _LINEAR_MODULES = model_lib._MODULE_NAMES - {"router"}
 
 #: families served on block-paged KV (every MoE call runs the dense
-#: dispatch: capacity dispatch couples the rows of a batch); the SSM and
-#: hybrid families' recurrent states stay on the dense cache
-_PAGED_FAMILIES = ("dense", "moe")
+#: dispatch: capacity dispatch couples the rows of a batch; a VLM serves
+#: text prompts, as the reference's engine does); the SSM and hybrid
+#: families' recurrent states stay on the dense cache
+_PAGED_FAMILIES = model_lib.PAGED_FAMILIES
 _SERVED_FAMILIES = _PAGED_FAMILIES + ("ssm", "hybrid")
+#: why the audio encoder-decoder is refused at construction
+_NO_SOURCE_FRAMES = (
+    "an encoder-decoder prefill needs the request's source frames "
+    "(batch['src_embeds']), which no Request carries: the reference's "
+    "engine builds only tokens and fails at its first prefill "
+    "(KeyError: 'src_embeds'); serve it at model level with "
+    "model.prefill and model.decode_step")
 
 
 @dataclasses.dataclass
@@ -211,8 +221,9 @@ class ServeEngine:
     prefill padding granularity (default 8).  ``spec`` is the default
     :class:`SpecConfig` of requests that carry none (None: plain
     decode).  ``cache_mode`` is ``"paged"``, ``"dense"`` or ``"auto"``
-    (paged for the attention families, dense for SSM and hybrid); a dense
-    cache takes no ``spec`` and no ``prefill_chunk_tokens``."""
+    (paged for the dense, MoE and VLM families, dense for SSM and
+    hybrid); a dense cache takes no ``spec`` and no
+    ``prefill_chunk_tokens``.  The audio family is refused."""
 
     def __init__(self, params, cfg: ModelConfig, max_len: int = 256,
                  slots: int = 4, page_size: int = 16,
@@ -225,8 +236,11 @@ class ServeEngine:
                  bucket_multiple: Optional[int] = None,
                  spec: Optional[SpecConfig] = None):
         if cfg.family not in _SERVED_FAMILIES:
-            raise ValueError(f"the port serves the {' and '.join(_SERVED_FAMILIES)}"
-                             f" families only, not {cfg.family!r}")
+            raise ValueError(
+                f"the port serves the {', '.join(_SERVED_FAMILIES)} "
+                f"families only, not {cfg.family!r}"
+                + (f": {_NO_SOURCE_FRAMES}" if cfg.is_encoder_decoder
+                   else ""))
         self.device = resolve_device(device)
         if params["embed"]["w"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed']['w'].device}, "

@@ -237,3 +237,27 @@ def check_short_prompts(arch, params):
             tp, {"tokens": torch.as_tensor(seq[None])}, cfg)
         want = logits[0, len(r.prompt) - 1:, :cfg.vocab_size].argmax(-1)
         assert r.generated == want.tolist(), r.uid
+
+
+def fast_reference_engine(monkeypatch, jcfg, params, **kw):
+    """A paged reference engine over ``params`` whose eager work runs as
+    a few executables at XLA's lowest level: its base merge
+    (``merge_tree``, op by op otherwise) and the Cayley rotations its bank
+    build takes per adapter (63 eager primitive compiles at the reduced
+    sizes), plus its decode, paged prefill and sampler."""
+    from repro.core import cayley as jcayley
+    from repro.core import peft as jpeft
+    import repro.serve as jserve
+    import repro.serve.engine as jengine
+
+    merge = jpeft.merge_tree
+    monkeypatch.setattr(jengine.peft_lib, "merge_tree", lambda p, c: fast_jit(
+        lambda t: merge(t, c))(p))
+    # plain jit: it nests inside the merge's executable
+    monkeypatch.setattr(jcayley, "make_rotation", jax.jit(
+        jcayley.make_rotation, static_argnums=(1, 2, 3)))
+    eng = jserve.ServeEngine(params, jcfg, **kw)
+    for f in ("_decode", "_prefill_paged"):
+        setattr(eng, f, fast_jit(getattr(eng, f).__wrapped__))
+    eng._sample_fn = _FAST_SAMPLE
+    return eng

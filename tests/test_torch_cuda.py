@@ -1396,3 +1396,200 @@ def test_recurrent_prefill_and_decode_never_sync(cuda_device, arch):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert torch.isfinite(logits).all() and torch.isfinite(nxt).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_paged_attention_at_internvl2_heads(cuda_device, dtype, tol):
+    """Paged decode and prefill at internvl2-26b's 48 heads over 8 KV
+    heads of 128 (GQA group 6; prefill on "mma" in bf16)."""
+    rng = np.random.default_rng(48)
+    put = _on(cuda_device, dtype)
+    pages, pg, maxp = 257, 16, 32
+    table = torch.from_numpy(rng.permutation(pages - 1)[:8 * maxp].reshape(
+        8, maxp).astype(np.int32) + 1).to(cuda_device)
+    lengths = torch.tensor([0, 1, 77, 130, 256, 300, 511, 45],
+                           dtype=torch.int32, device=cuda_device)
+    kp = put(_normal(rng, (pages, pg, 8, 128), 0.5))
+    vp = put(_normal(rng, (pages, pg, 8, 128), 0.5))
+    q = put(_normal(rng, (8, 48, 128)))
+    _close(ops.paged_decode_attention(q, kp, vp, table, lengths),
+           ref.paged_decode_attention(q, kp, vp, table, lengths), tol)
+    qs = put(_normal(rng, (4, 64, 48, 128)))
+    ks = put(_normal(rng, (4, 64, 8, 128), 0.5))
+    vs = put(_normal(rng, (4, 64, 8, 128), 0.5))
+    plen = torch.tensor([32, 0, 45, 32], dtype=torch.int32,
+                        device=cuda_device)
+    ops.reset_launches()
+    got = ops.paged_prefill_attention(qs, ks, vs, kp, vp, table[:4], plen)
+    torch.cuda.synchronize()
+    engine = "mma" if dtype == torch.bfloat16 else "simt"
+    assert ops.PREFILL_ENGINE_LAUNCHES[engine] == 1
+    _close(got, ref.paged_prefill_attention(qs, ks, vs, kp, vp, table[:4],
+                                            plen), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("frames", [250, 251])
+def test_cross_view_at_odd_source_lengths(cuda_device, dtype, tol, frames):
+    """The audio decode's cross-attention at seamless-m4t-medium's 16 heads
+    of 64: ``model.cross_cache`` pads the cross K/V to 256 rows, which the
+    paged-decode kernel reads as pages of 16 up to the true length; against
+    the plain ``decode_attention`` over the unpadded K/V, one launch."""
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.models import attention, model
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = get_config("seamless-m4t-medium", num_layers=1, dtype=dname,
+                     peft=PEFTConfig(method="none", target_modules=()))
+    rng = np.random.default_rng(frames)
+    put = _on(cuda_device, dtype)
+    lin = {n: {"w": put(_normal(rng, (1, 1024, 1024), 1024 ** -0.5))}
+           for n in ("k", "v")}
+    enc = put(_normal(rng, (4, frames, 1024)))
+    cross = model.cross_cache({"layers": {"cross": lin}}, enc, cfg)
+    assert cross["k"].shape == (1, 4, 256, 16, 64)
+    assert cross["len"].tolist() == [frames] * 4
+    k, v = model.cross_kv({n: {"w": w["w"][0]} for n, w in lin.items()},
+                          enc, cfg, dtype)
+    q = put(_normal(rng, (4, 1, 16, 64)))
+    table = attention.dense_view_table(4, 256, cuda_device)
+    assert table.shape == (4, 16)
+    ops.reset_launches()
+    got = attention.dense_decode_attention(q, cross["k"][0], cross["v"][0],
+                                           cross["len"], table)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_decode_attention"] == 1
+    _close(got, attention.decode_attention(q, k, v, cross["len"]), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,r", [(256, 6144, 16384, 128),
+                                     (256, 16384, 6144, 128),
+                                     (256, 1024, 4096, 48),
+                                     (256, 4096, 1024, 48)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_psoft_matmul_at_the_vlm_and_audio_linears(cuda_device, m, k, n, r,
+                                                   transpose):
+    """The wgmma engine at internvl2-26b's gate/up and down (K or N 16384,
+    r 128) and seamless-m4t-medium's MLP (r 48, a 96-byte row): y in bf16,
+    u and t in fp32, against the plain version."""
+    rng = np.random.default_rng(k + n + r + transpose)
+    args = _psoft_inputs(rng, _on(cuda_device, torch.bfloat16), m, k, n, r,
+                         transpose)
+    ops.reset_launches()
+    got = ops._psoft_mm(*args, transpose)
+    torch.cuda.synchronize()
+    assert ops.PSOFT_ENGINE_LAUNCHES == {"wgmma": 1, "wmma": 0, "simt": 0}
+    want = ref.psoft_matmul_parts(*args, transpose)
+    _close(got[0], want[0], 2e-2)
+    for g, w in zip(got[1:], want[1:]):
+        rms = float(w.square().mean().sqrt())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,r", [(6144, 16384, 128), (1024, 4096, 48)])
+def test_psoft_matmul_grads_at_the_vlm_and_audio_linears(cuda_device, k, n,
+                                                         r):
+    """Every grad of the autograd function (forward and the transposed dx
+    launch on wgmma) at internvl2-26b's gate/up and seamless-m4t-medium's
+    up, against autograd of the plain version in fp32."""
+    rng = np.random.default_rng(k + r)
+    args = _psoft_inputs(rng, _on(cuda_device, torch.bfloat16), 128, k, n, r)
+    dy = _on(cuda_device, torch.bfloat16)(_normal(rng, (128, n)))
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    twins = [a.detach().float().requires_grad_(True) for a in args]
+    ops.reset_launches()
+    y = ops.psoft_matmul(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert ops.PSOFT_ENGINE_LAUNCHES == {"wgmma": 2, "wmma": 0, "simt": 0}
+    want = torch.autograd.grad(ref.psoft_matmul(*twins), twins, dy.float())
+    for g, w, leaf in zip(got, want, leaves):
+        assert g.dtype == leaf.dtype
+        _close(g, w, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_gather_delta_at_internvl2_gate_up(cuda_device, dtype, tol):
+    """gather_delta_matmul at internvl2-26b's gate/up (K 6144, N 16384),
+    r 128, B 8 over 3 adapters."""
+    rng = np.random.default_rng(6144)
+    put = _on(cuda_device, dtype)
+    x = put(_normal(rng, (8, 6144)))
+    w = put(_normal(rng, (6144, 16384), 6144 ** -0.5))
+    left = put(_normal(rng, (3, 6144, 128), 6144 ** -0.5))
+    right = _on(cuda_device, torch.float32)(_normal(rng, (3, 128, 16384),
+                                                    0.01))
+    ids = torch.tensor([0, 1, 2, 1, 0, 2, 2, 1], dtype=torch.int32,
+                       device=cuda_device)
+    _close(ops.gather_delta_matmul(x, w, left, right, ids,
+                                   compute_dtype=dtype),
+           ref.gather_delta_matmul(ids, x, w, left, right), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mat,r", [(48, 128), (12, 48)])
+def test_cayley_kernel_at_the_vlm_and_audio_stacks(cuda_device, n_mat, r):
+    """internvl2-26b's PSOFT stacks (48 layers of r 128) and
+    seamless-m4t-medium's (12 of r 48): one launch on "smem"."""
+    rng = np.random.default_rng(n_mat * r)
+    q = _normal(rng, (n_mat, r, r), 0.03)
+    q = torch.from_numpy(q - q.transpose(0, 2, 1)).to(cuda_device)
+    ops.reset_launches()
+    rot, series = ops._cayley(q, 5)
+    torch.cuda.synchronize()
+    assert ops.CAYLEY_ENGINE_LAUNCHES == {"smem": 1, "tc": 0}
+    want, want_series = ref.cayley_neumann_series(q, 5)
+    torch.testing.assert_close(rot, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(series, want_series, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internvl2-26b", "seamless-m4t-medium"])
+def test_vlm_and_audio_generation_on_the_card_matches_the_cpu(cuda_device,
+                                                              arch):
+    """Reduced fp32 models, PSOFT merged: ``prefill`` (8 patch embeddings
+    in front, or a 21-frame source with right-padded prompts) and 3
+    ``decode_step``s on the card against the CPU, within 1e-4; one
+    paged_decode_attention per layer a step, two for the encoder-decoder
+    (self and cross)."""
+    from repro_torch.configs import PEFTConfig, get_config
+    from repro_torch.core import peft
+    from repro_torch.models import model
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    params = peft.merge_tree(model.init_params(cfg, seed=0, device="cpu"),
+                             cfg.peft)
+    cfg = cfg.replace(peft=PEFTConfig(method="none", target_modules=()))
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (3, 9)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(_normal(rng, (3, 8, 64)))
+        lengths = torch.full((3,), 17, dtype=torch.long)
+    else:
+        batch["src_embeds"] = torch.from_numpy(_normal(rng, (3, 21, 64)))
+        lengths = torch.tensor([9, 4, 6])
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        move = (lambda t: tree_map(lambda x: x.to(dev), t))
+        p = move(params)
+        ops.reset_launches()
+        with torch.no_grad():
+            logits, cache = model.prefill(p, move(batch), cfg, 32,
+                                          lengths.to(dev))
+            got = [logits.cpu()]
+            for t in range(3):
+                tok = torch.full((3, 1), 7 + t, device=dev)
+                logits, cache = model.decode_step(
+                    p, {"tokens": tok}, cache, lengths.to(dev) + t, cfg)
+                got.append(logits.cpu())
+        outs[str(dev)] = got
+    per_layer = 1 if cfg.family == "vlm" else 2
+    assert ops.LAUNCHES["paged_decode_attention"] == \
+        3 * per_layer * cfg.num_layers
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

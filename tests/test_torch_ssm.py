@@ -273,10 +273,7 @@ def test_refusals_match_reference(params):
     for kw in (dict(cache_mode="paged"), dict(spec=jserve.SpecConfig(k=2)),
                dict(cache_mode="dense", prefill_chunk_tokens=8)):
         tkw = dict(kw, spec=SpecConfig(k=2)) if "spec" in kw else kw
-        # the reference's paged families include vlm, which the port does
-        # not build yet
-        want = _message(lambda: jserve.ServeEngine(params, jcfg, **kw)
-                        ).replace("'moe', 'vlm'", "'moe'")
+        want = _message(lambda: jserve.ServeEngine(params, jcfg, **kw))
         got = _message(lambda: tserve.ServeEngine(tp, cfg, device="cpu",
                                                   **tkw))
         assert got == want
