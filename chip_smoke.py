@@ -6,10 +6,17 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N] [--profile] [--out PATH]
 
-(``--layers`` cuts the depth of every full-width model; phase 17 runs at
-2 layers at most, phase 22 at 4.)  Phases 19-21 serve and train the SSM
-and hybrid families on the dense cache, phases 22-24 the VLM and the
-audio encoder-decoder families.
+(``--layers`` sets the depth of every full-width model; without it the
+llama32-3b paths run 8 of 28 layers (:data:`LLAMA_LAYERS`),
+deepseek-moe-16b serves 8 of 28, mamba2-1.3b and zamba2-1.2b run 12
+layers, internvl2-26b 4 and the zoo's 15 B models and granite-8b 2
+(:data:`ZOO_LAYERS`), so that the whole call stays well inside its time
+limit; phase 17 runs at 2 layers at most, phase 22 at 4, phase 25's
+three wide models at ``ZOO_LAYERS``, and internlm2-1.8b (phases 25-26)
+at full depth unless ``--layers`` cuts it.)  Phases 19-21 serve and train
+the SSM and hybrid families on the dense cache, phases 22-24 the VLM and
+the audio encoder-decoder families, phases 25-28 the rest of the dense
+zoo, the remat policies and the training launcher.
 
 Phases, each of which raises (non-zero exit) on a failed check:
 
@@ -250,6 +257,43 @@ Phases, each of which raises (non-zero exit) on a failed check:
     paged VLM engine (base and one PSOFT adapter, admissions too), the
     image-prefixed generation and the audio generation; 3 PSOFT train
     steps each within 1e-4 relative.
+25. zoo: granite-8b, starcoder2-15b and nemotron-4-15b at full width and
+    2 layers (``ZOO_LAYERS``), internlm2-1.8b at full width and depth
+    (24 layers), bf16, random weights from a seed, PSOFT at each config's
+    rank on its default targets (six for starcoder2 and nemotron, whose
+    gelu / squared-ReLU MLPs have no gate; seven for the others); each
+    served with two adapters through ``ServeEngine(slots=8, page_size=16,
+    max_len=512).run`` on phase 3's traffic (completion, pages, prefix
+    hits, per layer a decode step exactly as many gather_delta_matmul as
+    banked targets and 1 paged_decode_attention, every prefill on "mma",
+    run-to-run token identity), then trained on the same params (remat
+    "full", 8 x 256 tokens, one warm-up and 3 timed steps: exactly 3
+    psoft_matmul per PSOFT linear on "wgmma", one cayley_neumann per
+    stack, frozen leaves bit-identical, finite loss and grad norm);
+    prints ``init_params`` s, decode ms and tokens/s, prefill ms, train
+    ms and tokens/s, peaks, ``count_params`` / ``count_trainable`` of the
+    run's tree and of the full-depth ``abstract_params`` tree with its
+    bytes;
+26. remat: internlm2-1.8b at full width and depth on phase 25's params,
+    the same 4 batches under ``remat_policy`` "none", "minimal" and
+    "full": losses step by step and the trainables after the last step
+    within 1e-4 relative of each other, peak memory "none" > "minimal" >
+    "full", psoft_matmul calls per PSOFT linear a step 2 / 2 / 3; prints
+    each policy's step ms and peak;
+27. launcher: ``repro_torch.launch.train.main`` at full size
+    (internlm2-1.8b, PSOFT r 64, fp32 as the launcher forces, 4 steps of 8
+    x 256 tokens, checkpoints every 2 steps, a JSONL metrics file):
+    checkpoints at steps 2 and 4, 4 step records, finite losses, exactly
+    3 psoft_matmul (on "simt") per PSOFT linear and one cayley_neumann
+    per stack a step; then ``--reduced``: a 6-step run against the same
+    run cut after 3 steps and resumed by a call to 6 steps ("resumed from
+    step 3"), last loss and step-6 checkpoint bit for bit (``--steps``
+    sets the learning-rate schedule, so the cut run is a 6-step run that
+    fails at its fourth step, not a 3-step run);
+28. zoo card vs CPU (fp32): the four configs reduced: identical greedy
+    tokens and admissions card against CPU with the base and one PSOFT
+    adapter; 3 PSOFT train steps under "minimal" within 1e-4 relative of
+    the CPU's and within 1e-6 of the card's "full" run.
 
 Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
 psoft_matmul at both expert stacks (G 64, M 240, K/N 2048/1408, r 64; bf16
@@ -273,7 +317,15 @@ prefill at 48 heads over 8 KV heads of 128; cayley_neumann at (48, 128)
 and (12, 48); the cross view at 250 and 251 source frames (padded to 256
 rows, pages of 16); each limit rejecting a planted fault (the last 64
 columns dropped, rows on the wrong adapter, each row's last page dropped,
-each row on its neighbour's source).
+each row on its neighbour's source).  And at the dense zoo's: psoft_matmul
+(M 2048, r 128, bf16 on "wgmma", forward, transposed and grads) at 6144
+<-> 24576 (nemotron and starcoder2 up and down) and 4096 <-> 14336
+(granite); gather_delta_matmul at (B 8, K 24576, N 6144, r 128) and (B 8,
+K 6144, N 24576, r 128); paged decode and prefill at 48 heads over 4 KV
+heads of 128 (GQA group 12); cayley_neumann at (2, 128) and (24, 64); each
+limit rejecting the last 64 columns dropped, each row on the wrong
+adapter, the last K split of W dropped, and the twelfth query head of
+each group reading the neighbouring KV head.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -327,6 +379,12 @@ BASELINES = {"oft": dict(oft_block_size=32),
              "goft": {}, "qgoft": {}, "pissa": dict(rank=8),
              "dora": dict(rank=8), "lora_xs": dict(rank=136)}
 METHOD_LAYERS, METHOD_STEPS = 2, 2
+#: default depths of the earlier full-width paths, cut so that the whole
+#: call, the dense zoo's phases included, stays well inside its time limit
+#: (``--layers`` overrides them): the llama32-3b paths (phases 3, 5, 7,
+#: 10, 12, 14), deepseek-moe-16b's serving (16), mamba2-1.3b and
+#: zamba2-1.2b (19-20)
+LLAMA_LAYERS, MOE_SERVE_LAYERS, RECURRENT_LAYERS = 8, 8, 12
 #: the baselines whose rotations go through blockdiag_rotate's "simt"
 #: engine (block sizes 8 and 2)
 BASELINE_ENGINES = ("boft", "goft", "qgoft")
@@ -2925,7 +2983,8 @@ def cayley_grad_phase(torch, ops, ref, gen, n_mat, r, terms):
 CAYLEY_SHAPES = {"psoft": (28, 352), "oft": (2688, 32), "oft_down": (7168, 32),
                  "boft": (21504, 8), "boft_down": (57344, 8),
                  "moe_experts": (1792, 64), "smem_max": (2, 128),
-                 "vlm": (48, 128), "audio": (12, 48)}
+                 "vlm": (48, 128), "audio": (12, 48),
+                 "internlm2": (24, 64)}
 CAYLEY_TERMS = 5
 
 
@@ -4852,26 +4911,24 @@ def cross_view_check(torch, ops, attention, model, configs, gen, frames,
     return err, (q, cross, k, v, table)
 
 
-def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
-    """The kernels at the VLM's and the audio encoder-decoder's shapes:
-    psoft_matmul at internvl2's gate/up and down (M 4096, 6144 <-> 16384,
-    r 128) and seamless's MLP (M 2048, 1024 <-> 4096, r 48), bf16 on
-    "wgmma", forward and transposed, each limit rejecting the last 64
-    output (or depth) columns dropped, and their grads;
-    gather_delta_matmul at internvl2's gate/up (B 8, K 6144, N 16384, r
-    128), the limit rejecting each row on the wrong adapter; paged decode
-    and prefill at 48 heads over 8 KV heads of 128 (GQA group 6; "mma"
-    prefill in bf16), each limit rejecting each row's last page dropped;
-    the audio cross view at 250 and 251 frames (padded to 256 rows, pages
-    of 16), its limit rejecting each row reading its neighbour's source.
-    The Cayley stacks (48, 128) and (12, 48) run with the other stacks
-    (:data:`CAYLEY_SHAPES`).  Times each beside its bound and a library
-    yardstick."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(22)
-    bf16, f32 = torch.bfloat16, torch.float32
-    out = {"psoft_matmul": {}}
-    for name, m, k, n, r in VLM_AUDIO_PSOFT:
+def group_tail_on_neighbour(want, alt, group):
+    """``want`` (..., H, D) with the last query head of each group of
+    ``group`` taken from ``alt``, the same attention with every KV head
+    replaced by its neighbour: a planted fault."""
+    wrong = want.clone()
+    wrong[..., group - 1::group, :] = alt[..., group - 1::group, :]
+    return wrong
+
+
+def psoft_shape_checks(torch, ops, ref, gen, shapes):
+    """psoft_matmul at each (name, M, K, N, r) of ``shapes`` (bf16 on
+    "wgmma"), forward and transposed against the plain version, each limit
+    rejecting the last 64 output (or depth) columns dropped; the grads;
+    times beside the bound, the plain version and ``torch.matmul`` on the
+    merged weight."""
+    bf16 = torch.bfloat16
+    out = {}
+    for name, m, k, n, r in shapes:
         one = {}
         for transpose in (False, True):
             what = f"psoft_matmul {name} ({m}, {k}, {n}, r {r}) bf16" + \
@@ -4918,53 +4975,86 @@ def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
         one["grad_max_err"] = psoft_grad_check(torch, ops, ref, gen, m, k, n,
                                                r, f"psoft_matmul {name}")
         one["bound_ms"], one["bound_by"] = bound(nbytes, flops, "bfloat16")
-        out["psoft_matmul"][name] = one
+        out[name] = one
+    return out
 
+
+def delta_shape_checks(torch, ops, ref, gen, shapes, r=128):
+    """gather_delta_matmul at each (name, K, N) of ``shapes`` (B 8, rank
+    ``r``, three bank columns), fp32 and bf16, each limit rejecting each
+    row on the wrong adapter and the last K split's rows of W dropped;
+    bf16 times."""
     ids = [0, 1, 2, 1, 0, 2, 2, 1]
-    bsz, k, n, r, elt = len(ids), 6144, 16384, 128, 2
-    e = {}
-    for dtype in (f32, bf16):
-        dname = str(dtype).replace("torch.", "")
-        x, w, left, right, idt = delta_inputs(torch, dtype, gen, k, n, ids,
-                                              r=r)
-        want = ref.gather_delta_matmul(idt, x, w, left, right)
-        what = f"gather_delta_matmul internvl2 gate/up (B {bsz}, K {k}, N " \
-               f"{n}, r {r}) {dname}"
-        e[dname] = max_err(torch, ops.gather_delta_matmul(
-            x, w, left, right, idt, compute_dtype=dtype), want, dname, what)
-        must_reject(torch, ref.gather_delta_matmul(
-            (idt + 1) % left.shape[0], x, w, left, right), want, dname,
-            range(bsz), f"{what}, each row on the wrong adapter")
-    gd = dict(ms=time_ms(torch, lambda: ops.gather_delta_matmul(
-        x, w, left, right, idt, compute_dtype=bf16)),
-        plain_ms=time_ms(torch, lambda: ref.gather_delta_matmul(
-            idt, x, w, left, right)),
-        library_ms=time_ms(torch, lambda: torch.matmul(x, w)),
-        bytes=(bsz * k * elt + k * n * elt + 3 * k * r * elt
-               + 3 * r * n * 4 + bsz * 4 + bsz * n * elt),
-        flops=2 * bsz * (k * n + k * r + r * n),
-        max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
-        shape=f"B {bsz}, K {k}, N {n}, r {r}, 3 bank columns")
-    gd["bound_ms"], gd["bound_by"] = bound(gd["bytes"], gd["flops"],
-                                           "bfloat16")
-    out["gather_delta_matmul"] = gd
-    del x, w, left, right
+    bsz, elt = len(ids), 2
+    out = {}
+    for name, k, n in shapes:
+        e = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            x, w, left, right, idt = delta_inputs(torch, dtype, gen, k, n,
+                                                  ids, r=r)
+            want = ref.gather_delta_matmul(idt, x, w, left, right)
+            what = f"gather_delta_matmul {name} (B {bsz}, K {k}, N {n}, r " \
+                   f"{r}) {dname}"
+            e[dname] = max_err(torch, ops.gather_delta_matmul(
+                x, w, left, right, idt, compute_dtype=dtype), want, dname,
+                what)
+            must_reject(torch, ref.gather_delta_matmul(
+                (idt + 1) % left.shape[0], x, w, left, right), want, dname,
+                range(bsz), f"{what}, each row on the wrong adapter")
+            plan = ops.gather_delta_plan(bsz, k, n, r)
+            w_cut = w.clone()
+            w_cut[(plan.k_splits - 1) * plan.k_rows:] = 0
+            must_reject(torch, ref.gather_delta_matmul(
+                idt, x, w_cut, left, right), want, dname, range(bsz),
+                f"{what}, the last K split's rows of W dropped "
+                f"({plan.k_splits} splits of {plan.k_rows} rows)")
+            del w_cut
+        one = dict(ms=time_ms(torch, lambda: ops.gather_delta_matmul(
+            x, w, left, right, idt, compute_dtype=torch.bfloat16)),
+            plain_ms=time_ms(torch, lambda: ref.gather_delta_matmul(
+                idt, x, w, left, right)),
+            library_ms=time_ms(torch, lambda: torch.matmul(x, w)),
+            bytes=(bsz * k * elt + k * n * elt + 3 * k * r * elt
+                   + 3 * r * n * 4 + bsz * 4 + bsz * n * elt),
+            flops=2 * bsz * (k * n + k * r + r * n),
+            max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+            k_splits=plan.k_splits,
+            shape=f"B {bsz}, K {k}, N {n}, r {r}, 3 bank columns")
+        one["bound_ms"], one["bound_by"] = bound(one["bytes"], one["flops"],
+                                                 "bfloat16")
+        out[name] = one
+        del x, w, left, right
+    return out
 
+
+def attention_shape_checks(torch, ops, ref, F, gen, h, kh):
+    """Paged decode and prefill at ``h`` heads over ``kh`` KV heads of 128
+    (bf16 prefill on "mma"), fp32 and bf16, each limit rejecting each
+    row's last page dropped and the last query head of each group reading
+    the neighbouring KV head; bf16 times beside SDPA over pre-gathered
+    K/V."""
+    d, grp = 128, h // kh
+    f32, bf16 = torch.float32, torch.bfloat16
     lengths = [0, 1, 77, 130, 256, 300, 511, 45]
-    h, kh, d = VLM_HEADS, VLM_KV_HEADS, 128
     e = {}
     for dtype in (f32, bf16):
         dname = str(dtype).replace("torch.", "")
         args = decode_inputs(torch, dtype, gen, lengths, h, kh)
+        q, kp, vp, table, ln = args
         want = ref.paged_decode_attention(*args)
         what = f"paged_decode_attention H {h} KH {kh} {dname}"
         e[dname] = max_err(torch, ops.paged_decode_attention(*args), want,
                            dname, what)
-        q, kp, vp, table, ln = args
+        rows = [i for i, n_ in enumerate(lengths) if n_ > 0]
         must_reject(torch, ref.paged_decode_attention(
-            q, kp, vp, table, last_page_dropped(ln, 16)), want, dname,
-            [i for i, n_ in enumerate(lengths) if n_ > 0],
+            q, kp, vp, table, last_page_dropped(ln, 16)), want, dname, rows,
             f"{what}, each row's last page dropped")
+        alt = ref.paged_decode_attention(q, kp.roll(-1, 2), vp.roll(-1, 2),
+                                         table, ln)
+        must_reject(torch, group_tail_on_neighbour(want, alt, grp), want,
+                    dname, rows, f"{what}, the last head of each group of "
+                                 f"{grp} on the neighbouring KV head")
     dec = dict(ms=time_ms(torch, lambda: ops.paged_decode_attention(
         q, kp, vp, table, ln)),
         plain_ms=time_ms(torch, lambda: ref.paged_decode_attention(
@@ -4976,7 +5066,7 @@ def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
         shape=f"B={len(lengths)} H={h} KH={kh} D={d} pg=16 maxp=32 "
               f"lengths={lengths}")
     maxlen = max(lengths)
-    kg, vg = (ref_gather(torch, pool, table, maxlen, h // kh)
+    kg, vg = (ref_gather(torch, pool, table, maxlen, grp)
               for pool in (kp, vp))
     mask = (torch.arange(maxlen, device="cuda")[None, :]
             < ln[:, None].long())[:, None, None, :]
@@ -4984,13 +5074,14 @@ def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
         q[:, :, None, :], kg, vg, attn_mask=mask))
     dec["bound_ms"], dec["bound_by"] = bound(dec["bytes"], dec["flops"],
                                              "bfloat16")
-    out["paged_decode_attention"] = dec
+    del kg, vg
 
     prefix, s = [32, 0, 45, 32], 64
     e = {}
     for dtype, engine in ((f32, "simt"), (bf16, "mma")):
         dname = str(dtype).replace("torch.", "")
         args = prefill_inputs(torch, dtype, gen, prefix, s, h, kh)
+        q, k_, v_, kp, vp, table, plen = args
         ops.reset_launches()
         got = ops.paged_prefill_attention(*args)
         want = ref.paged_prefill_attention(*args)
@@ -4999,11 +5090,17 @@ def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
               f"{what}: ran on {ops.PREFILL_ENGINE_LAUNCHES}, expected "
               f"{engine}")
         e[dname] = max_err(torch, got, want, dname, what)
-        q, k_, v_, kp, vp, table, plen = args
         must_reject(torch, ref.paged_prefill_attention(
             q, k_, v_, kp, vp, table, last_page_dropped(plen, 16)), want,
             dname, [i for i, n_ in enumerate(prefix) if n_ > 0],
             f"{what}, each prefix's last page dropped")
+        alt = ref.paged_prefill_attention(
+            q, k_.roll(-1, 2), v_.roll(-1, 2), kp.roll(-1, 2),
+            vp.roll(-1, 2), table, plen)
+        must_reject(torch, group_tail_on_neighbour(want, alt, grp), want,
+                    dname, range(len(prefix)),
+                    f"{what}, the last head of each group of {grp} on the "
+                    f"neighbouring KV head")
     pre_tok = sum(prefix)
     pre = dict(ms=time_ms(torch, lambda: ops.paged_prefill_attention(*args)),
                plain_ms=time_ms(torch, lambda: ref.paged_prefill_attention(
@@ -5016,7 +5113,7 @@ def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
                max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
                shape=f"B={len(prefix)} S={s} H={h} KH={kh} D={d} pg=16 "
                      f"maxp=32 prefix={prefix}")
-    spre, grp = table.shape[1] * 16, h // kh
+    spre = table.shape[1] * 16
     kc = torch.cat([ref_gather(torch, kp, table, spre, grp),
                     k_.transpose(1, 2).repeat_interleave(grp, dim=1)], 2)
     vc = torch.cat([ref_gather(torch, vp, table, spre, grp),
@@ -5032,8 +5129,37 @@ def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
         qt, kc, vc, attn_mask=amask))
     pre["bound_ms"], pre["bound_by"] = bound(pre["bytes"], pre["flops"],
                                              "bfloat16")
-    out["paged_prefill_attention"] = pre
+    return {"paged_decode_attention": dec, "paged_prefill_attention": pre}
 
+
+def vlm_audio_kernel_phase(torch, ops, ref, F, attention, model, configs):
+    """The kernels at the VLM's and the audio encoder-decoder's shapes:
+    psoft_matmul at internvl2's gate/up and down (M 4096, 6144 <-> 16384,
+    r 128) and seamless's MLP (M 2048, 1024 <-> 4096, r 48), bf16 on
+    "wgmma", forward and transposed, each limit rejecting the last 64
+    output (or depth) columns dropped, and their grads;
+    gather_delta_matmul at internvl2's gate/up (B 8, K 6144, N 16384, r
+    128), the limit rejecting each row on the wrong adapter and the last K
+    split of W dropped; paged decode and prefill at 48 heads over 8 KV
+    heads of 128 (GQA group 6; "mma" prefill in bf16), each limit
+    rejecting each row's last page dropped and the sixth head of each
+    group on the neighbouring KV head (:func:`psoft_shape_checks`,
+    :func:`delta_shape_checks`, :func:`attention_shape_checks`);
+    the audio cross view at 250 and 251 frames (padded to 256 rows, pages
+    of 16), its limit rejecting each row reading its neighbour's source.
+    The Cayley stacks (48, 128) and (12, 48) run with the other stacks
+    (:data:`CAYLEY_SHAPES`).  Times each beside its bound and a library
+    yardstick."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    bf16, f32 = torch.bfloat16, torch.float32
+    gate_up = "internvl2 gate/up"
+    out = {"psoft_matmul": psoft_shape_checks(torch, ops, ref, gen,
+                                              VLM_AUDIO_PSOFT),
+           "gather_delta_matmul": delta_shape_checks(
+               torch, ops, ref, gen, ((gate_up, 6144, 16384),))[gate_up]}
+    out.update(attention_shape_checks(torch, ops, ref, F, gen, VLM_HEADS,
+                                      VLM_KV_HEADS))
     views = {}
     for frames in (AUDIO_SOURCE, AUDIO_SOURCE + 1):
         e = {}
@@ -5717,11 +5843,508 @@ def vlm_audio_card_vs_cpu_phase(torch, configs, model, serve, trainer, data,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-28: the rest of the dense zoo, remat policies, the training
+# launcher
+# ---------------------------------------------------------------------------
+
+#: the zoo's configs in the order phase 25 runs them; internlm2-1.8b runs
+#: last, at full depth, and phase 26 trains on its params
+ZOO = ("granite-8b", "starcoder2-15b", "nemotron-4-15b", "internlm2-1.8b")
+ZOO_FULL_DEPTH = "internlm2-1.8b"
+#: layers of the other three (full width): the fp32 SVD split of a
+#: 6144 <-> 24576 layer takes ~16 s on the card, and 32-40 layers of the
+#: 15 B models' fp32 stacks would not fit beside their factors
+ZOO_LAYERS = 2
+ZOO_TRAIN_STEPS = 3
+#: (name, M, K, N, r) of psoft_matmul at the zoo's widest linears, 8 x 256
+#: rows: nemotron's and starcoder2's up and down, granite's gate/up and down
+ZOO_PSOFT = (("nemotron/starcoder2 up", 2048, 6144, 24576, 128),
+             ("nemotron/starcoder2 down", 2048, 24576, 6144, 128),
+             ("granite gate/up", 2048, 4096, 14336, 128),
+             ("granite down", 2048, 14336, 4096, 128))
+#: (name, K, N) of gather_delta_matmul at the zoo's widest banked linears
+ZOO_DELTA = (("starcoder2/nemotron down", 24576, 6144),
+             ("starcoder2/nemotron up", 6144, 24576))
+#: starcoder2's attention: 48 heads over 4 KV heads of 128 (GQA group 12)
+ZOO_HEADS, ZOO_KV_HEADS = 48, 4
+REMAT_POLICIES = ("none", "minimal", "full")
+#: psoft_matmul calls per PSOFT linear a train step under each policy: the
+#: forward and the transposed launch, plus the recompute under "full"
+REMAT_PSOFT_CALLS = {"none": 2, "minimal": 2, "full": 3}
+
+
+def zoo_kernel_phase(torch, ops, ref, F):
+    """The kernels at the dense zoo's shapes (phase 2): psoft_matmul at
+    :data:`ZOO_PSOFT`, gather_delta_matmul at :data:`ZOO_DELTA`, both
+    attention kernels at GQA group 12; the Cayley stacks (2, 128) and
+    (24, 64) run with the other stacks (:data:`CAYLEY_SHAPES`)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    out = {"psoft_matmul": psoft_shape_checks(torch, ops, ref, gen,
+                                              ZOO_PSOFT),
+           "gather_delta_matmul": delta_shape_checks(torch, ops, ref, gen,
+                                                     ZOO_DELTA)}
+    out.update(attention_shape_checks(torch, ops, ref, F, gen, ZOO_HEADS,
+                                      ZOO_KV_HEADS))
+    for name, v in out["psoft_matmul"].items():
+        print(f"kernels: psoft_matmul at {name} ({v['shape']}): forward "
+              f"{v['ms']:.4f} ms, transposed {v['backward_ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, torch.matmul on the merged weight "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"{v['bound_by']}; max err {v['max_err']:.3g} / "
+              f"{v['max_err_transposed']:.3g}, grads {v['grad_max_err']:.3g}")
+    for name, v in out["gather_delta_matmul"].items():
+        print(f"kernels: gather_delta_matmul at {name} ({v['shape']}, "
+              f"{v['k_splits']} K splits): {v['ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, torch.matmul(x, W) "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"{v['bound_by']}")
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        v = out[name]
+        print(f"kernels: {name} at GQA group 12 ({v['shape']}): "
+              f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, SDPA "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"{v['bound_by']}")
+    return out
+
+
+def zoo_linears(cfg):
+    """(linears a layer, banked PSOFT targets a layer) of a dense config:
+    a gated MLP adds ``gate``."""
+    names = ("q", "k", "v", "o", "up", "down") + \
+        (("gate",) if cfg.mlp_type == "swiglu" else ())
+    return len(names), sum(cfg.peft.is_target(n) for n in names)
+
+
+def zoo_model_phase(torch, args, configs, model, serve, trainer, data, tree,
+                    ops, arch, gpu_line, keep_params=False):
+    """One config of phase 25 at full width: ``ZOO_LAYERS`` layers
+    (internlm2-1.8b at full depth; ``--layers`` cuts both), bf16, random
+    weights from a seed, PSOFT at the config's rank on its default targets.
+    Serve: two adapters sharing the frozen factors, phase 3's traffic
+    through ``ServeEngine(slots=8, page_size=16, max_len=512).run``
+    (completion, pages, prefix hits, per layer and decode step exactly as
+    many gather_delta_matmul as banked targets and 1
+    paged_decode_attention, every prefill on "mma", run-to-run token
+    identity).  Train on the same params: remat "full", 8 x 256 tokens,
+    one warm-up and 3 timed steps with the checks of phase 5 (3
+    psoft_matmul per PSOFT linear on "wgmma", one cayley_neumann per PSOFT
+    stack).  Counts the run's tree and the full-depth ``abstract_params``
+    tree.  Returns (result, params if ``keep_params``)."""
+    what = f"zoo {arch}"
+    gc_freed = free_cycles(torch)
+    base = configs.get_config(arch, remat_policy="full")
+    depth = base.num_layers if arch == ZOO_FULL_DEPTH else ZOO_LAYERS
+    cfg = base.replace(num_layers=min(args.layers or depth, depth))
+    nl = cfg.num_layers
+    linears, banked = zoo_linears(cfg)
+    abstract = model.abstract_params(base)
+    full_params = model.count_params(abstract)
+    full_bytes = sum(t.numel() * t.element_size()
+                     for t in tree.tree_leaves(abstract))
+    full_trainable = model.count_trainable(base, abstract)
+    del abstract
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = model.count_params(params)
+    n_trainable = model.count_trainable(cfg, params)
+    check(n_params == model.count_params(model.abstract_params(cfg)),
+          f"{what}: count_params of the run's tree equals its abstract "
+          f"tree's")
+    print(f"{what}: init_params {nl} of {base.num_layers} layers at full "
+          f"width (d {cfg.d_model}, {cfg.num_heads} over {cfg.num_kv_heads} "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.mlp_type}, "
+          f"{cfg.norm_type}), PSOFT r={cfg.peft.rank} on {banked} linears a "
+          f"layer: {init_s:.1f} s ({init_s / nl:.2f} s a layer), peak "
+          f"{init_peak:.1f} GiB; count_params {n_params:,}, count_trainable "
+          f"{n_trainable:,}; full depth ({base.num_layers} layers, "
+          f"abstract_params): {full_params:,} params, {full_trainable:,} "
+          f"trainable, {full_bytes / 2**30:.1f} GiB at bf16 base and fp32 "
+          f"trainables [{gpu_line}]")
+    adapters = {"tuned_a": nudged(torch, params, PSOFT_TRAINABLES, 1, 0.01),
+                "tuned_b": nudged(torch, params, PSOFT_TRAINABLES, 2, 0.01)}
+    a, b = adapters["tuned_a"]["layers"]["attn"]["q"], \
+        params["layers"]["attn"]["q"]
+    check(a["w_res"] is b["w_res"] and a["A"] is b["A"] and a["B"] is b["B"],
+          f"{what}: adapters must share the frozen tensors")
+    reqs = workload(cfg.vocab_size, 24, seed=0)
+    kw = dict(slots=8, page_size=16, max_len=512)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eng, done, bank_s = serve_once(torch, serve, params, adapters, cfg, reqs,
+                                   "cuda", **kw)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    prefill_engines = dict(ops.PREFILL_ENGINE_LAUNCHES)
+    stats = dict(eng.last_run_stats)
+    kv_stats = dict(eng.kv.stats)
+    steps = stats["decode_steps"]
+    check(eng.cache_mode == "paged", f"{what}: 'auto' serves on paged KV")
+    check(len(done) == len(reqs) and all(
+        r.done and len(r.generated) == r.max_new_tokens for r in done),
+        f"{what}: every request finishes with max_new_tokens")
+    check(eng.kv.pages_in_use() == 0, f"{what}: every page is returned")
+    check(kv_stats["prefix_hits"] > 0, f"{what}: shared prefixes are aliased")
+    for kname, per in (("gather_delta_matmul", banked * nl),
+                       ("paged_decode_attention", nl)):
+        check(launches[kname] == per * steps,
+              f"{what}: {kname} launched {launches[kname]} times in {steps} "
+              f"decode steps, expected exactly {per} a step")
+    check(prefill_engines["mma"] == launches["paged_prefill_attention"] > 0
+          and prefill_engines["simt"] == 0,
+          f"{what}: every bf16 prefill on the tensor-core engine "
+          f"({prefill_engines})")
+    toks = {r.uid: list(r.generated) for r in done}
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng, done
+    torch.cuda.empty_cache()
+    _, again, _ = serve_once(torch, serve, params, adapters, cfg, reqs,
+                             "cuda", **kw)
+    check({r.uid: list(r.generated) for r in again} == toks,
+          f"{what}: a second identical run gives identical tokens")
+    del again, adapters
+    torch.cuda.empty_cache()
+    tok_s = stats["decode_tokens"] / stats["decode_s"]
+    step_ms = 1e3 * stats["decode_s"] / steps
+    prefill_ms = 1e3 * stats["prefill_s"] / max(stats["prefill_calls"], 1)
+    print(f"{what}: {len(reqs)} requests, {steps} decode steps, "
+          f"{tok_s:.1f} decode tokens/s, {step_ms:.2f} ms mean decode step "
+          f"({banked * nl} gather_delta_matmul and {nl} "
+          f"paged_decode_attention a step), {stats['prefill_calls']} prefill "
+          f"calls, {prefill_ms:.1f} ms a call, prefix hits "
+          f"{kv_stats['prefix_hits']}, peak {serve_peak:.1f} GiB "
+          f"[{gpu_line}]")
+    expected = {
+        "psoft_matmul": (3 * banked * nl, "forward, remat recompute and "
+                                          "backward of every PSOFT linear"),
+        "cayley_neumann": (banked, "one per PSOFT linear stack"),
+        "blockdiag_rotate": (0, "no OFT linear")}
+    trained = run_train(torch, configs, trainer, data, tree, ops, cfg,
+                        params, ZOO_TRAIN_STEPS, expected, f"{what} train",
+                        args.profile)
+    engines = trained["psoft_engines"]
+    check(engines["wgmma"] == trained["launches"]["psoft_matmul"]
+          and engines["wmma"] == engines["simt"] == 0,
+          f"{what} train: every bf16 psoft_matmul call on the wgmma engine "
+          f"({engines})")
+    check_engines(trained, "cayley_neumann", ops._cayley_engine(cfg.peft.rank),
+                  f"{what} train")
+    print(f"{what} train: {trained['mean_step_ms']:.1f} ms mean step, "
+          f"{trained['tokens_per_s']:.0f} tokens/s, peak "
+          f"{trained['peak_memory_gib']:.1f} GiB [{gpu_line}]")
+    result = dict(
+        layers=nl, full_layers=base.num_layers, linears=linears,
+        banked=banked, rank=cfg.peft.rank, init_s=init_s,
+        init_s_per_layer=init_s / nl, init_peak_gib=init_peak,
+        gc_freed_gib=gc_freed, count_params=n_params,
+        count_trainable=n_trainable, full_depth_params=full_params,
+        full_depth_trainable=full_trainable, full_depth_bytes=full_bytes,
+        gpu=gpu_line,
+        serve=dict(requests=len(reqs), bank_build_s=bank_s,
+                   prefill_calls=stats["prefill_calls"],
+                   prefill_s=stats["prefill_s"], prefill_ms=prefill_ms,
+                   decode_steps=steps, decode_tokens=stats["decode_tokens"],
+                   decode_s=stats["decode_s"], decode_tokens_per_s=tok_s,
+                   mean_decode_step_ms=step_ms, launches=launches,
+                   prefill_engines=prefill_engines, kv=kv_stats,
+                   peak_memory_gib=serve_peak),
+        train=trained)
+    if not keep_params:
+        del params
+        params = None
+    torch.cuda.empty_cache()
+    return result, params
+
+
+def zoo_phase(torch, args, configs, model, serve, trainer, data, tree, ops,
+              gpu_line):
+    """Phase 25: :func:`zoo_model_phase` for each of :data:`ZOO`; returns
+    (results, the full-depth internlm2-1.8b params and config for phase
+    26)."""
+    out, kept = {}, None
+    for arch in ZOO:
+        t0 = time.perf_counter()
+        out[arch], params = zoo_model_phase(
+            torch, args, configs, model, serve, trainer, data, tree, ops,
+            arch, gpu_line, keep_params=arch == ZOO_FULL_DEPTH)
+        out[arch]["phase_s"] = time.perf_counter() - t0
+        if params is not None:
+            kept = params
+    return out, kept
+
+
+def remat_phase(torch, args, configs, trainer, data, tree, ops, params,
+                gpu_line):
+    """Phase 26: internlm2-1.8b at full width and depth on phase 25's
+    params, the same 4 batches (one warm-up and 3 timed steps of 8 x 256
+    tokens) under each of :data:`REMAT_POLICIES`: exact launches
+    (psoft_matmul 2 per PSOFT linear a step under "none" and "minimal", 3
+    under "full"; one cayley_neumann per stack), the losses of the three
+    runs within 1e-4 relative step by step and their trainables after the
+    last step within 1e-4 of the largest entry of each leaf, and peak
+    memory ordered "none" > "minimal" > "full"."""
+    base = configs.get_config(ZOO_FULL_DEPTH)
+    nl = min(args.layers or base.num_layers, base.num_layers)
+    runs = {}
+    for policy in REMAT_POLICIES:
+        cfg = base.replace(num_layers=nl, remat_policy=policy)
+        _, banked = zoo_linears(cfg)
+        expected = {
+            "psoft_matmul": (REMAT_PSOFT_CALLS[policy] * banked * nl,
+                             f"per PSOFT linear under {policy!r}"),
+            "cayley_neumann": (banked, "one per PSOFT linear stack"),
+            "blockdiag_rotate": (0, "no OFT linear")}
+        free_cycles(torch)
+        runs[policy] = run_train(
+            torch, configs, trainer, data, tree, ops, cfg, params,
+            ZOO_TRAIN_STEPS, expected, f"remat {policy}",
+            on_done=lambda st: [t.detach().cpu() for t in
+                                tree.tree_leaves(st.trainable)])
+        torch.cuda.empty_cache()
+    full = runs["full"]
+    gaps = {}
+    for policy in ("none", "minimal"):
+        run = runs[policy]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                           full["losses"]))
+        leaf_gap = max(float((a - b).abs().max())
+                       / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(run["after"], full["after"]))
+        check(loss_gap <= 1e-4 and leaf_gap <= 1e-4,
+              f"remat {policy} against full: losses within 1e-4 relative "
+              f"step by step (max gap {loss_gap:.3g}) and trainables after "
+              f"the last step within 1e-4 (max gap {leaf_gap:.3g})")
+        gaps[policy] = dict(loss=loss_gap, trainables=leaf_gap)
+    peaks = {p: runs[p]["peak_memory_gib"] for p in REMAT_POLICIES}
+    check(peaks["none"] > peaks["minimal"] > peaks["full"],
+          f"remat: peak memory none > minimal > full ({peaks})")
+    print("remat: internlm2-1.8b " + ", ".join(
+        f"{p} {runs[p]['mean_step_ms']:.1f} ms a step (min "
+        f"{runs[p]['min_step_ms']:.1f}), peak {peaks[p]:.2f} GiB, "
+        f"{REMAT_PSOFT_CALLS[p]} psoft_matmul per PSOFT linear"
+        for p in REMAT_POLICIES) + f"; gaps to full {gaps} [{gpu_line}]")
+    for run in runs.values():
+        run.pop("after")
+    return dict(layers=nl, runs=runs, gaps=gaps, peaks=peaks, gpu=gpu_line)
+
+
+class Interrupted(RuntimeError):
+    pass
+
+
+def interrupted_after(trainer, steps: int):
+    """A ``make_train_step`` whose step function raises
+    :class:`Interrupted` on call ``steps + 1``: a run cut short after
+    ``steps`` steps."""
+    make = trainer.make_train_step
+
+    def wrapped(*a, **kw):
+        step, calls = make(*a, **kw), []
+
+        def run(state, batch):
+            calls.append(1)
+            if len(calls) > steps:
+                raise Interrupted(f"cut after {steps} steps")
+            return step(state, batch)
+        return run
+    return wrapped
+
+
+def launch_run(launch_train, argv):
+    """``launch_train.main(argv)`` with its stdout captured and echoed:
+    (last loss, printed text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            loss = launch_train.main(argv)
+        finally:
+            text = buf.getvalue()
+            sys.stdout.write("".join(f"  launcher | {ln}\n"
+                                     for ln in text.splitlines()))
+    return loss, text
+
+
+def loop_phase(torch, configs, trainer, launch_train, obs, checkpoint, ops,
+               gpu_line):
+    """Phase 27: the training launcher on the card.  ``main`` at full size,
+    internlm2-1.8b in fp32 as the launcher forces (PSOFT r 64, 4 steps of 8
+    x 256 tokens, checkpoints every 2 steps, a JSONL metrics file):
+    checkpoints at steps 2 and 4, finite losses, 4 step records.  Then
+    ``--reduced``: a 6-step run against the same run cut after 3 steps
+    (its fourth step raises; the step-3 checkpoint is committed) and
+    resumed by a call to 6 steps, which must print "resumed from step 3"
+    and end on the unbroken run's loss and step-6 checkpoint, bit for
+    bit."""
+    import shutil
+
+    import numpy as np
+    work = ROOT / "build" / "smoke_launcher"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt, metrics = str(work / "full"), str(work / "full.jsonl")
+    free_cycles(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loss, text = launch_run(launch_train, [
+        "--arch", ZOO_FULL_DEPTH, "--rank", "64", "--steps", "4", "--batch",
+        "8", "--seq", "256", "--ckpt", ckpt, "--ckpt-every", "2",
+        "--log-every", "1", "--metrics-jsonl", metrics])
+    full_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    engines = dict(ops.PSOFT_ENGINE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = configs.get_config(ZOO_FULL_DEPTH)
+    _, banked = zoo_linears(cfg)
+    want = {"psoft_matmul": 4 * 3 * banked * cfg.num_layers,
+            "cayley_neumann": 4 * banked}
+    check(all(launches[k] == n for k, n in want.items())
+          and engines["simt"] == launches["psoft_matmul"],
+          f"launcher: 4 fp32 steps launch exactly {want} (3 psoft_matmul per "
+          f"PSOFT linear a step, all on \"simt\"; one cayley_neumann per "
+          f"stack a step): {launches}, {engines}")
+    records = obs.read_jsonl(metrics)
+    losses = [(r["step"], r["data"]["train/loss"]) for r in records
+              if r["kind"] == "scalars" and "train/loss" in r["data"]]
+    step_s = [r["value"] for r in records if r["kind"] == "histogram"
+              and r["name"] == "train/step_time_s"]
+    check(checkpoint.all_steps(ckpt) == [2, 4],
+          f"launcher: checkpoints at steps 2 and 4 "
+          f"({checkpoint.all_steps(ckpt)})")
+    check([s for s, _ in losses] == [1, 2, 3, 4] and len(step_s) == 4
+          and all(math.isfinite(v) for _, v in losses) and math.isfinite(loss),
+          f"launcher: 4 step records with finite losses ({losses})")
+    params_line = [ln for ln in text.splitlines()
+                   if ln.startswith("params:")]
+    check(len(params_line) == 1, f"launcher: one params line ({text!r})")
+    ckpt_bytes = sum(p.stat().st_size for p in (work / "full").rglob("*")
+                     if p.is_file())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"launcher: {ZOO_FULL_DEPTH} at full size in fp32, "
+          f"{params_line[0]}; "
+          f"step ms {[round(1e3 * s, 1) for s in step_s]}, losses "
+          f"{[round(v, 4) for _, v in losses]}, checkpoints at steps 2 and "
+          f"4 ({ckpt_bytes / 2**30:.1f} GiB on disk), {full_s:.1f} s in "
+          f"all, peak {peak:.1f} GiB [{gpu_line}]")
+
+    flags = ["--arch", ZOO_FULL_DEPTH, "--reduced", "--rank", "8", "--steps",
+             "6", "--batch", "4", "--seq", "32", "--lr", "1e-2",
+             "--ckpt-every", "3", "--log-every", "1"]
+    one, two = str(work / "unbroken"), str(work / "resumed")
+    unbroken, _ = launch_run(launch_train, flags + ["--ckpt", one])
+    make = trainer.make_train_step
+    trainer.make_train_step = interrupted_after(trainer, 3)
+    try:
+        launch_run(launch_train, flags + ["--ckpt", two])
+        raise CheckFailed("launcher: the cut run was not cut")
+    except Interrupted:
+        pass
+    finally:
+        trainer.make_train_step = make
+    check(checkpoint.all_steps(two) == [3],
+          f"launcher: the cut run committed step 3 "
+          f"({checkpoint.all_steps(two)})")
+    resumed, text = launch_run(launch_train, flags + ["--ckpt", two])
+    check("resumed from step 3" in text,
+          "launcher: the resumed call prints 'resumed from step 3'")
+
+    def arrays(d):
+        with np.load(str(Path(d) / "step_00000006" / "arrays.npz")) as z:
+            return {k: z[k] for k in z.files}
+    want, got = arrays(one), arrays(two)
+    check(resumed == unbroken and set(got) == set(want) and all(
+        got[k].tobytes() == want[k].tobytes() for k in want),
+        f"launcher: the resumed run's loss ({resumed}) and step-6 checkpoint "
+        f"equal the unbroken run's ({unbroken}) bit for bit")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"launcher: reduced {ZOO_FULL_DEPTH}, 6 steps unbroken against 3 "
+          f"cut and resumed to 6: loss {resumed} both, {len(want)} "
+          f"checkpoint arrays bit-equal")
+    return dict(full=dict(losses=losses, step_s=step_s, total_s=full_s,
+                          launches=launches, psoft_engines=engines,
+                          peak_memory_gib=peak, params_line=params_line[0],
+                          checkpoint_bytes=ckpt_bytes, last_loss=loss),
+                resume=dict(loss=resumed, arrays=len(want)), gpu=gpu_line)
+
+
+def zoo_card_vs_cpu_phase(torch, configs, model, serve, trainer, data, tree,
+                          ops):
+    """Phase 28 (fp32): the four zoo configs reduced.  Identical greedy
+    tokens and admissions card against CPU on the paged engine with the
+    base and one PSOFT adapter; 3 PSOFT train steps under "minimal" within
+    1e-4 relative card against CPU, and the card's equal to its "full"
+    run's within 1e-6."""
+    out = {}
+
+    def to_cuda(t):
+        return tree.tree_map(lambda x: x.to("cuda"), t)
+    for arch in ZOO:
+        cfg = configs.get_config(arch).reduced()
+        params = model.init_params(cfg, seed=0, device="cpu")
+        tuned = nudged(torch, params, PSOFT_TRAINABLES, 1, 0.05, "cpu")
+        reqs = recurrent_traffic(cfg.vocab_size, 10, seed=3)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            move = (lambda t: t) if dev == "cpu" else to_cuda
+            ops.reset_launches()
+            eng, done, _ = serve_once(torch, serve, move(params),
+                                      {"attn": move(tuned)}, cfg, reqs, dev,
+                                      slots=4, page_size=16, max_len=96)
+            outs[dev] = ({r.uid: list(r.generated) for r in done},
+                         [(e.step, e.slot, e.uid, e.adapter)
+                          for e in eng.admission_events])
+        check(ops.LAUNCHES["gather_delta_matmul"] > 0
+              and ops.LAUNCHES["paged_decode_attention"] > 0,
+              f"{arch} card vs cpu: the card's engine decodes through the "
+              f"kernels ({ops.LAUNCHES})")
+        check(outs["cuda"] == outs["cpu"],
+              f"{arch} card vs cpu: the same greedy tokens and admissions")
+        tc = configs.TrainConfig(steps=10, learning_rate=1e-2,
+                                 warmup_ratio=0.2)
+        ds = data.SyntheticLMDataset(cfg, 4, 32)
+        losses = {}
+        for dev, policy in (("cpu", "minimal"), ("cuda", "minimal"),
+                            ("cuda", "full")):
+            pcfg = cfg.replace(remat_policy=policy)
+            state = trainer.train_state_from_params(
+                params if dev == "cpu" else to_cuda(params), pcfg, tc)
+            step = trainer.make_train_step(pcfg, tc)
+            losses[(dev, policy)] = []
+            for i in range(3):
+                state, m = step(state, ds.batch_at(i))
+                losses[(dev, policy)].append(float(m["loss"]))
+        card, cpu = losses[("cuda", "minimal")], losses[("cpu", "minimal")]
+        full = losses[("cuda", "full")]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        rel_full = max(abs(a - b) / abs(b) for a, b in zip(card, full))
+        check(all(math.isfinite(v) for v in card) and rel <= 1e-4
+              and rel_full <= 1e-6,
+              f"{arch} card vs cpu: 3 PSOFT steps under 'minimal' within "
+              f"1e-4 relative of the CPU's (gap {rel:.3g}) and within 1e-6 "
+              f"of the card's 'full' run (gap {rel_full:.3g}): {losses}")
+        tokens = sum(len(t) for t in outs["cpu"][0].values())
+        print(f"{arch} card vs cpu: reduced, fp32, the engine's {tokens} "
+              f"tokens and admissions identical; 3 PSOFT steps under "
+              f"'minimal' {card} (max relative gap to the CPU {rel:.2e}, "
+              f"to 'full' {rel_full:.2e})")
+        out[arch] = dict(engine_tokens=tokens, losses=card,
+                         max_rel_gap=rel, max_rel_gap_full=rel_full)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut llama32-3b depth to this many layers "
-                         "(default: all 28)")
+                    help="depth of every full-width model (default: each "
+                         "path's own, see the module docstring)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more full-width run (torch.profiler)")
     ap.add_argument("--out", default="",
@@ -5742,11 +6365,13 @@ def main(argv=None) -> int:
     from repro_torch import configs
     from repro_torch.core import peft, registry
     from repro_torch.data import pipeline as data
+    from repro_torch import obs
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import attention, model
     from repro_torch.models import ssm as ssm_lib
     from repro_torch import serve
-    from repro_torch.train import trainer
+    from repro_torch.train import checkpoint, trainer
     from repro_torch import tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5803,6 +6428,8 @@ def main(argv=None) -> int:
     for name in ("psoft_matmul", "gather_delta_matmul",
                  "paged_decode_attention", "paged_prefill_attention"):
         kernels[name]["vlm_audio"] = vlm_audio_kernels[name]
+    for name, res in zoo_kernel_phase(torch, ops, ref, F).items():
+        kernels[name]["zoo"] = res
     kernels["paged_decode_attention"]["cross_view"] = \
         vlm_audio_kernels["cross_view"]
     phase_s["kernels"] = time.perf_counter() - t0
@@ -5884,9 +6511,16 @@ def main(argv=None) -> int:
               f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, library "
               f"{v['library_ms']:.4f} ms, "
               f"bound {v['bound_ms']:.4f} ms by {v['bound_by']}")
+    # the earlier full-width paths at their default depths
+    llama_args = argparse.Namespace(**{**vars(args),
+                                       "layers": args.layers or LLAMA_LAYERS})
+    moe_args = argparse.Namespace(**{
+        **vars(args), "layers": args.layers or MOE_SERVE_LAYERS})
+    recurrent_args = argparse.Namespace(**{
+        **vars(args), "layers": args.layers or RECURRENT_LAYERS})
     t0 = time.perf_counter()
     served, params, adapters, serve_cfg = serve_phase(
-        torch, args, configs, model, serve, ops, gpu_line)
+        torch, llama_args, configs, model, serve, ops, gpu_line)
     phase_s["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     streamed = stream_phase(torch, configs, serve, ops, params, adapters,
@@ -5919,8 +6553,8 @@ def main(argv=None) -> int:
                                                   serve, ops, peft, registry)
     phase_s["lifecycle_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    trained = train_phase(torch, args, configs, trainer, data, tree, ops,
-                          params, gpu_line)
+    trained = train_phase(torch, llama_args, configs, trainer, data, tree,
+                          ops, params, gpu_line)
     del params
     torch.cuda.empty_cache()
     phase_s["train"] = time.perf_counter() - t0
@@ -5929,8 +6563,8 @@ def main(argv=None) -> int:
                                           data, tree, peft)
     phase_s["train_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    oft_trained = oft_train_phase(torch, args, configs, model, trainer,
-                                  data, tree, ops, gpu_line)
+    oft_trained = oft_train_phase(torch, llama_args, configs, model,
+                                  trainer, data, tree, ops, gpu_line)
     phase_s["oft_train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     baselines = baselines_phase(torch, args, configs, model, trainer, data,
@@ -5942,8 +6576,8 @@ def main(argv=None) -> int:
         for method in ("oft", "goft")]
     phase_s["baselines_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    moe_served = moe_serve_phase(torch, args, configs, model, serve, ops,
-                                 gpu_line)
+    moe_served = moe_serve_phase(torch, moe_args, configs, model, serve,
+                                 ops, gpu_line)
     torch.cuda.empty_cache()
     phase_s["moe_serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5960,8 +6594,8 @@ def main(argv=None) -> int:
                             ("zamba2-1.2b", "hybrid", "hybrid")):
         t0 = time.perf_counter()
         recurrent[key] = recurrent_phase(
-            torch, args, configs, model, serve, trainer, data, tree, ops,
-            ssm_lib, arch, what, gpu_line)
+            torch, recurrent_args, configs, model, serve, trainer, data, tree,
+            ops, ssm_lib, arch, what, gpu_line)
         phase_s[key] = time.perf_counter() - t0
     t0 = time.perf_counter()
     recurrent_cross = recurrent_card_vs_cpu_phase(
@@ -5979,6 +6613,25 @@ def main(argv=None) -> int:
     vlm_audio_cross = vlm_audio_card_vs_cpu_phase(
         torch, configs, model, serve, trainer, data, tree, ops, peft)
     phase_s["vlm_audio_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zoo, zoo_params = zoo_phase(torch, args, configs, model, serve, trainer,
+                                data, tree, ops, gpu_line)
+    phase_s["zoo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remat = remat_phase(torch, args, configs, trainer, data, tree, ops,
+                        zoo_params, gpu_line)
+    del zoo_params
+    torch.cuda.empty_cache()
+    phase_s["remat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launched = loop_phase(torch, configs, trainer, launch_train, obs,
+                        checkpoint, ops, gpu_line)
+    torch.cuda.empty_cache()
+    phase_s["launcher"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zoo_cross = zoo_card_vs_cpu_phase(torch, configs, model, serve, trainer,
+                                      data, tree, ops)
+    phase_s["zoo_card_vs_cpu"] = time.perf_counter() - t0
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
@@ -5987,8 +6640,10 @@ def main(argv=None) -> int:
     # phase 14's serve-while-train run (its train steps and bank
     # extensions included), phase 16's MoE run() and phase 17's MoE train
     # steps (whose expert stacks are the grouped launches), phases 19
-    # and 20's dense-cache runs and train steps, and phases 22 and 23's
-    # VLM run(), image-prefixed and audio generations and train steps
+    # and 20's dense-cache runs and train steps, phases 22 and 23's
+    # VLM run(), image-prefixed and audio generations and train steps,
+    # phase 25's four run()s and train steps, phase 26's three policies'
+    # steps and phase 27's full-size launcher run
     main_path = {**{k: served["launches"][k] + streamed["launches"][k]
                     + specced["launches"][k] + lifecycle["launches"][k]
                     + moe_served["launches"][k]
@@ -5997,6 +6652,7 @@ def main(argv=None) -> int:
                     + vlm["serve"]["launches"][k]
                     + vlm["generation"]["launches"][k]
                     + audio["generation"]["launches"][k]
+                    + sum(z["serve"]["launches"][k] for z in zoo.values())
                     for k in SERVE_KERNELS},
                  **{k: trained["launches"][k] + lifecycle["launches"][k]
                     + moe_trained["launches"][k]
@@ -6004,6 +6660,9 @@ def main(argv=None) -> int:
                           for r in recurrent.values())
                     + vlm["train"]["launches"][k]
                     + audio["train"]["launches"][k]
+                    + sum(z["train"]["launches"][k] for z in zoo.values())
+                    + sum(r["launches"][k] for r in remat["runs"].values())
+                    + launched["full"]["launches"][k]
                     for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
                      oft_trained["launches"]["blockdiag_rotate"],
@@ -6045,6 +6704,8 @@ def main(argv=None) -> int:
                                        recurrent_card_vs_cpu=recurrent_cross,
                                        vlm=vlm, audio=audio,
                                        vlm_audio_card_vs_cpu=vlm_audio_cross,
+                                       zoo=zoo, remat=remat, launcher=launched,
+                                       zoo_card_vs_cpu=zoo_cross,
                                        ssd_scan=ssd_scan,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)

@@ -126,9 +126,11 @@ class ModelConfig:
     dtype: str = "bfloat16"         # compute dtype
     param_dtype: str = "bfloat16"   # frozen base weights
     peft_dtype: str = "float32"     # trainable PEFT params
-    # remat: "full" recomputes each layer in the backward
-    # (torch.utils.checkpoint), "none" keeps its activations
-    remat_policy: str = "full"      # none | full
+    # remat, one boundary per layer: "full" recomputes the layer in the
+    # backward (torch.utils.checkpoint), "minimal" keeps every linear's
+    # output and recomputes the rest (attention, norms, activations, RoPE),
+    # "none" keeps every activation
+    remat_policy: str = "full"      # none | minimal | full
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
     # hybrid (zamba2-style): one shared attention block applied every k
@@ -203,8 +205,11 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """What the train step reads.  The reference's loop settings (seed,
-    logging and checkpoint cadence) come with the port's train loop."""
+    """What the train step and the training launcher
+    (:mod:`repro_torch.launch.train`) read: the step's optimizer and
+    accumulation settings, then the loop's seed and checkpoint cadence
+    (its logging cadence is the launcher's ``--log-every`` flag, as in the
+    reference)."""
     learning_rate: float = 4e-4
     warmup_ratio: float = 0.1
     schedule: str = "cosine"        # cosine | linear | constant
@@ -217,6 +222,9 @@ class TrainConfig:
     microbatches: int = 1           # gradient accumulation
     full_finetune: bool = False     # True = FFT baseline (all params trainable)
     grad_allreduce_dtype: str = ""  # "" | "bfloat16" | "int8" (compression)
+    seed: int = 0
+    checkpoint_every: int = 50
+    checkpoint_dir: str = ""
 
 
 @dataclass
@@ -264,6 +272,54 @@ def lm_100m() -> ModelConfig:
         num_layers=12, d_model=768, num_heads=12, num_kv_heads=4, head_dim=64,
         d_ff=2048, vocab_size=32000, mlp_type="swiglu", max_seq_len=1024,
         peft=PEFTConfig(rank=46),
+    )
+
+
+@register("starcoder2-15b")
+def starcoder2_15b() -> ModelConfig:
+    # [arXiv:2402.19173] 40L d=6144 48H GQA kv=4 ffn=24576 vocab=49152,
+    # GQA + RoPE
+    return ModelConfig(
+        name="starcoder2-15b", family="dense",
+        num_layers=40, d_model=6144, num_heads=48, num_kv_heads=4, head_dim=128,
+        d_ff=24576, vocab_size=49152, mlp_type="gelu", norm_type="layernorm",
+        peft=PEFTConfig(rank=128, target_modules=("q", "k", "v", "o", "up",
+                                                  "down")),
+    )
+
+
+@register("granite-8b")
+def granite_8b() -> ModelConfig:
+    # [arXiv:2405.04324] llama-arch 36L d=4096 32H kv=8 ffn=14336 vocab=49152
+    return ModelConfig(
+        name="granite-8b", family="dense",
+        num_layers=36, d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+        d_ff=14336, vocab_size=49152, mlp_type="swiglu",
+        peft=PEFTConfig(rank=128),
+    )
+
+
+@register("internlm2-1.8b")
+def internlm2_1p8b() -> ModelConfig:
+    # [arXiv:2403.17297] 24L d=2048 16H kv=8 ffn=8192 vocab=92544
+    return ModelConfig(
+        name="internlm2-1.8b", family="dense",
+        num_layers=24, d_model=2048, num_heads=16, num_kv_heads=8, head_dim=128,
+        d_ff=8192, vocab_size=92544, mlp_type="swiglu",
+        peft=PEFTConfig(rank=64),
+    )
+
+
+@register("nemotron-4-15b")
+def nemotron4_15b() -> ModelConfig:
+    # [arXiv:2402.16819] 32L d=6144 48H kv=8 ffn=24576 vocab=256000,
+    # squared-ReLU
+    return ModelConfig(
+        name="nemotron-4-15b", family="dense",
+        num_layers=32, d_model=6144, num_heads=48, num_kv_heads=8, head_dim=128,
+        d_ff=24576, vocab_size=256000, mlp_type="relu2", norm_type="layernorm",
+        peft=PEFTConfig(rank=128, target_modules=("q", "k", "v", "o", "up",
+                                                  "down")),
     )
 
 

@@ -1,6 +1,6 @@
 """Deterministic synthetic LM data: the reference's Markov-chain token
 sequences (with a VLM's patch embeddings or an encoder-decoder's source
-frames), in numpy.
+frames), in numpy, and a background-thread prefetch over any iterator.
 
 Batch ``step`` is a pure function of (seed, step, host), so the port draws
 exactly the reference's batches for the same seed; the trainer moves them to
@@ -9,6 +9,8 @@ low-entropy transitions make convergence measurable.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -68,3 +70,25 @@ def _modality_extras(cfg: ModelConfig, b: int, s: int, rng) -> Dict:
         out["src_embeds"] = rng.standard_normal(
             (b, s, cfg.d_model)).astype(np.float32)
     return out
+
+
+def prefetch_iterator(it: Iterator, depth: int = 2) -> Iterator:
+    """``it``'s items in order, drawn ahead on a background thread into a
+    queue of at most ``depth`` (hides host-side batch generation behind the
+    step); ends when ``it`` does."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        finally:
+            q.put(stop)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is stop:
+            return
+        yield item

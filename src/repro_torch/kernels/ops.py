@@ -78,6 +78,14 @@ GATHER_DELTA_K_LANES = 32
 #: a K split's rows are a multiple of this: whole 16-row tensor-core steps,
 #: each split starting on 16 bytes of x
 GATHER_DELTA_K_STEP = 16
+#: most rows of K in one split: an x-W block stages its split of x in
+#: shared memory beside its 64 KB cp.async ring, as fp32 (8 rows x 4 bytes
+#: a K row) on the CUDA-core engine, so 4096 rows take 128 KB of the 227 KB
+#: a block may hold (K 24576 in 3 splits of 8192 rows asked for 320 KB)
+GATHER_DELTA_MAX_K_ROWS = 4096
+#: the x-W block's ring (csrc/gather_delta_matmul.cu: kStages x kThreads x
+#: kCols fp32)
+GATHER_DELTA_RING_BYTES = 8 * 256 * 8 * 4
 #: rows of K in a u block's slice and of r in a rank block's slice (tuned
 #: on an H100 at the llama32-3b linears)
 GATHER_DELTA_U_ROWS = 256
@@ -315,8 +323,10 @@ def gather_delta_plan(b: int, k: int, n: int, r: int) -> GatherDeltaPlan:
 
     - K splits: as few as give :data:`GATHER_DELTA_TARGET_BLOCKS` x-W
       blocks over the 64-column tiles and row groups, each split at least
-      :data:`GATHER_DELTA_K_LANES` rows, rounded down to a multiple of
-      :data:`GATHER_DELTA_K_STEP` (the last split takes the rest);
+      :data:`GATHER_DELTA_K_LANES` rows and at most
+      :data:`GATHER_DELTA_MAX_K_ROWS` (what a block stages in shared
+      memory), rounded down to a multiple of :data:`GATHER_DELTA_K_STEP`
+      (the last split takes the rest);
     - u slices: :data:`GATHER_DELTA_U_ROWS` rows each (every rank block
       sums one partial per slice);
     - r slices: :data:`GATHER_DELTA_R_ROWS` rows each.
@@ -327,8 +337,9 @@ def gather_delta_plan(b: int, k: int, n: int, r: int) -> GatherDeltaPlan:
     split is empty.  r = 0 has no u or rank blocks (two launches)."""
     groups = _cdiv(b, GATHER_DELTA_ROWS)
     tiles = _cdiv(n, GATHER_DELTA_COLS)
-    k_splits = min(_cdiv(GATHER_DELTA_TARGET_BLOCKS, tiles * groups),
-                   max(1, k // GATHER_DELTA_K_LANES))
+    k_splits = max(min(_cdiv(GATHER_DELTA_TARGET_BLOCKS, tiles * groups),
+                       max(1, k // GATHER_DELTA_K_LANES)),
+                   _cdiv(k, GATHER_DELTA_MAX_K_ROWS))
     step = GATHER_DELTA_K_STEP
 
     def rows(splits):
@@ -471,17 +482,36 @@ def _psoft_mm(x: torch.Tensor, w_res: torch.Tensor, a: torch.Tensor,
     return y, u, t
 
 
+def _psoft_forward(x, w_res, a, rot, b, s_in, s_out):
+    return _psoft_mm(x, w_res, a, rot, b, s_in, s_out, False)
+
+
+#: the forward launch as an operator of its own,
+#: ``torch.ops.repro_torch.psoft_matmul_forward``, so that a selective
+#: checkpoint policy can name it and keep its outputs (the ``"minimal"``
+#: remat policy, :func:`repro_torch.models.model._remat`): a recompute then
+#: takes (y, u, t) from the forward instead of launching again
+_LIBRARY = torch.library.Library("repro_torch", "DEF")
+_LIBRARY.define("psoft_matmul_forward(Tensor x, Tensor w_res, Tensor a, "
+                "Tensor rot, Tensor b, Tensor s_in, Tensor s_out) -> "
+                "(Tensor, Tensor, Tensor)")
+_LIBRARY.impl("psoft_matmul_forward", _psoft_forward,
+              "CompositeExplicitAutograd")
+PSOFT_FORWARD_OP = torch.ops.repro_torch.psoft_matmul_forward.default
+
+
 class _PSoftMatmul(torch.autograd.Function):
     """y = x (W_res + A diag(alpha) R diag(beta) B), differentiable in every
-    input.  The backward's dx is the kernel's transposed launch (which also
-    yields du4 = dy B^T and du2 = du3 R^T); the r-sized products for R,
-    alpha and beta and, where asked for, the frozen factors' grads are
-    plain torch products (batched over the group axis of an expert
-    stack).  An input nothing asks a grad of gets None."""
+    input.  The forward launch is :data:`PSOFT_FORWARD_OP`.  The backward's
+    dx is the kernel's transposed launch (which also yields du4 = dy B^T
+    and du2 = du3 R^T); the r-sized products for R, alpha and beta and,
+    where asked for, the frozen factors' grads are plain torch products
+    (batched over the group axis of an expert stack).  An input nothing
+    asks a grad of gets None."""
 
     @staticmethod
     def forward(ctx, x, w_res, a, rot, b, alpha, beta):
-        y, u1, u3 = _psoft_mm(x, w_res, a, rot, b, alpha, beta, False)
+        y, u1, u3 = PSOFT_FORWARD_OP(x, w_res, a, rot, b, alpha, beta)
         ctx.save_for_backward(x, w_res, a, rot, b, alpha, beta, u1, u3)
         return y
 

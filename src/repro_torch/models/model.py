@@ -50,10 +50,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import peft as peft_lib
 from repro_torch.core import registry
+from repro_torch.kernels import ops
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.tree import map_dicts, tree_map_with_path
+from repro_torch.tree import map_dicts, tree_leaves, tree_map_with_path
 
 Params = Dict[str, Any]
 
@@ -153,13 +154,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     time, and each of the hybrid's unstacked linears alone.  The hybrid's
     shared block's ``fuse`` is never wrapped, as in the reference.  An
     encoder-decoder adds ``"enc_layers"`` (stacked, no cross-attention) and
-    ``"enc_final_norm"``."""
+    ``"enc_final_norm"``.  On the ``"meta"`` device every leaf is a shape
+    and a dtype, and nothing is drawn or computed
+    (:func:`abstract_params`)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"the port builds the {', '.join(FAMILIES)} "
                          f"families only, not {cfg.family!r}")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     pdt, edt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.peft_dtype)
     nl, d = cfg.num_layers, cfg.d_model
     targets = cfg.peft.target_modules
@@ -461,17 +466,40 @@ def _train_shared(sp, cfg, cdt, positions, x, h0):
     return shared_block_apply(sp, x, h0, cfg, cdt, attn_fn)
 
 
+#: the products without batch dims, whose outputs ``"minimal"`` keeps (the
+#: reference's ``dots_with_no_batch_dims_saveable``): a 2-D matmul, which
+#: every plain linear of the LoRA and OFT families and every frozen linear
+#: dispatches to, and the PSOFT kernel's forward launch
+_SAVED_PRODUCTS = frozenset((torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default,
+                             ops.PSOFT_FORWARD_OP))
+
+
+def _minimal_policy(_ctx, op, *_args, **_kwargs):
+    if op in _SAVED_PRODUCTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg: ModelConfig):
-    """``remat_policy`` "full": recompute the layer in the backward
-    (non-reentrant checkpoint); "none": keep its activations."""
+    """One remat boundary, per ``remat_policy``: ``"none"`` keeps the
+    layer's activations; ``"full"`` recomputes the layer in the backward
+    (non-reentrant checkpoint); ``"minimal"`` (a selective checkpoint)
+    keeps the outputs of its products without batch dims, every linear's,
+    and recomputes the rest: attention (batched products and kernels),
+    norms, activations and RoPE.  A kept PSOFT forward is not launched
+    again in the backward."""
     if cfg.remat_policy == "none":
         return fn
-    if cfg.remat_policy == "full":
-        return functools.partial(torch_checkpoint.checkpoint, fn,
-                                 use_reentrant=False,
-                                 preserve_rng_state=False)
-    raise ValueError(f"remat_policy {cfg.remat_policy!r} is not ported "
-                     f"(the port has 'none' and 'full')")
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "minimal":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _minimal_policy)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected "
+                         f"'none', 'minimal' or 'full'")
+    return functools.partial(torch_checkpoint.checkpoint, fn, **kw)
 
 
 def _with_rotations(tree, cfg: ModelConfig):
@@ -864,6 +892,26 @@ def trainable_mask(cfg: ModelConfig, params: Params,
         method = cfg.peft.method_for(module) if module else "none"
         return path[-1] in peft_lib.trainable_names(method, cfg.peft)
     return tree_map_with_path(one, params)
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """:func:`init_params`'s tree as meta tensors: every leaf's shape and
+    dtype at any size, with no memory allocated, no draw and no SVD (on the
+    meta device an op only infers its outputs' shapes)."""
+    return init_params(cfg, device="meta")
+
+
+def count_params(params) -> int:
+    """Elements over every leaf of a tree (meta or real; ``None`` leaves,
+    as in a train state's split trees, count nothing)."""
+    return sum(int(t.numel()) for t in tree_leaves(params))
+
+
+def count_trainable(cfg: ModelConfig, params: Params) -> int:
+    """Elements over the leaves :func:`trainable_mask` trains."""
+    mask = trainable_mask(cfg, params)
+    return sum(int(t.numel()) for t, m in zip(tree_leaves(params),
+                                              tree_leaves(mask)) if m)
 
 
 def rewrap_peft(merged_params: Params, cfg: ModelConfig) -> Params:

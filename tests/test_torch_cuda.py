@@ -4,9 +4,11 @@ output's RMS), both engines of the prefill kernel, the serving wrappers
 under ``torch.cuda.set_sync_debug_mode("error")``, plus a tiny paged
 serving run that must launch every serving kernel, a tiny PSOFT train step
 that must launch both of its training kernels and tiny OFT-family train
-steps that must launch blockdiag_rotate, and the recurrent families'
-shapes and dense-cache engine.  Imports nothing of the reference
-package, so it runs where JAX is not installed:
+steps that must launch blockdiag_rotate, the recurrent families'
+shapes and dense-cache engine, and the dense zoo's widths (gather-delta
+at K 24576, both attention kernels at GQA group 12), the remat policies'
+psoft_matmul launches and the training launcher.  Imports nothing of the
+reference package, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
@@ -1593,3 +1595,96 @@ def test_vlm_and_audio_generation_on_the_card_matches_the_cpu(cuda_device,
         3 * per_layer * cfg.num_layers
     for g, w in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("k,n", [(24576, 6144), (6144, 24576)])
+def test_gather_delta_at_the_zoo_widths(cuda_device, dtype, tol, k, n):
+    """gather_delta_matmul at starcoder2-15b's and nemotron-4-15b's down
+    (K 24576: the split-K plan's widest) and up, r 128, B 8 over 3
+    adapters."""
+    rng = np.random.default_rng(k)
+    put = _on(cuda_device, dtype)
+    x = put(_normal(rng, (8, k)))
+    w = put(_normal(rng, (k, n), k ** -0.5))
+    left = put(_normal(rng, (3, k, 128), k ** -0.5))
+    right = _on(cuda_device, torch.float32)(_normal(rng, (3, 128, n), 0.01))
+    ids = torch.tensor([0, 1, 2, 1, 0, 2, 2, 1], dtype=torch.int32,
+                       device=cuda_device)
+    _close(ops.gather_delta_matmul(x, w, left, right, ids,
+                                   compute_dtype=dtype),
+           ref.gather_delta_matmul(ids, x, w, left, right), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_attention_kernels_at_gqa_group_12(cuda_device, dtype, tol):
+    """Paged decode and prefill at starcoder2-15b's 48 query heads over 4
+    KV heads of 128 (the prefill's flattened (position, group) rows end
+    mid-position in a tile): against the plain versions."""
+    rng = np.random.default_rng(12)
+    put = _on(cuda_device, dtype)
+    pages, pg, kh, d, h = 65, 16, 4, 128, 48
+    kp = put(_normal(rng, (pages, pg, kh, d), 0.5))
+    vp = put(_normal(rng, (pages, pg, kh, d), 0.5))
+    table = torch.from_numpy(rng.permutation(pages - 1)[:64].reshape(4, 16)
+                             + 1).to(torch.int32).to(cuda_device)
+    ln = torch.tensor([1, 77, 200, 256], dtype=torch.int32,
+                      device=cuda_device)
+    q = put(_normal(rng, (4, h, d)))
+    _close(ops.paged_decode_attention(q, kp, vp, table, ln),
+           ref.paged_decode_attention(q, kp, vp, table, ln), tol)
+    qs = put(_normal(rng, (4, 21, h, d)))
+    ks = put(_normal(rng, (4, 21, kh, d), 0.5))
+    vs = put(_normal(rng, (4, 21, kh, d), 0.5))
+    plen = torch.tensor([0, 16, 45, 100], dtype=torch.int32,
+                        device=cuda_device)
+    _close(ops.paged_prefill_attention(qs, ks, vs, kp, vp, table, plen),
+           ref.paged_prefill_attention(qs, ks, vs, kp, vp, table, plen), tol)
+
+
+@pytest.mark.cuda
+def test_minimal_remat_launches_psoft_twice_per_linear(cuda_device):
+    """A tiny PSOFT train step on the card under each remat policy:
+    psoft_matmul 2 calls per linear under "none" and "minimal" (the kept
+    forward is not launched again), 3 under "full"; "minimal"'s loss and
+    trainables equal "full"'s within 1e-6."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import model
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+    base = get_config("tiny")
+    params = model.init_params(base, seed=0, device=cuda_device)
+    batch = SyntheticLMDataset(base, 4, 32).batch_at(0)
+    out = {}
+    for policy, calls in (("none", 2), ("minimal", 2), ("full", 3)):
+        cfg = base.replace(remat_policy=policy)
+        tc = TrainConfig(learning_rate=1e-2)
+        state = trainer.train_state_from_params(params, cfg, tc)
+        ops.reset_launches()
+        state, m = trainer.make_train_step(cfg, tc)(state, batch)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["psoft_matmul"] == calls * 7 * cfg.num_layers
+        out[policy] = (float(m["loss"]), tree_leaves(state.trainable))
+    assert out["minimal"][0] == pytest.approx(out["full"][0], rel=1e-6)
+    for a, b in zip(out["minimal"][1], out["full"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_training_launcher_runs_on_the_card(cuda_device, tmp_path):
+    """``repro_torch.launch.train.main`` on ``tiny`` on the card: 4 steps,
+    checkpoints at 2 and 4, then a resumed call to 6."""
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint
+    flags = ["--arch", "tiny", "--rank", "8", "--batch", "4", "--seq", "32",
+             "--ckpt", str(tmp_path), "--ckpt-every", "2", "--log-every",
+             "1", "--device", "cuda"]
+    ops.reset_launches()
+    loss = train.main(flags + ["--steps", "4"])
+    assert np.isfinite(loss) and ops.LAUNCHES["psoft_matmul"] > 0
+    assert checkpoint.all_steps(str(tmp_path)) == [2, 4]
+    assert np.isfinite(train.main(flags + ["--steps", "6"]))
+    assert checkpoint.all_steps(str(tmp_path)) == [2, 4, 6]

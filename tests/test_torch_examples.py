@@ -4,7 +4,9 @@ and its merged tree serves the tuned tree's logits; the sampling twin's
 seeded tokens reproduce from run to run and its stop request ends on its
 stop id; the metrics twin's tracker sees its preemptions and deadlines;
 the serve-while-train twin streams its checkpoints into the live bank and
-serves the newest one as a fresh engine would."""
+serves the newest one as a fresh engine would; the method comparison
+fine-tunes one base with six methods, and the launcher twin trains, then
+resumes from its checkpoint."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,7 +15,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.examples import (  # noqa: E402
-    quickstart, serve_metrics, serve_sampling, serve_while_train)
+    peft_comparison, quickstart, serve_metrics, serve_sampling,
+    serve_while_train, train_psoft_lm)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
 
@@ -60,3 +63,27 @@ def test_serve_while_train_twin(tmp_path):
     want = fresh.run([Request(uid=1, prompt=out["live"].prompt,
                               max_new_tokens=8, adapter="live")])
     assert out["live"].generated == want[0].generated
+
+
+def test_peft_comparison_twin():
+    out = peft_comparison.main(["--device", "cpu", "--pretrain-steps", "1",
+                                "--steps", "3"])
+    rows = {r["method"]: r for r in out["rows"]}
+    assert list(rows) == [m for m, _ in peft_comparison.ROWS]
+    assert all(r["steps_per_s"] > 0 and r["final_loss"] == r["final_loss"]
+               for r in rows.values())
+    # PSOFT trains q, alpha and beta: r(r-1)/2 + 2r per linear
+    assert rows["psoft"]["trainable"] == 14 * (46 * 45 // 2 + 2 * 46)
+    assert rows["lora_xs"]["trainable"] < rows["psoft"]["trainable"] < \
+        rows["oft"]["trainable"]
+
+
+def test_train_psoft_lm_twin(tmp_path, capsys):
+    out = train_psoft_lm.main(["--device", "cpu", "--steps", "4",
+                               "--resume-steps", "2", "--ckpt",
+                               str(tmp_path)])
+    assert out["steps"] == 6 and out["loss"] == out["loss"]
+    text = capsys.readouterr().out
+    assert "resumed from step 4" in text and "done: 2 steps" in text
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["step_00000002", "step_00000004", "step_00000006"]

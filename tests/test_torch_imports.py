@@ -35,6 +35,10 @@ def test_port_files_exist():
     assert "src/repro_torch/serve/sampling.py" in names
     assert "src/repro_torch/obs/tracker.py" in names
     assert "src/repro_torch/examples/quickstart.py" in names
+    assert "src/repro_torch/examples/peft_comparison.py" in names
+    assert "src/repro_torch/examples/train_psoft_lm.py" in names
+    assert "src/repro_torch/launch/train.py" in names
+    assert "src/repro_torch/train/straggler.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -54,7 +58,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.lora, repro_torch.train.trainer, "
             "repro_torch.obs, repro_torch.serve.sampling, "
             "repro_torch.examples.quickstart, "
-            "repro_torch.examples.serve_metrics; "
+            "repro_torch.examples.serve_metrics, "
+            "repro_torch.examples.peft_comparison, "
+            "repro_torch.examples.train_psoft_lm, "
+            "repro_torch.launch.train, repro_torch.train.straggler; "
             "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro') "
             "if m in sys.modules]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -135,7 +135,8 @@ def _covered(rows, splits, total):
     (8, 3072, 3072, 352), (8, 3072, 1024, 352), (8, 3072, 8192, 352),
     (8, 8192, 3072, 352), (1, 64, 96, 8), (3, 1000, 200, 8),
     (11, 3072, 1024, 136), (16, 520, 100, 352), (2, 600, 40, 600),
-    (9, 8192, 3072, 352), (4, 64, 160, 4), (8, 3072, 3072, 0)])
+    (9, 8192, 3072, 352), (4, 64, 160, 4), (8, 3072, 3072, 0),
+    (8, 24576, 6144, 128), (8, 6144, 24576, 128), (8, 14336, 4096, 128)])
 def test_gather_delta_plan_covers_every_row_and_column_once(b, k, n, r):
     plan = ops.gather_delta_plan(b, k, n, r)
     assert _covered(plan.k_rows, plan.k_splits, k) == list(range(k))
@@ -161,6 +162,30 @@ def test_gather_delta_plan_covers_every_row_and_column_once(b, k, n, r):
     assert _covered(rcols, -(-n // rcols), n) == list(range(n))
     assert plan.u_blocks == plan.u_splits * -(-r // ucols) * groups
     assert plan.rank_blocks == plan.r_splits * -(-n // rcols) * groups
+
+
+@pytest.mark.parametrize("k,n", [(24576, 6144), (6144, 24576),
+                                 (14336, 4096), (4096, 14336), (6144, 16384),
+                                 (8192, 3072), (65536, 64)])
+def test_gather_delta_split_fits_a_block_at_the_zoo_widths(k, n):
+    """A K split's x slice, staged in shared memory (fp32 on the CUDA-core
+    engine: 8 rows x 4 bytes a K row) beside the 64 KB ring, fits the 227
+    KB a block may hold: starcoder2-15b's and nemotron-4-15b's down (K
+    24576) asked for 3 splits of 8192 rows (320 KB) before the cap."""
+    plan = ops.gather_delta_plan(8, k, n, 128)
+    assert plan.k_rows <= ops.GATHER_DELTA_MAX_K_ROWS
+    stage = plan.k_rows * ops.GATHER_DELTA_ROWS * 4
+    assert stage + ops.GATHER_DELTA_RING_BYTES + 1024 <= ops.SMEM_BYTES
+    tiles = -(-n // ops.GATHER_DELTA_COLS)
+    assert plan.base_blocks == plan.k_splits * tiles
+    assert plan.base_blocks >= ops.GATHER_DELTA_TARGET_BLOCKS
+    # as few splits as the target or the cap ask for, each split rounded
+    # down to whole 16-row steps
+    need = max(-(-ops.GATHER_DELTA_TARGET_BLOCKS // tiles),
+               -(-k // ops.GATHER_DELTA_MAX_K_ROWS))
+    step = ops.GATHER_DELTA_K_STEP
+    assert plan.k_rows == -(-k // need) // step * step
+    assert plan.k_splits == -(-k // plan.k_rows)
 
 
 @pytest.mark.parametrize("name", sorted(LLAMA32_3B_LINEARS))

@@ -294,10 +294,59 @@ def test_remat_none_gives_the_same_step(ref_run):
         _port_state(jstates[1]), _batch(1))
     assert float(m["loss"]) == pytest.approx(jmetrics[1]["loss"], rel=1e-4)
     _assert_trainables(jstates[2], state, 2, TC["learning_rate"])
-    with pytest.raises(ValueError, match="not ported"):
-        model.loss_fn(adamw.combine(state.trainable, state.frozen),
-                      {k: torch.as_tensor(v) for k, v in _batch(0).items()},
-                      get_config("tiny", remat_policy="minimal"))
+    state, m = trainer.make_train_step(
+        get_config("tiny", remat_policy="minimal"), TrainConfig(**TC))(
+        _port_state(jstates[1]), _batch(1))
+    assert float(m["loss"]) == pytest.approx(jmetrics[1]["loss"], rel=1e-4)
+    _assert_trainables(jstates[2], state, 2, TC["learning_rate"])
+
+
+def _loss_and_grads(np_state, policy, forward_calls):
+    """Loss and trainable grads of one batch under ``policy``, with the
+    PSOFT forward calls counted apart in the forward and in the
+    backward."""
+    cfg = get_config("tiny", remat_policy=policy)
+    state = _port_state(np_state)
+    leaves = []
+
+    def leaf(p):
+        t = p.detach().requires_grad_(True)
+        leaves.append(t)
+        return t
+    params = adamw.combine(tree.tree_map(leaf, state.trainable),
+                           state.frozen)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(2).items()}
+    forward_calls.clear()
+    loss, _ = model.loss_fn(params, batch, cfg)
+    in_forward = len(forward_calls)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads, in_forward, len(forward_calls) - in_forward
+
+
+def test_remat_minimal_keeps_every_linear_output(ref_run, monkeypatch):
+    """``"minimal"`` keeps each linear's output (the reference's
+    dots-without-batch-dims policy): its loss and grads equal ``"full"``'s
+    within 1e-6, and its backward makes no PSOFT forward call, where
+    ``"full"`` recomputes one per linear."""
+    from repro_torch.kernels import ref
+    calls = []
+    parts = ref.psoft_matmul_parts
+
+    def counted(*args, **kw):
+        if not kw.get("transpose", args[7] if len(args) > 7 else False):
+            calls.append(1)
+        return parts(*args, **kw)
+    monkeypatch.setattr(ref, "psoft_matmul_parts", counted)
+    np_state = ref_run[0][1]
+    linears = 7 * get_config("tiny").num_layers
+    full = _loss_and_grads(np_state, "full", calls)
+    minimal = _loss_and_grads(np_state, "minimal", calls)
+    assert full[2:] == (linears, linears)
+    assert minimal[2:] == (linears, 0)
+    np.testing.assert_allclose(float(minimal[0]), float(full[0]), rtol=1e-6)
+    for g, w in zip(minimal[1], full[1]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(w.abs().max()))
 
 
 def test_full_finetune_grads_match_the_unfused_apply(ref_run, monkeypatch):
