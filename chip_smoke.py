@@ -16,7 +16,8 @@ three wide models at ``ZOO_LAYERS``, and internlm2-1.8b (phases 25-26)
 at full depth unless ``--layers`` cuts it.)  Phases 19-21 serve and train
 the SSM and hybrid families on the dense cache, phases 22-24 the VLM and
 the audio encoder-decoder families, phases 25-28 the rest of the dense
-zoo, the remat policies and the training launcher.
+zoo, the remat policies and the training launcher, phase 29 the
+distributed path at world size 1.
 
 Phases, each of which raises (non-zero exit) on a failed check:
 
@@ -293,7 +294,15 @@ Phases, each of which raises (non-zero exit) on a failed check:
 28. zoo card vs CPU (fp32): the four configs reduced: identical greedy
     tokens and admissions card against CPU with the base and one PSOFT
     adapter; 3 PSOFT train steps under "minimal" within 1e-4 relative of
-    the CPU's and within 1e-6 of the card's "full" run.
+    the CPU's and within 1e-6 of the card's "full" run;
+29. sharded: the distributed path at world size 1 (one NCCL rank on an
+    in-memory store, a (1, 1) mesh): llama32-3b at full width (depth as
+    in 3) and bf16 PSOFT, 3 sharded and 3 unsharded steps from one state,
+    equal losses and trainable leaves bit for bit and equal kernel
+    launches, every split frozen leaf all-gathered at its use and one
+    gradient all-reduce a step, with both steps' times and peak memory;
+    GPipe at S = 1 against the sequential loop; the launcher's
+    ``--data-mesh 1`` path against its one-device path.
 
 Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
 psoft_matmul at both expert stacks (G 64, M 240, K/N 2048/1408, r 64; bf16
@@ -345,10 +354,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
-              "float32": 67e12,       # fp32 outside the tensor cores
-              "tf32": 494.7e12}       # dense tensor-core tf32
+#: the H100 SXM spec-sheet HBM rate and peak rates by dtype, set by
+#: ``main`` from :mod:`repro_torch.launch.roofline` (their one copy)
+HBM_BYTES_PER_S = PEAK_FLOPS = None
 #: |got - want| <= atol + TOL * |want|, elementwise; atol is TOL for fp32
 #: and TOL * rms(want) for bf16, so the bf16 limit stays well below a
 #: typical output whatever the inputs' scale (bf16 output rounding alone
@@ -6340,6 +6348,179 @@ def zoo_card_vs_cpu_phase(torch, configs, model, serve, trainer, data, tree,
     return out
 
 
+#: phase 29: sharded and unsharded steps from one state, the GPipe check's
+#: widths, and the launcher's distributed run
+SHARDED_STEPS = 3
+GPIPE_MICRO, GPIPE_MB, GPIPE_D = 8, 4, 256
+
+
+def run_steps(torch, ops, step, state, batches):
+    """``step`` over ``batches`` from ``state``: (final state, losses, step
+    ms, peak GiB, launches by kernel, psoft_matmul engines)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return (state, losses, ms, torch.cuda.max_memory_allocated() / 2**30,
+            dict(ops.LAUNCHES), dict(ops.PSOFT_ENGINE_LAUNCHES))
+
+
+def sharded_phase(torch, args, configs, model, trainer, data, tree, ops,
+                  launch_train, gpu_line):
+    """Phase 29: the distributed path on the card at world size 1.  NCCL
+    on an in-memory store (``init_distributed`` with no launcher
+    environment), a ``(1, 1)`` ("data", "model") mesh and its train rules;
+    llama32-3b at full width (depth as in 3), bf16 PSOFT as in 5, remat
+    "full", 3 sharded steps (``make_train_step(..., mesh=, rules=)``) and
+    3 unsharded steps from one state on the same 8 x 256-token batches.
+    At one rank every collective is an identity, so the losses and the
+    trainable leaves must be equal bit for bit, and the psoft_matmul and
+    cayley_neumann launches (and psoft_matmul's engines) equal; the
+    collective record must show each split frozen leaf's all-gather at its
+    use (a layer's in the forward and in the remat recompute: at least one
+    a layer a step) and one fp32 gradient all-reduce a step.  Then GPipe at
+    S = 1 on CUDA tensors against the sequential loop (forward and grad,
+    fp32, 1e-5), and the launcher's distributed path (``--data-mesh 1
+    --reduced``, 2 steps) against its one-device path (equal losses)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import collectives, gpipe_spmd_pipeline
+    from repro_torch.launch.mesh import (init_distributed, make_local_mesh,
+                                         rules_for)
+    gc_freed_gib = free_cycles(torch)
+    dev = init_distributed("cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and dev == torch.device("cuda", 0),
+          f"sharded: one NCCL rank on cuda:0 ({dist.get_backend()}, "
+          f"{dist.get_world_size()} ranks, {dev})")
+    mesh = make_local_mesh(1, 1)
+    cfg = configs.get_config("llama32-3b", remat_policy="full",
+                             num_layers=args.layers)
+    rules = rules_for(cfg, mesh, "train")
+    tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state = trainer.train_state_from_params(params, cfg, tc)
+    del params
+    shardings, _ = trainer.state_shardings(cfg, tc, mesh, rules)
+    local = trainer.shard_state(state, shardings, mesh)
+    check(all(a is b for a, b in zip(tree.tree_leaves(local),
+                                     tree.tree_leaves(state))),
+          "sharded: at one rank every block is the full leaf (no copy)")
+    ds = data.SyntheticLMDataset(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [ds.batch_at(i) for i in range(SHARDED_STEPS)]
+
+    plain, plain_losses, plain_ms, plain_peak, plain_launches, \
+        plain_engines = run_steps(torch, ops, trainer.make_train_step(
+            cfg, tc), state, batches)
+    collectives.reset()
+    step = trainer.make_train_step(cfg, tc, mesh=mesh, rules=rules)
+    sharded, losses, ms, peak, launches, engines = run_steps(
+        torch, ops, step, local, batches)
+    records = list(collectives.RECORD)
+    check(losses == plain_losses,
+          f"sharded: losses {losses} equal the unsharded step's "
+          f"{plain_losses} bit for bit")
+    pairs = list(zip(tree.tree_leaves(sharded.trainable),
+                     tree.tree_leaves(plain.trainable)))
+    check(pairs and all(torch.equal(a, b) for a, b in pairs),
+          "sharded: every trainable leaf equals the unsharded step's")
+    for k in TRAIN_KERNELS:
+        check(launches[k] == plain_launches[k] > 0,
+              f"sharded: {k} launched {launches[k]} times, the unsharded "
+              f"step {plain_launches[k]}")
+    check(engines == plain_engines,
+          f"sharded: psoft_matmul engines {engines} as unsharded "
+          f"{plain_engines}")
+
+    split = [(path, pl) for path, pl in
+             tree.tree_leaves_with_path(shardings.frozen)
+             if not pl.is_replicated]
+    # a stacked layer leaf is gathered once a layer in the forward and
+    # once more in the recompute; embed and lm_head once a step
+    per_step = sum(sum(len(a) for a in pl.dim_axes().values())
+                   * (2 * cfg.num_layers if path[0] == "layers" else 1)
+                   for path, pl in split)
+    layer_split = {path for path, _ in split if path[0] == "layers"}
+    gathers = [r for r in records if r.kind == "all_gather"]
+    reduces = [r for r in records if r.kind == "all_reduce"]
+    n_train = sum(t.numel() for t in tree.tree_leaves(local.trainable))
+    grad_reduces = [r for r in reduces if r.elements == n_train]
+    check(len(gathers) == SHARDED_STEPS * per_step
+          and per_step >= 2 * cfg.num_layers and layer_split,
+          f"sharded: {len(gathers)} all-gathers, expected {per_step} a step "
+          f"(each split leaf at its use, a layer's twice)")
+    check(len(grad_reduces) == SHARDED_STEPS and all(
+        r.dtype == torch.float32 for r in grad_reduces),
+        f"sharded: one fp32 gradient all-reduce a step ({grad_reduces})")
+    gather_bytes = sum(r.nbytes for r in gathers) / SHARDED_STEPS
+    reduce_bytes = sum(r.nbytes for r in reduces) / SHARDED_STEPS
+    mean = lambda v: sum(v[1:]) / len(v[1:])  # noqa: E731
+    print(f"sharded: llama32-3b {cfg.num_layers} layers (init {init_s:.1f} "
+          f"s), NCCL world size 1, mesh (1, 1): step ms {[round(v, 1) for v in ms]} "
+          f"(unsharded {[round(v, 1) for v in plain_ms]}; mean of the last "
+          f"two {mean(ms):.1f} vs {mean(plain_ms):.1f}), peak "
+          f"{peak:.2f} vs {plain_peak:.2f} GiB; losses {losses} equal; "
+          f"psoft_matmul {launches['psoft_matmul']} / cayley_neumann "
+          f"{launches['cayley_neumann']} launches both; per step "
+          f"{per_step} all-gathers ({gather_bytes / 2**20:.1f} MiB) and "
+          f"{len(reduces) // SHARDED_STEPS} all-reduces "
+          f"({reduce_bytes / 2**10:.1f} KiB) [{gpu_line}]")
+    del state, local, sharded, plain, pairs
+    free_cycles(torch)
+
+    # GPipe at S = 1
+    stage = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    w = (torch.randn((1, GPIPE_D, GPIPE_D), generator=gen, device="cuda")
+         * 0.05).requires_grad_(True)
+    x = torch.randn((GPIPE_MICRO, GPIPE_MB, GPIPE_D), generator=gen,
+                    device="cuda")
+    pipe = gpipe_spmd_pipeline(lambda p, h: torch.tanh(h @ p), stage,
+                               "stage")
+    y = pipe(w, x)
+    (gw,) = torch.autograd.grad(y.sum(), w)
+    w2 = w.detach().clone().requires_grad_(True)
+    want = torch.tanh(x @ w2[0])
+    (gw2,) = torch.autograd.grad(want.sum(), w2)
+    gpipe_err = max(float((y - want).detach().abs().max()),
+                    float((gw - gw2).abs().max()))
+    check(y.is_cuda and gpipe_err <= 1e-5,
+          f"sharded: GPipe at S = 1 against the sequential loop, forward "
+          f"and grad (max error {gpipe_err})")
+
+    # the launcher's distributed path against its one-device path
+    flags = ["--arch", "llama32-3b", "--reduced", "--rank", "8", "--steps",
+             "2", "--batch", "4", "--seq", "32", "--log-every", "1"]
+    one, _ = launch_run(launch_train, flags)
+    dist_loss, text = launch_run(launch_train, flags + ["--data-mesh", "1"])
+    check("mesh: {'data': 1, 'model': 1}  devices: 1" in text
+          and dist_loss == one and math.isfinite(one),
+          f"sharded: the launcher's distributed path ends on {dist_loss}, "
+          f"its one-device path on {one}")
+    dist.destroy_process_group()
+    print(f"sharded: GPipe S = 1 max error {gpipe_err:.2e}; launcher "
+          f"--data-mesh 1 loss {dist_loss} equals one device's")
+    return dict(layers=cfg.num_layers, init_s=init_s, losses=losses,
+                step_ms=ms, plain_step_ms=plain_ms, peak_memory_gib=peak,
+                plain_peak_memory_gib=plain_peak, launches=launches,
+                plain_launches=plain_launches, psoft_engines=engines,
+                gathers_per_step=per_step, gather_bytes_per_step=gather_bytes,
+                reduces_per_step=len(reduces) // SHARDED_STEPS,
+                reduce_bytes_per_step=reduce_bytes, gpipe_max_err=gpipe_err,
+                launcher_loss=dist_loss, gc_freed_gib=gc_freed_gib,
+                gpu=gpu_line)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -6367,7 +6548,11 @@ def main(argv=None) -> int:
     from repro_torch.data import pipeline as data
     from repro_torch import obs
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import roofline
     from repro_torch.launch import train as launch_train
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    HBM_BYTES_PER_S, PEAK_FLOPS = roofline.HBM_BYTES_PER_S, \
+        roofline.PEAK_FLOPS
     from repro_torch.models import attention, model
     from repro_torch.models import ssm as ssm_lib
     from repro_torch import serve
@@ -6632,6 +6817,11 @@ def main(argv=None) -> int:
     zoo_cross = zoo_card_vs_cpu_phase(torch, configs, model, serve, trainer,
                                       data, tree, ops)
     phase_s["zoo_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = sharded_phase(torch, llama_args, configs, model, trainer, data,
+                            tree, ops, launch_train, gpu_line)
+    torch.cuda.empty_cache()
+    phase_s["sharded"] = time.perf_counter() - t0
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
@@ -6643,7 +6833,7 @@ def main(argv=None) -> int:
     # and 20's dense-cache runs and train steps, phases 22 and 23's
     # VLM run(), image-prefixed and audio generations and train steps,
     # phase 25's four run()s and train steps, phase 26's three policies'
-    # steps and phase 27's full-size launcher run
+    # steps, phase 27's full-size launcher run and phase 29's sharded steps
     main_path = {**{k: served["launches"][k] + streamed["launches"][k]
                     + specced["launches"][k] + lifecycle["launches"][k]
                     + moe_served["launches"][k]
@@ -6663,6 +6853,7 @@ def main(argv=None) -> int:
                     + sum(z["train"]["launches"][k] for z in zoo.values())
                     + sum(r["launches"][k] for r in remat["runs"].values())
                     + launched["full"]["launches"][k]
+                    + sharded["launches"][k]
                     for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
                      oft_trained["launches"]["blockdiag_rotate"],
@@ -6706,6 +6897,7 @@ def main(argv=None) -> int:
                                        vlm_audio_card_vs_cpu=vlm_audio_cross,
                                        zoo=zoo, remat=remat, launcher=launched,
                                        zoo_card_vs_cpu=zoo_cross,
+                                       sharded=sharded,
                                        ssd_scan=ssd_scan,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)

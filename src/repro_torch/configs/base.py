@@ -152,6 +152,11 @@ class ModelConfig:
     def padded_vocab_size(self) -> int:
         return _round_up(self.vocab_size, VOCAB_PAD_MULTIPLE)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic families (SSM, hybrid) run the long_500k shape."""
+        return self.family in ("ssm", "hybrid")
+
     def layer_pattern(self) -> str:
         """One char per decoder layer: M (Mamba2 SSD) or A (attention)."""
         if self.family == "ssm":
@@ -225,6 +230,56 @@ class TrainConfig:
     seed: int = 0
     checkpoint_every: int = 50
     checkpoint_dir: str = ""
+
+
+# ---------------------------------------------------------------------------
+# input shapes (the dry-run's per-arch shape set) and the mesh
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+LM_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """(runnable, reason if skipped) for an (arch, shape) cell."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention arch: long_500k needs sub-quadratic "
+                       "attention")
+    return True, ""
+
+
+@dataclass
+class MeshConfig:
+    """The production mesh: one pod ``(data, model)`` or several
+    ``(pod, data, model)``; ``pod_role`` says whether the pod axis carries
+    data parallelism (``"dp"``) or pipeline stages (``"pp"``)."""
+    multi_pod: bool = False
+    pod: int = 2
+    data: int = 16
+    model: int = 16
+    pod_role: str = "dp"
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pod, self.data, self.model) if self.multi_pod else (
+            self.data, self.model)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data",
+                                                                "model")
 
 
 @dataclass

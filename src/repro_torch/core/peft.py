@@ -57,6 +57,30 @@ def trainable_names(method: str,
     return registry.get_method(method).trainable_names(cfg)
 
 
+def linear_logical_axes(params_or_names, cfg: PEFTConfig,
+                        in_axis: Optional[str], out_axis: Optional[str],
+                        *, module: Optional[str] = None,
+                        method: Optional[str] = None,
+                        ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical sharding axes per param of one linear, through its method's
+    ``logical_axes``: the big (d_in x d_out) tensors shard like the base
+    weight, rank-space tensors shard their wide dim like the adjoining
+    weight dim and replicate r.  One entry per (unstacked) param dim."""
+    names = set(params_or_names)
+    if isinstance(params_or_names, dict):
+        m = registry.resolve(params_or_names, cfg, module=module,
+                             method=method)
+    elif method is not None:
+        m = registry.get_method(method)
+    elif module is not None:
+        m = registry.get_method(cfg.method_for(module))
+    else:
+        m = registry.get_method(cfg.method if names != {"w"} else "none")
+    ax = m.logical_axes(cfg, in_axis, out_axis)
+    return {n: ax.get(n, (in_axis, out_axis) if n == "w" else None)
+            for n in names if n in ax or n == "w"}
+
+
 def count_trainable_params(d_in: int, d_out: int, cfg: PEFTConfig, *,
                            module: Optional[str] = None) -> int:
     method = cfg.method_for(module) if module is not None else cfg.method

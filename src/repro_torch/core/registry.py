@@ -34,6 +34,8 @@ from repro_torch.core import lora, oft, psoft
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
+#: one logical axis name (or None) per param dim
+Axes = Tuple[Optional[str], ...]
 
 
 class PEFTMethod:
@@ -80,6 +82,14 @@ class PEFTMethod:
         forward (the model passes them to :meth:`apply` under ``"rot"``),
         or None when it has none to build."""
         return None
+
+    def logical_axes(self, cfg, in_axis: Optional[str],
+                     out_axis: Optional[str]) -> Dict[str, Axes]:
+        """Per-param logical sharding axes: one entry per param
+        :meth:`init` can emit, ``len(axes) == param.ndim`` for the
+        *unstacked* param (the model's ``param_axes`` pads the layer and
+        expert stack dims)."""
+        return {"w": (in_axis, out_axis)}
 
     def matches(self, params: Dict) -> bool:
         if not self.marker_keys:
@@ -419,6 +429,11 @@ class PSOFTMethod(PEFTMethod):
     def num_params(self, d_in, d_out, cfg):
         return psoft.psoft_num_params(cfg.rank, cfg.relax_vectors)
 
+    def logical_axes(self, cfg, in_axis, out_axis):
+        return {"w_res": (in_axis, out_axis), "A": (in_axis, "rank"),
+                "B": ("rank", out_axis), "q": (None,),
+                "alpha": ("rank",), "beta": ("rank",)}
+
 
 class LoRAMethod(PEFTMethod):
     name = "lora"
@@ -451,6 +466,10 @@ class LoRAMethod(PEFTMethod):
 
     def num_params(self, d_in, d_out, cfg):
         return lora.lora_num_params(d_in, d_out, cfg.rank)
+
+    def logical_axes(self, cfg, in_axis, out_axis):
+        return {"w": (in_axis, out_axis), "a": (in_axis, "rank"),
+                "b": ("rank", out_axis)}
 
 
 class PiSSAMethod(LoRAMethod):
@@ -489,6 +508,11 @@ class DoRAMethod(LoRAMethod):
     def num_params(self, d_in, d_out, cfg):
         return lora.dora_num_params(d_in, d_out, cfg.rank)
 
+    def logical_axes(self, cfg, in_axis, out_axis):
+        ax = super().logical_axes(cfg, in_axis, out_axis)
+        ax["m"] = (out_axis,)
+        return ax
+
 
 class LoRAXSMethod(PEFTMethod):
     name = "lora_xs"
@@ -517,6 +541,10 @@ class LoRAXSMethod(PEFTMethod):
 
     def num_params(self, d_in, d_out, cfg):
         return lora.lora_xs_num_params(cfg.rank)
+
+    def logical_axes(self, cfg, in_axis, out_axis):
+        return {"w": (in_axis, out_axis), "a": (in_axis, "rank"),
+                "b": ("rank", out_axis), "s": ("rank", "rank")}
 
 
 class OFTMethod(PEFTMethod):
@@ -554,6 +582,10 @@ class OFTMethod(PEFTMethod):
     def num_params(self, d_in, d_out, cfg):
         return oft.oft_num_params(d_in, d_out, cfg.oft_block_size)
 
+    def logical_axes(self, cfg, in_axis, out_axis):
+        return {"w": (in_axis, out_axis), "q": ("oft_blocks", None),
+                "out_scale": (out_axis,)}
+
 
 class BOFTMethod(OFTMethod):
     name = "boft"
@@ -578,6 +610,10 @@ class BOFTMethod(OFTMethod):
         return oft.boft_num_params(d_in, d_out, cfg.boft_blocks,
                                    cfg.boft_factors)
 
+    def logical_axes(self, cfg, in_axis, out_axis):
+        return {"w": (in_axis, out_axis), "q": (None, "oft_blocks", None),
+                "out_scale": (out_axis,)}
+
 
 class GOFTMethod(PEFTMethod):
     name = "goft"
@@ -599,6 +635,9 @@ class GOFTMethod(PEFTMethod):
     def num_params(self, d_in, d_out, cfg):
         return oft.goft_num_params(d_in, self.quasi)
 
+    def logical_axes(self, cfg, in_axis, out_axis):
+        return {"w": (in_axis, out_axis), "theta": (None, None)}
+
 
 class QGOFTMethod(GOFTMethod):
     name = "qgoft"
@@ -607,6 +646,9 @@ class QGOFTMethod(GOFTMethod):
 
     def trainable_names(self, cfg=None):
         return ("g",)
+
+    def logical_axes(self, cfg, in_axis, out_axis):
+        return {"w": (in_axis, out_axis), "g": (None, None, None, None)}
 
 
 for _m in (NoneMethod(), PSOFTMethod(), LoRAMethod(), PiSSAMethod(),

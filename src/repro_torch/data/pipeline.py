@@ -15,7 +15,9 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from repro_torch.configs.base import DataConfig, ModelConfig
+import torch
+
+from repro_torch.configs.base import DataConfig, InputShape, ModelConfig
 
 
 class SyntheticLMDataset:
@@ -92,3 +94,36 @@ def prefetch_iterator(it: Iterator, depth: int = 2) -> Iterator:
         if item is stop:
             return
         yield item
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs of a shape (the dry-run)
+# ---------------------------------------------------------------------------
+
+def make_input_specs(cfg: ModelConfig, shape: InputShape
+                     ) -> Dict[str, torch.Tensor]:
+    """Meta tensors standing in for every model input of ``shape``:
+    train and prefill a token batch (prefill without labels; a VLM's patch
+    embeddings in front of fewer tokens), decode one new token a row; an
+    encoder-decoder splits the token budget evenly between source frames
+    and target tokens."""
+    b, s = shape.global_batch, shape.seq_len
+    act = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": spec((b, 1))}
+    if cfg.is_encoder_decoder:
+        half = s // 2
+        return {"src_embeds": spec((b, half, cfg.d_model), act),
+                "tokens": spec((b, half)), "labels": spec((b, half))}
+    specs = {"tokens": spec((b, s)), "labels": spec((b, s))}
+    if cfg.family == "vlm" and cfg.num_patch_tokens:
+        st = s - cfg.num_patch_tokens
+        specs = {"tokens": spec((b, st)), "labels": spec((b, st)),
+                 "patch_embeds": spec((b, cfg.num_patch_tokens, cfg.d_model),
+                                      act)}
+    if shape.kind == "prefill":
+        specs.pop("labels", None)
+    return specs

@@ -1,0 +1,223 @@
+"""The dry-run of the port: every (arch x shape x production mesh) cell's
+per-device bytes (params, optimizer state, cache), analytic FLOPs and the
+bytes its collectives move, from the abstract trees (meta tensors: nothing
+is allocated or run) and the sharding rules.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] \
+        [--shape S] [--multi-pod] [--full-ft] [--out FILE]
+
+The reference lowers and compiles each cell with XLA for TPU v5e and reads
+its memory and cost analyses; the port has no such compiler, so a cell is
+counted from its design instead:
+
+- bytes: each leaf's block on one device (:class:`repro_torch.sharding.
+  Placements`), params (trainable and frozen), AdamW's two moments of the
+  trainable leaves, and a serving cell's decode cache;
+- collectives, the sharded train step's (:mod:`repro_torch.train.trainer`):
+  every split frozen leaf is all-gathered at its use, a layer's once in the
+  forward and once more in its remat recompute, the rest once a step; the
+  split trainable leaves and their moments are gathered once a step; the
+  trainable gradients are all-reduced over the batch axes.  A serving cell
+  gathers its split weights once a step.  A ring all-gather brings each
+  device ``(n - 1)`` blocks per axis of ``n``, a ring all-reduce moves
+  ``2 (n - 1) / n`` of the tensor;
+- reads: the whole (gathered) weights once per pass over them (forward,
+  remat recompute and backward in training), plus the cache in decode.
+
+:mod:`repro_torch.launch.roofline` turns a cell into H100 times.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs import (ASSIGNED_ARCHS, LM_SHAPES, TrainConfig,
+                                 get_config, shape_applicable, torch_dtype)
+from repro_torch.data.pipeline import make_input_specs
+from repro_torch.launch.mesh import make_production_mesh, rules_for
+from repro_torch.models import model as model_lib
+from repro_torch.optim import adamw
+from repro_torch.sharding import Placements, batch_axes, placements
+from repro_torch.train import trainer
+from repro_torch.tree import tree_leaves_with_path, tree_map
+
+
+def model_param_stats(arch: str) -> Dict[str, float]:
+    """N (dense-equivalent) and N_active of the merged (serving) config,
+    split by role: the reference's ``model_param_stats``."""
+    cfg = get_config(arch)
+    cfg = cfg.replace(peft=cfg.peft.replace(method="none"))
+    embed = expert = backbone = 0
+    for path, leaf in tree_leaves_with_path(model_lib.abstract_params(cfg)):
+        n = leaf.numel()
+        if "embed" in path or "lm_head" in path:
+            embed += n
+        elif "moe" in path and "shared" not in path and path[-2] in (
+                "up", "down", "gate"):
+            expert += n
+        else:
+            backbone += n
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    active_expert = expert * (k / e) if e else 0
+    return {"N_total": embed + expert + backbone,
+            "N": backbone + expert + embed / 2,
+            "N_active": backbone + active_expert + embed / 2}
+
+
+def _block_bytes(t, pl: Placements) -> int:
+    return math.prod(pl.local_shape(t.shape)) * t.element_size()
+
+
+def _gather_bytes(t, pl: Placements, out: Dict[str, float],
+                  times: int = 1) -> None:
+    """Add to ``out`` (per axis) the bytes a device receives putting ``t``
+    together, ``times`` times: each axis's ring all-gather, innermost
+    first, brings (n - 1) of the blocks it starts from."""
+    block = _block_bytes(t, pl)
+    for _, axes in sorted(pl.dim_axes().items()):
+        for name, size in reversed(axes):
+            out[name] = out.get(name, 0.0) + times * (size - 1) * block
+            block *= size
+
+
+def _tree_bytes(tree, shardings) -> int:
+    return sum(_block_bytes(t, pl) for (_, t), (_, pl) in zip(
+        tree_leaves_with_path(tree), tree_leaves_with_path(shardings)))
+
+
+def _shardings(tree, axes, mesh, rules):
+    return tree_map(lambda t, a: placements(mesh, rules, tuple(a), t.shape),
+                    tree, axes)
+
+
+def _train_cell(cfg, tc, mesh, rules, rec):
+    sh, st = trainer.state_shardings(cfg, tc, mesh, rules)
+    rec["param_bytes"] = _tree_bytes(st.trainable, sh.trainable) + \
+        _tree_bytes(st.frozen, sh.frozen)
+    rec["opt_bytes"] = _tree_bytes(st.opt.mu, sh.opt.mu) + \
+        _tree_bytes(st.opt.nu, sh.opt.nu)
+    rec["cache_bytes"] = 0
+    coll: Dict[str, float] = {}
+    layer_passes = 1 if cfg.remat_policy == "none" else 2
+    for (path, t), (_, pl) in zip(tree_leaves_with_path(st.frozen),
+                                  tree_leaves_with_path(sh.frozen)):
+        _gather_bytes(t, pl, coll, layer_passes
+                      if path[0] in model_lib.LAYER_TREES else 1)
+    for tree, shs in ((st.trainable, sh.trainable), (st.opt.mu, sh.opt.mu),
+                      (st.opt.nu, sh.opt.nu)):
+        for (_, t), (_, pl) in zip(tree_leaves_with_path(tree),
+                                   tree_leaves_with_path(shs)):
+            _gather_bytes(t, pl, coll)
+    wire = {"": 4, "bfloat16": 2, "int8": 1}[tc.grad_allreduce_dtype]
+    n_train = sum(t.numel() for _, t in tree_leaves_with_path(st.trainable))
+    for a in batch_axes(mesh, rules):
+        n = mesh[a]
+        coll[a] = coll.get(a, 0.0) + 2 * (n - 1) / n * n_train * wire
+    rec["collective_bytes"] = coll
+    full = sum(t.numel() * t.element_size() for _, t in tree_leaves_with_path(
+        adamw.combine(st.trainable, st.frozen)))
+    rec["read_bytes_per_device"] = full * (layer_passes + 1)
+
+
+def _serve_cell(cfg, shape, mesh, rules, rec):
+    scfg = cfg.replace(peft=cfg.peft.replace(method="none"))
+    params = model_lib.abstract_params(scfg)
+    sh = _shardings(params, model_lib.param_axes(scfg, params), mesh, rules)
+    rec["param_bytes"] = _tree_bytes(params, sh)
+    rec["opt_bytes"] = 0
+    coll: Dict[str, float] = {}
+    for (_, t), (_, pl) in zip(tree_leaves_with_path(params),
+                               tree_leaves_with_path(sh)):
+        _gather_bytes(t, pl, coll)
+    rec["collective_bytes"] = coll
+    full = sum(t.numel() * t.element_size()
+               for _, t in tree_leaves_with_path(params))
+    rec["cache_bytes"] = 0
+    if shape.kind == "decode":
+        b = shape.global_batch
+        length = shape.seq_len // 2 if scfg.is_encoder_decoder \
+            else shape.seq_len
+        cache = model_lib.init_cache(scfg, b, length, device="meta")
+        if scfg.family == "audio":
+            # the cross K/V a prefill builds, one row of source a token
+            shape = (scfg.num_layers, b, length, scfg.num_kv_heads,
+                     scfg.resolved_head_dim)
+            cache = {"self": cache["self"], "cross": {
+                n: torch.empty(shape, dtype=torch_dtype(scfg.dtype),
+                               device="meta") for n in ("k", "v")}}
+        csh = _shardings(cache, model_lib.cache_axes(scfg, cache), mesh,
+                         rules)
+        rec["cache_bytes"] = _tree_bytes(cache, csh)
+    rec["read_bytes_per_device"] = full + rec["cache_bytes"]
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
+             full_ft: bool = False, stats: Optional[Dict] = None) -> Dict:
+    """One cell's counts (see the module docstring); ``stats`` caches
+    :func:`model_param_stats` by arch."""
+    shape = LM_SHAPES[shape_name]
+    cfg = get_config(arch)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    rec: Dict = {"arch": arch, "shape": shape_name, "mesh": mesh,
+                 "mesh_name": "x".join(str(v) for v in mesh.values()),
+                 "full_ft": full_ft, "dtype": cfg.dtype}
+    ok, reason = shape_applicable(cfg, shape)
+    if not ok:
+        rec["skipped"] = reason
+        return rec
+    rules = rules_for(cfg, mesh, shape.kind)
+    rec["inputs"] = {k: list(v.shape)
+                     for k, v in make_input_specs(cfg, shape).items()}
+    if shape.kind == "train":
+        _train_cell(cfg, TrainConfig(full_finetune=full_ft), mesh, rules, rec)
+    else:
+        _serve_cell(cfg, shape, mesh, rules, rec)
+    rec["resident_bytes"] = rec["param_bytes"] + rec["opt_bytes"] + \
+        rec["cache_bytes"]
+    stats = {} if stats is None else stats
+    if arch not in stats:
+        stats[arch] = model_param_stats(arch)
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    rec["model_flops"] = mult * stats[arch]["N_active"] * tokens
+    rec["flops_per_device"] = rec["model_flops"] / math.prod(mesh.values())
+    return rec
+
+
+def all_cells(archs=ASSIGNED_ARCHS, shapes=tuple(LM_SHAPES),
+              multi_pod: bool = False, full_ft: bool = False) -> List[Dict]:
+    stats: Dict = {}
+    return [run_cell(a, s, multi_pod, full_ft, stats)
+            for a in archs for s in shapes]
+
+
+def main(argv=None) -> int:
+    from repro_torch.launch import roofline
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--full-ft", action="store_true")
+    ap.add_argument("--out", default="", help="write the cells as JSON")
+    args = ap.parse_args(argv)
+    cells = all_cells([args.arch] if args.arch else ASSIGNED_ARCHS,
+                      [args.shape] if args.shape else tuple(LM_SHAPES),
+                      args.multi_pod, args.full_ft)
+    for c in cells:
+        if not c.get("skipped"):
+            c["roofline"] = roofline.terms(c)
+    for row in roofline.table(cells):
+        print(row)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(cells, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

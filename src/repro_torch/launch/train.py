@@ -1,27 +1,39 @@
-"""End-to-end training launcher of the port, on one device.
+"""End-to-end training launcher of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch lm-100m \
         --steps 300 --peft psoft --rank 46 --batch 32 --seq 512 \
         --ckpt runs/psoft [--device cpu]
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --device cpu --reduced --data-mesh 2
 
-The reference's launcher (its flags and printed lines) at one device:
-synthetic data with a background prefetch, the PEFT-masked AdamW step
-with gradient accumulation and compression, the straggler monitor, async
-atomic checkpoints every ``--ckpt-every`` steps with auto-resume from the
-latest one, and per-step metrics into a JSONL tracker.  The model runs in
-fp32, as the reference's launcher forces.  Runs on the card unless
-``--device cpu``.  The card is one device: ``--data-mesh`` takes 0 or 1.
+The reference's launcher (its flags and printed lines): synthetic data
+with a background prefetch, the PEFT-masked AdamW step with gradient
+accumulation and compression, the straggler monitor, async atomic
+checkpoints every ``--ckpt-every`` steps with auto-resume from the latest
+one, and per-step metrics into a JSONL tracker.  The model runs in fp32,
+as the reference's launcher forces.  Runs on the card unless ``--device
+cpu``.
+
+``--data-mesh N`` (or any run under ``torch.distributed.run``) trains on a
+``(N, 1)`` ``("data", "model")`` mesh of the process group's ranks with
+the sharded step (:func:`repro_torch.train.trainer.make_train_step` with
+``mesh=``): ZeRO-3 frozen weights, the batch split over ``data``.  Every
+rank draws the same global batches; rank 0 logs and writes the
+checkpoints.  Without either, one device runs the unsharded step.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import DataConfig, TrainConfig, get_config
 from repro_torch.data import SyntheticLMDataset, prefetch_iterator
+from repro_torch.launch.mesh import init_distributed, make_local_mesh, rules_for
 from repro_torch.models import model as model_lib
 from repro_torch.obs import NOOP, JsonlTracker
 from repro_torch.optim import adamw
@@ -46,7 +58,9 @@ def main(argv=None) -> float:
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--data-mesh", type=int, default=0,
-                    help="data axis size (0 = all local devices: one)")
+                    help="data axis size (0 = every rank of a "
+                         "torch.distributed.run launch; one device "
+                         "without it)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test-sized config of the family")
     ap.add_argument("--seed", type=int, default=0)
@@ -56,14 +70,24 @@ def main(argv=None) -> float:
                          "time) as a repro_torch.obs JsonlTracker artifact")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.data_mesh not in (0, 1):
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.data_mesh not in (0, world):
         raise ValueError(
-            f"--data-mesh {args.data_mesh}: the port trains on one device; "
-            f"a data axis over several cards comes with the distributed "
-            f"slice (sharding rules, mesh launch, pipeline)")
-    dev = resolve_device(args.device)
-    tracker = (JsonlTracker(args.metrics_jsonl) if args.metrics_jsonl
-               else NOOP)
+            f"--data-mesh {args.data_mesh}: the data axis spans every rank "
+            f"and this launch has {world}; start {args.data_mesh} ranks "
+            f"with python -m torch.distributed.run --nproc-per-node "
+            f"{args.data_mesh}")
+    sharded = args.data_mesh > 0 or "WORLD_SIZE" in os.environ
+    started = sharded and not dist.is_initialized()
+    dev = init_distributed(args.device) if sharded else \
+        resolve_device(args.device)
+    rank = dist.get_rank() if sharded else 0
+
+    def say(*a, **kw):
+        if rank == 0:
+            print(*a, **kw)
+    tracker = (JsonlTracker(args.metrics_jsonl)
+               if args.metrics_jsonl and rank == 0 else NOOP)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -77,7 +101,14 @@ def main(argv=None) -> float:
                      grad_allreduce_dtype=args.grad_compress,
                      seed=args.seed, checkpoint_dir=args.ckpt,
                      checkpoint_every=args.ckpt_every)
-    print(f"mesh: {{'data': 1, 'model': 1}}  devices: 1 ({dev})")
+    mesh = rules = shardings = None
+    if sharded:
+        mesh = make_local_mesh(data=dist.get_world_size())
+        rules = rules_for(cfg, mesh, "train")
+        say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}  "
+            f"devices: {dist.get_world_size()}")
+    else:
+        print(f"mesh: {{'data': 1, 'model': 1}}  devices: 1 ({dev})")
 
     state = trainer.init_train_state(cfg, tc, seed=tc.seed, device=dev)
     params = adamw.combine(state.trainable, state.frozen)
@@ -85,21 +116,26 @@ def main(argv=None) -> float:
     n_tr = n_all if tc.full_finetune else \
         model_lib.count_trainable(cfg, params)
     del params
-    print(f"params: {n_all:,} total, {n_tr:,} trainable "
-          f"({100*n_tr/max(n_all,1):.3f}%) [{cfg.peft.method}]")
+    say(f"params: {n_all:,} total, {n_tr:,} trainable "
+        f"({100*n_tr/max(n_all,1):.3f}%) [{cfg.peft.method}]")
+    if sharded:
+        shardings, _ = trainer.state_shardings(cfg, tc, mesh, rules)
+        state = trainer.shard_state(state, shardings, mesh)
 
     start = 0
     if tc.checkpoint_dir and \
             checkpoint.latest_step(tc.checkpoint_dir) is not None:
-        state = checkpoint.restore(state, tc.checkpoint_dir)
+        state = checkpoint.restore(state, tc.checkpoint_dir,
+                                   shardings=shardings, mesh=mesh)
         start = int(state.step)
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
 
-    step_fn = trainer.make_train_step(cfg, tc, moe_impl="dense")
+    step_fn = trainer.make_train_step(cfg, tc, moe_impl="dense", mesh=mesh,
+                                      rules=rules)
     ds = SyntheticLMDataset(cfg, args.batch, args.seq,
                             DataConfig(seed=tc.seed))
     mon = straggler.StepTimeMonitor(
-        on_anomaly=lambda s, t, m: print(
+        on_anomaly=lambda s, t, m: say(
             f"  [straggler] step {s}: {t:.2f}s vs mean {m:.2f}s"))
 
     it = prefetch_iterator(
@@ -118,23 +154,28 @@ def main(argv=None) -> float:
                 trainer.log_step_metrics(tracker, i + 1, metrics,
                                          step_time=sw.seconds)
             if (i + 1) % args.log_every == 0 or i == start:
-                print(f"step {i+1:5d}  loss {float(metrics['loss']):.4f}  "
-                      f"gnorm {float(metrics['grad_norm']):.3f}  "
-                      f"lr {float(metrics['lr']):.2e}  {sw.seconds:.2f}s")
+                say(f"step {i+1:5d}  loss {float(metrics['loss']):.4f}  "
+                    f"gnorm {float(metrics['grad_norm']):.3f}  "
+                    f"lr {float(metrics['lr']):.2e}  {sw.seconds:.2f}s")
             if tc.checkpoint_dir and (i + 1) % tc.checkpoint_every == 0:
                 writers.append(checkpoint.save(
-                    state, tc.checkpoint_dir, i + 1, async_save=True))
+                    state, tc.checkpoint_dir, i + 1, async_save=True,
+                    shardings=shardings, mesh=mesh))
         if tc.checkpoint_dir:
-            checkpoint.save(state, tc.checkpoint_dir, tc.steps)
+            checkpoint.save(state, tc.checkpoint_dir, tc.steps,
+                            shardings=shardings, mesh=mesh)
     finally:
         # a run that fails mid-way still commits the checkpoints it began
         for w in writers:
-            w.join()
+            if w is not None:
+                w.join()
     tracker.finish()
     dt = time.time() - t_start
-    print(f"done: {tc.steps - start} steps in {dt:.1f}s "
-          f"({(tc.steps - start)/max(dt,1e-9):.2f} steps/s); "
-          f"straggler flags: {len(mon.anomalies)}")
+    say(f"done: {tc.steps - start} steps in {dt:.1f}s "
+        f"({(tc.steps - start)/max(dt,1e-9):.2f} steps/s); "
+        f"straggler flags: {len(mon.anomalies)}")
+    if started:
+        dist.destroy_process_group()
     return float("nan") if metrics is None else float(metrics["loss"])
 
 

@@ -54,6 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.sharding import shard_act
 from repro_torch.tree import map_dicts, tree_leaves, tree_map_with_path
 
 Params = Dict[str, Any]
@@ -261,6 +262,7 @@ def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, cdt,
         h = act(g.float()).to(cdt) * up
     else:
         h = act(up.float()).to(cdt)
+    h = shard_act(h, ("batch", "seq", "mlp"))
     return _lin(params["down"], h, cfg, cdt, "down", adapter_ids)
 
 
@@ -272,6 +274,9 @@ def _qkv(params, x, cfg: ModelConfig, cdt, positions, adapter_ids):
     v = _lin(params["v"], x, cfg, cdt, "v", adapter_ids).reshape(b, s, kh, hd)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q = shard_act(q, ("batch", "seq", "heads", None))
+    k = shard_act(k, ("batch", "seq", "kv_heads", None))
+    v = shard_act(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
@@ -394,8 +399,9 @@ def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense",
     h = layers.apply_norm(lp["ln2"], x)
     if "moe" in lp:
         m, aux = moe_lib.moe_apply(lp["moe"], h, cfg, cdt, moe_impl)
-        return x + m, aux
-    return x + mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids), None
+    else:
+        m, aux = mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids), None
+    return shard_act(x + m, ("batch", "seq_sp", "embed")), aux
 
 
 def shared_block_apply(params, x, h0, cfg: ModelConfig, cdt, attn_fn,
@@ -437,21 +443,22 @@ def _encoder_block(lp, cfg, cdt, positions, x):
     return _block(lp, x, cfg, cdt, attn_fn, None)[0]
 
 
-def run_encoder(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig
-                ) -> torch.Tensor:
+def run_encoder(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
+                gather=None) -> torch.Tensor:
     """The encoder-decoder's encoder over ``src_embeds`` (B, S_src,
     d_model), cast to the compute dtype: non-causal self-attention (RoPE
     over the source positions, as the reference's block applies it), one
     remat boundary per layer, every rotation of its stacks built once;
-    returns the final-norm output (B, S_src, d_model)."""
+    returns the final-norm output (B, S_src, d_model).  ``gather`` as in
+    :func:`forward_hidden`."""
     cdt = torch_dtype(cfg.dtype)
-    x = src_embeds.to(cdt)
+    x = shard_act(src_embeds.to(cdt), ("batch", "seq", "embed"))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     stack = _with_rotations(params["enc_layers"], cfg)
-    block = _remat(functools.partial(_encoder_block, cfg=cfg, cdt=cdt,
-                                     positions=positions), cfg)
+    block = _remat(_on_use(functools.partial(
+        _encoder_block, cfg=cfg, cdt=cdt, positions=positions), gather), cfg)
     for i in range(cfg.num_encoder_layers):
-        x = block(_layer(stack, i), x=x)
+        x = block(_layer(stack, i), ("enc_layers",), x=x)
     return layers.apply_norm(params["enc_final_norm"], x)
 
 
@@ -479,6 +486,17 @@ def _minimal_policy(_ctx, op, *_args, **_kwargs):
     if op in _SAVED_PRODUCTS:
         return torch_checkpoint.CheckpointPolicy.MUST_SAVE
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _on_use(fn, gather):
+    """``fn(lp, **kw)`` as ``run(lp, prefix, **kw)``, which first puts
+    together the leaves a sharded step split (``gather(lp, prefix)``,
+    ``prefix`` the path of ``lp``'s subtree in the param tree) when there
+    is a ``gather``: inside the layer's remat boundary, so that a recompute
+    gathers again and no gathered layer outlives its use."""
+    if gather is None:
+        return lambda lp, prefix, **kw: fn(lp, **kw)
+    return lambda lp, prefix, **kw: fn(gather(lp, prefix), **kw)
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -528,20 +546,24 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
-    return x
+    return shard_act(x, ("batch", "seq", "embed"))
 
 
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig, moe_impl: str = "capacity"
+                   cfg: ModelConfig, moe_impl: str = "capacity", gather=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S),
     behind a VLM's patches (B, P + S, D), the MoE aux loss summed over
     layers (0 for a dense model)): causal chunked attention or the chunked
     SSD scan, one remat boundary per layer (a hybrid's shared-block
     positions and an encoder's layers included); an encoder-decoder runs
-    its encoder over ``batch["src_embeds"]`` first."""
+    its encoder over ``batch["src_embeds"]`` first.  ``gather(subtree,
+    prefix)``, from a sharded train step, puts each layer's split leaves
+    together as the loop reaches the layer (:data:`LAYER_TREES`; the other
+    top-level leaves must come in whole, as :func:`loss_fn` gathers
+    them)."""
     cdt = torch_dtype(cfg.dtype)
-    enc_out = run_encoder(params, batch["src_embeds"], cfg) \
+    enc_out = run_encoder(params, batch["src_embeds"], cfg, gather) \
         if cfg.is_encoder_decoder else None
     x = _embed_inputs(params, batch, cfg, cdt)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -550,25 +572,28 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
         h0 = x
         lays = _with_rotations(params["layers"], cfg)
         shared = _with_rotations(params["shared_attn"], cfg)
-        mamba = _remat(functools.partial(_train_mamba, cfg=cfg, cdt=cdt),
-                       cfg)
-        attn = _remat(functools.partial(_train_shared, cfg=cfg, cdt=cdt,
-                                        positions=positions), cfg)
+        mamba = _remat(_on_use(functools.partial(_train_mamba, cfg=cfg,
+                                                 cdt=cdt), gather), cfg)
+        attn = _remat(_on_use(functools.partial(
+            _train_shared, cfg=cfg, cdt=cdt, positions=positions), gather),
+            cfg)
         for i, ch in enumerate(cfg.layer_pattern()):
-            x = mamba(lays[i], x=x) if ch == "M" else attn(shared, x=x, h0=h0)
+            x = mamba(lays[i], ("layers", str(i)), x=x) if ch == "M" else \
+                attn(shared, ("shared_attn",), x=x, h0=h0)
         return layers.apply_norm(params["final_norm"], x), aux
     stack = _with_rotations(params["layers"], cfg)
     if cfg.family == "ssm":
-        block = _remat(functools.partial(_train_mamba, cfg=cfg, cdt=cdt),
-                       cfg)
+        block = _remat(_on_use(functools.partial(_train_mamba, cfg=cfg,
+                                                 cdt=cdt), gather), cfg)
         for i in range(cfg.num_layers):
-            x = block(_layer(stack, i), x=x)
+            x = block(_layer(stack, i), ("layers",), x=x)
         return layers.apply_norm(params["final_norm"], x), aux
-    block = _remat(functools.partial(_train_block, cfg=cfg, cdt=cdt,
-                                     positions=positions,
-                                     moe_impl=moe_impl), cfg)
+    block = _remat(_on_use(functools.partial(
+        _train_block, cfg=cfg, cdt=cdt, positions=positions,
+        moe_impl=moe_impl), gather), cfg)
     for i in range(cfg.num_layers):
-        x, layer_aux = block(_layer(stack, i), x=x, enc_out=enc_out)
+        x, layer_aux = block(_layer(stack, i), ("layers",), x=x,
+                             enc_out=enc_out)
         if layer_aux is not None:
             aux = aux + layer_aux
     return layers.apply_norm(params["final_norm"], x), aux
@@ -597,13 +622,23 @@ def chunked_ce_loss(params: Params, h: torch.Tensor, labels: torch.Tensor,
     return tot / cnt.clamp_min(1), cnt
 
 
+#: the subtrees the layer loops walk a layer at a time
+LAYER_TREES = ("layers", "enc_layers", "shared_attn")
+
+
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, moe_impl: str = "capacity"
+            cfg: ModelConfig, moe_impl: str = "capacity", gather=None
             ) -> Tuple[torch.Tensor, Dict]:
     """(loss, {"loss", "aux", "tokens"}) of a token batch with labels; an
     MoE model adds ``aux_loss_weight`` times its aux loss; a VLM's patch
-    positions carry no loss (their labels are -1)."""
-    h, aux = forward_hidden(params, batch, cfg, moe_impl)
+    positions carry no loss (their labels are -1).  Under a sharded step's
+    ``gather`` the leaves outside :data:`LAYER_TREES` (embeddings, head,
+    final norms) are put together once, and the layers' as the loop
+    reaches them (:func:`forward_hidden`)."""
+    if gather is not None:
+        params = {k: v if k in LAYER_TREES else gather(v, (k,))
+                  for k, v in params.items()}
+    h, aux = forward_hidden(params, batch, cfg, moe_impl, gather)
     labels = batch["labels"]
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pad = torch.full((labels.shape[0], batch["patch_embeds"].shape[1]),
@@ -628,7 +663,7 @@ def lm_logits(params: Params, h: torch.Tensor,
     cdt = torch_dtype(cfg.dtype)
     w = params["embed"]["w"].T if cfg.tie_embeddings \
         else params["lm_head"]["w"]
-    return h.to(cdt) @ w.to(cdt)
+    return shard_act(h.to(cdt) @ w.to(cdt), ("batch", "seq", "vocab"))
 
 
 def _last_hidden(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -793,7 +828,8 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
     when None; an encoder-decoder's cross cache gets its own here).
     Returns (logits (B, 1, V), cache)."""
     cdt = torch_dtype(cfg.dtype)
-    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    x = shard_act(layers.embed_lookup(params["embed"], batch["tokens"], cdt),
+                  ("batch", None, "embed"))
     b = x.shape[0]
     positions = torch.as_tensor(pos, device=x.device).long()
     if positions.ndim == 0:
@@ -892,6 +928,117 @@ def trainable_mask(cfg: ModelConfig, params: Params,
         method = cfg.peft.method_for(module) if module else "none"
         return path[-1] in peft_lib.trainable_names(method, cfg.peft)
     return tree_map_with_path(one, params)
+
+
+# ---------------------------------------------------------------------------
+# logical sharding axes of the param and cache trees
+# ---------------------------------------------------------------------------
+
+#: row-parallel linears (the reduction dim is the output's); every other
+#: module name is column-parallel
+_ROW_PAR = frozenset(("o", "down", "out_proj"))
+
+
+def _leaf_role_axes(path: Tuple[str, ...], leaf, cfg: ModelConfig) -> Tuple:
+    """The logical axes of one unstacked leaf from its path: embeddings,
+    norms and SSM scalars by name, a linear's params through its module's
+    registered method (``fsdp`` on the reduction dim, ``tensor`` on the
+    other)."""
+    leaf_name = path[-1]
+    module = path[-2] if len(path) >= 2 else ""
+    if module == "embed" and leaf_name == "w":
+        return ("vocab", "fsdp")
+    if module == "lm_head" and leaf_name == "w":
+        return ("fsdp", "vocab")
+    if leaf_name in ("scale", "bias", "a_log", "d_skip", "dt_bias", "conv_b",
+                     "marker"):
+        return (None,)
+    if leaf_name == "conv_w":
+        return (None, None)
+    lin_module = _module_of(path)
+    in_ax, out_ax = (("tensor", "fsdp") if lin_module in _ROW_PAR
+                     else ("fsdp", "tensor"))
+    method = cfg.peft.method_for(lin_module) if lin_module else "none"
+    role = registry.get_method(method).logical_axes(cfg.peft, in_ax, out_ax)
+    if leaf_name in role:
+        return role[leaf_name]
+    if leaf_name == "w":   # plain / merged linear under a PEFT-enabled config
+        return (in_ax, out_ax)
+    # param tree and config disagree (e.g. a foreign checkpoint): any
+    # registered method that knows this param name at this rank
+    for m in registry.available_methods():
+        ax = registry.get_method(m).logical_axes(cfg.peft, in_ax, out_ax)
+        if leaf_name in ax and len(ax[leaf_name]) <= leaf.ndim:
+            return ax[leaf_name]
+    return (None,) * leaf.ndim
+
+
+class LogicalAxes:
+    """Tuple-like logical axis names of one leaf; a leaf of the port's
+    trees (a tuple would be walked)."""
+    __slots__ = ("axes",)
+
+    def __init__(self, axes):
+        self.axes = tuple(axes)
+
+    def __iter__(self):
+        return iter(self.axes)
+
+    def __len__(self):
+        return len(self.axes)
+
+    def __getitem__(self, i):
+        return self.axes[i]
+
+    def __repr__(self):
+        return f"LogicalAxes{self.axes}"
+
+    def __eq__(self, other):
+        return tuple(self) == tuple(other)
+
+    def __hash__(self):
+        return hash(self.axes)
+
+
+def param_axes(cfg: ModelConfig, params: Params):
+    """Logical sharding axes, a tree parallel to ``params`` (real or meta
+    tensors; a hybrid's list of layers too) of :class:`LogicalAxes`: the
+    leaf's role axes behind ``None`` for its stack dims, the innermost of
+    which is ``"expert"`` for an MoE expert stack."""
+    def assign(path, leaf):
+        role = _leaf_role_axes(path, leaf, cfg)
+        extra = leaf.ndim - len(role)
+        if extra < 0:
+            return LogicalAxes((None,) * leaf.ndim)
+        lead = [None] * extra
+        if extra >= 1 and "moe" in path and "shared" not in path \
+                and path[-2] in moe_lib.EXPERT_LINEARS:
+            lead[-1] = "expert"
+        return LogicalAxes(tuple(lead) + tuple(role))
+    return tree_map_with_path(assign, params)
+
+
+def cache_axes(cfg: ModelConfig, cache):
+    """Logical sharding axes of a decode cache tree (the dense cache; a
+    paged pool's page axis would read as ``"batch"``, as in the
+    reference)."""
+    def assign(path, leaf):
+        n = path[-1]
+        if n == "page_table":
+            role = (None,) * leaf.ndim
+        elif n in ("k", "v"):
+            role = ("batch", "cache_seq", "kv_heads", None)
+        elif n == "conv_state":
+            role = ("batch", None, "conv_ch")
+        elif n == "ssm_state":
+            role = ("batch", "heads", None, None)
+        elif n == "len":
+            role = ()
+        else:
+            role = (None,) * leaf.ndim
+        extra = leaf.ndim - len(role)
+        return LogicalAxes((None,) * max(extra, 0) + tuple(role))
+    return tree_map_with_path(assign, cache)
 
 
 def abstract_params(cfg: ModelConfig) -> Params:

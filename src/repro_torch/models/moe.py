@@ -1,9 +1,15 @@
 """Mixture-of-Experts layer of the port: top-k routing with the reference's
 two dispatch implementations.
 
-* ``capacity`` (training): sort-based token -> expert dispatch into one
-  (E, C, D) buffer, overflow tokens dropped as GShard/Switch drop them, the
-  expert FFN run on the buffer, and a masked, gate-weighted combine.
+* ``capacity`` (training): GShard's grouped dispatch.  The tokens split
+  into G groups, as many as the batch is sharded over (one under no
+  sharding rules); within each group a sort-based token -> expert
+  dispatch fills a (E, cap_g, D) buffer per group, overflow tokens are
+  dropped as GShard/Switch drop them, the expert FFN runs on the (G, E,
+  cap_g, D) buffers, and a masked, gate-weighted combine brings the rows
+  back.  Under a sharded train step (a live mesh) each rank holds one
+  group, its batch rows, and the load-balance statistics are averaged
+  over the batch ranks, so the aux loss is the global batch's.
 * ``dense`` (serving, logits): every expert on every token and a
   gate-weighted combine; exact, and every row's output independent of its
   batch mates (capacity dispatch couples the rows of a batch through the
@@ -18,14 +24,19 @@ is never PEFT-wrapped and never banked.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import peft as peft_lib
+from repro_torch.distributed import collectives
 from repro_torch.models import layers
+from repro_torch.sharding import (batch_axes, current_rules, mesh_shape,
+                                  shard_act)
 from repro_torch.tree import stack_filled
 
 Params = Dict[str, torch.Tensor]
@@ -96,9 +107,30 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _batch_mesh():
+    """(mesh, its batch axes) of the current mesh context, or (None, ())."""
+    ctx = current_rules()
+    return (None, ()) if ctx is None else (ctx[0], batch_axes(*ctx))
+
+
+def _group_count(t: int) -> int:
+    """Dispatch groups over ``t`` tokens: the batch-sharding extent of the
+    mesh context (GShard groups align with data shards, so every sort and
+    scatter stays shard-local), lowered until it divides ``t``; one
+    outside a context, and one on a live mesh, where this rank's tokens
+    are its own group."""
+    mesh, axes = _batch_mesh()
+    if mesh is None or isinstance(mesh, DeviceMesh):
+        return 1
+    g = math.prod(mesh_shape(mesh)[a] for a in axes)
+    while t % g:
+        g -= 1
+    return max(g, 1)
+
+
 def capacity(tokens: int, cfg: ModelConfig) -> int:
-    """Per-expert buffer rows: ``int(T k capacity_factor / E)`` clamped to
-    [4, T]."""
+    """Per-expert buffer rows of a group of ``tokens`` tokens:
+    ``int(T k capacity_factor / E)`` clamped to [4, T]."""
     cap = int(tokens * cfg.moe.top_k * cfg.moe.capacity_factor
               / cfg.moe.num_experts)
     return max(4, min(cap, tokens))
@@ -121,7 +153,14 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
     # load-balance aux (Switch): E * sum_e fraction_e * mean_prob_e
     frac = F.one_hot(idx[:, 0], e).float().mean(0)
-    aux = e * (frac * probs.mean(0)).sum()
+    mean_prob = probs.mean(0)
+    mesh, axes = _batch_mesh()
+    if isinstance(mesh, DeviceMesh):
+        # the global batch's statistics (every rank's share is T tokens)
+        n = math.prod(mesh_shape(mesh)[a] for a in axes)
+        frac = collectives.all_reduce(frac.clone(), mesh, axes) / n
+        mean_prob = collectives.sum_over(mean_prob, mesh, axes) / n
+    aux = e * (frac * mean_prob).sum()
 
     if impl == "dense":
         # (E, T, D): every expert on every token
@@ -131,33 +170,43 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                            device=x.device).scatter_add(1, idx, gates)
         y = torch.einsum("te,etd->td", comb.to(compute_dtype), ye)
     elif impl == "capacity":
-        # One dispatch group: the reference splits the tokens into as many
-        # groups as the batch is sharded over (GShard), and the port runs
-        # on one card with no sharding rules, where that count is 1.  The
-        # grouped (G, E, cap, D) form belongs with sharding.
-        cap = capacity(t, cfg)
-        flat_e = idx.reshape(-1)                              # (T k,)
-        order = torch.argsort(flat_e, stable=True)            # jnp.argsort
-        sorted_e = flat_e[order]
+        g = _group_count(t)
+        tg = t // g
+        cap = capacity(tg, cfg)
+        xg = shard_act(xt.reshape(g, tg, d), ("batch", None, None))
+        flat_e = idx.reshape(g, tg * k)                       # (G, tg k)
+        order = torch.argsort(flat_e, dim=1, stable=True)     # jnp.argsort
+        sorted_e = torch.gather(flat_e, 1, order)
         first = torch.searchsorted(sorted_e, sorted_e, side="left")
-        pos = torch.arange(t * k, device=x.device) - first
-        src_tok = order // k
+        pos = torch.arange(tg * k, device=x.device) - first
         keep = pos < cap
-        gathered = xt[src_tok].to(compute_dtype)
+        group = torch.arange(g, device=x.device)[:, None]
+        src_tok = group * tg + order // k                     # global rows
+        gathered = xg.reshape(t, d)[src_tok].to(compute_dtype)
         # positions >= cap are dropped (the reference's scatter mode
-        # "drop"): they land on one trash row past the buffer
-        dest = torch.where(keep, sorted_e * cap + pos,
-                           torch.full_like(pos, e * cap))
-        buf = torch.zeros((e * cap + 1, d), dtype=compute_dtype,
-                          device=x.device).index_put((dest,), gathered)
-        buf = buf[:e * cap].reshape(e, cap, d)
-        out = _expert_ffn(params, buf, cfg, compute_dtype)    # (E, cap, D)
-        got = out[sorted_e, pos.clamp_max(cap - 1)]
-        got = torch.where(keep[:, None], got, torch.zeros_like(got))
-        gflat = gates.reshape(-1)[order].to(compute_dtype)
+        # "drop"): they land on one trash row past the buffers
+        dest = torch.where(keep, (group * e + sorted_e) * cap + pos,
+                           torch.full_like(pos, g * e * cap))
+        buf = torch.zeros((g * e * cap + 1, d), dtype=compute_dtype,
+                          device=x.device).index_put((dest.reshape(-1),),
+                                                     gathered.reshape(-1, d))
+        buf = shard_act(buf[:g * e * cap].reshape(g, e, cap, d),
+                        ("batch", "expert", None, None))
+        # every group's rows of an expert through one linear: each expert
+        # stack stays one grouped launch whatever G
+        out = _expert_ffn(params, buf.transpose(0, 1).reshape(e, g * cap, d),
+                          cfg, compute_dtype)
+        out = shard_act(out.reshape(e, g, cap, d).transpose(0, 1),
+                        ("batch", "expert", None, None))      # (G,E,cap,D)
+        got = out[group, sorted_e, pos.clamp_max(cap - 1)]    # (G, tg k, D)
+        got = torch.where(keep[..., None], got, torch.zeros_like(got))
+        gflat = torch.gather(gates.reshape(g, tg * k), 1,
+                             order).to(compute_dtype)
         y = torch.zeros((t, d), dtype=compute_dtype,
-                        device=x.device).index_add(0, src_tok,
-                                                   got * gflat[:, None])
+                        device=x.device).index_add(
+            0, src_tok.reshape(-1), (got * gflat[..., None]).reshape(-1, d))
+        y = shard_act(y.reshape(g, tg, d), ("batch", None, None)
+                      ).reshape(t, d)
     else:
         raise ValueError(f"moe impl {impl!r}: 'capacity' or 'dense'")
 

@@ -12,6 +12,12 @@ ml_dtypes.
 Commit protocol: write to ``<dir>/tmp.<step>.<id>``, fsync, atomic rename to
 ``<dir>/step_<n>``: a crash mid-save never corrupts the latest checkpoint.
 Saves can run on a background thread (``async_save``).
+
+A sharded state (each rank's blocks, :func:`repro_torch.train.trainer.
+shard_state`) saves as the full arrays: every rank takes part in gathering
+them and rank 0 writes.  Restoring with ``shardings`` cuts each rank's
+block for the mesh it restores on, which may differ from the one that
+saved (an elastic restart).
 """
 from __future__ import annotations
 
@@ -25,7 +31,10 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives
+from repro_torch.tree import tree_leaves_with_path, tree_map, tree_map_with_path
 
 PyTree = Any
 _SEP = "\x1f"  # unit separator: safe key joiner
@@ -55,10 +64,19 @@ def _flatten(tree: PyTree) -> Dict[str, np.ndarray]:
 def save(tree: PyTree, ckpt_dir: str, step: int, keep: int = 3,
          async_save: bool = False, extra_meta: Optional[Dict] = None,
          publish: Optional[Callable[[int], None]] = None,
+         shardings: Optional[PyTree] = None, mesh=None,
          ) -> Optional[threading.Thread]:
     """Write one checkpoint (see the module docstring for the commit
     protocol).  ``publish(step)``, if given, runs once the step directory is
-    durably in place.  Returns the writer thread when ``async_save``."""
+    durably in place.  Returns the writer thread when ``async_save``.
+    With ``shardings`` (a tree of placements on the live ``mesh``) ``tree``
+    is this rank's blocks: every rank of the mesh must call, the full
+    arrays are gathered, rank 0 writes and the others return None."""
+    if shardings is not None:
+        tree = tree_map(lambda t, pl: collectives.gather(t, pl, mesh), tree,
+                        shardings)
+        if dist.get_rank() != 0:
+            return None
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(tree)   # device-to-host copies on the caller's thread
     meta = {"step": int(step), **(extra_meta or {})}
@@ -118,9 +136,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(template: PyTree, ckpt_dir: str,
-            step: Optional[int] = None) -> PyTree:
-    """Restore into the structure, dtypes and devices of ``template``."""
+def restore(template: PyTree, ckpt_dir: str, step: Optional[int] = None,
+            shardings: Optional[PyTree] = None, mesh=None) -> PyTree:
+    """Restore into the structure, dtypes and devices of ``template``.
+    With ``shardings`` (a tree of placements on the live ``mesh``, which
+    need not be the mesh that saved) each leaf comes back as this rank's
+    block, and ``template`` holds those blocks' shapes."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -134,10 +155,17 @@ def restore(template: PyTree, ckpt_dir: str,
         if key not in flat:
             raise KeyError(f"checkpoint missing {key!r}")
         arr = flat[key]
-        if tuple(arr.shape) != tuple(node.shape):
-            raise ValueError(f"{key}: ckpt shape {arr.shape} != "
-                             f"{tuple(node.shape)}")
-        return _from_numpy(arr, node)
+        pl = placement.get(path)
+        shape = tuple(arr.shape) if pl is None else \
+            pl.local_shape(arr.shape)
+        if shape != tuple(node.shape):
+            raise ValueError(f"{key}: ckpt shape {arr.shape} (this rank's "
+                             f"block {shape}) != {tuple(node.shape)}")
+        if pl is None:
+            return _from_numpy(arr, node)
+        return collectives.shard(_from_numpy(arr, node), pl, mesh)
+    placement = dict(tree_leaves_with_path(shardings)) \
+        if shardings is not None else {}
     return tree_map_with_path(load, template)
 
 

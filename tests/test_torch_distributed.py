@@ -1,0 +1,351 @@
+"""The port's distributed training on gloo process groups on the CPU,
+against the reference package and the port's unsharded step.
+
+One module fixture starts every group of ranks at once (each rank a
+process running tests/torch_dist_ranks.py, which imports no JAX) and, while
+they run, computes the reference's side in this process:
+
+(a) 3 sharded steps of ``tiny`` on (2, 2), (4, 1) and (1, 4) meshes from
+    the reference's ``init_train_state(PRNGKey(0))``: losses and trainable
+    leaves within 1e-5 of the port's unsharded step, the last loss within
+    1e-5 of the reference's sharded step (:data:`REF_LOSS`), and at one
+    rank (the card's in-memory store) bit for bit the unsharded step's,
+    with 2 microbatches too;
+(b) ``grad_allreduce_dtype="bfloat16"``: bf16 all-reduces on the wire
+    exactly when compression is on, losses within 1e-4 relative and
+    trainables within lr a step of the unsharded compressed step (4 ranks
+    round 4 partial sums to bf16 where one step rounds one; Adam's early
+    steps are ~lr * sign(g)); ``"int8"``: int8 on the wire after one fp32
+    max, losses within 1e-3; bit for bit at one rank (both dtypes);
+(c) a checkpoint saved on (2, 2) restores onto (4, 1) and in one process
+    bit for bit;
+(d) GPipe over 4 stages, 8 microbatches, forward and grad against the
+    reference's sequential loop and ``jax.grad`` (1e-5 / 1e-4, the
+    reference test's);
+(e) reduced deepseek-moe-16b's capacity layer on a (2, 1) mesh, each rank
+    one dispatch group, against the reference's grouped dispatch with 2
+    groups (one JAX process under a mesh context that reports data = 2;
+    1e-5, aux 1e-6), and its sharded train steps against the port's
+    in-process 2-group step (1e-5);
+(f) the launcher under ``torch.distributed.run`` with 2 gloo ranks ends on
+    the loss of one process (1e-5).
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import TrainConfig as JTrainConfig  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.launch import mesh as jmesh  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro.sharding import mesh_context as jmesh_context  # noqa: E402
+from repro.train import trainer as jtrainer  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.data import SyntheticLMDataset  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import rules_for  # noqa: E402
+from repro_torch.sharding import mesh_context  # noqa: E402
+from repro_torch.train import checkpoint, trainer  # noqa: E402
+from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "tests"))
+import torch_dist_ranks as ranks  # noqa: E402
+#: the reference's sharded step on tiny after 3 steps (TrainConfig(steps=
+#: 3), SyntheticLMDataset(cfg, 8, 32), moe_impl "dense", init_train_state(
+#: PRNGKey(0))), on a (4, 2) ("data", "model") mesh built with
+#: repro.launch.mesh._make_mesh (Auto axes) under 8 forced host devices;
+#: its (1, 1) mesh gives the same value
+REF_LOSS = 7.291981220245361
+STEPS, BATCH, SEQ = 3, 8, 32
+LAUNCH = ["--device", "cpu", "--reduced", "--rank", "8", "--steps", "3",
+          "--batch", "4", "--seq", "32", "--log-every", "1"]
+GROUPS = {"four": 4, "moe2": 2}
+
+
+class Sizes:
+    size = 1
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+
+
+def _flat(tree):
+    return {"/".join(p): t.detach().cpu().numpy()
+            for p, t in tree_leaves_with_path(tree)}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _moe_inputs():
+    jcfg = jget_config("deepseek-moe-16b").reduced()
+    shapes = jax.eval_shape(lambda k: jmoe.moe_init(
+        k, jcfg, jnp.float32, jnp.float32, jcfg.peft.target_modules),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(5)
+
+    def leaf(kp, s):
+        z = rng.standard_normal(s.shape).astype(np.float32)
+        name = kp[-1].key
+        if name == "q":
+            return 0.05 * z
+        if name in ("alpha", "beta"):
+            return 1 + 0.05 * z
+        return z / np.sqrt(s.shape[-2] if len(s.shape) >= 2 else 1)
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    x = rng.standard_normal((2, 24, jcfg.d_model)).astype(np.float32)
+    return jcfg, params, x
+
+
+def _start(args, env, log):
+    return subprocess.Popen(args, env=env, stdout=log,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    work = tmp_path_factory.mktemp("dist")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+
+    def start(group):
+        procs[group] = [_start([sys.executable,
+                                str(ROOT / "tests" / "torch_dist_ranks.py"),
+                                group, str(r), str(GROUPS[group]), str(work)],
+                               env, open(work / f"{group}.{r}.log", "w"))
+                        for r in range(GROUPS[group])]
+
+    rng = np.random.default_rng(0)
+    ws = (rng.standard_normal((4, 32, 32)) * 0.1).astype(np.float32)
+    xg = rng.standard_normal((8, 2, 32)).astype(np.float32)
+    np.savez(work / "gpipe.npz", ws=ws, x=xg)
+    jmcfg, mparams, mx = _moe_inputs()
+    np.savez(work / "moe.npz", x=mx, **{
+        "/".join(str(k.key) for k in kp): v for kp, v in
+        jax.tree_util.tree_flatten_with_path(mparams)[0]})
+    start("moe2")
+    start("four")   # its ranks wait for the initial state saved below
+    launch_jsonl = work / "launch2.jsonl"
+    procs["launch"] = [_start(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train"] + LAUNCH
+        + ["--data-mesh", "2", "--metrics-jsonl", str(launch_jsonl)],
+        env, open(work / "launch.log", "w"))]
+
+    # the reference's initial state, for every tiny scenario
+    jcfg = jget_config("tiny")
+    jstate = _np(jax.jit(lambda k: jtrainer.init_train_state(
+        k, jcfg, JTrainConfig(steps=STEPS)))(jax.random.PRNGKey(0)))
+    init = trainer.train_state_from_numpy(jstate, device="cpu")
+    checkpoint.save(init, str(work / "init"), 0)
+
+    out = {"init": init, "work": work}
+    cfg = get_config("tiny")
+    ds = SyntheticLMDataset(cfg, BATCH, SEQ)
+    for dtype in ("", "bfloat16"):
+        step = trainer.make_train_step(
+            cfg, TrainConfig(steps=STEPS, grad_allreduce_dtype=dtype),
+            "dense")
+        state, losses = init, []
+        for i in range(STEPS):
+            state, m = step(state, ds.batch_at(i))
+            losses.append(float(m["loss"]))
+        out[f"unsharded {dtype or 'float32'}"] = (losses,
+                                                  _flat(state.trainable))
+
+    # (d) the reference's sequential stages and their grad
+    def seq(w):
+        h = jnp.asarray(xg)
+        for i in range(4):
+            h = jnp.tanh(h @ w[i])
+        return h
+    out["gpipe"] = (np.asarray(seq(ws)),
+                    np.asarray(jax.grad(lambda w: seq(w).sum())(ws)))
+
+    # (e) the reference's grouped dispatch, 2 groups; the port's step
+    # dispatching 2 groups in one process
+    sizes = Sizes({"data": 2, "model": 1})
+    with jmesh_context(sizes, jmesh.rules_for(jmcfg, sizes)):
+        y, aux = jax.jit(lambda p, xx: jmoe.moe_apply(
+            p, xx, jmcfg, jnp.float32, "capacity"))(mparams, mx)
+    out["moe ref"] = (np.asarray(y), float(aux))
+    mcfg = get_config("deepseek-moe-16b").reduced()
+    tc = TrainConfig(steps=2, learning_rate=1e-2)
+    step = trainer.make_train_step(mcfg, tc, "capacity")
+    state, losses = trainer.init_train_state(mcfg, tc, device="cpu"), []
+    mds = SyntheticLMDataset(mcfg, 4, 16)
+    grouped = {"data": 2, "model": 1}
+    with mesh_context(grouped, rules_for(mcfg, grouped)):
+        for i in range(2):
+            state, m = step(state, mds.batch_at(i))
+            losses.append(float(m["loss"]))
+    out["moe steps"] = (losses, _flat(state.trainable))
+
+    # (a, b) at one rank, in this process: the card's path (a group of
+    # one rank on an in-memory store)
+    try:
+        out["one"] = ([0], "", ranks.one(0, str(work)))
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (f) one process
+    one_jsonl = work / "launch1.jsonl"
+    launch_train.main(LAUNCH + ["--metrics-jsonl", str(one_jsonl)])
+    out["launch one"] = one_jsonl
+
+    for group, ps in procs.items():
+        for p in ps:
+            try:
+                p.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    for group, ps in procs.items():
+        logs = [(work / f"{group}.{r}.log") for r in range(len(ps))] \
+            if group != "launch" else [work / "launch.log"]
+        rcs = [p.returncode for p in ps]
+        text = "\n".join(f.read_text()[-3000:] for f in logs)
+        res = None
+        if group in GROUPS and all(rc == 0 for rc in rcs):
+            res = torch.load(work / f"{group}.0.pt", weights_only=False)
+        out[group] = (rcs, text, res)
+    out["launch jsonl"] = launch_jsonl
+    return out
+
+
+def _group(runs, group):
+    rcs, text, res = runs[group]
+    assert all(rc == 0 for rc in rcs), text
+    return res
+
+
+def _losses(path):
+    return [r["data"]["train/loss"] for r in obs.read_jsonl(str(path))
+            if r["kind"] == "scalars" and "train/loss" in r["data"]]
+
+
+@pytest.mark.parametrize("mesh", ("2x2", "4x1", "1x4"))
+def test_sharded_steps_match_unsharded_and_reference(runs, mesh):
+    got = _group(runs, "four")[mesh]
+    want_losses, want = runs["unsharded float32"]
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=0, atol=1e-5)
+    assert got["losses"][-1] == pytest.approx(REF_LOSS, abs=1e-5)
+    assert sorted(got["trainable"]) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got["trainable"][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
+    assert _group(runs, "four")["mesh_from_config"] == (("data", "model"),
+                                                        (2, 2))
+    # frozen leaves gather over both axes (fsdp on data, vocab on model),
+    # even where an axis has one rank; gradients reduce over data only
+    kinds = {(kind, group) for kind, _, _, group in got["records"]}
+    assert kinds == {("all_gather", "data"), ("all_gather", "model"),
+                     ("all_reduce", "data")}
+
+
+def test_one_rank_equals_the_unsharded_step(runs):
+    res = _group(runs, "one")
+    for case in ("float32", "bfloat16", "int8", "float32 x2"):
+        assert res[case]["equal"], (case, res[case]["losses"],
+                                    res[case]["want"])
+    # the gather path runs at one rank too: 14 PSOFT-split leaves a layer
+    # twice a step (forward and remat recompute) plus embed and lm_head
+    gathers = [r for r in res["float32"]["records"] if r[0] == "all_gather"]
+    assert len(gathers) == STEPS * (2 * 2 * 14 + 4)
+
+
+def _wire(records):
+    """(dtype, elements) of every gradient-sized all-reduce."""
+    return [(dtype, elements) for kind, dtype, elements, group in records
+            if kind == "all_reduce" and group == "data" and elements > 1]
+
+
+def test_bf16_gradients_cross_the_wire_in_bf16(runs):
+    res = _group(runs, "four")
+    n_train = sum(v.size for v in res["bfloat16"]["trainable"].values())
+    assert _wire(res["bfloat16"]["records"]) == \
+        [("torch.bfloat16", n_train)] * STEPS
+    assert _wire(res["4x1"]["records"]) == [("torch.float32", n_train)] * STEPS
+    want_losses, want = runs["unsharded bfloat16"]
+    np.testing.assert_allclose(res["bfloat16"]["losses"], want_losses,
+                               rtol=1e-4)
+    lr = TrainConfig(steps=STEPS).learning_rate
+    for k, v in want.items():
+        np.testing.assert_allclose(res["bfloat16"]["trainable"][k], v,
+                                   rtol=0, atol=STEPS * lr, err_msg=k)
+    # int8: every leaf's largest magnitude (fp32, one a leaf), then one
+    # int8 tensor a step; 4 ranks quantise to +-31 so the sum stays in
+    # range, coarser than one rank's +-127: losses within 1e-3
+    wire = _wire(res["int8"]["records"])
+    n_leaves = len(res["int8"]["trainable"])
+    assert wire == [("torch.float32", n_leaves), ("torch.int8", n_train)] \
+        * STEPS
+    np.testing.assert_allclose(res["int8"]["losses"], want_losses, rtol=1e-3)
+
+
+def test_elastic_restore_across_meshes(runs):
+    res = _group(runs, "four")["elastic"]
+    assert res["equal"]
+    # on (4, 1) each rank holds a quarter of embed's fsdp dim
+    assert res["block_shapes"]["frozen/embed/w"] == (1024, 32)
+    # in one process: no shardings, the full arrays
+    got = _flat(checkpoint.restore(runs["init"], str(runs["work"] / "ckpt")))
+    saved = res["saved"]
+    assert sorted(got) == sorted(saved)
+    for k, v in saved.items():
+        assert got[k].dtype == v.dtype and got[k].tobytes() == v.tobytes(), k
+
+
+def test_gpipe_forward_and_grad_match_reference(runs):
+    res = _group(runs, "four")["gpipe"]
+    want_y, want_g = runs["gpipe"]
+    np.testing.assert_allclose(res["y"], want_y, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(res["grad"], want_g, rtol=1e-4, atol=1e-4)
+
+
+def test_moe_dispatch_groups_match_reference(runs):
+    res = _group(runs, "moe2")
+    want_y, want_aux = runs["moe ref"]
+    np.testing.assert_allclose(res["y"], want_y[:1], rtol=1e-5, atol=1e-5)
+    assert res["aux"] == pytest.approx(want_aux, abs=1e-6)
+    losses, want = runs["moe steps"]
+    np.testing.assert_allclose(res["losses"], losses, rtol=0, atol=1e-5)
+    for k, v in want.items():
+        np.testing.assert_allclose(res["trainable"][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
+    assert any(kind == "all_reduce" and elements == 4 and group == "data"
+               for kind, _, elements, group in res["records"])
+
+
+@pytest.mark.parametrize("arch", ("zamba2-1.2b", "seamless-m4t-medium",
+                                  "internvl2-26b"))
+def test_every_family_steps_sharded_as_unsharded(runs, arch):
+    """A hybrid (its list of layers and shared block), an encoder-decoder
+    (its encoder layers) and a VLM (patches in front), reduced, on the
+    (2, 1) mesh: each split leaf is found and gathered at its use, and
+    the step equals the unsharded one (1e-5)."""
+    sharded, plain, diff = _group(runs, "moe2")["families"][arch]
+    assert sharded == pytest.approx(plain, rel=1e-5, abs=1e-5)
+    assert diff <= 1e-5
+
+
+def test_launcher_on_two_ranks_ends_on_one_ranks_loss(runs):
+    rcs, text, _ = runs["launch"]
+    assert rcs == [0], text
+    assert "mesh: {'data': 2, 'model': 1}  devices: 2" in text
+    two, one = _losses(runs["launch jsonl"]), _losses(runs["launch one"])
+    assert len(two) == len(one) == 3
+    np.testing.assert_allclose(two, one, rtol=0, atol=1e-5)

@@ -5,6 +5,8 @@ serve-while-train (a step hook trains and checkpoints with
 checkpoint into the live bank), and a cross-package feed (checkpoints the
 reference's trainer wrote, streamed by each package's feed), each with
 identical outcomes on both engines (:mod:`lifecycle_pairs`)."""
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -97,9 +99,20 @@ def jtrain():
     and the states after steps 1..3 (shared by the feed scenarios)."""
     cfg = jget_config("tiny")
     tc = JTrainConfig(steps=8, learning_rate=5e-3)
-    state0 = jtrainer.init_train_state(jax.random.PRNGKey(1), cfg, tc)
-    step = jax.jit(jtrainer.make_train_step(cfg, tc, moe_impl="dense"))
+    key = jax.random.PRNGKey(1)
+
+    def init(k):
+        return jtrainer.init_train_state(k, cfg, tc)
     ds = JDataset(cfg, batch=2, seq_len=16)
+    # the init and the step traced in turn and compiled together (XLA
+    # compiles without holding the interpreter lock)
+    lowered = (jax.jit(init).lower(key), jax.jit(jtrainer.make_train_step(
+        cfg, tc, moe_impl="dense")).lower(
+            jax.eval_shape(init, key),
+            {k: jnp.asarray(v) for k, v in ds.batch_at(0).items()}))
+    with ThreadPoolExecutor(2) as pool:
+        init, step = pool.map(lambda lo: lo.compile(), lowered)
+    state0 = init(key)
     states = [state0]
     for i in range(3):
         states.append(step(states[-1], {k: jnp.asarray(v) for k, v in

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch/ nor chip_smoke.py
-imports jax, jaxlib, ml_dtypes or the reference package."""
+"""The port stands alone: nothing under src/repro_torch/, chip_smoke.py
+nor the ranks of the distributed tests (tests/torch_dist_ranks.py) imports
+jax, jaxlib, ml_dtypes or the reference package."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "tests" / "torch_dist_ranks.py"]
 
 
 def _imported_roots(path: Path):
@@ -39,6 +41,10 @@ def test_port_files_exist():
     assert "src/repro_torch/examples/train_psoft_lm.py" in names
     assert "src/repro_torch/launch/train.py" in names
     assert "src/repro_torch/train/straggler.py" in names
+    for module in ("sharding/rules", "launch/mesh", "launch/dryrun",
+                   "launch/roofline", "distributed/collectives",
+                   "distributed/pipeline"):
+        assert f"src/repro_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -61,7 +67,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.serve_metrics, "
             "repro_torch.examples.peft_comparison, "
             "repro_torch.examples.train_psoft_lm, "
-            "repro_torch.launch.train, repro_torch.train.straggler; "
+            "repro_torch.launch.train, repro_torch.train.straggler, "
+            "repro_torch.sharding, repro_torch.distributed, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline, repro_torch.data.pipeline; "
             "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro') "
             "if m in sys.modules]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

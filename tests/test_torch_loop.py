@@ -171,7 +171,12 @@ def test_resumed_run_equals_an_unbroken_one(tmp_path, capsys,
 
 
 def test_data_mesh_beyond_one_device_raises():
-    with pytest.raises(ValueError, match="distributed slice"):
+    """One process is one rank: a larger data axis needs the ranks
+    started by ``torch.distributed.run`` (tests/test_torch_distributed.py
+    runs two)."""
+    with pytest.raises(ValueError, match="torch.distributed.run "
+                                         "--nproc-per-node 2"):
         train.main(FLAGS + ["--data-mesh", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match="distributed slice"):
+    with pytest.raises(ValueError, match="torch.distributed.run "
+                                         "--nproc-per-node 4"):
         train.main(FLAGS + ["--data-mesh", "4", "--device", "cpu"])

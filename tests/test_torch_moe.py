@@ -17,6 +17,7 @@ relative (fp32 sums of a few hundred products); train-step losses, grad
 norms and trainables as in ``test_torch_train.py`` (1e-4 relative, plus
 1e-3 * lr per step for the trainables)."""
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -295,16 +296,30 @@ def test_trainable_mask_equals_reference(model_pair):
     assert got["layers"]["moe"]["shared"]["down"]["alpha"] is True
 
 
+@pytest.fixture(scope="module")
+def ref_steps(model_pair):
+    """The reference's train step of each dispatch, traced in turn and
+    compiled together on two threads (XLA compiles without holding the
+    interpreter lock): :func:`_compiled`'s executables."""
+    jcfg, _, jstate = model_pair
+    batch = JDataset(jcfg, batch=BATCH, seq_len=SEQ).batch_at(0)
+    lowered = {impl: jax.jit(jtrainer.make_train_step(
+        jcfg, JTrainConfig(**TC), moe_impl=impl)).lower(jstate, batch)
+        for impl in ("capacity", "dense")}
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        jobs = {impl: pool.submit(lo.compile, XLA_FAST)
+                for impl, lo in lowered.items()}
+        return {impl: job.result() for impl, job in jobs.items()}
+
+
 @pytest.mark.parametrize("impl", ["capacity", "dense"])
-def test_moe_train_steps_match_reference(model_pair, impl):
+def test_moe_train_steps_match_reference(model_pair, ref_steps, impl):
     """3 steps of each dispatch from one converted state: losses, aux and
     grad norms 1e-4 relative, and every trainable leaf after every step."""
     jcfg, _, jstate = model_pair
     cfg = get_config("deepseek-moe-16b").reduced()
     ds = JDataset(jcfg, batch=BATCH, seq_len=SEQ)
-    jstep = _compiled(jtrainer.make_train_step(jcfg, JTrainConfig(**TC),
-                                               moe_impl=impl),
-                      jstate, ds.batch_at(0))
+    jstep = ref_steps[impl]
     tstate = trainer.train_state_from_numpy(jstate, device="cpu")
     tstep = trainer.make_train_step(cfg, TrainConfig(**TC), moe_impl=impl)
     for i in range(STEPS):

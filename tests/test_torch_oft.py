@@ -12,6 +12,8 @@ merged weights 1e-5 relative to the largest entry; train steps as in
 tests/test_torch_train.py (losses 1e-4 relative, trainables 1e-4 relative
 plus 1e-3 * lr per step).  The reference's train steps are jitted once per
 method, in a module fixture."""
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -210,15 +212,32 @@ def test_stacked_tree_merges_and_masks_as_the_reference(method):
 @pytest.fixture(scope="module")
 def ref_runs():
     """Per method: the reference's numpy states after each of 3 steps on
-    tiny (index 0: the initial state) and each step's metrics."""
-    out = {}
+    tiny (index 0: the initial state) and each step's metrics.  Every
+    method's init and step are traced in turn and then compiled together
+    on a thread pool (XLA compiles without holding the interpreter lock):
+    the same executables as ``jax.jit``'s, in ~9 s of compiling instead of
+    ~17 s one after the other."""
+    key = jax.random.PRNGKey(0)
+    lowered = {}
     for method in TRAIN_METHODS:
         jcfg, _ = _cfgs(method)
         jtc = JTrainConfig(**TC)
-        state = jax.jit(lambda k: jtrainer.init_train_state(k, jcfg, jtc))(
-            jax.random.PRNGKey(0))
-        step = jax.jit(jtrainer.make_train_step(jcfg, jtc, moe_impl="dense"))
+
+        def init(k, jcfg=jcfg, jtc=jtc):
+            return jtrainer.init_train_state(k, jcfg, jtc)
         ds = JDataset(jcfg, batch=BATCH, seq_len=SEQ)
+        step = jax.jit(jtrainer.make_train_step(jcfg, jtc, moe_impl="dense"))
+        lowered[method] = (jax.jit(init).lower(key), step.lower(
+            jax.eval_shape(init, key),
+            {k: jnp.asarray(v) for k, v in ds.batch_at(0).items()}), ds)
+    with ThreadPoolExecutor(2 * len(lowered)) as pool:
+        jobs = {m: (pool.submit(i.compile), pool.submit(s.compile))
+                for m, (i, s, _) in lowered.items()}
+        compiled = {m: (i.result(), s.result()) for m, (i, s) in jobs.items()}
+    out = {}
+    for method, (init, step) in compiled.items():
+        ds = lowered[method][2]
+        state = init(key)
         states, metrics = [jax.tree.map(np.asarray, state)], []
         for i in range(STEPS):
             state, m = step(state, {k: jnp.asarray(v)

@@ -6,6 +6,7 @@ the dense-delta bank; and a dropped engine is freed without Python's cycle
 collector."""
 import gc
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -56,12 +57,44 @@ def _summary(engine, done):
     return toks, events
 
 
+#: the dense-delta bank's adapters: method -> noise seed
+DENSE_ADAPTERS = {"oft": 1, "dora": 2}
+
+
+def _compiled_reference_fns(cfg):
+    """The reference's jitted init of ``tiny`` and, per dense-bank
+    adapter, its re-wrap of the merged base and its merge (one compile
+    each, instead of op-by-op eager calls), traced in turn and compiled
+    together on a thread pool (XLA compiles without holding the
+    interpreter lock)."""
+    key = jax.random.PRNGKey(0)
+
+    def init(k):
+        return jmodel.init_params(k, cfg)
+    lowered = {"init": jax.jit(init).lower(key)}
+    shapes = jax.eval_shape(init, key)
+    for method in DENSE_ADAPTERS:
+        pc = cfg.peft.replace(method=method)
+
+        def rewrap(p, pc=pc):
+            return jmodel.rewrap_peft(jpeft.merge_tree(p, cfg.peft),
+                                      cfg.replace(peft=pc))
+
+        def merge(t, pc=pc):
+            return jpeft.merge_tree(t, pc)
+        lowered[("rewrap", method)] = jax.jit(rewrap).lower(shapes)
+        lowered[("merge", method)] = jax.jit(merge).lower(
+            jax.eval_shape(rewrap, shapes))
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        jobs = {k: pool.submit(lo.compile) for k, lo in lowered.items()}
+        return {k: job.result() for k, job in jobs.items()}
+
+
 @pytest.fixture(scope="module")
 def reference():
     cfg = jget_config("tiny")
-    # jitted: one compile instead of op-by-op eager init
-    params = jax.jit(lambda k: jmodel.init_params(k, cfg))(
-        jax.random.PRNGKey(0))
+    fns = _compiled_reference_fns(cfg)
+    params = fns["init"](jax.random.PRNGKey(0))
     tuned = nudge_psoft(params, 0.05)
     eng = JServeEngine(params, cfg, **ENGINE)
     eng.register_adapter("tuned", tuned, cfg.peft)
@@ -71,11 +104,11 @@ def reference():
     assert all(r.done for r in done)
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     return to_np(params), to_np(tuned), _summary(eng, done), \
-        dict(eng.kv.stats)
+        dict(eng.kv.stats), fns
 
 
 def test_port_engine_matches_reference(reference):
-    params, tuned, (want_toks, want_events), want_stats = reference
+    params, tuned, (want_toks, want_events), want_stats, _ = reference
     cfg = get_config("tiny")
     eng = ServeEngine(interop.params_from_numpy(params, device="cpu"), cfg,
                       device="cpu", **ENGINE)
@@ -107,15 +140,14 @@ def test_port_engine_rejects_unknown_adapter_and_long_prompt(reference):
         eng.run([Request(uid=0, prompt=np.zeros(64, np.int32))])
 
 
-def _rewrapped(jparams, jcfg, method, seed):
+def _rewrapped(fns, jparams, jcfg, method):
     """An adapter of the base model trained with ``method``: the merged base
     re-wrapped by the reference, every trainable moved off init by seeded
     numpy noise (so both engines see the same values)."""
     jp = jcfg.peft.replace(method=method)
-    tree = jax.jit(lambda p: jmodel.rewrap_peft(
-        jpeft.merge_tree(p, jcfg.peft), jcfg.replace(peft=jp)))(jparams)
+    tree = fns[("rewrap", method)](jparams)
     names = set(jpeft.trainable_names(method, jp))
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(DENSE_ADAPTERS[method])
 
     def rec(node):
         if isinstance(node, dict):
@@ -134,15 +166,14 @@ def test_dense_bank_adapters_match_reference(reference):
     stack), because its bank builder merges a layer-stacked adapter without
     vmap, where OFT's structure matcher takes the stacked ``q`` for BOFT's
     and DoRA's column norm runs over the layer axis."""
-    params = reference[0]
+    params, fns = reference[0], reference[4]
     jcfg = jget_config("tiny")
-    adapters = {"oft": _rewrapped(params, jcfg, "oft", 1),
-                "dora": _rewrapped(params, jcfg, "dora", 2)}
+    adapters = {m: _rewrapped(fns, params, jcfg, m) for m in DENSE_ADAPTERS}
     workload = [(u, p, n, "base" if a == "base" else ("oft", "dora")[u % 2])
                 for u, p, n, a in _workload(jcfg.vocab_size)]
     eng = JServeEngine(params, jcfg, **ENGINE)
     for name, (tree, pc) in adapters.items():
-        merged = jax.jit(lambda t, pc=pc: jpeft.merge_tree(t, pc))(tree)
+        merged = fns[("merge", name)](tree)
         eng.register_adapter(name, jax.tree.map(np.asarray, merged),
                              pc.replace(method="none", target_modules=()))
     done = eng.run([JRequest(uid=u, prompt=p, max_new_tokens=n, adapter=a)

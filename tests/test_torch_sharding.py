@@ -1,0 +1,296 @@
+"""The port's sharding metadata against the reference package's, in one
+process (no ranks): ``param_axes`` leaf for leaf on one reduced config of
+every family and on ``tiny`` under all ten PEFT methods (and
+``linear_logical_axes`` of a linear by its param names); ``cache_axes`` of
+every family's decode cache; ``logical_spec`` over every param of two
+full-size configs on the production meshes ``{"data": 16, "model": 16}``
+and ``{"pod": 2, "data": 16, "model": 16}`` (pod_role ``dp`` and ``pp``),
+and the per-device param bytes those specs imply (the dry-run's), equal as
+integers; a decode cell's per-device cache bytes (the dry-run's);
+``rules_for`` for train, prefill and decode, a ``kv_heads`` the model
+axis does not divide included; ``make_input_specs`` for every
+``LM_SHAPES`` kind; and the MoE layer's GShard grouped dispatch with G > 1
+groups against the reference's, under a mesh context whose mesh only
+reports sizes (the reference's ``shard_act`` then constrains nothing).
+
+The reference's ``logical_spec`` reads only ``mesh.shape``, so a stand-in
+object with that mapping serves for its production meshes.  Tolerances:
+the MoE layer's outputs 1e-5 and its aux loss 1e-6 (fp32 sums in another
+order), as tests/test_torch_moe.py."""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import LM_SHAPES as JLM_SHAPES  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.core import peft as jpeft  # noqa: E402
+from repro.data import make_input_specs as jmake_input_specs  # noqa: E402
+from repro.launch import mesh as jmesh  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro.sharding import default_rules as jdefault_rules  # noqa: E402
+from repro.sharding import logical_spec as jlogical_spec  # noqa: E402
+from repro.sharding import mesh_context as jmesh_context  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import LM_SHAPES, get_config  # noqa: E402
+from repro_torch.core import peft  # noqa: E402
+from repro_torch.data import make_input_specs  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh, rules_for  # noqa
+from repro_torch.models import model, moe  # noqa: E402
+from repro_torch.sharding import (default_rules, logical_spec,  # noqa: E402
+                                  mesh_context, placements)
+from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+
+FAMILIES = ("granite-8b", "deepseek-moe-16b", "mamba2-1.3b", "zamba2-1.2b",
+            "internvl2-26b", "seamless-m4t-medium")
+METHODS = ("none", "psoft", "lora", "pissa", "dora", "lora_xs", "oft",
+           "boft", "goft", "qgoft")
+MESHES = {"16x16": ({"data": 16, "model": 16}, "dp"),
+          "2x16x16 dp": ({"pod": 2, "data": 16, "model": 16}, "dp"),
+          "2x16x16 pp": ({"pod": 2, "data": 16, "model": 16}, "pp")}
+
+
+class Sizes:
+    """A mesh that only reports its axis sizes (all the reference's
+    ``logical_spec``, ``rules_for`` and MoE group count read); ``size`` 1
+    makes its ``shard_act`` constrain nothing."""
+    size = 1
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+
+
+def _path(kp):
+    return tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)
+
+
+def _ref_pairs(tree):
+    return [(_path(kp), leaf) for kp, leaf in
+            jax.tree_util.tree_flatten_with_path(
+                tree, is_leaf=lambda x: isinstance(x, jmodel.LogicalAxes))[0]]
+
+
+def _axes_pairs(want, got):
+    """(path, reference axes, port axes) of every leaf, in order."""
+    ref = _ref_pairs(want)
+    port = tree_leaves_with_path(got)
+    assert [p for p, _ in ref] == [p for p, _ in port]
+    return [(p, tuple(a), tuple(b)) for (p, a), (_, b) in zip(ref, port)]
+
+
+def _cfgs(arch, method=None):
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    if arch != "tiny":
+        jcfg, cfg = jcfg.reduced(), cfg.reduced()
+    if method is not None:
+        jcfg = jcfg.replace(peft=jcfg.peft.replace(method=method))
+        cfg = cfg.replace(peft=cfg.peft.replace(method=method))
+    return jcfg, cfg
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_param_and_cache_axes_match_reference(arch):
+    jcfg, cfg = _cfgs(arch)
+    jp, tp = jmodel.abstract_params(jcfg), model.abstract_params(cfg)
+    pairs = _axes_pairs(jmodel.param_axes(jcfg, jp), model.param_axes(cfg, tp))
+    assert all(a == b for _, a, b in pairs), \
+        [(p, a, b) for p, a, b in pairs if a != b]
+    if cfg.family == "moe":
+        assert any("expert" in a for _, a, _ in pairs)
+    jc = jax.eval_shape(lambda: jmodel.init_cache(jcfg, 2, 64))
+    tc = model.init_cache(cfg, 2, 64, device="meta")
+    pairs = _axes_pairs(jmodel.cache_axes(jcfg, jc), model.cache_axes(cfg, tc))
+    assert pairs and all(a == b for _, a, b in pairs)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_param_axes_of_every_method_match_reference(method):
+    jcfg, cfg = _cfgs("tiny", method)
+    jp, tp = jmodel.abstract_params(jcfg), model.abstract_params(cfg)
+    pairs = _axes_pairs(jmodel.param_axes(jcfg, jp), model.param_axes(cfg, tp))
+    assert all(a == b for _, a, b in pairs), \
+        [(p, a, b) for p, a, b in pairs if a != b]
+    # one linear's axes by its param names, a column- and a row-parallel
+    for axes in (("fsdp", "tensor"), ("tensor", "fsdp")):
+        for node in (tp["layers"]["attn"]["q"], tp["layers"]["attn"]["o"]):
+            want = jpeft.linear_logical_axes(sorted(node), jcfg.peft, *axes,
+                                             method=method)
+            got = peft.linear_logical_axes(sorted(node), cfg.peft, *axes,
+                                           method=method)
+            assert got == want
+
+
+def _ref_block_bytes(shape, spec, sizes, itemsize):
+    dims = list(shape)
+    for d, axes in enumerate(tuple(spec) + (None,) * (len(dims) - len(spec))):
+        for a in ((axes,) if isinstance(axes, str) else axes or ()):
+            dims[d] //= sizes[a]
+    return math.prod(dims) * itemsize
+
+
+@pytest.fixture(scope="module")
+def full_size_axes():
+    """Per full-size config: (path, reference axes, port axes) of every
+    param leaf, and the reference's abstract leaves (shape and dtype)."""
+    out = {}
+    for arch in ("llama32-3b", "deepseek-moe-16b"):
+        jcfg, cfg = jget_config(arch), get_config(arch)
+        jp, tp = jmodel.abstract_params(jcfg), model.abstract_params(cfg)
+        out[arch] = (_axes_pairs(jmodel.param_axes(jcfg, jp),
+                                 model.param_axes(cfg, tp)),
+                     [leaf for _, leaf in _ref_pairs(jp)])
+    return out
+
+
+@pytest.mark.parametrize("arch", ("llama32-3b", "deepseek-moe-16b"))
+@pytest.mark.parametrize("mesh_name", MESHES)
+def test_logical_specs_and_device_bytes_match_reference(full_size_axes, arch,
+                                                        mesh_name):
+    """Every param of the full-size train state's tree, on a production
+    mesh: the spec (divisibility fallback included), the placements that
+    carry it, and the per-device bytes, equal to the reference's."""
+    sizes, role = MESHES[mesh_name]
+    jrules = jdefault_rules("pod" in sizes, role)
+    rules = default_rules("pod" in sizes, role)
+    assert rules.rules == jrules.rules
+    pairs, leaves = full_size_axes[arch]
+    want_bytes = got_bytes = 0
+    split = 0
+    for (path, jax_axes, axes), leaf in zip(pairs, leaves):
+        want = tuple(jlogical_spec(Sizes(sizes), jrules, jax_axes,
+                                   leaf.shape))
+        got = logical_spec(sizes, rules, axes, leaf.shape)
+        assert got == want[:len(got)] and not any(want[len(got):]), path
+        pl = placements(sizes, rules, axes, leaf.shape)
+        itemsize = np.dtype(leaf.dtype).itemsize
+        want_bytes += _ref_block_bytes(leaf.shape, want, sizes, itemsize)
+        got_bytes += math.prod(pl.local_shape(leaf.shape)) * itemsize
+        split += not pl.is_replicated
+    assert got_bytes == want_bytes and split > 0
+    if mesh_name == "16x16":
+        cell = dryrun.run_cell(arch, "train_4k")
+        assert cell["param_bytes"] == want_bytes
+
+
+@pytest.mark.parametrize("arch,shape", (("llama32-3b", "decode_32k"),
+                                        ("zamba2-1.2b", "long_500k")))
+def test_dryrun_cache_bytes_match_reference(arch, shape):
+    """A decode cell's per-device cache bytes: the reference's cache tree,
+    axes and specs on the production mesh against the dry-run's; the
+    roofline's terms from them."""
+    jcfg = jget_config(arch)
+    jcfg = jcfg.replace(peft=jcfg.peft.replace(method="none"))
+    sizes = make_production_mesh()
+    jrules = jmesh.rules_for(jcfg, Sizes(sizes), "decode")
+    b, length = JLM_SHAPES[shape].global_batch, JLM_SHAPES[shape].seq_len
+    cache = jax.eval_shape(lambda: jmodel.init_cache(jcfg, b, length))
+    want = 0
+    for (path, axes), leaf in zip(
+            _ref_pairs(jmodel.cache_axes(jcfg, cache)), [
+                leaf for _, leaf in _ref_pairs(cache)]):
+        spec = jlogical_spec(Sizes(sizes), jrules, tuple(axes), leaf.shape)
+        want += _ref_block_bytes(leaf.shape, tuple(spec), sizes,
+                                 np.dtype(leaf.dtype).itemsize)
+    cell = dryrun.run_cell(arch, shape)
+    assert cell["cache_bytes"] == want > 0
+    terms = roofline.terms(cell)
+    assert terms["dominant"] in ("compute", "memory", "collective")
+    assert terms["bound_s"] == max(terms["compute_s"], terms["memory_s"],
+                                   terms["collective_s"]) > 0
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill", "decode"))
+def test_rules_for_matches_reference(kind):
+    for arch, kv_heads in (("llama32-3b", None), ("llama32-3b", 4),
+                           ("deepseek-moe-16b", None)):
+        jcfg, cfg = jget_config(arch), get_config(arch)
+        if kv_heads:
+            jcfg = jcfg.replace(num_kv_heads=kv_heads)
+            cfg = cfg.replace(num_kv_heads=kv_heads)
+        for multi_pod in (False, True):
+            sizes = make_production_mesh(multi_pod=multi_pod)
+            want = jmesh.rules_for(jcfg, Sizes(sizes), kind)
+            got = rules_for(cfg, sizes, kind)
+            assert got.rules == want.rules, (arch, kv_heads, multi_pod)
+            if kind != "train" and kv_heads:
+                assert got.get("cache_seq") == "model"
+
+
+@pytest.mark.parametrize("arch", ("llama32-3b", "internvl2-26b",
+                                  "seamless-m4t-medium", "mamba2-1.3b"))
+def test_input_specs_match_reference(arch):
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    assert list(LM_SHAPES) == list(JLM_SHAPES)
+    for name, shape in LM_SHAPES.items():
+        assert dataclasses.asdict(shape) == dataclasses.asdict(
+            JLM_SHAPES[name])
+        want = jmake_input_specs(jcfg, JLM_SHAPES[name])
+        got = make_input_specs(cfg, shape)
+        assert list(got) == list(want), name
+        for k, v in got.items():
+            assert v.is_meta and tuple(v.shape) == want[k].shape, (name, k)
+            assert str(v.dtype).replace("torch.", "") == \
+                np.dtype(want[k].dtype).name, (name, k)
+
+
+@pytest.fixture(scope="module")
+def moe_layer():
+    """Reduced deepseek-moe-16b's MoE layer (PSOFT on every expert stack)
+    as numpy params in the reference's structure, and 48 tokens."""
+    jcfg = jget_config("deepseek-moe-16b").reduced()
+    shapes = jax.eval_shape(lambda k: jmoe.moe_init(
+        k, jcfg, jnp.float32, jnp.float32, jcfg.peft.target_modules),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+
+    def leaf(kp, s):
+        z = rng.standard_normal(s.shape).astype(np.float32)
+        name = kp[-1].key
+        if name == "q":
+            return 0.05 * z
+        if name in ("alpha", "beta"):
+            return 1 + 0.05 * z
+        return z / np.sqrt(s.shape[-2] if len(s.shape) >= 2 else 1)
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    x = rng.standard_normal((4, 12, jcfg.d_model)).astype(np.float32)
+    return params, x
+
+
+@pytest.mark.parametrize("data", (2, 5))
+def test_grouped_capacity_dispatch_matches_reference(moe_layer, data):
+    """G = 2 groups, and data = 5, which the reference lowers to 4 groups
+    (48 tokens); capacity 0.5 drops tokens within each group."""
+    params, x = moe_layer
+    cap = 0.5
+    jcfg = jget_config("deepseek-moe-16b").reduced()
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, capacity_factor=cap))
+    cfg = get_config("deepseek-moe-16b").reduced()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cap))
+    sizes = {"data": data, "model": 1}
+    with jmesh_context(Sizes(sizes), jmesh.rules_for(jcfg, Sizes(sizes))):
+        assert jmoe._group_count(48) == (2 if data == 2 else 4)
+        fn = jax.jit(lambda p, xx: jmoe.moe_apply(p, xx, jcfg, jnp.float32,
+                                                  "capacity"))
+        want_y, want_aux = fn(params, x)
+    tp = interop.params_from_numpy(params, device="cpu")
+    with mesh_context(sizes, rules_for(cfg, sizes)):
+        assert moe._group_count(48) == (2 if data == 2 else 4)
+        y, aux = moe.moe_apply(tp, torch.from_numpy(x), cfg, torch.float32,
+                               "capacity")
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-5,
+                               atol=1e-5)
+    assert float(aux) == pytest.approx(float(want_aux), abs=1e-6)
+    # one group gives other rows: the groups change the drops
+    y1, _ = moe.moe_apply(tp, torch.from_numpy(x), cfg, torch.float32,
+                          "capacity")
+    assert not torch.allclose(y1, y)
