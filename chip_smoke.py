@@ -17,7 +17,8 @@ at full depth unless ``--layers`` cuts it.)  Phases 19-21 serve and train
 the SSM and hybrid families on the dense cache, phases 22-24 the VLM and
 the audio encoder-decoder families, phases 25-28 the rest of the dense
 zoo, the remat policies and the training launcher, phase 29 the
-distributed path at world size 1.
+distributed path at world size 1, phase 30 the compute split over the
+``model`` axis on two ranks that share the card.
 
 Phases, each of which raises (non-zero exit) on a failed check:
 
@@ -302,7 +303,20 @@ Phases, each of which raises (non-zero exit) on a failed check:
     launches, every split frozen leaf all-gathered at its use and one
     gradient all-reduce a step, with both steps' times and peak memory;
     GPipe at S = 1 against the sequential loop; the launcher's
-    ``--data-mesh 1`` path against its one-device path.
+    ``--data-mesh 1`` path against its one-device path; it saves its
+    initial state for phase 30;
+30. split: the compute split over "model" (head-, MLP- and
+    vocab-parallel training) on a (1, 2) mesh of two processes that share
+    the card through a gloo group (``chip_smoke.py --split-rank R
+    --split-work DIR``, started by the parent; every collective over
+    "model" staged through host memory): llama32-3b at full width (depth
+    as in 3) from phase 29's state against the unsharded step (losses
+    1e-3 relative, every step-1 gradient 2e-2 relative L2, grad norms
+    1e-2; the same psoft_matmul and cayley_neumann launches a rank, all
+    on "wgmma" and "tc", at the split shapes; no all-gather over "model"
+    and exactly the predicted all-reduces), four planted faults rejected;
+    tiny fp32 card against CPU (1e-4 / 1e-5); one OFT step at 2 layers
+    (o and down through "gathered_row", blockdiag_rotate on "mma").
 
 Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
 psoft_matmul at both expert stacks (G 64, M 240, K/N 2048/1408, r 64; bf16
@@ -334,7 +348,11 @@ K 6144, N 24576, r 128); paged decode and prefill at 48 heads over 4 KV
 heads of 128 (GQA group 12); cayley_neumann at (2, 128) and (24, 64); each
 limit rejecting the last 64 columns dropped, each row on the wrong
 adapter, the last K split of W dropped, and the twelfth query head of
-each group reading the neighbouring KV head.
+each group reading the neighbouring KV head.  And at phase 30's rank
+shapes: psoft_matmul at llama32-3b's linears split over two ranks (M
+2048, r 352; N 1536 / 512 / 4096 of K 3072 for the column-split ones, K
+1536 / 4096 of N 3072 for the row-split ones), and cayley_neumann at the
+(8, 352) stack each rank builds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -346,10 +364,13 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict, Tuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -2992,7 +3013,10 @@ CAYLEY_SHAPES = {"psoft": (28, 352), "oft": (2688, 32), "oft_down": (7168, 32),
                  "boft": (21504, 8), "boft_down": (57344, 8),
                  "moe_experts": (1792, 64), "smem_max": (2, 128),
                  "vlm": (48, 128), "audio": (12, 48),
-                 "internlm2": (24, 64)}
+                 "internlm2": (24, 64),
+                 # a PSOFT stack at LLAMA_LAYERS: phases 5 and 29 build
+                 # it, and each rank of phase 30 on the replicated q
+                 "psoft_8": (8, 352)}
 CAYLEY_TERMS = 5
 
 
@@ -6351,6 +6375,9 @@ def zoo_card_vs_cpu_phase(torch, configs, model, serve, trainer, data, tree,
 #: phase 29: sharded and unsharded steps from one state, the GPipe check's
 #: widths, and the launcher's distributed run
 SHARDED_STEPS = 3
+#: phase 30's work directory (gitignored): phase 29's initial state, the
+#: ranks' file store, spec, logs and results
+SPLIT_WORK = ROOT / "build" / "split"
 GPIPE_MICRO, GPIPE_MB, GPIPE_D = 8, 4, 256
 
 
@@ -6372,7 +6399,7 @@ def run_steps(torch, ops, step, state, batches):
 
 
 def sharded_phase(torch, args, configs, model, trainer, data, tree, ops,
-                  launch_train, gpu_line):
+                  launch_train, gpu_line, checkpoint=None, save_to=None):
     """Phase 29: the distributed path on the card at world size 1.  NCCL
     on an in-memory store (``init_distributed`` with no launcher
     environment), a ``(1, 1)`` ("data", "model") mesh and its train rules;
@@ -6387,7 +6414,9 @@ def sharded_phase(torch, args, configs, model, trainer, data, tree, ops,
     a layer a step) and one fp32 gradient all-reduce a step.  Then GPipe at
     S = 1 on CUDA tensors against the sequential loop (forward and grad,
     fp32, 1e-5), and the launcher's distributed path (``--data-mesh 1
-    --reduced``, 2 steps) against its one-device path (equal losses)."""
+    --reduced``, 2 steps) against its one-device path (equal losses).
+    With ``save_to`` the initial state is also saved there
+    (``checkpoint.save``), for phase 30's ranks to load."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -6411,6 +6440,9 @@ def sharded_phase(torch, args, configs, model, trainer, data, tree, ops,
     init_s = time.perf_counter() - t0
     state = trainer.train_state_from_params(params, cfg, tc)
     del params
+    if save_to is not None:
+        shutil.rmtree(save_to, ignore_errors=True)
+        checkpoint.save(state, str(save_to), 0)
     shardings, _ = trainer.state_shardings(cfg, tc, mesh, rules)
     local = trainer.shard_state(state, shardings, mesh)
     check(all(a is b for a, b in zip(tree.tree_leaves(local),
@@ -6521,6 +6553,652 @@ def sharded_phase(torch, args, configs, model, trainer, data, tree, ops,
                 gpu=gpu_line)
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the compute split over "model", two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: phase 30: three steps of each split run, the OFT step's depth, how long
+#: the parent waits for its ranks (their start and every run included)
+SPLIT_STEPS, SPLIT_OFT_LAYERS, SPLIT_TIMEOUT_S = 3, 2, 600
+#: (a) and (c), the repo's bf16 rule: losses and grad norms relative,
+#: every trainable leaf's step-1 gradient in relative L2
+SPLIT_LOSS_REL, SPLIT_GRAD_REL_L2, SPLIT_NORM_REL = 1e-3, 2e-2, 1e-2
+#: (a)'s witness: the split's worst step-1 gradient against the unsharded
+#: fp32 step at most this many times the unsharded bf16 step's (1.044 in
+#: the first reading, 1.868e-2 over 1.789e-2 at 8 layers)
+SPLIT_WITNESS_RATIO = 1.5
+#: (b), tiny fp32 against the CPU: losses, gradients and trainables
+SPLIT_TINY_LOSS, SPLIT_TINY_GRAD = 1e-4, 1e-5
+#: psoft_matmul at a rank's shapes in phase 30 (a): llama32-3b's linears
+#: split over two ranks, 8 x 256 tokens, r 352 (phase 2 times them)
+SPLIT_PSOFT = (("q col-split", 2048, 3072, 1536, RANK),
+               ("k/v col-split", 2048, 3072, 512, RANK),
+               ("gate/up col-split", 2048, 3072, 4096, RANK),
+               ("o row-split", 2048, 1536, 3072, RANK),
+               ("down row-split", 2048, 4096, 3072, RANK))
+#: the planted faults of (a), each done by patching the rank process, and
+#: the limit each must break ("any": at least one of the three)
+SPLIT_FAULTS = {"first o all-reduce skipped": "any",
+                "loss's sum of exps not summed over model": "loss",
+                "model gradient sum dropped": "gradient",
+                "model gradient sum doubled": "grad norm"}
+
+
+def split_kernel_phase(torch, ops, ref):
+    """psoft_matmul at a rank's shapes of phase 30 (:data:`SPLIT_PSOFT`),
+    in phase 2: the checks and timings of :func:`psoft_shape_checks`."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    out = psoft_shape_checks(torch, ops, ref, gen, SPLIT_PSOFT)
+    for name, v in out.items():
+        print(f"kernels: psoft_matmul {name} ({v['shape']}): forward "
+              f"{v['ms']:.4f} ms, transposed {v['backward_ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, torch.matmul on the merged weight "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"{v['bound_by']}; max err {v['max_err']:.3g} / "
+              f"{v['max_err_transposed']:.3g}, grads {v['grad_max_err']:.3g}")
+    return out
+
+
+def split_configs(configs, spec):
+    """(llama32-3b at the phase's depth in bf16 PSOFT r 352, remat
+    "full"; llama32-3b OFT with blocks of 32 at SPLIT_OFT_LAYERS; tiny
+    fp32) of a phase-30 spec, reduced where the spec asks (a CPU
+    rehearsal)."""
+    def cut(cfg, layers):
+        cfg = cfg.reduced() if spec.get("reduced") else cfg
+        return cfg.replace(remat_policy="full", num_layers=layers)
+    llama = cut(configs.get_config("llama32-3b"), spec["layers"])
+    oft = cut(configs.get_config("llama32-3b"), SPLIT_OFT_LAYERS)
+    oft = oft.replace(peft=oft.peft.replace(method="oft",
+                                            **BASELINES["oft"]))
+    return llama, oft, configs.get_config("tiny")
+
+
+def split_oft_params(torch, model, cfg, device):
+    return nudged(torch, model.init_params(cfg, seed=3, device=device),
+                  ("q",), 4, 0.01, device=device)
+
+
+def flat_numpy(tree_lib, tree):
+    return {"/".join(p): t.detach().float().cpu().numpy()
+            for p, t in tree_lib.tree_leaves_with_path(tree)}
+
+
+def split_run(torch, ops, tree_lib, adamw, step, state, batches, device):
+    """``step`` over ``batches`` from ``state``, counted from zero: (final
+    state, a dict of losses, grad norms, step 1's gradients (numpy), step
+    ms, peak GiB, launches and engines)."""
+    got = []
+    update = adamw.adamw_update
+
+    def capture(grads, *a, **kw):
+        if not got:
+            got.append(flat_numpy(tree_lib, grads))
+        return update(grads, *a, **kw)
+    adamw.adamw_update = capture
+    cuda = device == "cuda"
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses, norms, ms = [], [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        adamw.adamw_update = update
+    return state, dict(
+        losses=losses, grad_norms=norms, grads=got[0], step_ms=ms,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+        launches=dict(ops.LAUNCHES),
+        psoft_engines=dict(ops.PSOFT_ENGINE_LAUNCHES),
+        cayley_engines=dict(ops.CAYLEY_ENGINE_LAUNCHES),
+        blockdiag_engines=dict(ops.BLOCKDIAG_ENGINE_LAUNCHES))
+
+
+def expand_template(torch, tree_lib, abstract, device, shardings=None):
+    """A restore template that holds no memory: each leaf of ``abstract``
+    one element of its dtype on ``device`` expanded to its shape, or to
+    its block's under ``shardings``."""
+    def one(t, pl=None):
+        s = tuple(t.shape) if pl is None else pl.local_shape(t.shape)
+        return torch.empty((1,) * len(s), dtype=t.dtype,
+                           device=device).expand(s)
+    if shardings is None:
+        return tree_lib.tree_map(one, abstract)
+    return tree_lib.tree_map(one, abstract, shardings)
+
+
+def split_rank_main(torch, rank: int, work: Path) -> int:
+    """One rank of phase 30 (``chip_smoke.py --split-rank R --split-work
+    DIR``, started by the parent): reads the parent's DIR/spec.json, joins
+    a gloo group of two ranks on a file store in DIR, forms a (1, 2)
+    ("data", "model") mesh and loads its blocks of the saved llama32-3b
+    state; once the parent writes DIR/go.json it runs (a) the split steps,
+    their planted faults, (c) one OFT step and (b) tiny's steps, and
+    writes its results to DIR/rankR.pt."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import pipeline as data
+    from repro_torch.distributed import collectives, tensor_parallel
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_local_mesh, rules_for
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint, trainer
+
+    spec = json.loads((work / "spec.json").read_text())
+    device = spec["device"]
+    # the two ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(work / "store"), 2), rank=rank, world_size=2)
+    mesh = make_local_mesh(1, 2)
+    llama, oft, tiny = split_configs(configs, spec)
+    tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
+    out = {"rank": rank}
+
+    def restore(cfg, tc_, ckpt):
+        rules = rules_for(cfg, mesh, "train")
+        sh, abstract = trainer.state_shardings(cfg, tc_, mesh, rules)
+        template = expand_template(torch, tree_lib, abstract, device, sh)
+        local = checkpoint.restore(template, str(ckpt), shardings=sh,
+                                   mesh=mesh)
+        return local, sh, trainer.make_train_step(cfg, tc_, mesh=mesh,
+                                                  rules=rules)
+
+    def records():
+        return [(c.kind, str(c.dtype), c.elements, c.group, c.staged, c.tag)
+                for c in collectives.RECORD]
+
+    # (a) llama32-3b, the psoft_matmul launches' shapes recorded
+    local, _, step = restore(llama, tc, work / "llama")
+    deadline = time.monotonic() + SPLIT_TIMEOUT_S
+    while not (work / "go.json").exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError("split rank: no go from the parent")
+        time.sleep(0.05)
+    ds = data.SyntheticLMDataset(llama, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [ds.batch_at(i) for i in range(SPLIT_STEPS)]
+    shapes: Dict = {}
+    psoft_mm = ops._psoft_mm
+
+    def recorded(x, w_res, *args):
+        key = (tuple(w_res.shape), bool(args[-1]))
+        shapes[key] = shapes.get(key, 0) + 1
+        return psoft_mm(x, w_res, *args)
+    ops._psoft_mm = recorded
+    collectives.reset()
+    try:
+        _, res = split_run(torch, ops, tree_lib, adamw, step, local,
+                           batches, device)
+    finally:
+        ops._psoft_mm = psoft_mm
+    res.update(records=records(), psoft_shapes=sorted(shapes.items()))
+    out["llama"] = res
+
+    # the planted faults, one step each from the same state
+    TP = tensor_parallel.TensorParallel
+    apply, summed, reduce = TP.apply, TP.grad_summed, trainer._reduce_grads
+    skipped = []
+
+    def skip_first_o(self, method, params, x, peft_cfg, cdt, module):
+        if module == "o" and not skipped:
+            skipped.append(module)
+            part = tensor_parallel.local_params(params, method, peft_cfg,
+                                                "row", self.rank, self.size)
+            return method.apply(part, x, peft_cfg, cdt)
+        return apply(self, method, params, x, peft_cfg, cdt, module)
+
+    def doubled(grads, dtype, mesh_, axes, n):
+        g = reduce(grads, dtype, mesh_, axes, n)
+        if tensor_parallel.AXIS in axes:
+            g = tree_lib.tree_map(lambda t: 2 * t, g)
+        return g
+    all_reduce = collectives.all_reduce
+
+    def no_exp_sum(t, mesh_, axes, *args, tag="", **kwargs):
+        if tag == "ce_sum":
+            return t
+        return all_reduce(t, mesh_, axes, *args, tag=tag, **kwargs)
+    names = list(SPLIT_FAULTS)
+    patches = {names[0]: (TP, "apply", skip_first_o),
+               names[1]: (collectives, "all_reduce", no_exp_sum),
+               names[2]: (TP, "grad_summed", lambda self, p: False),
+               names[3]: (trainer, "_reduce_grads", doubled)}
+    out["faults"] = {}
+    for name, (owner, attr, fn) in patches.items():
+        setattr(owner, attr, fn)
+        try:
+            _, res = split_run(torch, ops, tree_lib, adamw, step, local,
+                               batches[:1], device)
+        finally:
+            TP.apply, TP.grad_summed, trainer._reduce_grads = \
+                apply, summed, reduce
+            collectives.all_reduce = all_reduce
+        out["faults"][name] = {k: res[k] for k in ("losses", "grad_norms",
+                                                  "grads")}
+    del local, step
+
+    # (c) one OFT step, every rank's state from the same seed
+    rules = rules_for(oft, mesh, "train")
+    state = trainer.train_state_from_params(
+        split_oft_params(torch, model, oft, device), oft, tc)
+    sh, _ = trainer.state_shardings(oft, tc, mesh, rules)
+    local = trainer.shard_state(state, sh, mesh)
+    del state
+    ds = data.SyntheticLMDataset(oft, TRAIN_BATCH, TRAIN_SEQ)
+    collectives.reset()
+    _, res = split_run(torch, ops, tree_lib, adamw, trainer.make_train_step(
+        oft, tc, mesh=mesh, rules=rules), local, [ds.batch_at(0)], device)
+    res.update(records=records())
+    out["oft"] = res
+    del local
+
+    # (b) tiny fp32 from the parent's state
+    tc_tiny = configs.TrainConfig(steps=SPLIT_STEPS)
+    local, sh, step = restore(tiny, tc_tiny, work / "tiny")
+    ds = data.SyntheticLMDataset(tiny, 8, 32)
+    collectives.reset()
+    final, res = split_run(torch, ops, tree_lib, adamw, step, local,
+                           [ds.batch_at(i) for i in range(SPLIT_STEPS)],
+                           device)
+    res.update(records=records(), trainable=flat_numpy(
+        tree_lib, trainer.gather_state(final.trainable, sh.trainable,
+                                       mesh)))
+    out["tiny"] = res
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def rel_l2(want, got) -> float:
+    import numpy as np
+    den = float(np.linalg.norm(want))
+    return float(np.linalg.norm(got - want)) / max(den, 1e-30)
+
+
+def worst_grad(want, got) -> Tuple[str, float]:
+    """(leaf, relative L2 error) of the worst step-1 gradient."""
+    errs = {k: rel_l2(v, got[k]) for k, v in want.items()}
+    k = max(errs, key=errs.get)
+    return k, errs[k]
+
+
+def split_expected_shapes(cfg, kinds, size):
+    """The W_res shapes a rank's psoft_matmul launches read: a column
+    split's N cut, a row split's K."""
+    d, f = cfg.d_model, cfg.d_ff
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    full = {"q": (d, h * hd), "k": (d, kh * hd), "v": (d, kh * hd),
+            "o": (h * hd, d), "gate": (d, f), "up": (d, f), "down": (f, d)}
+    out = set()
+    for m, (k, n) in full.items():
+        if kinds[m] == "col":
+            n //= size
+        elif kinds[m] == "row":
+            k //= size
+        out.add((k, n))
+    return out
+
+
+def split_phase(torch, args, configs, model, trainer, data, tree, ops,
+                checkpoint, gpu_line, work: Path, device="cuda"):
+    """Phase 30: the compute split over "model" in the sharded train step,
+    on two processes that share the card (NCCL refuses two ranks on one
+    device, so they join a gloo group on a file store, every collective
+    staged through host memory).  The parent starts them as ``chip_smoke.py
+    --split-rank R --split-work DIR``; they form a (1, 2) ("data",
+    "model") mesh and load the initial state phase 29 saved under
+    ``DIR/llama`` (``checkpoint.save``; the SVD split ran once), each its
+    own vocabulary rows of the embedding and the head.  Meanwhile the
+    parent computes the unsharded references; then it hands the ranks
+    their spec, waits for them (failing the phase if either fails or takes
+    longer than SPLIT_TIMEOUT_S) and holds their results:
+
+    (a) llama32-3b at full width (d 3072, 24/8 heads -> 12/4 a rank, d_ff
+        8192 -> 4096 a rank, vocab 128256 -> 64128 a rank; depth as in 3),
+        bf16 PSOFT r 352, remat "full", 3 steps of 8 x 256 tokens (phase
+        29's batches), against the unsharded step from the same state:
+        losses within 1e-3 relative, every trainable leaf's step-1
+        gradient within 2e-2 relative L2, grad norms within 1e-2 relative;
+        each rank as many psoft_matmul launches as the unsharded step, all
+        on "wgmma", at the split's shapes (N / 2 for q k v gate up, K / 2
+        for o down), and as many cayley_neumann; no all-gather over
+        "model", exactly the all-reduces over it that
+        ``tensor_parallel.step_collectives`` predicts and one gradient sum
+        a step; four planted faults rejected (:data:`SPLIT_FAULTS`: the
+        loss's sum of exps left unsummed breaks the loss limit, the
+        "model" gradient sum dropped the gradient limit, doubled the
+        grad-norm limit, and the first o all-reduce skipped breaks at
+        least one of them: at random init the mean loss moves only to
+        second order in the hidden state, ~5e-5 at 8 layers, so it is
+        the gradients that show it);
+    (b) tiny fp32 on the (1, 2) mesh on the card against the unsharded
+        step on the CPU from one state: losses within 1e-4, step-1
+        gradients and the trainables after 3 steps within 1e-5;
+    (c) one OFT step (blocks of 32) at full width and SPLIT_OFT_LAYERS
+        layers against the unsharded step at the bf16 rule, o and down
+        through "gathered_row", every blockdiag_rotate launch on "mma" and
+        as many as the unsharded step's.
+
+    A witness for (a)'s gradient limit: the unsharded step in fp32 from
+    the same state, one step; the unsharded bf16 step's and the split's
+    step-1 gradients are each measured against it, so that the split's
+    distance from the unsharded bf16 step reads beside bf16's own
+    distance from fp32, and the split's distance from fp32 must stay
+    within SPLIT_WITNESS_RATIO times the unsharded bf16 step's (a check
+    that grows with depth as bf16's noise does).
+
+    Step ms and peak memory are two gloo ranks sharing one card with the
+    collectives staged through host: not a speed figure of the split."""
+    import numpy as np
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.optim import adamw
+
+    cuda = device == "cuda"
+    gc_freed_gib = free_cycles(torch) if cuda else 0.0
+    spec = dict(device=device, layers=args.layers,
+                reduced=bool(getattr(args, "reduced", False)))
+    llama, oft, tiny = split_configs(configs, spec)
+    tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
+    for name in ("go.json", "store", "rank0.pt", "rank1.pt"):
+        (work / name).unlink(missing_ok=True)
+    (work / "spec.json").write_text(json.dumps(spec))
+    # tiny's initial state, on the CPU, for the ranks to load
+    tc_tiny = configs.TrainConfig(steps=SPLIT_STEPS)
+    tiny_state = trainer.init_train_state(tiny, tc_tiny, seed=30,
+                                          device="cpu")
+    checkpoint.save(tiny_state, str(work / "tiny"), 0)
+    logs = [open(work / f"rank{r}.log", "w") for r in range(2)]
+    t_start = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--split-rank",
+         str(r), "--split-work", str(work)], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        # the unsharded references while the ranks start
+        t0 = time.perf_counter()
+        state = checkpoint.restore(expand_template(
+            torch, tree_lib, trainer.init_train_state(llama, tc,
+                                                      device="meta"),
+            device), str(work / "llama"))
+        ds = data.SyntheticLMDataset(llama, TRAIN_BATCH, TRAIN_SEQ)
+        _, want = split_run(torch, ops, tree_lib, adamw,
+                            trainer.make_train_step(llama, tc), state,
+                            [ds.batch_at(i) for i in range(SPLIT_STEPS)],
+                            device)
+        del state
+        # the witness: the unsharded step in fp32 from the same state (its
+        # bf16 weights widened exactly), for how far bf16 alone moves the
+        # step-1 gradients
+        state = checkpoint.restore(expand_template(
+            torch, tree_lib, trainer.init_train_state(llama, tc,
+                                                      device="meta"),
+            device), str(work / "llama"))
+        state = tree_lib.tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, state)
+        _, want32 = split_run(
+            torch, ops, tree_lib, adamw, trainer.make_train_step(
+                llama.replace(dtype="float32", param_dtype="float32"), tc),
+            state, [ds.batch_at(0)], device)
+        del state
+        state = trainer.train_state_from_params(
+            split_oft_params(torch, model, oft, device), oft, tc)
+        ds = data.SyntheticLMDataset(oft, TRAIN_BATCH, TRAIN_SEQ)
+        _, want_oft = split_run(torch, ops, tree_lib, adamw,
+                                trainer.make_train_step(oft, tc), state,
+                                [ds.batch_at(0)], device)
+        del state
+        ds = data.SyntheticLMDataset(tiny, 8, 32)
+        final, want_tiny = split_run(
+            torch, ops, tree_lib, adamw, trainer.make_train_step(
+                tiny, tc_tiny), tiny_state,
+            [ds.batch_at(i) for i in range(SPLIT_STEPS)], "cpu")
+        want_tiny["trainable"] = flat_numpy(tree_lib, final.trainable)
+        if cuda:
+            free_cycles(torch)
+        ref_s = time.perf_counter() - t0
+        (work / "go.json").write_text("{}")
+        deadline = time.monotonic() + SPLIT_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t_start
+    rcs = [p.returncode for p in procs]
+    tails = "\n".join((work / f"rank{r}.log").read_text()[-4000:]
+                      for r in range(2))
+    check(rcs == [0, 0], f"split: rank processes exited {rcs} (0 each "
+                         f"within {SPLIT_TIMEOUT_S} s):\n{tails}")
+    got = [torch.load(work / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+
+    # (a) against the unsharded step
+    a0 = got[0]["llama"]
+    losses_rel = max(abs(g - w) / abs(w) for g, w in
+                     zip(a0["losses"], want["losses"]))
+    norm_rel = max(abs(g - w) / abs(w) for g, w in
+                   zip(a0["grad_norms"], want["grad_norms"]))
+    leaf, grad_rel = worst_grad(want["grads"], a0["grads"])
+    check(sorted(a0["grads"]) == sorted(want["grads"])
+          and losses_rel <= SPLIT_LOSS_REL and grad_rel <= SPLIT_GRAD_REL_L2
+          and norm_rel <= SPLIT_NORM_REL,
+          f"split (a): losses {a0['losses']} against {want['losses']} "
+          f"(relative {losses_rel:.2e}, limit {SPLIT_LOSS_REL}), worst "
+          f"step-1 gradient {leaf} at relative L2 {grad_rel:.2e} (limit "
+          f"{SPLIT_GRAD_REL_L2}), grad norms relative {norm_rel:.2e} "
+          f"(limit {SPLIT_NORM_REL})")
+    check(all(np.array_equal(got[1]["llama"]["grads"][k], v)
+              for k, v in a0["grads"].items()),
+          "split (a): both ranks hold the same summed gradients")
+    sizes = {"data": 1, "model": 2}
+    kinds, vocab = tensor_parallel.plan_linears(
+        llama, sizes, rules_for(llama, sizes))
+    predicted = sorted(tensor_parallel.step_collectives(
+        llama, kinds, vocab, 2, TRAIN_BATCH, TRAIN_SEQ) * SPLIT_STEPS)
+    n_train = sum(v.size for v in want["grads"].values())
+    shapes_want = split_expected_shapes(llama, kinds, 2)
+    for r, res in enumerate(g["llama"] for g in got):
+        for k in TRAIN_KERNELS:
+            check(res["launches"][k] == want["launches"][k]
+                  and (want["launches"][k] > 0 or not cuda),
+                  f"split (a) rank {r}: {k} launched {res['launches'][k]} "
+                  f"times, the unsharded step {want['launches'][k]}")
+        if cuda:
+            check(res["psoft_engines"]["wgmma"]
+                  == res["launches"]["psoft_matmul"],
+                  f"split (a) rank {r}: psoft_matmul engines "
+                  f"{res['psoft_engines']} (every launch on wgmma)")
+        seen = {s for (s, _), _ in res["psoft_shapes"]}
+        check(seen == shapes_want,
+              f"split (a) rank {r}: psoft_matmul W_res shapes {seen}, "
+              f"expected {shapes_want}")
+        on_model = [(tag, n) for kind, _, n, group, _, tag
+                    in res["records"] if group == "model"]
+        gathers = [t for t in res["records"]
+                   if t[0] == "all_gather" and t[3] == "model"]
+        check(not gathers and sorted(t for t in on_model
+                                     if t[0] != "grads") == predicted
+              and [t for t in on_model if t[0] == "grads"]
+              == [("grads", n_train)] * SPLIT_STEPS,
+              f"split (a) rank {r}: {len(gathers)} all-gathers over model; "
+              f"{len(on_model)} collectives over model against "
+              f"{len(predicted)} predicted plus {SPLIT_STEPS} gradient sums")
+        check(not cuda or all(t[4] for t in res["records"]
+                              if t[3] == "model"),
+              f"split (a) rank {r}: every collective over model (a gloo "
+              f"group on the card) staged through host memory")
+
+    # the planted faults
+    faults = {}
+    for name in SPLIT_FAULTS:
+        f = got[0]["faults"][name]
+        lrel = abs(f["losses"][0] - want["losses"][0]) / abs(
+            want["losses"][0])
+        leaf_f, grel = worst_grad(want["grads"], f["grads"])
+        nrel = abs(f["grad_norms"][0] - want["grad_norms"][0]) / abs(
+            want["grad_norms"][0])
+        faults[name] = dict(loss_rel=lrel, grad_rel_l2=grel, grad_leaf=leaf_f,
+                            norm_rel=nrel)
+    for name, limit in SPLIT_FAULTS.items():
+        f = faults[name]
+        broken = {"loss": f["loss_rel"] > SPLIT_LOSS_REL,
+                  "gradient": f["grad_rel_l2"] > SPLIT_GRAD_REL_L2,
+                  "grad norm": f["norm_rel"] > SPLIT_NORM_REL}
+        check(any(broken.values()) if limit == "any" else broken[limit],
+              f"split (a): {name}: loss {f['loss_rel']:.2e}, gradient "
+              f"{f['grad_rel_l2']:.2e}, grad norm {f['norm_rel']:.2e}; "
+              f"expected outside the {limit} limit")
+
+    # the bf16 witness: the unsharded bf16 step and the split against fp32
+    w_leaf, w_rel = worst_grad(want32["grads"], want["grads"])
+    ws_leaf, ws_rel = worst_grad(want32["grads"], a0["grads"])
+    witness = dict(unsharded=(w_leaf, w_rel), split=(ws_leaf, ws_rel))
+    # (the CPU rehearsal's reduced config computes in fp32: no witness)
+    check(ws_rel <= SPLIT_WITNESS_RATIO * w_rel or not cuda,
+          f"split (a): against the unsharded fp32 step the split's worst "
+          f"step-1 gradient {ws_leaf} is at {ws_rel:.3e} relative L2, the "
+          f"unsharded bf16 step's {w_leaf} at {w_rel:.3e} (limit "
+          f"{SPLIT_WITNESS_RATIO} times it)")
+    for name, f in faults.items():
+        f["witness_ratio"] = worst_grad(
+            want32["grads"], got[0]["faults"][name]["grads"])[1] / max(
+                w_rel, 1e-30)
+
+    # (c) OFT
+    c0 = got[0]["oft"]
+    leaf_c, grad_rel_c = worst_grad(want_oft["grads"], c0["grads"])
+    loss_rel_c = abs(c0["losses"][0] - want_oft["losses"][0]) / abs(
+        want_oft["losses"][0])
+    check(grad_rel_c <= SPLIT_GRAD_REL_L2 and loss_rel_c <= SPLIT_LOSS_REL,
+          f"split (c): OFT step-1 gradient {leaf_c} at relative L2 "
+          f"{grad_rel_c:.2e}, loss relative {loss_rel_c:.2e}")
+    for r, res in enumerate(g["oft"] for g in got):
+        n_rot = res["launches"]["blockdiag_rotate"]
+        check(n_rot == want_oft["launches"]["blockdiag_rotate"]
+              and (not cuda or res["blockdiag_engines"]["mma"] == n_rot > 0)
+              and any(t[0] == "all_gather" and t[3] == "model"
+                      and t[5] == "gather_from" for t in res["records"]),
+              f"split (c) rank {r}: blockdiag_rotate {n_rot} launches "
+              f"({res['blockdiag_engines']}), the unsharded step "
+              f"{want_oft['launches']['blockdiag_rotate']}; o and down "
+              f"gathered over model")
+
+    # (b) tiny fp32, card against CPU
+    b0 = got[0]["tiny"]
+    tiny_loss = max(abs(g - w) for g, w in zip(b0["losses"],
+                                               want_tiny["losses"]))
+    tiny_grad = max(float(np.abs(b0["grads"][k] - v).max())
+                    for k, v in want_tiny["grads"].items())
+    tiny_tr = max(float(np.abs(b0["trainable"][k] - v).max())
+                  for k, v in want_tiny["trainable"].items())
+    check(tiny_loss <= SPLIT_TINY_LOSS and tiny_grad <= SPLIT_TINY_GRAD
+          and tiny_tr <= SPLIT_TINY_GRAD,
+          f"split (b): tiny on (1, 2) against the CPU: losses "
+          f"{tiny_loss:.2e} (limit {SPLIT_TINY_LOSS}), step-1 gradients "
+          f"{tiny_grad:.2e} and trainables {tiny_tr:.2e} (limit "
+          f"{SPLIT_TINY_GRAD})")
+
+    mean = lambda v: sum(v[1:]) / len(v[1:])  # noqa: E731
+    shapes_line = ", ".join(
+        f"{'dx ' if t else ''}{s[0]}x{s[1]}: {n}"
+        for (s, t), n in a0["psoft_shapes"])
+    staged = sum(t[4] for t in a0["records"])
+    worst = sorted(((rel_l2(v, a0["grads"][k]), k)
+                    for k, v in want["grads"].items()), reverse=True)[:5]
+    model_bytes = sum(n * (2 if "bfloat16" in dt else 4)
+                      for _, dt, n, grp, _, _ in a0["records"]
+                      if grp == "model") / SPLIT_STEPS
+    print(f"split: llama32-3b {llama.num_layers} layers on a (1, 2) mesh, "
+          f"two gloo ranks sharing one card, collectives staged through "
+          f"host ({staged} of {len(a0['records'])} staged on rank 0): "
+          f"losses {a0['losses']} against {want['losses']} (relative "
+          f"{losses_rel:.2e}), worst step-1 gradient {leaf} {grad_rel:.2e} "
+          f"relative L2, grad norms {a0['grad_norms']} against "
+          f"{want['grad_norms']} (the five worst leaves: "
+          f"{', '.join(f'{k} {e:.2e}' for e, k in worst)}); psoft_matmul "
+          f"{a0['launches']['psoft_matmul']}"
+          f" / cayley_neumann {a0['launches']['cayley_neumann']} launches a "
+          f"rank as unsharded, W_res shapes (K x N: launches) {shapes_line}; "
+          f"per step {len(predicted) // SPLIT_STEPS} split all-reduces over "
+          f"model as predicted + 1 gradient sum ({model_bytes / 2**20:.1f} "
+          f"MiB of inputs a rank), no all-gather over model [{gpu_line}]")
+    fault_ratios = ", ".join(f"{k} {v['witness_ratio']:.1f}"
+                             for k, v in faults.items())
+    print(f"split: bf16 witness, step-1 gradients against the unsharded "
+          f"fp32 step from the same state: the unsharded bf16 step's worst "
+          f"{w_leaf} {w_rel:.3e} relative L2, the split's worst {ws_leaf} "
+          f"{ws_rel:.3e} (the split against the unsharded bf16 step "
+          f"{grad_rel:.3e}; the split's over the unsharded bf16 step's "
+          f"{ws_rel / max(w_rel, 1e-30):.3f}, limit {SPLIT_WITNESS_RATIO}; "
+          f"the planted "
+          f"faults' {fault_ratios}) [{gpu_line}]")
+    for r, g in enumerate(got):
+        res = g["llama"]
+        print(f"split: rank {r} (two gloo ranks sharing one card, "
+              f"collectives staged through host; not a speed figure of the "
+              f"split): step ms {[round(v, 1) for v in res['step_ms']]} "
+              f"(unsharded {[round(v, 1) for v in want['step_ms']]}), peak "
+              f"{res['peak_gib']:.2f} GiB (unsharded {want['peak_gib']:.2f})")
+    print(f"split: planted faults rejected: " + "; ".join(
+        f"{k}: loss {v['loss_rel']:.2e}, gradient {v['grad_rel_l2']:.2e} "
+        f"({v['grad_leaf']}), grad norm {v['norm_rel']:.2e}"
+        for k, v in faults.items()))
+    print(f"split: OFT {oft.num_layers} layers: loss relative "
+          f"{loss_rel_c:.2e}, worst step-1 gradient {leaf_c} {grad_rel_c:.2e}"
+          f"; blockdiag_rotate {c0['launches']['blockdiag_rotate']} a rank "
+          f"({c0['blockdiag_engines']}); tiny fp32 card vs CPU: losses "
+          f"{tiny_loss:.2e}, gradients {tiny_grad:.2e}, trainables "
+          f"{tiny_tr:.2e}; references {ref_s:.1f} s, ranks done after "
+          f"{ranks_s:.1f} s [{gpu_line}]")
+    launches = {k: sum(g["llama"]["launches"][k] + g["oft"]["launches"][k]
+                       for g in got)
+                for k in TRAIN_KERNELS + ("blockdiag_rotate",)}
+    return dict(layers=llama.num_layers, losses=a0["losses"],
+                plain_losses=want["losses"], grad_norms=a0["grad_norms"],
+                plain_grad_norms=want["grad_norms"], worst_grad=(leaf,
+                                                                 grad_rel),
+                bf16_witness=witness,
+                step_ms=[g["llama"]["step_ms"] for g in got],
+                plain_step_ms=want["step_ms"],
+                peak_gib=[g["llama"]["peak_gib"] for g in got],
+                plain_peak_gib=want["peak_gib"],
+                psoft_shapes=[[list(s), t, n] for (s, t), n
+                              in a0["psoft_shapes"]],
+                model_bytes_per_step=model_bytes,
+                split_allreduces_per_step=len(predicted) // SPLIT_STEPS,
+                faults=faults, oft=dict(loss_rel=loss_rel_c,
+                                        worst_grad=(leaf_c, grad_rel_c)),
+                tiny=dict(loss=tiny_loss, grad=tiny_grad, trainable=tiny_tr),
+                launches=launches, references_s=ref_s, ranks_s=ranks_s,
+                gc_freed_gib=gc_freed_gib, gpu=gpu_line)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -6530,12 +7208,20 @@ def main(argv=None) -> int:
                     help="profile one more full-width run (torch.profiler)")
     ap.add_argument("--out", default="",
                     help="also write the full results as JSON here")
+    # one rank of phase 30, started by the parent
+    ap.add_argument("--split-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--split-work", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is missing: run from a checkout "
               "of the repository", file=sys.stderr)
         return 2
     import torch
+    if args.split_rank is not None:
+        # the rank runs on the device its parent's spec names
+        sys.path.insert(0, str(SRC))
+        return split_rank_main(torch, args.split_rank, Path(args.split_work))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -6615,6 +7301,7 @@ def main(argv=None) -> int:
         kernels[name]["vlm_audio"] = vlm_audio_kernels[name]
     for name, res in zoo_kernel_phase(torch, ops, ref, F).items():
         kernels[name]["zoo"] = res
+    kernels["psoft_matmul"]["split"] = split_kernel_phase(torch, ops, ref)
     kernels["paged_decode_attention"]["cross_view"] = \
         vlm_audio_kernels["cross_view"]
     phase_s["kernels"] = time.perf_counter() - t0
@@ -6818,10 +7505,18 @@ def main(argv=None) -> int:
                                       data, tree, ops)
     phase_s["zoo_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    SPLIT_WORK.mkdir(parents=True, exist_ok=True)
     sharded = sharded_phase(torch, llama_args, configs, model, trainer, data,
-                            tree, ops, launch_train, gpu_line)
+                            tree, ops, launch_train, gpu_line, checkpoint,
+                            SPLIT_WORK / "llama")
     torch.cuda.empty_cache()
     phase_s["sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = split_phase(torch, llama_args, configs, model, trainer, data,
+                        tree, ops, checkpoint, gpu_line, SPLIT_WORK)
+    shutil.rmtree(SPLIT_WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s["split"] = time.perf_counter() - t0
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
@@ -6833,7 +7528,9 @@ def main(argv=None) -> int:
     # and 20's dense-cache runs and train steps, phases 22 and 23's
     # VLM run(), image-prefixed and audio generations and train steps,
     # phase 25's four run()s and train steps, phase 26's three policies'
-    # steps, phase 27's full-size launcher run and phase 29's sharded steps
+    # steps, phase 27's full-size launcher run, phase 29's sharded steps
+    # and phase 30's split steps on both ranks (its llama32-3b and OFT
+    # runs)
     main_path = {**{k: served["launches"][k] + streamed["launches"][k]
                     + specced["launches"][k] + lifecycle["launches"][k]
                     + moe_served["launches"][k]
@@ -6853,10 +7550,11 @@ def main(argv=None) -> int:
                     + sum(z["train"]["launches"][k] for z in zoo.values())
                     + sum(r["launches"][k] for r in remat["runs"].values())
                     + launched["full"]["launches"][k]
-                    + sharded["launches"][k]
+                    + sharded["launches"][k] + split["launches"][k]
                     for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
-                     oft_trained["launches"]["blockdiag_rotate"],
+                     oft_trained["launches"]["blockdiag_rotate"]
+                     + split["launches"]["blockdiag_rotate"],
                  "psoft_matmul_grouped":
                      sum(moe_trained["psoft_grouped"].values())}
     line = {"kernels": [
@@ -6897,7 +7595,7 @@ def main(argv=None) -> int:
                                        vlm_audio_card_vs_cpu=vlm_audio_cross,
                                        zoo=zoo, remat=remat, launcher=launched,
                                        zoo_card_vs_cpu=zoo_cross,
-                                       sharded=sharded,
+                                       sharded=sharded, split=split,
                                        ssd_scan=ssd_scan,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)

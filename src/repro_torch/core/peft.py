@@ -38,10 +38,18 @@ def init_linear(generator: Optional[torch.Generator], w_pre: torch.Tensor,
 def apply_linear(params: Dict[str, torch.Tensor], x: torch.Tensor,
                  cfg: PEFTConfig, compute_dtype=torch.bfloat16, *,
                  module: Optional[str] = None, method: Optional[str] = None,
-                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 adapter_ids: Optional[torch.Tensor] = None,
+                 tp=None) -> torch.Tensor:
+    """One linear through its method.  ``tp``, the sharded step's compute
+    split (:class:`repro_torch.distributed.tensor_parallel.TensorParallel`),
+    applies the method to this rank's view of the params under the
+    module's planned kind; PSOFT stays on the ``psoft_matmul`` wrapper,
+    at the local shapes."""
     if registry.is_banked_linear(params):
         return registry.apply_batched(params, x, compute_dtype, adapter_ids)
     m = registry.resolve(params, cfg, module=module, method=method)
+    if tp is not None:
+        return tp.apply(m, params, x, cfg, compute_dtype, module)
     return m.apply(params, x, cfg, compute_dtype)
 
 

@@ -49,6 +49,13 @@ class PEFTMethod:
     base_key: str = "w"
     #: True when :meth:`delta_factors` returns exact low-rank factors
     supports_batched_delta: bool = False
+    #: True when :meth:`apply` splits along the input dim: the outputs of
+    #: every input slice with its rows of the input-dim params (the
+    #: ``in_axis`` entries of :meth:`logical_axes`) and the rest whole add
+    #: up to the whole output, so a row-split linear sums its ranks'
+    #: partial outputs; False where the method mixes input dims across
+    #: any cut (a norm over the input dim, an input rotation)
+    row_separable: bool = False
 
     def init(self, generator, w_pre, cfg, param_dtype, peft_dtype) -> Params:
         raise NotImplementedError
@@ -364,6 +371,7 @@ def is_banked_linear(node) -> bool:
 
 class NoneMethod(PEFTMethod):
     name = "none"
+    row_separable = True
     supports_batched_delta = True   # rank-0 delta: the weight IS the base
 
     def init(self, generator, w_pre, cfg, param_dtype, peft_dtype):
@@ -384,6 +392,7 @@ class NoneMethod(PEFTMethod):
 
 class PSOFTMethod(PEFTMethod):
     name = "psoft"
+    row_separable = True
     marker_keys = ("w_res",)
     base_key = "w_res"
     supports_batched_delta = True
@@ -437,6 +446,7 @@ class PSOFTMethod(PEFTMethod):
 
 class LoRAMethod(PEFTMethod):
     name = "lora"
+    row_separable = True
     marker_keys = ("a", "b")
     supports_batched_delta = True
 
@@ -488,6 +498,8 @@ class DoRAMethod(LoRAMethod):
     # the per-column magnitude renormalization makes the weight update
     # full-rank: DoRA serves through the dense-delta bank
     supports_batched_delta = False
+    # the column norm runs over the input dim: a row split cannot normalise
+    row_separable = False
 
     def matches(self, params):
         return "m" in params and "a" in params
@@ -516,6 +528,7 @@ class DoRAMethod(LoRAMethod):
 
 class LoRAXSMethod(PEFTMethod):
     name = "lora_xs"
+    row_separable = True
     marker_keys = ("s",)
     supports_batched_delta = True
 

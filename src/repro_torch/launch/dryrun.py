@@ -15,14 +15,28 @@ counted from its design instead:
   trainable leaves, and a serving cell's decode cache;
 - collectives, the sharded train step's (:mod:`repro_torch.train.trainer`):
   every split frozen leaf is all-gathered at its use, a layer's once in the
-  forward and once more in its remat recompute, the rest once a step; the
-  split trainable leaves and their moments are gathered once a step; the
-  trainable gradients are all-reduced over the batch axes.  A serving cell
-  gathers its split weights once a step.  A ring all-gather brings each
-  device ``(n - 1)`` blocks per axis of ``n``, a ring all-reduce moves
-  ``2 (n - 1) / n`` of the tensor;
+  forward and once more in its remat recompute, the rest once a step,
+  except over ``model`` where the compute splits: the embedding and the
+  head keep their vocabulary rows; the split trainable leaves and their
+  moments are gathered once a step; the trainable gradients are
+  all-reduced over the batch axes, and those the split leaves partial
+  over ``model`` too.  The split itself
+  (:func:`repro_torch.distributed.tensor_parallel.step_collectives`) sums
+  each row-split o and down over ``model`` in the forward (o again in the
+  recompute), each split block input's gradient in the backward, the
+  vocab-parallel lookup and the head's input gradient, and three small
+  reductions a loss chunk.  A serving cell gathers its split weights once
+  a step.  A ring all-gather brings each device ``(n - 1)`` blocks per
+  axis of ``n``, a ring all-reduce moves ``2 (n - 1) / n`` of the
+  tensor;
 - reads: the whole (gathered) weights once per pass over them (forward,
-  remat recompute and backward in training), plus the cache in decode.
+  remat recompute and backward in training), plus the cache in decode;
+- FLOPs per device, in a train cell: the batch splits over the batch
+  axes, and the products the compute split divides (:func:`split_share`
+  of N_active: the ``"col"`` and ``"row"`` linears, the head when the
+  vocabulary splits) over ``model`` as well; the rest (MoE expert stacks,
+  the Mamba2 mixer, linears a fallback leaves replicated) computes
+  replicated across ``model``.  A serving cell divides by every device.
 
 :mod:`repro_torch.launch.roofline` turns a cell into H100 times.
 """
@@ -38,6 +52,7 @@ import torch
 from repro_torch.configs import (ASSIGNED_ARCHS, LM_SHAPES, TrainConfig,
                                  get_config, shape_applicable, torch_dtype)
 from repro_torch.data.pipeline import make_input_specs
+from repro_torch.distributed import tensor_parallel
 from repro_torch.launch.mesh import make_production_mesh, rules_for
 from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
@@ -68,20 +83,75 @@ def model_param_stats(arch: str) -> Dict[str, float]:
             "N_active": backbone + active_expert + embed / 2}
 
 
+def split_share(cfg, mesh, rules, n_active: float) -> float:
+    """The share of ``n_active`` (:func:`model_param_stats`) whose products
+    the train step's compute split divides over ``model`` on ``mesh``
+    under ``rules``: the linears :func:`tensor_parallel.plan_linears`
+    makes ``"col"`` or ``"row"``, and the head when the vocabulary
+    splits; 0 on a ``model`` axis of one rank."""
+    if mesh.get(tensor_parallel.AXIS, 1) == 1:
+        return 0.0
+    kinds, vocab = tensor_parallel.plan_linears(cfg, mesh, rules)
+    merged = cfg.replace(peft=cfg.peft.replace(method="none"))
+    split = 0
+    for path, leaf in tree_leaves_with_path(
+            model_lib.abstract_params(merged)):
+        if "embed" in path or "lm_head" in path:
+            split += leaf.numel() / 2 if vocab else 0
+        elif kinds.get(tensor_parallel.reached_module(path)) in ("col",
+                                                                  "row"):
+            split += leaf.numel()
+    return split / n_active
+
+
 def _block_bytes(t, pl: Placements) -> int:
     return math.prod(pl.local_shape(t.shape)) * t.element_size()
 
 
 def _gather_bytes(t, pl: Placements, out: Dict[str, float],
-                  times: int = 1) -> None:
+                  times: int = 1, keep=()) -> None:
     """Add to ``out`` (per axis) the bytes a device receives putting ``t``
     together, ``times`` times: each axis's ring all-gather, innermost
-    first, brings (n - 1) of the blocks it starts from."""
+    first, brings (n - 1) of the blocks it starts from; the axes in
+    ``keep`` stay split."""
     block = _block_bytes(t, pl)
     for _, axes in sorted(pl.dim_axes().items()):
         for name, size in reversed(axes):
+            if name in keep:
+                continue
             out[name] = out.get(name, 0.0) + times * (size - 1) * block
             block *= size
+
+
+def _split_bytes(cfg, tc, mesh, rules, st, inputs, out: Dict[str, float],
+                 wire: int) -> None:
+    """Add to ``out["model"]`` the bytes a device moves over ``model`` for
+    the compute split in one step: the split's all-reduces (ring, ``2 (n -
+    1) / n`` of each (tokens, d_model) tensor in the compute dtype, of
+    the cross-entropy's fp32 rows), its all-gathers (``n - 1`` blocks) and
+    the sum of the gradients it leaves partial."""
+    n = mesh.get(tensor_parallel.AXIS, 1)
+    if n == 1:
+        return
+    kinds, vocab = tensor_parallel.plan_linears(cfg, mesh, rules)
+    rows = inputs["tokens"][0] // math.prod(
+        mesh[a] for a in batch_axes(mesh, rules))
+    act = torch_dtype(cfg.dtype).itemsize
+    total = 0.0
+    for tag, elements in tensor_parallel.step_collectives(
+            cfg, kinds, vocab, n, rows, inputs["tokens"][1],
+            src_seq=inputs.get("src_embeds", (0, 0))[1],
+            patches=inputs.get("patch_embeds", (0, 0))[1],
+            full_finetune=tc.full_finetune):
+        if tag == "gather_from":
+            total += (n - 1) * elements * act
+        else:
+            total += 2 * (n - 1) / n * elements * (
+                4 if tag.startswith("ce_") else act)
+    partial = sum(t.numel() for path, t in tree_leaves_with_path(
+        st.trainable) if tensor_parallel.grad_summed(kinds, vocab, path))
+    total += 2 * (n - 1) / n * partial * wire
+    out[tensor_parallel.AXIS] = out.get(tensor_parallel.AXIS, 0.0) + total
 
 
 def _tree_bytes(tree, shardings) -> int:
@@ -96,6 +166,8 @@ def _shardings(tree, axes, mesh, rules):
 
 def _train_cell(cfg, tc, mesh, rules, rec):
     sh, st = trainer.state_shardings(cfg, tc, mesh, rules)
+    _, vocab = tensor_parallel.plan_linears(cfg, mesh, rules)
+    split = mesh.get(tensor_parallel.AXIS, 1) > 1
     rec["param_bytes"] = _tree_bytes(st.trainable, sh.trainable) + \
         _tree_bytes(st.frozen, sh.frozen)
     rec["opt_bytes"] = _tree_bytes(st.opt.mu, sh.opt.mu) + \
@@ -106,7 +178,8 @@ def _train_cell(cfg, tc, mesh, rules, rec):
     for (path, t), (_, pl) in zip(tree_leaves_with_path(st.frozen),
                                   tree_leaves_with_path(sh.frozen)):
         _gather_bytes(t, pl, coll, layer_passes
-                      if path[0] in model_lib.LAYER_TREES else 1)
+                      if path[0] in model_lib.LAYER_TREES else 1,
+                      tensor_parallel.kept_axes(split and vocab, path))
     for tree, shs in ((st.trainable, sh.trainable), (st.opt.mu, sh.opt.mu),
                       (st.opt.nu, sh.opt.nu)):
         for (_, t), (_, pl) in zip(tree_leaves_with_path(tree),
@@ -117,6 +190,7 @@ def _train_cell(cfg, tc, mesh, rules, rec):
     for a in batch_axes(mesh, rules):
         n = mesh[a]
         coll[a] = coll.get(a, 0.0) + 2 * (n - 1) / n * n_train * wire
+    _split_bytes(cfg, tc, mesh, rules, st, rec["inputs"], coll, wire)
     rec["collective_bytes"] = coll
     full = sum(t.numel() * t.element_size() for _, t in tree_leaves_with_path(
         adamw.combine(st.trainable, st.frozen)))
@@ -185,7 +259,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                                    else shape.seq_len)
     mult = 6.0 if shape.kind == "train" else 2.0
     rec["model_flops"] = mult * stats[arch]["N_active"] * tokens
-    rec["flops_per_device"] = rec["model_flops"] / math.prod(mesh.values())
+    if shape.kind == "train":
+        # the batch splits over the batch axes; the products the compute
+        # split divides over "model" (split_share of N_active) split
+        # there too, the rest computes replicated across its ranks
+        share = split_share(cfg, mesh, rules, stats[arch]["N_active"])
+        rows = math.prod(mesh[a] for a in batch_axes(mesh, rules))
+        rec["split_share"] = share
+        rec["flops_per_device"] = rec["model_flops"] / rows * (
+            share / mesh.get(tensor_parallel.AXIS, 1) + 1 - share)
+    else:
+        rec["flops_per_device"] = rec["model_flops"] / math.prod(
+            mesh.values())
     return rec
 
 

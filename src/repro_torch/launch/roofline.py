@@ -6,7 +6,9 @@ device of the mesh:
     compute    = analytic FLOPs per device / PEAK_FLOPS[dtype]
     memory     = bytes each device must read (weights, cache) / HBM_BYTES_PER_S
     collective = per mesh axis, the bytes a device receives over that
-                 axis's collectives / the axis's link rate
+                 axis's collectives / the axis's link rate (over
+                 ``model``: the compute split's activation sums and the
+                 gradients it leaves partial)
 
 The FLOPs are the 6 N D convention (2 N D for prefill and decode), N the
 active parameters (``N_active`` for MoE, the embedding counted half: a

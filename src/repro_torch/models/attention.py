@@ -14,7 +14,7 @@ a prefill with no aliased prefix matches the reference path.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(acc / l.clamp_min(1e-30)[..., None])
     out = torch.stack(outs, dim=1).reshape(b, sq, h, d)
     return out.to(q.dtype)
+
+
+def local_kv_heads(k: torch.Tensor, v: torch.Tensor, first: int,
+                   heads: int, group: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads (B, S, KH', D) that q heads ``first .. first + heads``
+    (global indices) attend to, from all the kv heads (B, S, KH, D), ``group``
+    q heads a kv head: under a split over heads whose kv heads stay whole,
+    :func:`chunked_attention` of the local q heads over these groups them
+    as the whole attention does.  Whole groups are sliced (views); q heads
+    inside one group share its head; otherwise each q head gets its own."""
+    kv_of = [(first + i) // group for i in range(heads)]
+    if heads % group == 0:
+        lo, n = kv_of[0], heads // group
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    if kv_of[0] == kv_of[-1]:
+        return k[:, :, kv_of[0]:kv_of[0] + 1], v[:, :, kv_of[0]:kv_of[0] + 1]
+    idx = torch.tensor(kv_of, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def paged_gather(pool: torch.Tensor, page_table: torch.Tensor

@@ -8,6 +8,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
+
 _PHI_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))  # Φ(-2)
 _PHI_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))   # Φ(2)
 
@@ -80,5 +82,18 @@ def mlp_activation(kind: str):
 
 
 def embed_lookup(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                 compute_dtype) -> torch.Tensor:
-    return params["w"][tokens.long()].to(compute_dtype)
+                 compute_dtype, split=None) -> torch.Tensor:
+    """Rows of ``params["w"]`` (V, D) at ``tokens``.  ``split``, a
+    vocab-parallel lookup, is ``(first id, mesh, axis)``: ``params["w"]``
+    holds this rank's rows from that id on; the ids outside them are
+    masked, looked up at row 0 and zeroed, and the ranks' rows are summed
+    over ``axis`` (every id lies on exactly one rank)."""
+    if split is None:
+        return params["w"][tokens.long()].to(compute_dtype)
+    start, mesh, axis = split
+    w = params["w"]
+    local = tokens.long() - start
+    ours = (local >= 0) & (local < w.shape[0])
+    rows = w[torch.where(ours, local, torch.zeros_like(local))]
+    rows = torch.where(ours[..., None], rows, torch.zeros_like(rows))
+    return collectives.reduce_from(rows.to(compute_dtype), mesh, axis)

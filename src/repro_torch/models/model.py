@@ -50,6 +50,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import peft as peft_lib
 from repro_torch.core import registry
+from repro_torch.distributed import collectives, tensor_parallel
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers
 from repro_torch.models import moe as moe_lib
@@ -248,32 +249,64 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # blocks
 # ---------------------------------------------------------------------------
 
-def _lin(params, x, cfg, cdt, module, adapter_ids):
+def _lin(params, x, cfg, cdt, module, adapter_ids, tp=None):
     return peft_lib.apply_linear(params, x, cfg.peft, cdt, module=module,
-                                 adapter_ids=adapter_ids)
+                                 adapter_ids=adapter_ids, tp=tp)
 
 
 def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, cdt,
-              adapter_ids=None) -> torch.Tensor:
+              adapter_ids=None, tp=None) -> torch.Tensor:
+    """The (gated) MLP; under a compute split ``tp`` (the sharded step's
+    :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`) this
+    rank's columns of gate and up and its rows of down, summed over
+    ranks."""
     act = layers.mlp_activation(cfg.mlp_type)
-    up = _lin(params["up"], x, cfg, cdt, "up", adapter_ids)
+    if tp is not None:
+        x = tp.copy_in(x, ("gate", "up"))
+    up = _lin(params["up"], x, cfg, cdt, "up", adapter_ids, tp)
     if "gate" in params:
-        g = _lin(params["gate"], x, cfg, cdt, "gate", adapter_ids)
+        g = _lin(params["gate"], x, cfg, cdt, "gate", adapter_ids, tp)
         h = act(g.float()).to(cdt) * up
     else:
         h = act(up.float()).to(cdt)
     h = shard_act(h, ("batch", "seq", "mlp"))
-    return _lin(params["down"], h, cfg, cdt, "down", adapter_ids)
+    return _lin(params["down"], h, cfg, cdt, "down", adapter_ids, tp)
 
 
-def _qkv(params, x, cfg: ModelConfig, cdt, positions, adapter_ids):
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+def _heads(cfg: ModelConfig, tp) -> Tuple[int, int]:
+    """(q heads, kv heads) this rank's q and k linears output."""
+    if tp is None:
+        return cfg.num_heads, cfg.num_kv_heads
+    return tp.local_heads()
+
+
+def _local_kv(k, v, cfg: ModelConfig, tp):
+    """``k``, ``v`` as this rank's q heads attend them: whole kv heads
+    (replicated k and v) narrowed to the heads its split q heads map to."""
+    if tp is None or tp.kinds["q"] != "col" or tp.kinds["k"] == "col":
+        return k, v
+    h = cfg.num_heads // tp.size
+    return attention.local_kv_heads(k, v, tp.rank * h, h,
+                                    cfg.num_heads // cfg.num_kv_heads)
+
+
+def _qkv(params, x, cfg: ModelConfig, cdt, positions, adapter_ids,
+         tp=None):
+    """q, k, v (B, S, heads, hd) after RoPE; under a compute split this
+    rank's q heads and the kv heads they attend."""
+    (h, kh), hd = _heads(cfg, tp), cfg.resolved_head_dim
     b, s = x.shape[:2]
-    q = _lin(params["q"], x, cfg, cdt, "q", adapter_ids).reshape(b, s, h, hd)
-    k = _lin(params["k"], x, cfg, cdt, "k", adapter_ids).reshape(b, s, kh, hd)
-    v = _lin(params["v"], x, cfg, cdt, "v", adapter_ids).reshape(b, s, kh, hd)
+    if tp is not None:
+        x = tp.copy_in(x, ("q", "k", "v"))
+    q = _lin(params["q"], x, cfg, cdt, "q", adapter_ids, tp).reshape(
+        b, s, h, hd)
+    k = _lin(params["k"], x, cfg, cdt, "k", adapter_ids, tp).reshape(
+        b, s, kh, hd)
+    v = _lin(params["v"], x, cfg, cdt, "v", adapter_ids, tp).reshape(
+        b, s, kh, hd)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
+    k, v = _local_kv(k, v, cfg, tp)
     q = shard_act(q, ("batch", "seq", "heads", None))
     k = shard_act(k, ("batch", "seq", "kv_heads", None))
     v = shard_act(v, ("batch", "seq", "kv_heads", None))
@@ -348,32 +381,40 @@ def attn_dense_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
     return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
 
 
-def cross_kv(params, enc_out, cfg: ModelConfig, cdt, adapter_ids=None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def cross_kv(params, enc_out, cfg: ModelConfig, cdt, adapter_ids=None,
+             tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer's cross-attention K and V (B, S_src, KH, hd) from
-    the encoder output (no RoPE)."""
-    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    the encoder output (no RoPE); under a compute split this rank's kv
+    heads, or whole kv heads that :func:`cross_apply` narrows to the ones
+    its split q heads attend (either way each rank's gradient of
+    ``enc_out`` is partial, so it goes through ``copy_to``)."""
+    kh, hd = _heads(cfg, tp)[1], cfg.resolved_head_dim
     b, s = enc_out.shape[:2]
-    k = _lin(params["k"], enc_out, cfg, cdt, "k", adapter_ids)
-    v = _lin(params["v"], enc_out, cfg, cdt, "v", adapter_ids)
+    if tp is not None:
+        enc_out = tp.copy_in(enc_out, ("q", "k", "v"))
+    k = _lin(params["k"], enc_out, cfg, cdt, "k", adapter_ids, tp)
+    v = _lin(params["v"], enc_out, cfg, cdt, "v", adapter_ids, tp)
     return k.reshape(b, s, kh, hd), v.reshape(b, s, kh, hd)
 
 
-def _cross_q(params, h, cfg: ModelConfig, cdt, adapter_ids):
+def _cross_q(params, h, cfg: ModelConfig, cdt, adapter_ids, tp=None):
     b, s = h.shape[:2]
-    q = _lin(params["q"], h, cfg, cdt, "q", adapter_ids)
-    return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    if tp is not None:
+        h = tp.copy_in(h, ("q",))
+    q = _lin(params["q"], h, cfg, cdt, "q", adapter_ids, tp)
+    return q.reshape(b, s, _heads(cfg, tp)[0], cfg.resolved_head_dim)
 
 
-def cross_apply(params, h, k, v, cfg: ModelConfig, cdt, adapter_ids=None
-                ) -> torch.Tensor:
+def cross_apply(params, h, k, v, cfg: ModelConfig, cdt, adapter_ids=None,
+                tp=None) -> torch.Tensor:
     """Non-causal cross-attention of ``h``'s queries (no RoPE) over the
     encoder's K/V (the training and prefill path)."""
+    k, v = _local_kv(k, v, cfg, tp)
     out = attention.chunked_attention(_cross_q(params, h, cfg, cdt,
-                                               adapter_ids), k, v,
+                                               adapter_ids, tp), k, v,
                                       causal=False)
     return _lin(params["o"], out.reshape(*h.shape[:-1], -1), cfg, cdt, "o",
-                adapter_ids)
+                adapter_ids, tp)
 
 
 def cross_decode(params, h_t, k, v, lengths, view_table, cfg: ModelConfig,
@@ -388,10 +429,11 @@ def cross_decode(params, h_t, k, v, lengths, view_table, cfg: ModelConfig,
 
 
 def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense",
-           cross_fn=None):
+           cross_fn=None, tp=None):
     """(y, the layer's MoE aux loss, or None for a dense layer);
     ``cross_fn(cross_params, h)``, for a decoder block of an
-    encoder-decoder, is the cross-attention of the path."""
+    encoder-decoder, is the cross-attention of the path; ``tp`` splits
+    the dense MLP (an MoE layer computes replicated)."""
     h = layers.apply_norm(lp["ln1"], x)
     x = x + attn_fn(lp["attn"], h)
     if cross_fn is not None:
@@ -400,63 +442,68 @@ def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense",
     if "moe" in lp:
         m, aux = moe_lib.moe_apply(lp["moe"], h, cfg, cdt, moe_impl)
     else:
-        m, aux = mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids), None
+        m, aux = mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids, tp), None
     return shard_act(x + m, ("batch", "seq_sp", "embed")), aux
 
 
 def shared_block_apply(params, x, h0, cfg: ModelConfig, cdt, attn_fn,
-                       adapter_ids=None) -> torch.Tensor:
+                       adapter_ids=None, tp=None) -> torch.Tensor:
     """The hybrid's shared attention + MLP block at one position: its input
     is ``fuse([x, h0])`` (h0 the token embeddings), its output added to
     ``x``.  ``attn_fn(attn_params, h)`` is the attention of the path
-    (training, prefill or decode)."""
+    (training, prefill or decode); ``tp`` splits the block's MLP (``fuse``
+    computes replicated)."""
     inp = _lin(params["fuse"], torch.cat([x, h0], dim=-1), cfg, cdt, "fuse",
                adapter_ids)
-    y, _ = _block(params["block"], inp, cfg, cdt, attn_fn, adapter_ids)
+    y, _ = _block(params["block"], inp, cfg, cdt, attn_fn, adapter_ids,
+                  tp=tp)
     return x + y
 
 
 def attn_apply(params, x, cfg: ModelConfig, cdt, positions,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True, tp=None) -> torch.Tensor:
     """Full-sequence self-attention of one layer (the training path;
-    non-causal in an encoder)."""
-    q, k, v = _qkv(params, x, cfg, cdt, positions, None)
+    non-causal in an encoder); under a compute split ``tp`` this rank's
+    heads, its rows of o summed over ranks."""
+    q, k, v = _qkv(params, x, cfg, cdt, positions, None, tp)
     out = attention.chunked_attention(q, k, v, causal=causal)
     return _lin(params["o"], out.reshape(*x.shape[:-1], -1), cfg, cdt, "o",
-                None)
+                None, tp)
 
 
-def _train_block(lp, cfg, cdt, positions, moe_impl, x, enc_out=None):
+def _train_block(lp, cfg, cdt, positions, moe_impl, x, enc_out=None,
+                 tp=None):
     def attn_fn(ap, h):
-        return attn_apply(ap, h, cfg, cdt, positions)
+        return attn_apply(ap, h, cfg, cdt, positions, tp=tp)
     cross_fn = None
     if enc_out is not None:
         def cross_fn(cp, h):
-            k, v = cross_kv(cp, enc_out, cfg, cdt)
-            return cross_apply(cp, h, k, v, cfg, cdt)
-    return _block(lp, x, cfg, cdt, attn_fn, None, moe_impl, cross_fn)
+            k, v = cross_kv(cp, enc_out, cfg, cdt, tp=tp)
+            return cross_apply(cp, h, k, v, cfg, cdt, tp=tp)
+    return _block(lp, x, cfg, cdt, attn_fn, None, moe_impl, cross_fn, tp)
 
 
-def _encoder_block(lp, cfg, cdt, positions, x):
+def _encoder_block(lp, cfg, cdt, positions, x, tp=None):
     def attn_fn(ap, h):
-        return attn_apply(ap, h, cfg, cdt, positions, causal=False)
-    return _block(lp, x, cfg, cdt, attn_fn, None)[0]
+        return attn_apply(ap, h, cfg, cdt, positions, causal=False, tp=tp)
+    return _block(lp, x, cfg, cdt, attn_fn, None, tp=tp)[0]
 
 
 def run_encoder(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
-                gather=None) -> torch.Tensor:
+                gather=None, tp=None) -> torch.Tensor:
     """The encoder-decoder's encoder over ``src_embeds`` (B, S_src,
     d_model), cast to the compute dtype: non-causal self-attention (RoPE
     over the source positions, as the reference's block applies it), one
     remat boundary per layer, every rotation of its stacks built once;
-    returns the final-norm output (B, S_src, d_model).  ``gather`` as in
-    :func:`forward_hidden`."""
+    returns the final-norm output (B, S_src, d_model).  ``gather`` and
+    ``tp`` as in :func:`forward_hidden`."""
     cdt = torch_dtype(cfg.dtype)
     x = shard_act(src_embeds.to(cdt), ("batch", "seq", "embed"))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     stack = _with_rotations(params["enc_layers"], cfg)
     block = _remat(_on_use(functools.partial(
-        _encoder_block, cfg=cfg, cdt=cdt, positions=positions), gather), cfg)
+        _encoder_block, cfg=cfg, cdt=cdt, positions=positions, tp=tp),
+        gather), cfg)
     for i in range(cfg.num_encoder_layers):
         x = block(_layer(stack, i), ("enc_layers",), x=x)
     return layers.apply_norm(params["enc_final_norm"], x)
@@ -467,10 +514,10 @@ def _train_mamba(lp, cfg, cdt, x):
     return x + ssm_lib.mamba_block_apply(lp["ssm"], hn, cfg, cdt)
 
 
-def _train_shared(sp, cfg, cdt, positions, x, h0):
+def _train_shared(sp, cfg, cdt, positions, x, h0, tp=None):
     def attn_fn(ap, h):
-        return attn_apply(ap, h, cfg, cdt, positions)
-    return shared_block_apply(sp, x, h0, cfg, cdt, attn_fn)
+        return attn_apply(ap, h, cfg, cdt, positions, tp=tp)
+    return shared_block_apply(sp, x, h0, cfg, cdt, attn_fn, tp=tp)
 
 
 #: the products without batch dims, whose outputs ``"minimal"`` keeps (the
@@ -540,18 +587,25 @@ def _with_rotations(tree, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig, cdt) -> torch.Tensor:
+                  cfg: ModelConfig, cdt, tp=None) -> torch.Tensor:
     """Token embeddings (B, S, D); a VLM batch's ``patch_embeds`` (B, P,
-    D), cast to the compute dtype, go in front of them."""
-    x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    D), cast to the compute dtype, go in front of them.  Under a compute
+    split over the vocabulary, a vocab-parallel lookup of this rank's
+    rows."""
+    if tp is not None and tp.vocab:
+        w, start = tp.vocab_block(params["embed"]["w"], 0)
+        x = layers.embed_lookup({"w": w}, batch["tokens"], cdt,
+                                (start, tp.mesh, tensor_parallel.AXIS))
+    else:
+        x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
     return shard_act(x, ("batch", "seq", "embed"))
 
 
 def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig, moe_impl: str = "capacity", gather=None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   cfg: ModelConfig, moe_impl: str = "capacity", gather=None,
+                   tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S),
     behind a VLM's patches (B, P + S, D), the MoE aux loss summed over
     layers (0 for a dense model)): causal chunked attention or the chunked
@@ -561,11 +615,14 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
     prefix)``, from a sharded train step, puts each layer's split leaves
     together as the loop reaches the layer (:data:`LAYER_TREES`; the other
     top-level leaves must come in whole, as :func:`loss_fn` gathers
-    them)."""
+    them).  ``tp``, the sharded step's compute split over ``model``
+    (:mod:`repro_torch.distributed.tensor_parallel`), runs every attention
+    block's heads and dense MLP columns split, and the embedding over the
+    vocabulary."""
     cdt = torch_dtype(cfg.dtype)
-    enc_out = run_encoder(params, batch["src_embeds"], cfg, gather) \
+    enc_out = run_encoder(params, batch["src_embeds"], cfg, gather, tp) \
         if cfg.is_encoder_decoder else None
-    x = _embed_inputs(params, batch, cfg, cdt)
+    x = _embed_inputs(params, batch, cfg, cdt, tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
@@ -575,8 +632,8 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
         mamba = _remat(_on_use(functools.partial(_train_mamba, cfg=cfg,
                                                  cdt=cdt), gather), cfg)
         attn = _remat(_on_use(functools.partial(
-            _train_shared, cfg=cfg, cdt=cdt, positions=positions), gather),
-            cfg)
+            _train_shared, cfg=cfg, cdt=cdt, positions=positions, tp=tp),
+            gather), cfg)
         for i, ch in enumerate(cfg.layer_pattern()):
             x = mamba(lays[i], ("layers", str(i)), x=x) if ch == "M" else \
                 attn(shared, ("shared_attn",), x=x, h0=h0)
@@ -590,7 +647,7 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
         return layers.apply_norm(params["final_norm"], x), aux
     block = _remat(_on_use(functools.partial(
         _train_block, cfg=cfg, cdt=cdt, positions=positions,
-        moe_impl=moe_impl), gather), cfg)
+        moe_impl=moe_impl, tp=tp), gather), cfg)
     for i in range(cfg.num_layers):
         x, layer_aux = block(_layer(stack, i), ("layers",), x=x,
                              enc_out=enc_out)
@@ -600,24 +657,36 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
 
 
 def chunked_ce_loss(params: Params, h: torch.Tensor, labels: torch.Tensor,
-                    cfg: ModelConfig, loss_chunk: int = 1024
+                    cfg: ModelConfig, loss_chunk: int = 1024, tp=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token cross-entropy over sequence chunks (the full
     (B, S, V) logits never exist at once); labels < 0 carry no loss.
+    Under a compute split over the vocabulary each rank computes its
+    slice of the logits and the loss is the vocab-parallel cross-entropy
+    (:func:`repro_torch.distributed.tensor_parallel.vocab_parallel_ce`).
     Returns (loss, token count)."""
     b, s, _ = h.shape
     loss_chunk = min(loss_chunk, s)
     while s % loss_chunk:
         loss_chunk -= 1
+    split = tp is not None and tp.vocab
+    if split:
+        h = collectives.copy_to(h, tp.mesh, tensor_parallel.AXIS)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.int32, device=h.device)
     for c0 in range(0, s, loss_chunk):
-        logits = lm_logits(params, h[:, c0:c0 + loss_chunk], cfg).float()
+        logits = lm_logits(params, h[:, c0:c0 + loss_chunk], cfg, tp).float()
         ll = labels[:, c0:c0 + loss_chunk].long()
         mask = ll >= 0
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ll.clamp_min(0)[..., None])[..., 0]
-        tot = tot + ((lse - gold) * mask).sum()
+        if split:
+            per_token = tensor_parallel.vocab_parallel_ce(
+                logits, ll, tp.rank * logits.shape[-1], tp)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                ll.clamp_min(0)[..., None])[..., 0]
+            per_token = lse - gold
+        tot = tot + (per_token * mask).sum()
         cnt = cnt + mask.sum(dtype=torch.int32)
     return tot / cnt.clamp_min(1), cnt
 
@@ -627,24 +696,27 @@ LAYER_TREES = ("layers", "enc_layers", "shared_attn")
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, moe_impl: str = "capacity", gather=None
-            ) -> Tuple[torch.Tensor, Dict]:
+            cfg: ModelConfig, moe_impl: str = "capacity", gather=None,
+            tp=None) -> Tuple[torch.Tensor, Dict]:
     """(loss, {"loss", "aux", "tokens"}) of a token batch with labels; an
     MoE model adds ``aux_loss_weight`` times its aux loss; a VLM's patch
     positions carry no loss (their labels are -1).  Under a sharded step's
     ``gather`` the leaves outside :data:`LAYER_TREES` (embeddings, head,
     final norms) are put together once, and the layers' as the loop
-    reaches them (:func:`forward_hidden`)."""
+    reaches them (:func:`forward_hidden`).  Under the sharded step's
+    compute split ``tp`` (:func:`repro_torch.distributed.tensor_parallel.
+    plan`) the heads, the MLP columns and the vocabulary split over
+    ``model``; the loss is whole on every rank."""
     if gather is not None:
         params = {k: v if k in LAYER_TREES else gather(v, (k,))
                   for k, v in params.items()}
-    h, aux = forward_hidden(params, batch, cfg, moe_impl, gather)
+    h, aux = forward_hidden(params, batch, cfg, moe_impl, gather, tp)
     labels = batch["labels"]
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pad = torch.full((labels.shape[0], batch["patch_embeds"].shape[1]),
                          -1, dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    loss, n_tok = chunked_ce_loss(params, h, labels, cfg)
+    loss, n_tok = chunked_ce_loss(params, h, labels, cfg, tp=tp)
     if cfg.family == "moe":
         loss = loss + cfg.moe.aux_loss_weight * aux
     return loss, {"loss": loss, "aux": aux, "tokens": n_tok}
@@ -659,10 +731,14 @@ def forward_logits(params: Params, batch: Dict[str, torch.Tensor],
 
 
 def lm_logits(params: Params, h: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+              cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """Logits (..., V); under a compute split over the vocabulary this
+    rank's slice (..., V / n)."""
     cdt = torch_dtype(cfg.dtype)
     w = params["embed"]["w"].T if cfg.tie_embeddings \
         else params["lm_head"]["w"]
+    if tp is not None and tp.vocab:
+        w = tp.vocab_block(w, 1)[0]
     return shard_act(h.to(cdt) @ w.to(cdt), ("batch", "seq", "vocab"))
 
 

@@ -236,8 +236,10 @@ def current_rules():
 
 
 def shard_act(x, logical_axes: Sequence[Optional[str]]):
-    """The reference's activation constraint, at its call sites: the hook
-    of the compute split over the ``model`` axis, which the port does not
-    make yet (compute is replicated across model ranks), so ``x`` comes
-    back unchanged."""
+    """The reference's activation constraint, at its call sites, where it
+    asks XLA for the compute split over the ``model`` axis.  The port
+    makes that split by hand in the sharded train step
+    (:mod:`repro_torch.distributed.tensor_parallel`: the model code runs
+    each rank's heads, MLP columns and vocabulary slice and sums the
+    partial row products), so ``x`` comes back unchanged."""
     return x

@@ -21,7 +21,14 @@ the global batch splits over the rules' ``batch`` axes, each layer's split
 frozen leaves are all-gathered as the layer loop reaches them (inside the
 layer's remat boundary, so the recompute gathers again), and the trainable
 gradients are summed over the batch axes in ``grad_allreduce_dtype``, one
-reduction set a step.  Compute is replicated across ``model`` ranks.
+reduction set a step.  Over a ``model`` axis of several ranks the compute
+splits (:mod:`repro_torch.distributed.tensor_parallel`): each rank
+computes its heads, MLP columns and vocabulary slice; no leaf is gathered
+over ``model`` where the split consumes its block (the embedding and the
+head keep their vocabulary rows), and the gradients that the split leaves
+partial are summed over ``model`` as well.  What the split does not reach
+(MoE expert stacks, the Mamba2 mixer) computes replicated across
+``model`` ranks, its split leaves gathered over every axis.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import torch
 
 from repro_torch import interop, resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, tensor_parallel
 from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
 from repro_torch.sharding import (batch_axes, mesh_context, mesh_shape,
@@ -279,17 +286,20 @@ def _reduce_grads(grads: PyTree, dtype: str, mesh,
     ``_compress``).  Bytes a step: 2 (bf16), 1 (int8) or 4 (fp32) per
     trainable element, plus 4 per leaf for int8's maxima."""
     paths_leaves = tree_leaves_with_path(grads)
+    if not paths_leaves:
+        return grads
     leaves = [g for _, g in paths_leaves]
     if dtype == "int8":
         lim = 127 // n
         if lim < 1:
             raise ValueError(f"int8 gradients cannot sum over {n} ranks")
         peak = torch.stack([g.abs().max().float() for g in leaves])
-        collectives.all_reduce(peak, mesh, axes, torch.distributed.ReduceOp.MAX)
+        collectives.all_reduce(peak, mesh, axes,
+                               torch.distributed.ReduceOp.MAX, tag="grads")
         scales = torch.clamp(peak, min=1e-12) / lim
         flat = torch.cat([torch.clamp(torch.round(g / s), -lim, lim).to(
             torch.int8).reshape(-1) for g, s in zip(leaves, scales)])
-        collectives.all_reduce(flat, mesh, axes)
+        collectives.all_reduce(flat, mesh, axes, tag="grads")
         parts = flat.split([g.numel() for g in leaves])
         out = [(q.to(torch.float32) * s).to(g.dtype).reshape(g.shape)
                for q, s, g in zip(parts, scales, leaves)]
@@ -301,7 +311,7 @@ def _reduce_grads(grads: PyTree, dtype: str, mesh,
         for gdt, idx in by_dtype.items():
             wire = torch.bfloat16 if dtype == "bfloat16" else gdt
             flat = torch.cat([leaves[i].to(wire).reshape(-1) for i in idx])
-            collectives.all_reduce(flat, mesh, axes)
+            collectives.all_reduce(flat, mesh, axes, tag="grads")
             for i, part in zip(idx, flat.split([leaves[i].numel()
                                                 for i in idx])):
                 out[i] = part.to(gdt).reshape(leaves[i].shape)
@@ -309,6 +319,24 @@ def _reduce_grads(grads: PyTree, dtype: str, mesh,
         raise ValueError(dtype)
     got = dict(zip((p for p, _ in paths_leaves), out))
     return tree_map_with_path(lambda p, _g: got[p], grads)
+
+
+def _sum_grads(grads: PyTree, dtype: str, mesh, axes: Tuple[str, ...],
+               n: int, tp) -> PyTree:
+    """The gradients summed over the batch ``axes`` (``n`` ranks) and,
+    where the compute split ``tp`` leaves a leaf's gradient partial on
+    each rank (:meth:`TensorParallel.grad_summed`), over ``model`` too,
+    in a second reduction set over ``axes`` and ``model`` (``n`` times
+    the ``model`` size ranks, int8's headroom counted over all of
+    them)."""
+    if tp is None:
+        return _reduce_grads(grads, dtype, mesh, axes, n)
+    summed = tree_map_with_path(lambda p, _g: tp.grad_summed(p), grads)
+    part, whole = adamw.partition(grads, summed)
+    whole = _reduce_grads(whole, dtype, mesh, axes, n)
+    part = _reduce_grads(part, dtype, mesh, axes + (tensor_parallel.AXIS,),
+                         n * tp.size)
+    return adamw.combine(part, whole)
 
 
 def _sharded_step(cfg: ModelConfig, tc: TrainConfig, moe_impl: str, mesh,
@@ -320,11 +348,14 @@ def _sharded_step(cfg: ModelConfig, tc: TrainConfig, moe_impl: str, mesh,
     k, n = collectives.coordinate(mesh, tuple(
         (a, mesh_shape(mesh)[a]) for a in axes))
     aux_w = cfg.moe.aux_loss_weight if cfg.family == "moe" else 0.0
+    tp = tensor_parallel.plan(cfg, mesh, rules)
 
     def gather(tree, prefix):
         def one(path, t):
             pl = split.get(prefix + path)
-            return t if pl is None else collectives.gather(t, pl, mesh)
+            return t if pl is None else collectives.gather(
+                t, pl, mesh, tensor_parallel.kept_axes(
+                    tp is not None and tp.vocab, prefix + path))
         return tree_map_with_path(one, tree)
 
     def objective(tr, frozen, micro):
@@ -335,7 +366,7 @@ def _sharded_step(cfg: ModelConfig, tc: TrainConfig, moe_impl: str, mesh,
         cnt = (micro["labels"] >= 0).sum(dtype=torch.int32)
         total = collectives.all_reduce(cnt.clone(), mesh, axes)
         loss, m = model_lib.loss_fn(adamw.combine(tr, frozen), micro, cfg,
-                                    moe_impl, gather)
+                                    moe_impl, gather, tp)
         share = cnt.to(torch.float32) / total.to(torch.float32)
         if aux_w:
             obj = (loss - aux_w * m["aux"]) * share + aux_w * m["aux"] / n
@@ -357,7 +388,7 @@ def _sharded_step(cfg: ModelConfig, tc: TrainConfig, moe_impl: str, mesh,
                            for k_, v in batch.items()})
         metrics["loss"] = collectives.all_reduce(metrics["loss"].clone(),
                                                  mesh, axes)
-        grads = _reduce_grads(grads, tc.grad_allreduce_dtype, mesh, axes, n)
+        grads = _sum_grads(grads, tc.grad_allreduce_dtype, mesh, axes, n, tp)
         lr = schedule(state.step)
         opt = gather_state(state.opt, shardings.opt, mesh)
         new_tr, new_opt, opt_metrics = adamw.adamw_update(

@@ -5,12 +5,21 @@ One module fixture starts every group of ranks at once (each rank a
 process running tests/torch_dist_ranks.py, which imports no JAX) and, while
 they run, computes the reference's side in this process:
 
-(a) 3 sharded steps of ``tiny`` on (2, 2), (4, 1) and (1, 4) meshes from
-    the reference's ``init_train_state(PRNGKey(0))``: losses and trainable
-    leaves within 1e-5 of the port's unsharded step, the last loss within
-    1e-5 of the reference's sharded step (:data:`REF_LOSS`), and at one
-    rank (the card's in-memory store) bit for bit the unsharded step's,
-    with 2 microbatches too;
+(a) 3 sharded steps of ``tiny`` on (2, 2), (4, 1), (1, 4) and (1, 2)
+    meshes from the reference's ``init_train_state(PRNGKey(0))``: losses,
+    step-1 gradients, grad norms and trainable leaves within 1e-5 of the
+    port's unsharded step, the last loss within 1e-5 of the reference's
+    sharded step (:data:`REF_LOSS`), and at one rank (the card's
+    in-memory store) bit for bit the unsharded step's, with 2
+    microbatches too; where ``model`` has several ranks the compute splits
+    over it (no all-gather over ``model``, the all-reduces that
+    ``tensor_parallel.step_collectives`` predicts), also under its kv and
+    vocab fallbacks (reduced seamless-m4t-medium's kv fallback included),
+    every PEFT method, every remat policy and every family; each method,
+    remat policy and family case and seamless's fallback also has its
+    first step within 1e-5 (loss) and ``ssm_pairs.MODEL_TOL`` (step-1
+    gradients' digests) of the reference's unsharded step from the same
+    state, pinned by tests/torch_dist_refs.py, one case recomputed live;
 (b) ``grad_allreduce_dtype="bfloat16"``: bf16 all-reduces on the wire
     exactly when compression is on, losses within 1e-4 relative and
     trainables within lr a step of the unsharded compressed step (4 ranks
@@ -26,13 +35,16 @@ they run, computes the reference's side in this process:
     one dispatch group, against the reference's grouped dispatch with 2
     groups (one JAX process under a mesh context that reports data = 2;
     1e-5, aux 1e-6), and its sharded train steps against the port's
-    in-process 2-group step (1e-5);
+    in-process 2-group step (1e-5); every family's step on (2, 1) and
+    (1, 2) against the unsharded step;
 (f) the launcher under ``torch.distributed.run`` with 2 gloo ranks ends on
     the loss of one process (1e-5).
 """
+import json
 import os
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +65,7 @@ from repro.train import trainer as jtrainer  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
+from repro_torch.distributed import tensor_parallel  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import rules_for  # noqa: E402
 from repro_torch.sharding import mesh_context  # noqa: E402
@@ -61,7 +74,9 @@ from repro_torch.tree import tree_leaves_with_path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
+import ssm_pairs as sp  # noqa: E402
 import torch_dist_ranks as ranks  # noqa: E402
+import torch_dist_refs as refs  # noqa: E402
 #: the reference's sharded step on tiny after 3 steps (TrainConfig(steps=
 #: 3), SyntheticLMDataset(cfg, 8, 32), moe_impl "dense", init_train_state(
 #: PRNGKey(0))), on a (4, 2) ("data", "model") mesh built with
@@ -72,6 +87,12 @@ STEPS, BATCH, SEQ = 3, 8, 32
 LAUNCH = ["--device", "cpu", "--reduced", "--rank", "8", "--steps", "3",
           "--batch", "4", "--seq", "32", "--log-every", "1"]
 GROUPS = {"four": 4, "moe2": 2}
+#: the split case whose reference the fixture recomputes (the others are
+#: pinned: ``torch_dist_refs.PINS``)
+LIVE_CASE = "psoft"
+#: the tiny meshes of (a): the group of ranks that runs each, its shape
+MESHES = {"2x2": ("four", (2, 2)), "4x1": ("four", (4, 1)),
+          "1x4": ("four", (1, 4)), "1x2": ("moe2", (1, 2))}
 
 
 class Sizes:
@@ -159,12 +180,10 @@ def runs(tmp_path_factory):
         step = trainer.make_train_step(
             cfg, TrainConfig(steps=STEPS, grad_allreduce_dtype=dtype),
             "dense")
-        state, losses = init, []
-        for i in range(STEPS):
-            state, m = step(state, ds.batch_at(i))
-            losses.append(float(m["loss"]))
-        out[f"unsharded {dtype or 'float32'}"] = (losses,
-                                                  _flat(state.trainable))
+        state, losses, norms, grads = ranks.run_steps(
+            step, init, [ds.batch_at(i) for i in range(STEPS)])
+        out[f"unsharded {dtype or 'float32'}"] = (
+            losses, _flat(state.trainable), norms, grads)
 
     # (d) the reference's sequential stages and their grad
     def seq(w):
@@ -206,6 +225,11 @@ def runs(tmp_path_factory):
     launch_train.main(LAUNCH + ["--metrics-jsonl", str(one_jsonl)])
     out["launch one"] = one_jsonl
 
+    # the reference's side of the split cases: pinned digests, and one
+    # case recomputed while the ranks run
+    out["split references"] = json.loads(refs.PINS.read_text())
+    out["live reference"] = refs.case_reference(LIVE_CASE)
+
     for group, ps in procs.items():
         for p in ps:
             try:
@@ -237,23 +261,155 @@ def _losses(path):
             if r["kind"] == "scalars" and "train/loss" in r["data"]]
 
 
-@pytest.mark.parametrize("mesh", ("2x2", "4x1", "1x4"))
+@pytest.mark.parametrize("mesh", ("2x2", "4x1", "1x4", "1x2"))
 def test_sharded_steps_match_unsharded_and_reference(runs, mesh):
-    got = _group(runs, "four")[mesh]
-    want_losses, want = runs["unsharded float32"]
+    group, (data, model) = MESHES[mesh]
+    got = _group(runs, group)[mesh]
+    want_losses, want, want_norms, want_grads = runs["unsharded float32"]
     np.testing.assert_allclose(got["losses"], want_losses, rtol=0, atol=1e-5)
     assert got["losses"][-1] == pytest.approx(REF_LOSS, abs=1e-5)
+    np.testing.assert_allclose(got["grad_norms"], want_norms, rtol=0,
+                               atol=1e-5)
+    assert sorted(got["grads"]) == sorted(want_grads)
+    for k, v in want_grads.items():
+        np.testing.assert_allclose(got["grads"][k], v, rtol=0, atol=1e-5,
+                                   err_msg=k)
     assert sorted(got["trainable"]) == sorted(want)
     for k, v in want.items():
         np.testing.assert_allclose(got["trainable"][k], v, rtol=0, atol=1e-5,
                                    err_msg=k)
     assert _group(runs, "four")["mesh_from_config"] == (("data", "model"),
                                                         (2, 2))
-    # frozen leaves gather over both axes (fsdp on data, vocab on model),
-    # even where an axis has one rank; gradients reduce over data only
-    kinds = {(kind, group) for kind, _, _, group in got["records"]}
-    assert kinds == {("all_gather", "data"), ("all_gather", "model"),
-                     ("all_reduce", "data")}
+    kinds = {(kind, group) for kind, _, _, group, _ in got["records"]}
+    if model == 1:
+        # frozen leaves gather over both axes (fsdp on data, vocab on
+        # model), even where an axis has one rank; gradients reduce over
+        # data only
+        assert kinds == {("all_gather", "data"), ("all_gather", "model"),
+                         ("all_reduce", "data")}
+        return
+    # the split: no leaf is gathered over model (the embedding and the
+    # head keep their vocabulary rows, the linears are whole on every
+    # rank), and over model go the split's all-reduces and the sum of the
+    # gradients it leaves partial (every PSOFT leaf's)
+    assert kinds == {("all_gather", "data"), ("all_reduce", "data"),
+                     ("all_reduce", "model")}
+    cfg = get_config("tiny")
+    sizes = {"data": data, "model": model}
+    kinds, vocab = tensor_parallel.plan_linears(cfg, sizes,
+                                                rules_for(cfg, sizes))
+    assert kinds == {"q": "col", "k": "col", "v": "col", "o": "row",
+                     "gate": "col", "up": "col", "down": "row"} and vocab
+    want_split = tensor_parallel.step_collectives(
+        cfg, kinds, vocab, model, BATCH // data, SEQ) * STEPS
+    on_model = [(tag, elements) for _, _, elements, group, tag
+                in got["records"] if group == "model"]
+    assert Counter(t for t in on_model if t[0] != "grads") == \
+        Counter(want_split)
+    n_train = sum(v.size for v in want.values())
+    assert [t for t in on_model if t[0] == "grads"] == \
+        [("grads", n_train)] * STEPS
+
+
+def _as_reference(loss, grads, pin):
+    """A first step's loss within 1e-5 of the reference's pinned one, and
+    each step-1 gradient's digest (``torch_dist_refs.digest``) within
+    :data:`ssm_pairs.MODEL_TOL` of the reference's relative to the
+    gradient's norm (the projection, a sum over a random direction, at 4
+    times that: ~4 standard deviations of a difference of that norm)."""
+    assert loss == pytest.approx(pin["loss"], abs=1e-5)
+    got = refs.digest(grads)
+    assert sorted(got) == sorted(pin["grads"])
+    for k, (norm, proj) in pin["grads"].items():
+        tol = sp.MODEL_TOL * max(norm, 1e-3)
+        assert abs(got[k][0] - norm) <= tol, (k, got[k], norm)
+        assert abs(got[k][1] - proj) <= 4 * tol, (k, got[k], proj)
+
+
+def _as_unsharded_and_reference(res, pin, loss_rel=0.0):
+    """A split case's steps against the port's unsharded step (losses
+    within 1e-5, or ``loss_rel`` relative where larger; step-1
+    gradients, grad norms and trainables within 1e-5) and its first step
+    against the reference's unsharded step from the same state
+    (:func:`_as_reference`)."""
+    assert res["losses"] == pytest.approx(res["plain"], rel=loss_rel,
+                                          abs=1e-5)
+    assert res["grad_diff"] <= 1e-5 and res["norm_diff"] <= 1e-5 \
+        and res["diff"] <= 1e-5
+    _as_reference(res["losses"][0], res["grads"], pin)
+
+
+def test_pinned_split_references_are_the_reference(runs):
+    """The pinned digests cover every split case, and the case recomputed
+    from the reference in this run (:data:`LIVE_CASE`) equals its pin
+    (1e-6 relative) and holds the split's gradients elementwise (within
+    :data:`ssm_pairs.MODEL_TOL`)."""
+    pins = runs["split references"]
+    assert sorted(pins) == sorted(refs.CASES)
+    loss, grads = runs["live reference"]
+    pin = pins[LIVE_CASE]
+    assert loss == pytest.approx(pin["loss"], rel=1e-6)
+    for k, (norm, proj) in refs.digest(grads).items():
+        assert (norm, proj) == pytest.approx(tuple(pin["grads"][k]),
+                                             rel=1e-6, abs=1e-9), k
+    split = _group(runs, "moe2")["methods"][LIVE_CASE]["grads"]
+    for k, w in grads.items():
+        np.testing.assert_allclose(
+            split[k], w, rtol=sp.MODEL_TOL,
+            atol=sp.MODEL_TOL * max(float(np.abs(w).max()), 1e-3),
+            err_msg=k)
+
+
+@pytest.mark.parametrize("case", ranks.FALLBACKS)
+def test_split_fallbacks_step_as_unsharded(runs, case):
+    """On (1, 4): 2 kv heads leave k and v replicated (each rank's q head
+    attends the kv head it maps to), in ``tiny`` and in reduced
+    seamless-m4t-medium's encoder, decoder and cross blocks; a vocabulary
+    of 1022 rows padded to 2 leaves the embedding and the head
+    replicated.  Each steps as the unsharded step, seamless's first step
+    also as the reference's (the case the kv fallback's cross block
+    reaches).  The plan is the rank's own, at the run's ``model`` size
+    and pad multiple, and the test's from sizes agrees; the ``model``
+    collectives are the ones ``step_collectives`` predicts."""
+    res = _group(runs, "four")["fallbacks"][case]
+    if case == "seamless kv":
+        _as_unsharded_and_reference(res, runs["split references"][case])
+    else:
+        np.testing.assert_allclose(res["losses"], res["plain"], rtol=0,
+                                   atol=1e-5)
+        assert res["grad_diff"] <= 1e-5 and res["norm_diff"] <= 1e-5 \
+            and res["diff"] <= 1e-5
+    sizes = {"data": 1, "model": 4}
+    with ranks.fallback_case(case) as spec:
+        cfg = spec[0]
+        plan = tensor_parallel.plan_linears(cfg, sizes, rules_for(cfg,
+                                                                  sizes))
+        padded = cfg.padded_vocab_size
+    assert res["plan"] == plan
+    kinds, vocab = plan
+    b = SyntheticLMDataset(spec[0], spec[3], spec[4]).batch_at(0)
+    want = tensor_parallel.step_collectives(
+        spec[0], kinds, vocab, 4, spec[3], spec[4],
+        src_seq=b["src_embeds"].shape[1] if "src_embeds" in b else 0)
+    assert Counter((tag, n) for _, _, n, group, tag in res["records"]
+                   if group == "model" and tag != "grads") == Counter(want)
+    if case == "vocab":
+        assert padded == ranks.FALLBACK_VOCAB and not vocab
+        assert kinds["q"] == kinds["up"] == "col"
+    else:
+        assert (kinds["q"], kinds["k"], kinds["v"], vocab) == \
+            ("col", "replicated", "replicated", True)
+
+
+@pytest.mark.parametrize("case", ranks.METHOD_CASES)
+def test_every_method_and_remat_policy_splits_as_unsharded(runs, case):
+    """``tiny`` on (1, 2) under every PEFT method (one step; the OFT
+    family and DoRA through ``"gathered_row"`` o and down) and every remat
+    policy (two steps) against the unsharded step (losses, step-1
+    gradients, grad norms and trainables within 1e-5) and the reference's
+    first step."""
+    _as_unsharded_and_reference(_group(runs, "moe2")["methods"][case],
+                                runs["split references"][case])
 
 
 def test_one_rank_equals_the_unsharded_step(runs):
@@ -263,13 +419,14 @@ def test_one_rank_equals_the_unsharded_step(runs):
                                     res[case]["want"])
     # the gather path runs at one rank too: 14 PSOFT-split leaves a layer
     # twice a step (forward and remat recompute) plus embed and lm_head
+    # (no split at one model rank)
     gathers = [r for r in res["float32"]["records"] if r[0] == "all_gather"]
     assert len(gathers) == STEPS * (2 * 2 * 14 + 4)
 
 
 def _wire(records):
     """(dtype, elements) of every gradient-sized all-reduce."""
-    return [(dtype, elements) for kind, dtype, elements, group in records
+    return [(dtype, elements) for kind, dtype, elements, group, _ in records
             if kind == "all_reduce" and group == "data" and elements > 1]
 
 
@@ -279,7 +436,7 @@ def test_bf16_gradients_cross_the_wire_in_bf16(runs):
     assert _wire(res["bfloat16"]["records"]) == \
         [("torch.bfloat16", n_train)] * STEPS
     assert _wire(res["4x1"]["records"]) == [("torch.float32", n_train)] * STEPS
-    want_losses, want = runs["unsharded bfloat16"]
+    want_losses, want, _, _ = runs["unsharded bfloat16"]
     np.testing.assert_allclose(res["bfloat16"]["losses"], want_losses,
                                rtol=1e-4)
     lr = TrainConfig(steps=STEPS).learning_rate
@@ -327,19 +484,32 @@ def test_moe_dispatch_groups_match_reference(runs):
         np.testing.assert_allclose(res["trainable"][k], v, rtol=0, atol=1e-5,
                                    err_msg=k)
     assert any(kind == "all_reduce" and elements == 4 and group == "data"
-               for kind, _, elements, group in res["records"])
+               for kind, _, elements, group, _ in res["records"])
 
 
-@pytest.mark.parametrize("arch", ("zamba2-1.2b", "seamless-m4t-medium",
-                                  "internvl2-26b"))
+@pytest.mark.parametrize("arch", ranks.FAMILIES)
 def test_every_family_steps_sharded_as_unsharded(runs, arch):
     """A hybrid (its list of layers and shared block), an encoder-decoder
     (its encoder layers) and a VLM (patches in front), reduced, on the
     (2, 1) mesh: each split leaf is found and gathered at its use, and
-    the step equals the unsharded one (1e-5)."""
-    sharded, plain, diff = _group(runs, "moe2")["families"][arch]
-    assert sharded == pytest.approx(plain, rel=1e-5, abs=1e-5)
-    assert diff <= 1e-5
+    the step equals the unsharded one (1e-5; step-1 gradients and the
+    grad norm too)."""
+    res = _group(runs, "moe2")["families"]["2x1"][arch]
+    assert res["losses"] == pytest.approx(res["plain"], rel=1e-5, abs=1e-5)
+    assert res["grad_diff"] <= 1e-5 and res["norm_diff"] <= 1e-5 \
+        and res["diff"] <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ranks.FAMILIES + ranks.SPLIT_FAMILIES)
+def test_every_family_steps_split_as_unsharded(runs, arch):
+    """Every family, reduced, on the (1, 2) mesh: the hybrid's shared
+    block, the encoder's layers and the decoder's cross block, the VLM's
+    blocks behind its patches split over ``model``; the MoE expert stacks
+    and the Mamba2 mixer replicated across its ranks.  The step equals
+    the unsharded one (losses, step-1 gradients, the grad norm and the
+    trainables within 1e-5) and its first step the reference's."""
+    _as_unsharded_and_reference(_group(runs, "moe2")["families"]["1x2"][arch],
+                                runs["split references"][arch], 1e-5)
 
 
 def test_launcher_on_two_ranks_ends_on_one_ranks_loss(runs):

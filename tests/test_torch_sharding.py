@@ -9,9 +9,13 @@ and the per-device param bytes those specs imply (the dry-run's), equal as
 integers; a decode cell's per-device cache bytes (the dry-run's);
 ``rules_for`` for train, prefill and decode, a ``kv_heads`` the model
 axis does not divide included; ``make_input_specs`` for every
-``LM_SHAPES`` kind; and the MoE layer's GShard grouped dispatch with G > 1
+``LM_SHAPES`` kind; the MoE layer's GShard grouped dispatch with G > 1
 groups against the reference's, under a mesh context whose mesh only
-reports sizes (the reference's ``shard_act`` then constrains nothing).
+reports sizes (the reference's ``shard_act`` then constrains nothing);
+and the compute split's plan over ``model`` (every linear's kind from the
+reference's ``logical_spec`` fallbacks), its local views of each method's
+params (views of the leaves) and each method's row-separability flag
+(two halves' partial outputs summed against the whole).
 
 The reference's ``logical_spec`` reads only ``mesh.shape``, so a stand-in
 object with that mapping serves for its production meshes.  Tolerances:
@@ -41,8 +45,9 @@ from repro.sharding import logical_spec as jlogical_spec  # noqa: E402
 from repro.sharding import mesh_context as jmesh_context  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import LM_SHAPES, get_config  # noqa: E402
-from repro_torch.core import peft  # noqa: E402
+from repro_torch.core import peft, registry  # noqa: E402
 from repro_torch.data import make_input_specs  # noqa: E402
+from repro_torch.distributed import tensor_parallel  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh, rules_for  # noqa
 from repro_torch.models import model, moe  # noqa: E402
@@ -294,3 +299,160 @@ def test_grouped_capacity_dispatch_matches_reference(moe_layer, data):
     y1, _ = moe.moe_apply(tp, torch.from_numpy(x), cfg, torch.float32,
                           "capacity")
     assert not torch.allclose(y1, y)
+
+
+@pytest.mark.parametrize("arch", ("tiny", "llama32-3b", "starcoder2-15b"))
+@pytest.mark.parametrize("method", ("psoft", "oft"))
+def test_split_plan_follows_the_reference_fallbacks(arch, method):
+    """Every linear's kind on (1, 2), (1, 4), (2, 8) and (16, 16) meshes:
+    a column split where the reference's ``logical_spec`` keeps the
+    output axis (heads, kv heads, mlp) on ``model``, a row split of o and
+    down where it keeps their input axis there (``"gathered_row"`` under a
+    method that is not row-separable), replicated under its fallbacks;
+    the vocabulary likewise.  starcoder2-15b's 4 kv heads fall back at
+    model 8 and 16, llama32-3b's 24 heads at 16."""
+    jcfg, cfg = jget_config(arch), get_config(arch)
+    cfg = cfg.replace(peft=cfg.peft.replace(method=method))
+    jrules = jdefault_rules()
+    fallbacks = set()
+    for data, m in ((1, 2), (1, 4), (2, 8), (16, 16)):
+        sizes = {"data": data, "model": m}
+        kinds, vocab = tensor_parallel.plan_linears(cfg, sizes,
+                                                    rules_for(cfg, sizes))
+
+        def on_model(name, dim):
+            return tuple(jlogical_spec(Sizes(sizes), jrules, (name,),
+                                       (dim,)))[:1] == ("model",)
+        heads = on_model("heads", jcfg.num_heads)
+        kv = heads and on_model("kv_heads", jcfg.num_kv_heads)
+        mlp = on_model("mlp", jcfg.d_ff)
+        row = "row" if method == "psoft" else "gathered_row"
+        assert kinds == {
+            "q": "col" if heads else "replicated",
+            "k": "col" if kv else "replicated",
+            "v": "col" if kv else "replicated",
+            "o": row if heads else "replicated",
+            "gate": "col" if mlp else "replicated",
+            "up": "col" if mlp else "replicated",
+            "down": row if mlp else "replicated"}, sizes
+        assert vocab == on_model("vocab", jcfg.padded_vocab_size)
+        fallbacks.update(k for k in ("q", "k") if kinds[k] == "replicated")
+        if arch == "starcoder2-15b" and m >= 8:
+            assert kinds["q"] == "col" and kinds["k"] == "replicated"
+    if arch == "llama32-3b":
+        assert fallbacks == {"q", "k"}
+
+
+def _linear(method, d_in=64, d_out=32, seed=0):
+    """One linear of ``method`` (fp32) with every trainable moved off its
+    init, so that a rotation or a norm is not the identity."""
+    cfg = get_config("tiny").peft.replace(method=method, rank=4)
+    m = registry.get_method(method)
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn((d_in, d_out), generator=gen) / d_in ** 0.5
+    params = m.init(gen, w, cfg, torch.float32, torch.float32)
+    for name in m.trainable_names(cfg):
+        t = params[name]
+        params[name] = t + 0.1 * torch.randn(t.shape, generator=gen)
+    if "m" in params:
+        params["m"] = params["m"] * 1.5
+    return m, cfg, params
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_local_views_and_row_separability(method):
+    """A rank's view of each method's params: the out axis cut for a
+    column split, the in axis for a row split (shapes from the method's
+    ``logical_axes``), every cut leaf a view of the whole one.  Column
+    halves put together give the whole output for every method; row
+    halves' partial outputs sum to the whole exactly where the method
+    says it is row-separable, and otherwise cannot be computed from the
+    halves (a rotation over the whole input) or sum to something else
+    (DoRA's norm over the input dim)."""
+    m, cfg, params = _linear(method)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((5, 64), generator=gen)
+    whole = m.apply(params, x, cfg, torch.float32)
+    in_out = m.logical_axes(cfg, "in", "out")
+    cols = []
+    for kind, cut, halves in (("col", "out", cols), ("row", "in", None)):
+        for r in range(2):
+            local = tensor_parallel.local_params(params, m, cfg, kind, r, 2)
+            for name, t in local.items():
+                full = params[name]
+                axes = in_out[name]
+                want = list(full.shape)
+                if cut in axes:
+                    want[axes.index(cut)] //= 2
+                    assert t.untyped_storage().data_ptr() == \
+                        full.untyped_storage().data_ptr(), (kind, name)
+                else:
+                    assert t is full, (kind, name)
+                assert tuple(t.shape) == tuple(want), (kind, name)
+            if halves is not None:
+                halves.append(m.apply(local, x, cfg, torch.float32))
+    torch.testing.assert_close(torch.cat(cols, -1), whole, rtol=1e-5,
+                               atol=1e-5)
+    try:
+        parts = sum(m.apply(tensor_parallel.local_params(
+            params, m, cfg, "row", r, 2), x[:, 32 * r:32 * (r + 1)], cfg,
+            torch.float32) for r in range(2))
+    except (RuntimeError, ValueError):
+        parts = None
+    if m.row_separable:
+        assert method in ("none", "psoft", "lora", "pissa", "lora_xs")
+        torch.testing.assert_close(parts, whole, rtol=1e-5, atol=1e-5)
+    else:
+        assert method in ("dora", "oft", "boft", "goft", "qgoft")
+        assert parts is None or not torch.allclose(parts, whole, atol=1e-3)
+
+
+@pytest.mark.parametrize("heads,kv_heads,size", ((24, 8, 8), (48, 4, 8),
+                                                  (6, 2, 3), (4, 4, 2)))
+def test_local_kv_heads_follow_global_head_indices(heads, kv_heads, size):
+    """Each rank's q heads attend the kv heads their global indices map
+    to, whether a rank holds whole GQA groups (llama32-3b at model 8),
+    part of one group (starcoder2-15b at model 8) or heads of two groups
+    (6 over 2 at model 3)."""
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(0)
+    group = heads // kv_heads
+    k = torch.randn((2, 5, kv_heads, 8), generator=gen)
+    v = torch.randn((2, 5, kv_heads, 8), generator=gen)
+    q = torch.randn((2, 5, heads, 8), generator=gen)
+    whole = attention.chunked_attention(q, k, v)
+    local = heads // size
+    for r in range(size):
+        kr, vr = attention.local_kv_heads(k, v, r * local, local, group)
+        got = attention.chunked_attention(
+            q[:, :, r * local:(r + 1) * local], kr, vr)
+        torch.testing.assert_close(
+            got, whole[:, :, r * local:(r + 1) * local], rtol=1e-6,
+            atol=1e-6)
+
+
+def test_dryrun_flops_per_device_follow_the_split():
+    """llama32-3b ``train_4k`` on 16x16: its 24 heads fall back at model
+    16, so of N_active only the MLP's three linears a layer and the head
+    (the vocabulary splits) divide over data x model; attention and the
+    norms compute replicated across ``model``, their share of the step's
+    FLOPs divided over data only.  A serving cell divides by every
+    device."""
+    cfg = get_config("llama32-3b")
+    sizes = make_production_mesh()
+    kinds, vocab = tensor_parallel.plan_linears(cfg, sizes,
+                                                rules_for(cfg, sizes))
+    assert kinds["q"] == "replicated" and kinds["up"] == "col" and vocab
+    n_active = dryrun.model_param_stats("llama32-3b")["N_active"]
+    split = cfg.num_layers * 3 * cfg.d_model * cfg.d_ff \
+        + cfg.padded_vocab_size * cfg.d_model
+    cell = dryrun.run_cell("llama32-3b", "train_4k")
+    assert cell["split_share"] == pytest.approx(split / n_active, rel=1e-12)
+    want = cell["model_flops"] / sizes["data"] * (
+        split / n_active / sizes["model"] + 1 - split / n_active)
+    assert cell["flops_per_device"] == pytest.approx(want, rel=1e-12)
+    assert cell["flops_per_device"] > cell["model_flops"] / math.prod(
+        sizes.values())
+    serve = dryrun.run_cell("llama32-3b", "decode_32k")
+    assert serve["flops_per_device"] == serve["model_flops"] / math.prod(
+        sizes.values())

@@ -8,9 +8,11 @@ runs GROUP's scenarios on the CPU and writes this rank's results to
 This file imports torch, numpy and the port only; the test holds the
 results against the reference package and the port's unsharded step.
 """
+import contextlib
 import os
 import sys
 import time
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -22,10 +24,13 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.configs import MeshConfig, TrainConfig, get_config  # noqa
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.distributed import tensor_parallel  # noqa: E402
 from repro_torch.distributed import gpipe_spmd_pipeline  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     init_distributed, make_local_mesh, make_mesh_from_config, rules_for)
+from repro_torch.configs import base as config_base  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.sharding import mesh_context  # noqa: E402
 from repro_torch.train import checkpoint, trainer  # noqa: E402
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
@@ -34,6 +39,10 @@ from repro_torch.tree import tree_leaves_with_path  # noqa: E402
 STEPS, BATCH, SEQ = 3, 8, 32
 #: reduced deepseek-moe-16b's sharded steps: 4 x 16 tokens
 MOE_STEPS, MOE_BATCH, MOE_SEQ = 2, 4, 16
+#: every PEFT method of the registry ("none" trains every leaf)
+METHODS = ("none", "psoft", "lora", "pissa", "dora", "lora_xs", "oft",
+           "boft", "goft", "qgoft")
+REMAT = ("none", "minimal", "full")
 
 
 def flat(tree):
@@ -42,8 +51,35 @@ def flat(tree):
 
 
 def records():
-    return [(c.kind, str(c.dtype), c.elements, c.group)
+    return [(c.kind, str(c.dtype), c.elements, c.group, c.tag)
             for c in collectives.RECORD]
+
+
+@contextlib.contextmanager
+def captured_grads():
+    """Every gradient tree a step hands the optimizer, flattened, in order
+    (the steps call ``adamw.adamw_update`` through the module)."""
+    got: List[Dict[str, np.ndarray]] = []
+    update = adamw.adamw_update
+
+    def capture(grads, *args, **kwargs):
+        got.append(flat(grads))
+        return update(grads, *args, **kwargs)
+    adamw.adamw_update = capture
+    try:
+        yield got
+    finally:
+        adamw.adamw_update = update
+
+
+class Run(NamedTuple):
+    losses: List[float]
+    grad_norms: List[float]
+    grads: Dict[str, np.ndarray]     # step 1's, after every reduction
+    records: list
+    full: object                     # the final state, whole
+    shardings: object
+    local: object                    # the final state, this rank's blocks
 
 
 def tiny_init(work):
@@ -61,40 +97,83 @@ def tiny_init(work):
     return cfg, tc, checkpoint.restore(template, ckpt)
 
 
+def run_steps(step, state, batches):
+    """(final state, losses, grad norms, step 1's gradients) of ``step``
+    over ``batches``."""
+    losses, norms = [], []
+    with captured_grads() as grads:
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return state, losses, norms, grads[0]
+
+
 def run_sharded(cfg, tc, state, mesh, steps=STEPS, batch=BATCH, seq=SEQ,
-                moe_impl="dense"):
-    """``steps`` sharded steps from the full ``state``: (losses, records,
-    the full final state, its shardings, the final blocks)."""
+                moe_impl="dense") -> Run:
+    """``steps`` sharded steps from the full ``state``."""
     rules = rules_for(cfg, mesh, "train")
     sh, _ = trainer.state_shardings(cfg, tc, mesh, rules)
     local = trainer.shard_state(state, sh, mesh)
     step = trainer.make_train_step(cfg, tc, moe_impl, mesh=mesh, rules=rules)
     ds = SyntheticLMDataset(cfg, batch, seq)
-    losses = []
     collectives.reset()
-    for i in range(steps):
-        local, m = step(local, ds.batch_at(i))
-        losses.append(float(m["loss"]))
+    local, losses, norms, grads = run_steps(
+        step, local, [ds.batch_at(i) for i in range(steps)])
     rec = records()
-    return losses, rec, trainer.gather_state(local, sh, mesh), sh, local
+    return Run(losses, norms, grads, rec, trainer.gather_state(local, sh, mesh),
+               sh, local)
+
+
+def against_unsharded(cfg, tc, state, mesh, steps=1, batch=BATCH, seq=SEQ,
+                      moe_impl="dense") -> dict:
+    """``steps`` sharded and unsharded steps from ``state``: the sharded
+    and the unsharded losses, the largest step-1 gradient difference, the
+    largest grad-norm difference, the largest final trainable difference,
+    the sharded step-1 gradients (for the test to hold against the
+    reference's), the sharded steps' collectives and the split's plan on
+    ``mesh``."""
+    got = run_sharded(cfg, tc, state, mesh, steps, batch, seq, moe_impl)
+    ds = SyntheticLMDataset(cfg, batch, seq)
+    plain, losses, norms, grads = run_steps(
+        trainer.make_train_step(cfg, tc, moe_impl), state,
+        [ds.batch_at(i) for i in range(steps)])
+    a, b = flat(got.full.trainable), flat(plain.trainable)
+    return dict(
+        losses=got.losses, plain=losses,
+        grad_diff=max(float(np.abs(got.grads[k] - grads[k]).max())
+                      for k in grads),
+        norm_diff=max(abs(x - y) for x, y in zip(got.grad_norms, norms)),
+        diff=max(float(np.abs(a[k] - b[k]).max()) for k in b),
+        grads=got.grads, records=got.records,
+        plan=tensor_parallel.plan_linears(cfg, mesh,
+                                          rules_for(cfg, mesh, "train")))
+
+
+def summary(run: Run) -> dict:
+    return dict(losses=run.losses, grad_norms=run.grad_norms,
+                grads=run.grads, records=run.records,
+                trainable=flat(run.full.trainable))
 
 
 def four(rank, work):
-    """(a) three meshes, (b) bf16 and int8 gradients, (c) the elastic
-    restore, (d) GPipe over 4 stages."""
+    """(a) three meshes, the split's kv and vocab fallbacks on (1, 4),
+    (b) bf16 and int8 gradients, (c) the elastic restore, (d) GPipe over
+    4 stages."""
     cfg, tc, init = tiny_init(work)
     mesh = make_mesh_from_config(MeshConfig(data=2, model=2))
     out = {"mesh_from_config": (mesh.mesh_dim_names, tuple(mesh.shape))}
     meshes = {}
     for shape in ((2, 2), (4, 1), (1, 4)):
         mesh = meshes[shape] = make_local_mesh(*shape)
-        losses, rec, full, sh, local = run_sharded(cfg, tc, init, mesh)
-        out[f"{shape[0]}x{shape[1]}"] = dict(
-            losses=losses, records=rec, trainable=flat(full.trainable))
+        run = run_sharded(cfg, tc, init, mesh)
+        out[f"{shape[0]}x{shape[1]}"] = summary(run)
         if shape == (2, 2):
             ckpt = os.path.join(work, "ckpt")
-            checkpoint.save(local, ckpt, STEPS, shardings=sh, mesh=mesh)
-            saved = flat(full)
+            checkpoint.save(run.local, ckpt, STEPS, shardings=run.shardings,
+                            mesh=mesh)
+            saved = flat(run.full)
+    out["fallbacks"] = fallbacks(meshes[(1, 4)])
     dist.barrier()
     mesh = meshes[(4, 1)]
     sh, _ = trainer.state_shardings(cfg, tc, mesh, rules_for(cfg, mesh))
@@ -108,9 +187,7 @@ def four(rank, work):
         block_shapes={k: tuple(v.shape) for k, v in flat(restored).items()})
     for dtype in ("bfloat16", "int8"):
         tc_c = TrainConfig(steps=STEPS, grad_allreduce_dtype=dtype)
-        losses, rec, full, _, _ = run_sharded(cfg, tc_c, init, mesh)
-        out[dtype] = dict(losses=losses, records=rec,
-                          trainable=flat(full.trainable))
+        out[dtype] = summary(run_sharded(cfg, tc_c, init, mesh))
 
     # (d) GPipe: stage i holds ws[i]
     z = np.load(os.path.join(work, "gpipe.npz"))
@@ -141,30 +218,116 @@ def moe2(rank, work):
                                "capacity")
     tc = TrainConfig(steps=MOE_STEPS, learning_rate=1e-2)
     state = trainer.init_train_state(cfg, tc, device="cpu")
-    losses, rec, full, _, _ = run_sharded(cfg, tc, state, mesh, MOE_STEPS,
-                                          MOE_BATCH, MOE_SEQ, "capacity")
-    return dict(y=y.numpy(), aux=float(aux), losses=losses, records=rec,
-                trainable=flat(full.trainable),
-                families=families(mesh))
-
-
-def families(mesh):
-    """One sharded step of the other families' layer trees (a hybrid's
-    list of layers and its shared block, an encoder's, a VLM's patches)
-    on ``mesh``, against the unsharded step on the whole batch: (losses,
-    largest trainable difference) by arch."""
-    out = {}
-    for arch in ("zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b"):
-        cfg = get_config(arch).reduced()
-        tc = TrainConfig(steps=2, learning_rate=1e-2)
-        state = trainer.init_train_state(cfg, tc, device="cpu")
-        losses, _, full, _, _ = run_sharded(cfg, tc, state, mesh, 1, 4, 32)
-        plain, m = trainer.make_train_step(cfg, tc)(
-            state, SyntheticLMDataset(cfg, 4, 32).batch_at(0))
-        a, b = flat(full.trainable), flat(plain.trainable)
-        out[arch] = (losses[0], float(m["loss"]),
-                     max(float(np.abs(a[k] - b[k]).max()) for k in b))
+    run = run_sharded(cfg, tc, state, mesh, MOE_STEPS, MOE_BATCH, MOE_SEQ,
+                      "capacity")
+    out = dict(y=y.numpy(), aux=float(aux), losses=run.losses,
+               records=run.records, trainable=flat(run.full.trainable),
+               families={"2x1": families(mesh, FAMILIES)})
+    split = make_local_mesh(1, 2)
+    out["1x2"] = summary(run_sharded(*tiny_init(work), split))
+    out["families"]["1x2"] = families(split, FAMILIES + SPLIT_FAMILIES)
+    out["methods"] = methods(split)
     return out
+
+
+#: the families whose sharded steps the (2, 1) and (1, 2) meshes hold
+FAMILIES = ("zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b")
+#: the families the split leaves replicated in part, on (1, 2) only
+SPLIT_FAMILIES = ("deepseek-moe-16b", "mamba2-1.3b")
+
+
+def family_case(arch):
+    """(config, train config, steps, batch, seq, MoE dispatch) of a
+    family's sharded step: ``arch`` reduced, one step of 4 x 32 tokens."""
+    return (get_config(arch).reduced(),
+            TrainConfig(steps=2, learning_rate=1e-2), 1, 4, 32, "capacity")
+
+
+def method_case(case):
+    """(config, train config, steps, batch, seq, MoE dispatch) of a
+    :func:`methods` case: ``tiny`` under a PEFT method (one step;
+    ``"none"`` fine-tunes every leaf, the embedding and the head
+    included) or under ``"remat <policy>"`` (two steps)."""
+    base = get_config("tiny")
+    if case.startswith("remat "):
+        return (base.replace(remat_policy=case.split()[1]),
+                TrainConfig(steps=2), 2, BATCH, SEQ, "dense")
+    return (base.replace(peft=base.peft.replace(method=case)),
+            TrainConfig(steps=2, full_finetune=case == "none"), 1, BATCH,
+            SEQ, "dense")
+
+
+#: the cases of :func:`methods`
+METHOD_CASES = METHODS + tuple(f"remat {p}" for p in REMAT)
+
+
+def _against_unsharded(case, mesh):
+    cfg, tc, steps, batch, seq, moe_impl = case
+    state = trainer.init_train_state(cfg, tc, device="cpu")
+    return against_unsharded(cfg, tc, state, mesh, steps, batch, seq,
+                             moe_impl)
+
+
+def families(mesh, archs):
+    """One sharded step of the other families' layer trees (a hybrid's
+    list of layers and its shared block, an encoder's and the cross
+    block, a VLM's patches, an MoE's expert stacks, a Mamba2 stack) on
+    ``mesh``, against the unsharded step on the whole batch, by arch."""
+    return {arch: _against_unsharded(family_case(arch), mesh)
+            for arch in archs}
+
+
+def methods(mesh):
+    """``tiny`` under every PEFT method and every remat policy
+    (:func:`method_case`) on ``mesh``, against the unsharded step."""
+    return {case: _against_unsharded(method_case(case), mesh)
+            for case in METHOD_CASES}
+
+
+#: the vocab fallback's vocabulary and pad multiple: every config pads its
+#: vocabulary to a multiple of 256, which 4 divides, so the case lowers it
+FALLBACK_VOCAB, FALLBACK_PAD = 1022, 2
+
+
+def fallbacks(mesh):
+    """The split's divisibility fallbacks on ``mesh`` (model 4), one step
+    each against the unsharded step: ``tiny`` with 2 kv heads (k and v
+    replicated, each rank's q head on its kv head), reduced
+    seamless-m4t-medium (4 heads, 2 kv heads: the same fallback in its
+    encoder, decoder and cross blocks), and ``tiny`` with a vocabulary of
+    :data:`FALLBACK_VOCAB` rows padded to :data:`FALLBACK_PAD`
+    (embedding and head replicated)."""
+    out = {}
+    for case in FALLBACKS:
+        with fallback_case(case) as spec:
+            out[case] = _against_unsharded(spec, mesh)
+    return out
+
+
+#: the cases of :func:`fallbacks`
+FALLBACKS = ("kv", "seamless kv", "vocab")
+
+
+@contextlib.contextmanager
+def fallback_case(case):
+    """(config, train config, steps, batch, seq, MoE dispatch) of a
+    :func:`fallbacks` case, with the vocab case's pad multiple in force
+    while the context lasts."""
+    base = get_config("tiny")
+    if case == "seamless kv":
+        yield family_case("seamless-m4t-medium")
+        return
+    if case == "kv":
+        yield (base.replace(num_kv_heads=2), TrainConfig(steps=2), 1, BATCH,
+               SEQ, "dense")
+        return
+    pad = config_base.VOCAB_PAD_MULTIPLE
+    config_base.VOCAB_PAD_MULTIPLE = FALLBACK_PAD
+    try:
+        yield (base.replace(vocab_size=FALLBACK_VOCAB), TrainConfig(steps=2),
+               1, BATCH, SEQ, "dense")
+    finally:
+        config_base.VOCAB_PAD_MULTIPLE = pad
 
 
 def one(rank, work):
@@ -179,17 +342,17 @@ def one(rank, work):
     for dtype, micros in (("", 1), ("bfloat16", 1), ("int8", 1), ("", 2)):
         tc = TrainConfig(steps=STEPS, grad_allreduce_dtype=dtype,
                          microbatches=micros)
-        losses, rec, full, _, _ = run_sharded(cfg, tc, init, mesh)
+        run = run_sharded(cfg, tc, init, mesh)
         step = trainer.make_train_step(cfg, tc, "dense")
         ds = SyntheticLMDataset(cfg, BATCH, SEQ)
         state, want = init, []
         for i in range(STEPS):
             state, m = step(state, ds.batch_at(i))
             want.append(float(m["loss"]))
-        a, b = flat(full.trainable), flat(state.trainable)
+        a, b = flat(run.full.trainable), flat(state.trainable)
         out[(dtype or "float32") + (" x2" if micros > 1 else "")] = dict(
-            losses=losses, want=want, records=rec,
-            equal=losses == want and all(
+            losses=run.losses, want=want, records=run.records,
+            equal=run.losses == want and all(
                 a[k].tobytes() == b[k].tobytes() for k in b))
     return out
 
