@@ -8,17 +8,19 @@ NVIDIA GPU.
 
 (``--layers`` sets the depth of every full-width model; without it the
 llama32-3b paths run 8 of 28 layers (:data:`LLAMA_LAYERS`),
-deepseek-moe-16b serves 8 of 28, mamba2-1.3b and zamba2-1.2b run 12
-layers, internvl2-26b 4 and the zoo's 15 B models and granite-8b 2
+deepseek-moe-16b serves 4 of 28, mamba2-1.3b and zamba2-1.2b run 6
+layers, internvl2-26b 2, internlm2-1.8b 8 of 24 (phases 25-26;
+:data:`ZOO_DEEP_LAYERS`) and the zoo's 15 B models and granite-8b 2
 (:data:`ZOO_LAYERS`), so that the whole call stays well inside its time
-limit; phase 17 runs at 2 layers at most, phase 22 at 4, phase 25's
-three wide models at ``ZOO_LAYERS``, and internlm2-1.8b (phases 25-26)
-at full depth unless ``--layers`` cuts it.)  Phases 19-21 serve and train
+limit; phase 17 runs at 2 layers at most, phase 22 at 2, phase 25's
+three wide models at ``ZOO_LAYERS``; phase 27's launcher runs
+internlm2-1.8b at full size.)  Phases 19-21 serve and train
 the SSM and hybrid families on the dense cache, phases 22-24 the VLM and
 the audio encoder-decoder families, phases 25-28 the rest of the dense
 zoo, the remat policies and the training launcher, phase 29 the
 distributed path at world size 1, phase 30 the compute split over the
-``model`` axis on two ranks that share the card.
+``model`` axis on two ranks that share the card, phase 31 serving split
+over ``model`` (on two and on three ranks) and expert parallelism.
 
 Phases, each of which raises (non-zero exit) on a failed check:
 
@@ -224,7 +226,7 @@ Phases, each of which raises (non-zero exit) on a failed check:
     admissions card against CPU; 3 PSOFT train steps each within 1e-4
     relative; ``tiny`` on the card with ``cache_mode="dense"`` giving the
     paged cache's tokens.
-22. vlm: internvl2-26b at full width and 4 layers (``VLM_LAYERS``; the
+22. vlm: internvl2-26b at full width and 2 layers (``VLM_LAYERS``; the
     fp32 SVD split of its seven linears sets the depth), bf16, random
     weights from a seed, PSOFT r 128 on the seven default targets, two
     adapters sharing the frozen factors; phase 3's text traffic through
@@ -260,8 +262,9 @@ Phases, each of which raises (non-zero exit) on a failed check:
     image-prefixed generation and the audio generation; 3 PSOFT train
     steps each within 1e-4 relative.
 25. zoo: granite-8b, starcoder2-15b and nemotron-4-15b at full width and
-    2 layers (``ZOO_LAYERS``), internlm2-1.8b at full width and depth
-    (24 layers), bf16, random weights from a seed, PSOFT at each config's
+    2 layers (``ZOO_LAYERS``), internlm2-1.8b at full width and 8 of its
+    24 layers (``ZOO_DEEP_LAYERS``), bf16, random weights from a seed,
+    PSOFT at each config's
     rank on its default targets (six for starcoder2 and nemotron, whose
     gelu / squared-ReLU MLPs have no gate; seven for the others); each
     served with two adapters through ``ServeEngine(slots=8, page_size=16,
@@ -276,7 +279,8 @@ Phases, each of which raises (non-zero exit) on a failed check:
     ms and tokens/s, peaks, ``count_params`` / ``count_trainable`` of the
     run's tree and of the full-depth ``abstract_params`` tree with its
     bytes;
-26. remat: internlm2-1.8b at full width and depth on phase 25's params,
+26. remat: internlm2-1.8b at full width and phase 25's depth on its
+    params,
     the same 4 batches under ``remat_policy`` "none", "minimal" and
     "full": losses step by step and the trainables after the last step
     within 1e-4 relative of each other, peak memory "none" > "minimal" >
@@ -316,7 +320,18 @@ Phases, each of which raises (non-zero exit) on a failed check:
     on "wgmma" and "tc", at the split shapes; no all-gather over "model"
     and exactly the predicted all-reduces), four planted faults rejected;
     tiny fp32 card against CPU (1e-4 / 1e-5); one OFT step at 2 layers
-    (o and down through "gathered_row", blockdiag_rotate on "mma").
+    (o and down through "gathered_row", blockdiag_rotate on "mma");
+31. serve split: two groups of processes of the script sharing the card
+    (``chip_smoke.py --serve-split-rank R --split-work DIR``, gloo, every
+    collective staged through host): llama32-3b's split ``prefill`` and
+    32 teacher-forced ``decode_step``s on (1, 2) (the cache over kv heads)
+    and on (1, 3) (its 8 kv heads do not divide: the cache over its
+    sequence, each rank's log-sum-exp combined), every logits row within
+    2e-2 relative L2 of the unsharded run's; deepseek-moe-16b's
+    expert-parallel train step (32 of 64 experts a rank) and split
+    serving from phase 17's state; tiny fp32 card vs CPU; the predicted
+    collectives and launches, three planted faults rejected
+    (:func:`split_serve_phase`).
 
 Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
 psoft_matmul at both expert stacks (G 64, M 240, K/N 2048/1408, r 64; bf16
@@ -352,7 +367,13 @@ each group reading the neighbouring KV head.  And at phase 30's rank
 shapes: psoft_matmul at llama32-3b's linears split over two ranks (M
 2048, r 352; N 1536 / 512 / 4096 of K 3072 for the column-split ones, K
 1536 / 4096 of N 3072 for the row-split ones), and cayley_neumann at the
-(8, 352) stack each rank builds.
+(8, 352) stack each rank builds.  And at phase 31's: paged decode at a
+(1, 2) rank's 12 over 4 heads, and over a (1, 3) rank's 256-position
+slice of the sequence cache at 24 over 8 heads with its log-sum-exp
+output (fp32's 1e-4; the -inf of an empty slice exact; a row's slice
+short by its last page rejected); the grouped psoft_matmul at G 32 (a
+rank's half of deepseek's experts), forward and transposed; and
+cayley_neumann at a rank's (64, 64) expert stack.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -409,11 +430,12 @@ BASELINES = {"oft": dict(oft_block_size=32),
              "dora": dict(rank=8), "lora_xs": dict(rank=136)}
 METHOD_LAYERS, METHOD_STEPS = 2, 2
 #: default depths of the earlier full-width paths, cut so that the whole
-#: call, the dense zoo's phases included, stays well inside its time limit
-#: (``--layers`` overrides them): the llama32-3b paths (phases 3, 5, 7,
-#: 10, 12, 14), deepseek-moe-16b's serving (16), mamba2-1.3b and
-#: zamba2-1.2b (19-20)
-LLAMA_LAYERS, MOE_SERVE_LAYERS, RECURRENT_LAYERS = 8, 8, 12
+#: call, the dense zoo's phases and phase 31 included, stays well inside
+#: its time limit (``--layers`` overrides them): the llama32-3b paths
+#: (phases 3, 5, 7, 10, 12, 14, 29-31), deepseek-moe-16b's serving (16;
+#: 8 until PR 26), mamba2-1.3b and zamba2-1.2b (19-20; 12 until PR 26, a
+#: hybrid keeps one shared-block position)
+LLAMA_LAYERS, MOE_SERVE_LAYERS, RECURRENT_LAYERS = 8, 4, 6
 #: the baselines whose rotations go through blockdiag_rotate's "simt"
 #: engine (block sizes 8 and 2)
 BASELINE_ENGINES = ("boft", "goft", "qgoft")
@@ -3016,7 +3038,10 @@ CAYLEY_SHAPES = {"psoft": (28, 352), "oft": (2688, 32), "oft_down": (7168, 32),
                  "internlm2": (24, 64),
                  # a PSOFT stack at LLAMA_LAYERS: phases 5 and 29 build
                  # it, and each rank of phase 30 on the replicated q
-                 "psoft_8": (8, 352)}
+                 "psoft_8": (8, 352),
+                 # a rank's expert stack in phase 31: 2 layers x 32 of
+                 # deepseek's 64 experts
+                 "moe_split_rank": (64, 64)}
 CAYLEY_TERMS = 5
 
 
@@ -4179,12 +4204,14 @@ def moe_serve_phase(torch, args, configs, model, serve, ops, gpu_line):
 
 
 def moe_train_phase(torch, args, configs, model, trainer, data, tree, ops,
-                    peft, gpu_line):
+                    peft, gpu_line, checkpoint=None, save_to=None):
     """Phase 17: deepseek-moe-16b at full width, MOE_TRAIN_LAYERS layers,
     PSOFT r 64 on every default target (attention, shared experts, every
     expert stack), remat "full", capacity dispatch; 1 warm-up and
     MOE_TRAIN_STEPS timed steps; then the tuned tree's logits against its
-    merged tree's (fp32, dense dispatch)."""
+    merged tree's (fp32, dense dispatch).  With ``save_to`` the initial
+    state is also saved there (``checkpoint.save``), for phase 31's ranks
+    to load (the SVD split runs once)."""
     gc_freed = free_cycles(torch)
     layers = min(MOE_TRAIN_LAYERS, args.layers or MOE_TRAIN_LAYERS)
     cfg = configs.get_config("deepseek-moe-16b", remat_policy="full",
@@ -4194,6 +4221,10 @@ def moe_train_phase(torch, args, configs, model, trainer, data, tree, ops,
     params = model.init_params(cfg, seed=7, device="cuda")
     torch.cuda.synchronize()
     svd_s = time.perf_counter() - t0
+    if save_to is not None:
+        checkpoint.save(trainer.train_state_from_params(
+            params, cfg, configs.TrainConfig(steps=100, learning_rate=1e-4)),
+            str(save_to), 0)
     n_svd = layers * (4 + 3 + 3 * cfg.moe.num_experts)
     print(f"moe train: init_params deepseek-moe-16b {layers} layers, PSOFT "
           f"r={cfg.peft.rank} on every default target: the SVD split of "
@@ -4863,8 +4894,9 @@ def recurrent_card_vs_cpu_phase(torch, configs, model, serve, trainer, data,
 #: internvl2-26b's attention: 48 heads over 8 KV heads of 128 (group 6)
 VLM_HEADS, VLM_KV_HEADS = 48, 8
 #: the VLM phase's depth at full width: an fp32 SVD split of its seven
-#: linears takes most of a layer's init (PERF.md)
-VLM_LAYERS = 4
+#: linears takes most of a layer's init (~16 s a layer, PERF.md); 4 until
+#: PR 26
+VLM_LAYERS = 2
 VLM_GEN_STEPS = 16
 AUDIO_GEN_STEPS = 32
 #: source frames of the audio generation: no multiple of 16
@@ -5881,9 +5913,13 @@ def vlm_audio_card_vs_cpu_phase(torch, configs, model, serve, trainer, data,
 # ---------------------------------------------------------------------------
 
 #: the zoo's configs in the order phase 25 runs them; internlm2-1.8b runs
-#: last, at full depth, and phase 26 trains on its params
+#: last, deeper than the others, and phase 26 trains on its params;
+#: phase 27's launcher runs it at full size
 ZOO = ("granite-8b", "starcoder2-15b", "nemotron-4-15b", "internlm2-1.8b")
 ZOO_FULL_DEPTH = "internlm2-1.8b"
+#: internlm2-1.8b's depth in phases 25-26 (of its 24 layers; all 24 until
+#: PR 26, which cut them so that the call keeps room for phase 31)
+ZOO_DEEP_LAYERS = 8
 #: layers of the other three (full width): the fp32 SVD split of a
 #: 6144 <-> 24576 layer takes ~16 s on the card, and 32-40 layers of the
 #: 15 B models' fp32 stacks would not fit beside their factors
@@ -5952,7 +5988,8 @@ def zoo_linears(cfg):
 def zoo_model_phase(torch, args, configs, model, serve, trainer, data, tree,
                     ops, arch, gpu_line, keep_params=False):
     """One config of phase 25 at full width: ``ZOO_LAYERS`` layers
-    (internlm2-1.8b at full depth; ``--layers`` cuts both), bf16, random
+    (internlm2-1.8b at ``ZOO_DEEP_LAYERS``; ``--layers`` cuts both), bf16,
+    random
     weights from a seed, PSOFT at the config's rank on its default targets.
     Serve: two adapters sharing the frozen factors, phase 3's traffic
     through ``ServeEngine(slots=8, page_size=16, max_len=512).run``
@@ -5967,7 +6004,7 @@ def zoo_model_phase(torch, args, configs, model, serve, trainer, data, tree,
     what = f"zoo {arch}"
     gc_freed = free_cycles(torch)
     base = configs.get_config(arch, remat_policy="full")
-    depth = base.num_layers if arch == ZOO_FULL_DEPTH else ZOO_LAYERS
+    depth = ZOO_DEEP_LAYERS if arch == ZOO_FULL_DEPTH else ZOO_LAYERS
     cfg = base.replace(num_layers=min(args.layers or depth, depth))
     nl = cfg.num_layers
     linears, banked = zoo_linears(cfg)
@@ -6122,7 +6159,7 @@ def remat_phase(torch, args, configs, trainer, data, tree, ops, params,
     last step within 1e-4 of the largest entry of each leaf, and peak
     memory ordered "none" > "minimal" > "full"."""
     base = configs.get_config(ZOO_FULL_DEPTH)
-    nl = min(args.layers or base.num_layers, base.num_layers)
+    nl = min(args.layers or ZOO_DEEP_LAYERS, base.num_layers)
     runs = {}
     for policy in REMAT_POLICIES:
         cfg = base.replace(num_layers=nl, remat_policy=policy)
@@ -7199,6 +7236,914 @@ def split_phase(torch, args, configs, model, trainer, data, tree, ops,
                 gc_freed_gib=gc_freed_gib, gpu=gpu_line)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 31: serving split over "model" and expert parallelism
+# ---------------------------------------------------------------------------
+
+#: phase 2's decode at a split rank's shapes: llama32-3b's 12 q heads over
+#: 4 kv heads (24 over 8 on (1, 2)), and every head over a 256-position
+#: slice of the sequence cache (768 positions over (1, 3)), with its lse
+SERVE_SPLIT_DECODE_LENGTHS = [0, 1, 77, 130, 256, 300, 511, 45]
+SERVE_SPLIT_SLICE = 256
+SERVE_SPLIT_SLICE_LENGTHS = [0, 1, 77, 130, 256, 256, 200, 45]
+#: phase 2's grouped psoft_matmul at a rank's expert stacks (deepseek's 64
+#: experts over two ranks: G 32, phase 17's M 240)
+SERVE_SPLIT_STACKS = (("gate/up rank", 32, 240, 2048, 1408),
+                      ("down rank", 32, 240, 1408, 2048))
+
+
+def split_serve_kernel_phase(torch, ops, ref, F, attention):
+    """The kernels at phase 31's rank shapes, in phase 2: paged decode at
+    12 over 4 heads of 128 (a rank's heads on (1, 2)) against the plain
+    version (fp32 and bf16; each row's last page dropped must be
+    rejected); the same kernel over a 256-position slice of a dense
+    sequence-split cache at 24 over 8 heads with its lse output (out at
+    the dtype's limit, lse at fp32's 1e-4, the -inf of an empty slice
+    exact; the lse of each row's slice short by its last page must be
+    rejected); the grouped psoft_matmul at G 32 forward and transposed
+    (:func:`grouped_check`'s faults).  Each timed beside its bound and a
+    library yardstick (SDPA over the gathered K/V, ``torch.bmm`` on the
+    merged expert weights)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    lengths = SERVE_SPLIT_DECODE_LENGTHS
+    h, kh, d = 12, 4, 128
+    e = {}
+    for dtype in (f32, bf16):
+        dname = str(dtype).replace("torch.", "")
+        args = decode_inputs(torch, dtype, gen, lengths, h, kh)
+        want = ref.paged_decode_attention(*args)
+        e[dname] = max_err(torch, ops.paged_decode_attention(*args), want,
+                           dname, f"paged_decode_attention 12/4 {dname}")
+        q, kp, vp, table, ln = args
+        must_reject(torch, ref.paged_decode_attention(
+            q, kp, vp, table, last_page_dropped(ln, 16)), want, dname,
+            [i for i, n_ in enumerate(lengths) if n_ > 0],
+            "paged_decode_attention 12/4, each row's last page dropped")
+    q, kp, vp, table, ln = args
+    heads = dict(ms=time_ms(torch, lambda: ops.paged_decode_attention(
+        q, kp, vp, table, ln)),
+        plain_ms=time_ms(torch, lambda: ref.paged_decode_attention(
+            q, kp, vp, table, ln)),
+        bytes=(2 * q.numel() * 2 + 2 * distinct_slots(table, ln, 16) * kh * d
+               * 2 + table_entries(ln, 16) * 4 + ln.numel() * 4),
+        flops=4 * sum(lengths) * h * d,
+        max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+        shape=f"a (1, 2) rank of llama32-3b: B={len(lengths)} H={h} KH={kh} "
+              f"D={d} pg=16 maxp=32 lengths={lengths}")
+    maxlen = max(lengths)
+    kg, vg = (ref_gather(torch, pool, table, maxlen, h // kh)
+              for pool in (kp, vp))
+    mask = (torch.arange(maxlen, device="cuda")[None, :]
+            < ln[:, None].long())[:, None, None, :]
+    heads["library_ms"] = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kg, vg, attn_mask=mask))
+    heads["bound_ms"], heads["bound_by"] = bound(heads["bytes"],
+                                                 heads["flops"], "bfloat16")
+    out["heads"] = heads
+    del kg, vg
+
+    # every head over a rank's 256-position slice, with the lse
+    lengths = SERVE_SPLIT_SLICE_LENGTHS
+    b, h, kh, s = len(lengths), 24, 8, SERVE_SPLIT_SLICE
+    table = attention.dense_view_table(b, s, "cuda")
+    e = {}
+    for dtype in (f32, bf16):
+        dname = str(dtype).replace("torch.", "")
+        qd = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dtype)
+        kb, vb = ((torch.randn((b, s, kh, d), generator=gen, device="cuda")
+                   * 0.5).to(dtype) for _ in range(2))
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        ops.reset_launches()
+        got, got_lse = attention.dense_decode_attention(qd, kb, vb, ln, table,
+                                                        lse=True)
+        check(ops.LAUNCHES["paged_decode_attention"] == 1,
+              f"paged_decode_attention slice {dname}: one launch")
+        pages = (b * s // 16, 16, kh, d)
+        want, want_lse = ref.paged_decode_attention(
+            qd[:, 0], kb.view(pages), vb.view(pages), table, ln, lse=True)
+        e[dname] = max_err(torch, got[:, 0], want, dname,
+                           f"paged_decode_attention slice {dname}")
+        empty = torch.isinf(want_lse)
+        check(bool(torch.equal(torch.isinf(got_lse), empty))
+              and bool((got_lse[empty] < 0).all()),
+              f"paged_decode_attention slice {dname}: lse -inf exactly at "
+              f"the empty rows")
+        lse_err = max_err(torch, got_lse[~empty], want_lse[~empty],
+                          "float32", f"paged_decode_attention slice lse "
+                                     f"{dname}")
+        e[f"lse_{dname}"] = lse_err
+        short = ref.paged_decode_attention(
+            qd[:, 0], kb.view(pages), vb.view(pages), table,
+            last_page_dropped(ln, 16), lse=True)[1]
+        rows = [i for i, n_ in enumerate(lengths) if n_ > 16]
+        must_reject(torch, short[rows], want_lse[rows], "float32",
+                    range(len(rows)), "paged_decode_attention slice lse, "
+                                      "each row's last page dropped")
+    sl = dict(ms=time_ms(torch, lambda: attention.dense_decode_attention(
+        qd, kb, vb, ln, table, lse=True)),
+        plain_ms=time_ms(torch, lambda: ref.paged_decode_attention(
+            qd[:, 0], kb.view(pages), vb.view(pages), table, ln, lse=True)),
+        bytes=(2 * qd.numel() * 2 + 2 * sum(lengths) * kh * d * 2
+               + b * s // 16 * 4 + b * 4 + b * h * 4),
+        flops=4 * sum(lengths) * h * d,
+        max_err_bfloat16=e["bfloat16"], max_err_float32=e["float32"],
+        lse_max_err=max(e["lse_float32"], e["lse_bfloat16"]),
+        shape=f"a (1, 3) rank's sequence slice of llama32-3b: B={b} H={h} "
+              f"KH={kh} D={d}, {s} positions a rank (pages of 16 over the "
+              f"dense buffer), lengths={lengths}, with the lse")
+    kf = kb.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vf = vb.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    smask = (torch.arange(s, device="cuda")[None, :]
+             < ln[:, None].long())[:, None, None, :]
+    sl["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd.transpose(1, 2), kf, vf, attn_mask=smask))
+    sl["bound_ms"], sl["bound_by"] = bound(sl["bytes"], sl["flops"],
+                                           "bfloat16")
+    out["slice"] = sl
+    del kf, vf, kb, vb
+
+    # the grouped psoft_matmul at a rank's expert stacks
+    err = 0.0
+    per_stack = {}
+    for name, g, m, k, n in SERVE_SPLIT_STACKS:
+        for transpose in (False, True):
+            args = psoft_inputs(torch, bf16, gen, m, k, n, MOE_RANK,
+                                transpose, g)
+            err = max(err, grouped_check(
+                torch, ops, ref, args, transpose, "bfloat16",
+                f"grouped psoft_matmul {name} ({g}, {m}, {k}, {n}) bf16"
+                + (" transposed" if transpose else ""), "wgmma"))
+            del args
+        x, w, a, rot, bm, al, be = psoft_inputs(torch, bf16, gen, m, k, n,
+                                                MOE_RANK, groups=g)
+        dy = (torch.randn((g, m, n), generator=gen, device="cuda")
+              * 0.5).to(bf16)
+        merged = (w.float() + (a.float() * al[:, None, :]) @ rot
+                  @ (bm.float() * be[:, :, None])).to(bf16)
+        nbytes, flops = psoft_bytes_flops(m, k, n, MOE_RANK, 2)
+        one = dict(
+            ms=time_ms(torch, lambda: ops._psoft_mm(x, w, a, rot, bm, al, be,
+                                                    False)),
+            backward_ms=time_ms(torch, lambda: ops._psoft_mm(
+                dy, w, a, rot, bm, be, al, True)),
+            plain_ms=time_ms(torch, lambda: ref.psoft_matmul_parts(
+                x, w, a, rot, bm, al, be)),
+            library_ms=time_ms(torch, lambda: torch.bmm(x, merged)),
+            bytes=g * nbytes, flops=g * flops)
+        one["bound_ms"], one["bound_by"] = bound(one["bytes"], one["flops"],
+                                                 "bfloat16")
+        per_stack[f"{name} ({g}, {m}, {k}, {n})"] = one
+        del x, w, a, rot, bm, dy, merged
+    out["grouped"] = dict(max_err_bfloat16=err, per_stack=per_stack)
+    for key, v in (("heads", heads), ("slice", sl)):
+        print(f"kernels: paged_decode_attention at the split's {key} "
+              f"({v['shape']}): {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} "
+              f"ms, SDPA {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
+              f"ms by {v['bound_by']}; max err {v['max_err_bfloat16']:.3g} / "
+              f"{v['max_err_float32']:.3g}"
+              + (f", lse {v['lse_max_err']:.3g}" if "lse_max_err" in v
+                 else ""))
+    for k, v in per_stack.items():
+        print(f"kernels: grouped psoft_matmul at a split rank's {k}: forward "
+              f"{v['ms']:.4f} ms, transposed {v['backward_ms']:.4f} ms, "
+              f"plain {v['plain_ms']:.4f} ms, torch.bmm on merged weights "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
+              f"{v['bound_by']}")
+    return out
+
+
+#: phase 31: (a) and (b)'s prompts, their length and decode steps; each
+#: mesh's cache length (a multiple of its "model" size)
+SERVE_SPLIT_PROMPTS, SERVE_SPLIT_PROMPT_LEN, SERVE_SPLIT_STEPS = 8, 256, 32
+SERVE_SPLIT_MAX_LEN = {2: 512, 3: 768}
+#: (c): deepseek-moe-16b at MOE_TRAIN_LAYERS: 3 bf16 split steps, held
+#: as phase 30's (a) is at its depth: losses within SPLIT_LOSS_REL and the
+#: worst step-1 gradient's distance from the unsharded fp32 step within
+#: SPLIT_WITNESS_RATIO times the unsharded bf16 step's.  The 2e-2 relative
+#: L2 between the bf16 split and the bf16 unsharded step is reported, not
+#: held: bf16 alone puts the expert stacks' alpha gradients 1.044e-1 from
+#: fp32 (a sum over ~240 tokens an expert that nearly cancels at random
+#: init), and a perturbation of one rounding anywhere (the row splits'
+#: partial sums, a routing flip) moves them by as much.  The same split in
+#: fp32, one step from the same state widened, is held to losses within
+#: 1e-4 relative and step-1 gradients within 2e-2 relative L2 of the
+#: unsharded fp32 step (it computes the same function).  Serving likewise:
+#: in bf16 a token whose top-6 router scores nearly tie can take another
+#: expert when one rounding moves its input (rows 8e-2 off where it
+#: happens), so the bf16 split serving is reported against the unsharded
+#: run, and the same serving in fp32 is held elementwise at fp32's 1e-4
+#: (and rejects the planted fault).  Then its served prompts, their
+#: length, the cache's length and decode steps
+SERVE_MOE_LOSS_REL, SERVE_MOE_STEPS = 1e-4, 3
+SERVE_MOE_PROMPTS, SERVE_MOE_PROMPT_LEN, SERVE_MOE_MAX_LEN, \
+    SERVE_MOE_GEN = 4, 128, 256, 8
+#: (d): tiny fp32 on the card against the CPU, each mesh's cache length
+SERVE_TINY_TOL, SERVE_TINY_PROMPT, SERVE_TINY_STEPS = 1e-4, 16, 4
+SERVE_TINY_MAX_LEN = {2: 32, 3: 48}
+#: decode steps of a planted fault's run, and the faults with their run
+SERVE_FAULT_STEPS = 4
+SERVE_SPLIT_FAULTS = {
+    "one rank's partial o left out of its sum": "a",
+    "one rank's partial left out of the sequence combine": "b",
+    "a rank computing its neighbour's experts": "c"}
+#: how long the parent waits for both groups of ranks
+SERVE_SPLIT_TIMEOUT_S = 600
+
+
+def serve_split_configs(configs, spec):
+    """(llama32-3b at the phase's depth, plain weights; deepseek-moe-16b
+    at MOE_TRAIN_LAYERS, PSOFT r 64, remat "full", as phase 17 trains it;
+    tiny fp32) of a phase-31 spec, reduced where the spec asks (a CPU
+    rehearsal)."""
+    def cut(cfg):
+        return cfg.reduced() if spec.get("reduced") else cfg
+    llama = cut(configs.get_config("llama32-3b", num_layers=spec["layers"]))
+    llama = llama.replace(peft=llama.peft.replace(method="none"))
+    moe = cut(configs.get_config("deepseek-moe-16b", remat_policy="full",
+                                 num_layers=spec["moe_layers"]))
+    return llama, moe, configs.get_config("tiny")
+
+
+def split_prompts(torch, cfg, b, s, seed):
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+
+
+def split_generate(torch, model, ops, params, cfg, tokens, max_len, steps,
+                   forced=None, tp=None, moe=False):
+    """A prefill of ``tokens`` (every prompt full) and ``steps`` decode
+    steps, greedy or fed ``forced`` (steps, B): (logits (steps + 1, B, V)
+    on the host in fp32, the tokens fed, the paged-decode launches of
+    each decode step)."""
+    b, s = tokens.shape
+    kw = dict(tp=tp)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens}, cfg,
+                                      max_len, moe_impl="capacity" if moe
+                                      else "dense", **kw)
+        outs = [logits[:, -1, :cfg.vocab_size].float().cpu()]
+        fed, per_step = [], []
+        for j in range(steps):
+            tok = forced[j].to(tokens.device) if forced is not None else \
+                logits[:, -1, :cfg.vocab_size].argmax(-1)
+            fed.append(tok.cpu())
+            before = ops.LAUNCHES["paged_decode_attention"]
+            logits, cache = model.decode_step(
+                params, {"tokens": tok[:, None]}, cache, s + j, cfg,
+                moe_impl="dense", **kw)
+            per_step.append(ops.LAUNCHES["paged_decode_attention"] - before)
+            outs.append(logits[:, -1, :cfg.vocab_size].float().cpu())
+    return torch.stack(outs), torch.stack(fed) if fed else None, per_step
+
+
+def serve_split_rank_main(torch, rank: int, work: Path) -> int:
+    """One rank of phase 31 (``chip_smoke.py --serve-split-rank R
+    --split-work DIR``, started by the parent): reads DIR/spec.json (its
+    group's world size, 2 or 3, and runs), joins a gloo group on a file
+    store in DIR, forms a (1, world) ("data", "model") mesh and runs (a)
+    or (b): llama32-3b's split prefill and teacher-forced decode steps fed
+    the parent's greedy tokens, and the group's planted fault; (c) on two
+    ranks: deepseek-moe-16b's split train steps from the state phase 17
+    saved, then its split serving and the neighbour's-experts fault; (d)
+    tiny fp32's split serving.  Writes DIR/rankR.pt."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import pipeline as data
+    from repro_torch.distributed import collectives, tensor_parallel
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_local_mesh, rules_for
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint, trainer
+
+    spec = json.loads((work / "spec.json").read_text())
+    device, world = spec["device"], spec["world"]
+    # both groups' ranks and the parent share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 6))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(work / "store"), world), rank=rank, world_size=world)
+    mesh = make_local_mesh(1, world)
+    llama, moe_cfg, tiny = serve_split_configs(configs, spec)
+    TP = tensor_parallel.TensorParallel
+    out = {"rank": rank, "world": world}
+
+    def shared(name):
+        """The parent's input ``name`` (written once it is ready)."""
+        path = work.parent / name
+        deadline = time.monotonic() + SERVE_SPLIT_TIMEOUT_S
+        while not path.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"serve split rank: no {path}")
+            time.sleep(0.05)
+        return torch.load(path, weights_only=False)
+
+    def records():
+        return [(c.kind, str(c.dtype), c.elements, c.group, c.staged, c.tag)
+                for c in collectives.RECORD]
+
+    def generation(cfg, params, tokens, max_len, steps, forced, tp,
+                   moe=False, keep=torch.bfloat16):
+        collectives.reset()
+        ops.reset_launches()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, per_step = split_generate(
+            torch, model, ops, params, cfg, tokens, max_len, steps,
+            forced[:steps], tp, moe)
+        wall = time.perf_counter() - t0
+        cache = model.init_cache(cfg, tokens.shape[0], max_len,
+                                 device="meta", tp=tp)
+        kv = [t for p, t in tree_lib.tree_leaves_with_path(cache)
+              if p[-1] in ("k", "v")]
+        return dict(logits=logits.to(keep) if rank == 0 else None,
+                    per_step=per_step, records=records(),
+                    launches=dict(ops.LAUNCHES), wall_s=wall,
+                    cache_shape=tuple(kv[0].shape),
+                    cache_bytes=sum(t.numel() * t.element_size()
+                                    for t in kv),
+                    plan=dict(cache=tp.cache, kinds=dict(tp.kinds),
+                              vocab=tp.vocab))
+
+    def plan(cfg):
+        return tensor_parallel.plan(cfg, mesh, rules_for(cfg, mesh,
+                                                          "decode"))
+
+    if "llama" in spec["runs"]:
+        params = model.init_params(llama, seed=31, device=device)
+        checksum = float(params["embed"]["w"].float().sum())
+        tokens = split_prompts(torch, llama, SERVE_SPLIT_PROMPTS,
+                               SERVE_SPLIT_PROMPT_LEN, 31).to(device)
+        forced = shared(f"llama{world}.pt")["tokens"]
+        max_len = SERVE_SPLIT_MAX_LEN[world]
+        tp = plan(llama)
+        res = generation(llama, params, tokens, max_len, SERVE_SPLIT_STEPS,
+                         forced, tp)
+        res["checksum"] = checksum
+        out["llama"] = res
+        # the group's planted fault: (a) rank 1's partial o of each
+        # forward's first layer left out of the sum, (b) rank 0's partial
+        # (the whole prompt's slice) left out of the sequence combine
+        apply, all_reduce = TP.apply, collectives.all_reduce
+        calls = [0]
+
+        def skip_o(self, method, p, x, peft_cfg, cdt, module):
+            if module != "o":
+                return apply(self, method, p, x, peft_cfg, cdt, module)
+            calls[0] += 1
+            if self.rank != 1 or calls[0] % llama.num_layers != 1:
+                return apply(self, method, p, x, peft_cfg, cdt, module)
+            local = tensor_parallel.local_params(p, method, peft_cfg, "row",
+                                                 self.rank, self.size)
+            y = method.apply(local, x, peft_cfg, cdt)
+            return collectives.reduce_from(torch.zeros_like(y), self.mesh,
+                                           tensor_parallel.AXIS)
+
+        def no_partial(t, mesh_, axes, *args_, tag="", **kwargs):
+            if tag == "seq_sum" and rank == 0:
+                t.zero_()
+            return all_reduce(t, mesh_, axes, *args_, tag=tag, **kwargs)
+        if world == 2:
+            TP.apply = skip_o
+        else:
+            collectives.all_reduce = no_partial
+        try:
+            out["llama_fault"] = generation(llama, params, tokens, max_len,
+                                            SERVE_FAULT_STEPS, forced, tp)
+        finally:
+            TP.apply, collectives.all_reduce = apply, all_reduce
+        del params
+
+    if "moe" in spec["runs"]:
+        tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
+        rules = rules_for(moe_cfg, mesh, "train")
+        sh, abstract = trainer.state_shardings(moe_cfg, tc, mesh, rules)
+        local = checkpoint.restore(expand_template(
+            torch, tree_lib, abstract, device, sh), str(work.parent / "moe"),
+            shardings=sh, mesh=mesh)
+        step = trainer.make_train_step(moe_cfg, tc, "capacity", mesh=mesh,
+                                       rules=rules)
+        ds = data.SyntheticLMDataset(moe_cfg, TRAIN_BATCH, TRAIN_SEQ)
+        shapes, mats = {}, {}
+        psoft_mm, cayley = ops._psoft_mm, ops._cayley
+
+        def rec_mm(x, w_res, *args_):
+            key = (tuple(w_res.shape), bool(args_[-1]))
+            shapes[key] = shapes.get(key, 0) + 1
+            return psoft_mm(x, w_res, *args_)
+
+        def rec_cayley(q, terms):
+            key = tuple(q.shape)
+            mats[key] = mats.get(key, 0) + 1
+            return cayley(q, terms)
+        ops._psoft_mm, ops._cayley = rec_mm, rec_cayley
+        collectives.reset()
+        try:
+            _, res = split_run(torch, ops, tree_lib, adamw, step, local,
+                               [ds.batch_at(i) for i in
+                                range(SERVE_MOE_STEPS)], device)
+        finally:
+            ops._psoft_mm, ops._cayley = psoft_mm, cayley
+        res.update(records=records(), psoft_grouped=dict(
+            ops.PSOFT_GROUPED_LAUNCHES), psoft_shapes=sorted(shapes.items()),
+            cayley_shapes=sorted(mats.items()))
+        if rank:
+            res.pop("grads")
+        out["moe_train"] = res
+        del step
+        # the same split in fp32, one step from the state widened
+        cfg32 = moe_cfg.replace(dtype="float32", param_dtype="float32")
+        local32 = tree_lib.tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, local)
+        _, res32 = split_run(torch, ops, tree_lib, adamw,
+                             trainer.make_train_step(cfg32, tc, "capacity",
+                                                     mesh=mesh, rules=rules),
+                             local32, [ds.batch_at(0)], device)
+        out["moe_train32"] = {k: res32[k] for k in ("losses", "grads")} \
+            if rank == 0 else {"losses": res32["losses"]}
+        del local32
+        full = trainer.gather_state(local, sh, mesh)
+        del local
+        params = adamw.combine(full.trainable, full.frozen)
+        tokens = split_prompts(torch, moe_cfg, SERVE_MOE_PROMPTS,
+                               SERVE_MOE_PROMPT_LEN, 32).to(device)
+        forced = shared("moe.pt")["tokens"]
+        tp = plan(moe_cfg)
+        out["moe_serve"] = generation(moe_cfg, params, tokens,
+                                      SERVE_MOE_MAX_LEN, SERVE_MOE_GEN,
+                                      forced, tp, moe=True)
+        cfg32 = moe_cfg.replace(dtype="float32", param_dtype="float32")
+        params = tree_lib.tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, params)
+        del full
+        tp = plan(cfg32)
+        out["moe_serve32"] = generation(cfg32, params, tokens,
+                                        SERVE_MOE_MAX_LEN, SERVE_MOE_GEN,
+                                        forced, tp, moe=True,
+                                        keep=torch.float32)
+        local_experts = TP.local_experts
+
+        def neighbours(self, layers, dim=1):
+            if self.rank != 1:
+                return local_experts(self, layers, dim)
+            first, n = self.expert_range()
+            shifted = (first + n) % self.num_experts
+            moe_ = dict(layers["moe"])
+            for m in tensor_parallel.EXPERT_LINEARS:
+                if m in moe_:
+                    moe_[m] = {k: v.narrow(dim, shifted, n)
+                               for k, v in moe_[m].items()}
+            return {**layers, "moe": moe_}
+        TP.local_experts = neighbours
+        try:
+            out["moe_fault"] = generation(cfg32, params, tokens,
+                                          SERVE_MOE_MAX_LEN,
+                                          SERVE_FAULT_STEPS, forced, tp,
+                                          moe=True, keep=torch.float32)
+        finally:
+            TP.local_experts = local_experts
+        del params
+
+    if "tiny" in spec["runs"]:
+        params = tree_lib.tree_map(lambda t: t.to(device), model.init_params(
+            tiny, seed=33, device="cpu"))
+        tokens = split_prompts(torch, tiny, 2, SERVE_TINY_PROMPT, 33)
+        forced = split_prompts(torch, tiny, SERVE_TINY_STEPS, 2, 34)
+        out["tiny"] = generation(tiny, params, tokens.to(device),
+                                 SERVE_TINY_MAX_LEN[world], SERVE_TINY_STEPS,
+                                 forced, plan(tiny), keep=torch.float32)
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def save_shared(torch, obj, path: Path) -> None:
+    """``torch.save`` to ``path`` through a temporary name, so that a rank
+    waiting for ``path`` never reads it half written."""
+    tmp = path.with_suffix(".tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def split_serve_phase(torch, args, configs, model, trainer, data, tree, ops,
+                      checkpoint, gpu_line, work: Path, device="cuda"):
+    """Phase 31: serving over the ``model`` axis and expert parallelism,
+    on two groups of processes of the script itself that share the card
+    (``--serve-split-rank R --split-work DIR``; gloo groups on file
+    stores, every collective of a CUDA tensor staged through host memory,
+    as in phase 30), both running while the parent computes the unsharded
+    references and hands them their inputs:
+
+    (a) llama32-3b at full width (24 / 8 heads: 12 / 4 a rank; d_ff 8192:
+        4096; vocab 128256: 64128) and the phase's depth, plain bf16
+        weights from seed 31, on (1, 2): a split ``prefill`` of 8 prompts
+        of 256 tokens into a cache of 512 (a rank's 4 kv heads) and 32
+        ``decode_step``s fed the unsharded run's greedy tokens; every
+        logits row within 2e-2 relative L2 of the unsharded run's, the
+        greedy agreement reported; the collectives over ``model`` exactly
+        ``tensor_parallel.serve_collectives``' and one paged decode a layer
+        a step;
+    (b) the same on (1, 3): 8 heads a rank, the 8 kv heads do not divide
+        so the cache splits over its sequence (768 positions, 256 a rank:
+        rank 0 holds the prompts, rank 1 the decoded tokens, rank 2's
+        slice stays empty), the MLP (8192 over 3) replicated, the
+        vocabulary split;
+    (c) deepseek-moe-16b at full width and MOE_TRAIN_LAYERS, PSOFT r 64,
+        from the state phase 17 saved, on (1, 2): 32 of the 64 experts a
+        rank; 3 bf16 split train steps against the unsharded step
+        (losses within SPLIT_LOSS_REL, the worst step-1 gradient's
+        distance from the unsharded fp32 step within SPLIT_WITNESS_RATIO
+        times the unsharded bf16 step's) and one fp32 split step against
+        the unsharded fp32 step (loss within 1e-4 relative, step-1
+        gradients within 2e-2 relative L2), every expert stack one
+        grouped psoft_matmul launch at G 32 a pass, cayley_neumann on the
+        rank's stacks, no frozen leaf gathered over ``model``; then split
+        serving (capacity prefill, dense decode) against the unsharded
+        run at the bf16 rule;
+    (d) tiny fp32 on (1, 2) and (1, 3) (4 kv heads over 3: a sequence
+        cache, q replicated) on the card against the unsharded run on the
+        CPU, within 1e-4.
+
+    Each limit is shown rejecting a planted fault (SERVE_SPLIT_FAULTS).
+    Times are two or three gloo ranks sharing one card with their
+    collectives staged through host: not a speed figure of the split."""
+    import numpy as np
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.optim import adamw
+
+    cuda = device == "cuda"
+    gc_freed_gib = free_cycles(torch) if cuda else 0.0
+    spec = dict(device=device, layers=args.layers,
+                moe_layers=min(MOE_TRAIN_LAYERS,
+                               args.layers or MOE_TRAIN_LAYERS),
+                reduced=bool(getattr(args, "reduced", False)))
+    llama, moe_cfg, tiny = serve_split_configs(configs, spec)
+    check((work / "moe").is_dir(), f"serve split: no deepseek-moe-16b "
+                                   f"state under {work / 'moe'} (phase 17 "
+                                   f"saves it)")
+    runs = {2: ["llama", "moe", "tiny"], 3: ["llama", "tiny"]}
+    for name in ("llama2.pt", "llama3.pt", "moe.pt"):
+        (work / name).unlink(missing_ok=True)
+    procs, logs = [], []
+    for world, names in runs.items():
+        gw = work / f"serve{world}"
+        shutil.rmtree(gw, ignore_errors=True)
+        gw.mkdir(parents=True)
+        (gw / "spec.json").write_text(json.dumps(dict(spec, world=world,
+                                                      runs=names)))
+        for r in range(world):
+            logs.append(open(gw / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--serve-split-rank", str(r), "--split-work", str(gw)],
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+    t_start = time.perf_counter()
+    want = {}
+    try:
+        t0 = time.perf_counter()
+        # (a), (b): the unsharded greedy runs at each mesh's cache length
+        params = model.init_params(llama, seed=31, device=device)
+        checksum = float(params["embed"]["w"].float().sum())
+        tokens = split_prompts(torch, llama, SERVE_SPLIT_PROMPTS,
+                               SERVE_SPLIT_PROMPT_LEN, 31).to(device)
+        for world, max_len in SERVE_SPLIT_MAX_LEN.items():
+            ops.reset_launches()
+            if cuda:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, fed, per_step = split_generate(
+                torch, model, ops, params, llama, tokens, max_len,
+                SERVE_SPLIT_STEPS)
+            want[world] = dict(logits=logits, tokens=fed, per_step=per_step,
+                               wall_s=time.perf_counter() - t1)
+            save_shared(torch, {"tokens": fed}, work / f"llama{world}.pt")
+        del params
+        # (c): the unsharded step, its fp32 witness, the unsharded serving
+        tc = configs.TrainConfig(steps=100, learning_rate=1e-4)
+
+        def restored():
+            return checkpoint.restore(expand_template(
+                torch, tree_lib, trainer.init_train_state(moe_cfg, tc,
+                                                          device="meta"),
+                device), str(work / "moe"))
+        ds = data.SyntheticLMDataset(moe_cfg, TRAIN_BATCH, TRAIN_SEQ)
+        batches = [ds.batch_at(i) for i in range(SERVE_MOE_STEPS)]
+        state = restored()
+        params = adamw.combine(state.trainable, state.frozen)
+        mtokens = split_prompts(torch, moe_cfg, SERVE_MOE_PROMPTS,
+                                SERVE_MOE_PROMPT_LEN, 32).to(device)
+        logits, fed, _ = split_generate(torch, model, ops, params, moe_cfg,
+                                        mtokens, SERVE_MOE_MAX_LEN,
+                                        SERVE_MOE_GEN, moe=True)
+        want["moe_serve"] = dict(logits=logits, tokens=fed)
+        save_shared(torch, {"tokens": fed}, work / "moe.pt")
+        params = tree_lib.tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, params)
+        want["moe_serve32"] = split_generate(
+            torch, model, ops, params, moe_cfg.replace(
+                dtype="float32", param_dtype="float32"), mtokens,
+            SERVE_MOE_MAX_LEN, SERVE_MOE_GEN, fed, moe=True)[0]
+        del params
+        _, want["moe_train"] = split_run(
+            torch, ops, tree_lib, adamw, trainer.make_train_step(
+                moe_cfg, tc, "capacity"), state, batches, device)
+        want["moe_train"]["psoft_grouped"] = dict(ops.PSOFT_GROUPED_LAUNCHES)
+        del state
+        state = tree_lib.tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, restored())
+        _, want["moe_fp32"] = split_run(
+            torch, ops, tree_lib, adamw, trainer.make_train_step(
+                moe_cfg.replace(dtype="float32", param_dtype="float32"), tc,
+                "capacity"), state, batches[:1], device)
+        del state
+        # (d): tiny fp32 on the CPU
+        tparams = model.init_params(tiny, seed=33, device="cpu")
+        ttokens = split_prompts(torch, tiny, 2, SERVE_TINY_PROMPT, 33)
+        tforced = split_prompts(torch, tiny, SERVE_TINY_STEPS, 2, 34)
+        for world, max_len in SERVE_TINY_MAX_LEN.items():
+            want[f"tiny{world}"] = split_generate(
+                torch, model, ops, tparams, tiny, ttokens, max_len,
+                SERVE_TINY_STEPS, tforced)[0]
+        if cuda:
+            free_cycles(torch)
+        ref_s = time.perf_counter() - t0
+        deadline = time.monotonic() + SERVE_SPLIT_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t_start
+    rcs = [p.returncode for p in procs]
+    tails = "\n".join(f.name + ":\n" + Path(f.name).read_text()[-3000:]
+                      for f in logs)
+    check(rcs == [0] * len(procs), f"serve split: rank processes exited "
+                                   f"{rcs} (0 each within "
+                                   f"{SERVE_SPLIT_TIMEOUT_S} s):\n{tails}")
+    got = {world: [torch.load(work / f"serve{world}" / f"rank{r}.pt",
+                              weights_only=False) for r in range(world)]
+           for world in runs}
+    result = {"gpu": gpu_line, "gc_freed_gib": gc_freed_gib}
+    faults = {}
+
+    def held(logits, ref, what, limit=SPLIT_GRAD_REL_L2):
+        rel = row_rel_err(torch, logits, ref)
+        check(bool((rel <= limit).all()),
+              f"serve split {what}: logits rows over {limit} relative L2 of "
+              f"the unsharded run at (step, row) "
+              f"{(rel > limit).nonzero().tolist()[:10]} (max "
+              f"{float(rel.max()):.4g})")
+        return float(rel.max())
+
+    def rejected(logits, ref, name):
+        rel = row_rel_err(torch, logits, ref[:logits.shape[0]])
+        check(bool((rel > SPLIT_GRAD_REL_L2).any()),
+              f"serve split: planted fault {name!r} not rejected: every row "
+              f"within {SPLIT_GRAD_REL_L2} (max {float(rel.max()):.3g})")
+        faults[name] = float(rel.max())
+
+    def collectives_held(res, cfg, world, b, s, steps, what):
+        kw = dict(cfg=cfg, kinds=res["plan"]["kinds"],
+                  vocab=res["plan"]["vocab"], cache=res["plan"]["cache"],
+                  size=world, batch=b)
+        want_c = tensor_parallel.serve_collectives(
+            seq=s, decode=False, **kw) + tensor_parallel.serve_collectives(
+            seq=1, decode=True, **kw) * steps
+        got_c = sorted((tag, n) for kind, _, n, grp, _, tag
+                       in res["records"] if grp == "model")
+        check(got_c == sorted(want_c) and all(
+            t[4] for t in res["records"] if cuda),
+            f"serve split {what}: {len(got_c)} collectives over model "
+            f"against {len(want_c)} predicted (every one staged through "
+            f"host on the card)")
+        return len(want_c)
+
+    # (a), (b)
+    for world, what in ((2, "(a) llama32-3b on (1, 2)"),
+                        (3, "(b) llama32-3b on (1, 3)")):
+        res = [g["llama"] for g in got[world]]
+        ref = want[world]
+        rel = held(res[0]["logits"], ref["logits"], what)
+        agree = float((res[0]["logits"].float().argmax(-1)
+                       == ref["logits"].argmax(-1)).float().mean())
+        layout = "kv_heads" if world == 2 else "cache_seq"
+        n_coll = 0
+        for r, rr in enumerate(res):
+            check(rr["checksum"] == checksum,
+                  f"serve split {what} rank {r}: params from seed 31 differ "
+                  f"({rr['checksum']} against {checksum})")
+            check(rr["plan"]["cache"] == layout,
+                  f"serve split {what} rank {r}: cache {rr['plan']['cache']}"
+                  f", expected {layout}")
+            check(not cuda or rr["per_step"] == [llama.num_layers]
+                  * SERVE_SPLIT_STEPS,
+                  f"serve split {what} rank {r}: paged decode launches a "
+                  f"step {rr['per_step']}, expected {llama.num_layers}")
+            n_coll = collectives_held(rr, llama, world, SERVE_SPLIT_PROMPTS,
+                                      SERVE_SPLIT_PROMPT_LEN,
+                                      SERVE_SPLIT_STEPS, f"{what} rank {r}")
+        fault = [k for k, v in SERVE_SPLIT_FAULTS.items()
+                 if v == ("a" if world == 2 else "b")][0]
+        rejected(got[world][0]["llama_fault"]["logits"], ref["logits"],
+                 fault)
+        result["a" if world == 2 else "b"] = dict(
+            max_row_rel_l2=rel, greedy_agreement=agree,
+            cache=layout, cache_shape=res[0]["cache_shape"],
+            cache_bytes_per_rank=res[0]["cache_bytes"],
+            collectives=n_coll, plan=res[0]["plan"],
+            wall_s=[rr["wall_s"] for rr in res], plain_wall_s=ref["wall_s"],
+            launches=sum(rr["launches"]["paged_decode_attention"]
+                         for rr in res))
+        print(f"serve split {what}: {llama.num_layers} layers, "
+              f"{SERVE_SPLIT_PROMPTS} x {SERVE_SPLIT_PROMPT_LEN} prompts and "
+              f"{SERVE_SPLIT_STEPS} decode steps fed the unsharded greedy "
+              f"tokens: worst logits row {rel:.3e} relative L2 (limit "
+              f"{SPLIT_GRAD_REL_L2}), greedy agreement {agree:.4f}; cache "
+              f"{layout} {res[0]['cache_shape']} a rank "
+              f"({res[0]['cache_bytes'] / 2**20:.1f} MiB), {n_coll} "
+              f"collectives over model as predicted; the run took "
+              f"{[round(rr['wall_s'], 2) for rr in res]} s a rank against "
+              f"{ref['wall_s']:.2f} s unsharded (ranks sharing one card, "
+              f"collectives staged through host: not a speed figure) "
+              f"[{gpu_line}]")
+
+    # (c) the expert-parallel train step: bf16 against the unsharded bf16
+    # step and its fp32 witness, fp32 against the unsharded fp32 step
+    tr = [g["moe_train"] for g in got[2]]
+    wt, w32 = want["moe_train"], want["moe_fp32"]
+    loss_rel = max(abs(g - w) / abs(w) for g, w in zip(tr[0]["losses"],
+                                                       wt["losses"]))
+    leaf, grad_rel = worst_grad(wt["grads"], tr[0]["grads"])
+    w_leaf, w_rel = worst_grad(w32["grads"], wt["grads"])
+    ws_leaf, ws_rel = worst_grad(w32["grads"], tr[0]["grads"])
+    check(sorted(tr[0]["grads"]) == sorted(wt["grads"])
+          and loss_rel <= SPLIT_LOSS_REL
+          and (ws_rel <= SPLIT_WITNESS_RATIO * w_rel or not cuda),
+          f"serve split (c): bf16 losses {tr[0]['losses']} against "
+          f"{wt['losses']} (relative {loss_rel:.2e}, limit "
+          f"{SPLIT_LOSS_REL}); against the fp32 step the split's worst "
+          f"step-1 gradient {ws_leaf} at {ws_rel:.3e} relative L2, the "
+          f"unsharded bf16 step's {w_leaf} at {w_rel:.3e} (limit "
+          f"{SPLIT_WITNESS_RATIO} times)")
+    t32 = got[2][0]["moe_train32"]
+    loss32 = abs(t32["losses"][0] - w32["losses"][0]) / abs(w32["losses"][0])
+    leaf32, grad32 = worst_grad(w32["grads"], t32["grads"])
+    check(loss32 <= SERVE_MOE_LOSS_REL and grad32 <= SPLIT_GRAD_REL_L2,
+          f"serve split (c): fp32 split step loss {t32['losses'][0]} against "
+          f"{w32['losses'][0]} (relative {loss32:.2e}, limit "
+          f"{SERVE_MOE_LOSS_REL}), worst step-1 gradient {leaf32} "
+          f"{grad32:.2e} relative L2 (limit {SPLIT_GRAD_REL_L2})")
+    sizes = {"data": 1, "model": 2}
+    kinds, vocab = tensor_parallel.plan_linears(moe_cfg, sizes,
+                                                rules_for(moe_cfg, sizes))
+    predicted = sorted(tensor_parallel.step_collectives(
+        moe_cfg, kinds, vocab, 2, TRAIN_BATCH, TRAIN_SEQ) * SERVE_MOE_STEPS)
+    e_local = moe_cfg.moe.num_experts // 2
+    stacks = MOE_GROUPED_PER_LAYER * moe_cfg.num_layers
+    for r, res in enumerate(tr):
+        on_model = [(kind, tag, n) for kind, _, n, grp, _, tag
+                    in res["records"] if grp == "model"]
+        check(not [t for t in on_model if t[1] == "frozen"]
+              and sorted((tag, n) for _, tag, n in on_model
+                         if tag not in ("grads", "state")) == predicted
+              and sum(t[1] == "grads" for t in on_model) == SERVE_MOE_STEPS,
+              f"serve split (c) rank {r}: {len(on_model)} collectives over "
+              f"model, {len(predicted)} predicted; frozen gathers over model "
+              f"{[t for t in on_model if t[1] == 'frozen'][:3]}")
+        grouped = [(s, t, n) for (s, t), n in res["psoft_shapes"]
+                   if len(s) == 3]
+        check(all(s[0] == e_local for s, _, _ in grouped)
+              and sum(n for *_, n in grouped) == 3 * stacks * SERVE_MOE_STEPS
+              and (not cuda or sum(res["psoft_grouped"].values())
+                   == 3 * stacks * SERVE_MOE_STEPS)
+              and res["launches"]["psoft_matmul"]
+              == wt["launches"]["psoft_matmul"],
+              f"serve split (c) rank {r}: grouped psoft_matmul shapes "
+              f"{grouped} (G {e_local}, {3 * stacks} a step expected), "
+              f"{res['launches']['psoft_matmul']} launches against "
+              f"{wt['launches']['psoft_matmul']} unsharded")
+        experts = [(s, n) for s, n in res["cayley_shapes"]
+                   if len(s) == 4 and s[1] == e_local]
+        check(len(experts) == 1 and experts[0][1] == 3 * SERVE_MOE_STEPS
+              and res["launches"]["cayley_neumann"]
+              == wt["launches"]["cayley_neumann"],
+              f"serve split (c) rank {r}: cayley_neumann on the rank's "
+              f"expert stacks {res['cayley_shapes']}, "
+              f"{res['launches']['cayley_neumann']} launches against "
+              f"{wt['launches']['cayley_neumann']} unsharded")
+    # (c) serving: bf16 reported, fp32 held
+    ms = [g["moe_serve"] for g in got[2]]
+    rel_rows = row_rel_err(torch, ms[0]["logits"],
+                           want["moe_serve"]["logits"])
+    moe_rel = float(rel_rows.max())
+    moe_over = int((rel_rows > SPLIT_GRAD_REL_L2).sum())
+    moe_agree = float((ms[0]["logits"].float().argmax(-1) == want[
+        "moe_serve"]["logits"].argmax(-1)).float().mean())
+    moe32 = max_err(torch, got[2][0]["moe_serve32"]["logits"],
+                    want["moe_serve32"], "float32",
+                    "serve split (c) deepseek-moe-16b serving in fp32")
+    for r, rr in enumerate(ms + [g["moe_serve32"] for g in got[2]]):
+        check(not cuda or rr["per_step"] == [moe_cfg.num_layers]
+              * SERVE_MOE_GEN,
+              f"serve split (c) rank {r}: paged decode launches a step "
+              f"{rr['per_step']}")
+        collectives_held(rr, moe_cfg, 2, SERVE_MOE_PROMPTS,
+                         SERVE_MOE_PROMPT_LEN, SERVE_MOE_GEN,
+                         f"(c) serving rank {r}")
+    fault_err, fault_bad = over_limit(
+        torch, got[2][0]["moe_fault"]["logits"],
+        want["moe_serve32"][:SERVE_FAULT_STEPS + 1], "float32")
+    check(bool(fault_bad.any()),
+          f"serve split: planted fault \"a rank computing its neighbour's "
+          f"experts\" not rejected by fp32's limit (max abs err "
+          f"{float(fault_err.max()):.3g})")
+    faults["a rank computing its neighbour's experts"] = float(
+        row_rel_err(torch, got[2][0]["moe_fault"]["logits"],
+                    want["moe_serve32"][:SERVE_FAULT_STEPS + 1]).max())
+    result["c"] = dict(
+        losses=tr[0]["losses"], plain_losses=wt["losses"], loss_rel=loss_rel,
+        worst_grad=(leaf, grad_rel), witness=dict(unsharded=(w_leaf, w_rel),
+                                                  split=(ws_leaf, ws_rel)),
+        fp32=dict(loss_rel=loss32, worst_grad=(leaf32, grad32)),
+        step_ms=[t["step_ms"] for t in tr], plain_step_ms=wt["step_ms"],
+        peak_gib=[t["peak_gib"] for t in tr], plain_peak_gib=wt["peak_gib"],
+        psoft_shapes=[[list(s), t, n] for (s, t), n in tr[0]["psoft_shapes"]],
+        cayley_shapes=[[list(s), n] for s, n in tr[0]["cayley_shapes"]],
+        serve_max_row_rel_l2=moe_rel, serve_rows_over=moe_over,
+        serve_greedy_agreement=moe_agree, serve_fp32_max_abs_err=moe32,
+        serve_cache_shape=ms[0]["cache_shape"])
+    print(f"serve split (c) deepseek-moe-16b {moe_cfg.num_layers} layers on "
+          f"(1, 2), {e_local} experts a rank: losses {tr[0]['losses']} "
+          f"against {wt['losses']} (relative {loss_rel:.2e}), worst step-1 "
+          f"gradient {leaf} {grad_rel:.2e} relative L2 (reported); against "
+          f"the fp32 step the split's {ws_rel:.3e}, the unsharded bf16 "
+          f"step's {w_rel:.3e} (ratio {ws_rel / max(w_rel, 1e-30):.3f}, "
+          f"limit {SPLIT_WITNESS_RATIO}); in fp32 the split step's loss "
+          f"{loss32:.2e} relative, worst gradient {leaf32} {grad32:.2e}; "
+          f"grouped psoft_matmul at G {e_local} "
+          f"{sum(tr[0]['psoft_grouped'].values())} launches a rank, "
+          f"cayley_neumann {tr[0]['launches']['cayley_neumann']}; serving "
+          f"in bf16 (reported): worst logits row {moe_rel:.3e} relative L2, "
+          f"{moe_over} of {rel_rows.numel()} rows over {SPLIT_GRAD_REL_L2}, "
+          f"greedy agreement {moe_agree:.4f}; in fp32 (held): max abs err "
+          f"{moe32:.3e}; step ms a rank "
+          f"{[[round(v, 1) for v in t['step_ms']] for t in tr]} against "
+          f"{[round(v, 1) for v in wt['step_ms']]} unsharded (not a speed "
+          f"figure), peak {[round(t['peak_gib'], 2) for t in tr]} GiB "
+          f"against {wt['peak_gib']:.2f} [{gpu_line}]")
+
+    # (d) tiny fp32, card against CPU
+    tiny_err = {}
+    for world in runs:
+        g = got[world][0]["tiny"]
+        tiny_err[world] = float((g["logits"] - want[f"tiny{world}"]).abs()
+                                .max())
+        check(tiny_err[world] <= SERVE_TINY_TOL,
+              f"serve split (d): tiny on (1, {world}) ({g['plan']['cache']})"
+              f" against the CPU: max abs err {tiny_err[world]:.2e} (limit "
+              f"{SERVE_TINY_TOL})")
+    result["d"] = {f"1x{w}": e for w, e in tiny_err.items()}
+    result["faults"] = faults
+    print(f"serve split: planted faults rejected (worst logits row, "
+          f"relative L2): " + "; ".join(f"{k}: {v:.3g}"
+                                        for k, v in faults.items())
+          + f"; tiny fp32 card vs CPU {result['d']}; references "
+            f"{ref_s:.1f} s, ranks done after {ranks_s:.1f} s [{gpu_line}]")
+    result["launches"] = {
+        "paged_decode_attention": result["a"]["launches"]
+        + result["b"]["launches"] + sum(
+            g["moe_serve"]["launches"]["paged_decode_attention"]
+            for g in got[2]),
+        "psoft_matmul": sum(t["launches"]["psoft_matmul"] for t in tr),
+        "cayley_neumann": sum(t["launches"]["cayley_neumann"] for t in tr),
+        "psoft_matmul_grouped": sum(sum(t["psoft_grouped"].values())
+                                    for t in tr)}
+    result.update(references_s=ref_s, ranks_s=ranks_s)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -7212,6 +8157,9 @@ def main(argv=None) -> int:
     ap.add_argument("--split-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--split-work", default="", help=argparse.SUPPRESS)
+    # one rank of phase 31, started by the parent
+    ap.add_argument("--serve-split-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is missing: run from a checkout "
@@ -7222,6 +8170,10 @@ def main(argv=None) -> int:
         # the rank runs on the device its parent's spec names
         sys.path.insert(0, str(SRC))
         return split_rank_main(torch, args.split_rank, Path(args.split_work))
+    if args.serve_split_rank is not None:
+        sys.path.insert(0, str(SRC))
+        return serve_split_rank_main(torch, args.serve_split_rank,
+                                     Path(args.split_work))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -7302,6 +8254,12 @@ def main(argv=None) -> int:
     for name, res in zoo_kernel_phase(torch, ops, ref, F).items():
         kernels[name]["zoo"] = res
     kernels["psoft_matmul"]["split"] = split_kernel_phase(torch, ops, ref)
+    serve_split_kernels = split_serve_kernel_phase(torch, ops, ref, F,
+                                                   attention)
+    kernels["paged_decode_attention"]["split_serve"] = {
+        k: serve_split_kernels[k] for k in ("heads", "slice")}
+    kernels["psoft_matmul_grouped"]["split_experts"] = \
+        serve_split_kernels["grouped"]
     kernels["paged_decode_attention"]["cross_view"] = \
         vlm_audio_kernels["cross_view"]
     phase_s["kernels"] = time.perf_counter() - t0
@@ -7453,8 +8411,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_s["moe_serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    SPLIT_WORK.mkdir(parents=True, exist_ok=True)
     moe_trained = moe_train_phase(torch, args, configs, model, trainer, data,
-                                  tree, ops, peft, gpu_line)
+                                  tree, ops, peft, gpu_line, checkpoint,
+                                  SPLIT_WORK / "moe")
     torch.cuda.empty_cache()
     phase_s["moe_train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -7514,9 +8474,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     split = split_phase(torch, llama_args, configs, model, trainer, data,
                         tree, ops, checkpoint, gpu_line, SPLIT_WORK)
-    shutil.rmtree(SPLIT_WORK, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_s["split"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_split = split_serve_phase(torch, llama_args, configs, model,
+                                    trainer, data, tree, ops, checkpoint,
+                                    gpu_line, SPLIT_WORK)
+    shutil.rmtree(SPLIT_WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s["serve_split"] = time.perf_counter() - t0
     print(f"phases: {', '.join(f'{k} {v:.1f} s' for k, v in phase_s.items())}"
           f" [{gpu_line}]")
 
@@ -7540,6 +8506,7 @@ def main(argv=None) -> int:
                     + vlm["generation"]["launches"][k]
                     + audio["generation"]["launches"][k]
                     + sum(z["serve"]["launches"][k] for z in zoo.values())
+                    + serve_split["launches"].get(k, 0)
                     for k in SERVE_KERNELS},
                  **{k: trained["launches"][k] + lifecycle["launches"][k]
                     + moe_trained["launches"][k]
@@ -7551,12 +8518,14 @@ def main(argv=None) -> int:
                     + sum(r["launches"][k] for r in remat["runs"].values())
                     + launched["full"]["launches"][k]
                     + sharded["launches"][k] + split["launches"][k]
+                    + serve_split["launches"][k]
                     for k in TRAIN_KERNELS},
                  "blockdiag_rotate":
                      oft_trained["launches"]["blockdiag_rotate"]
                      + split["launches"]["blockdiag_rotate"],
                  "psoft_matmul_grouped":
-                     sum(moe_trained["psoft_grouped"].values())}
+                     sum(moe_trained["psoft_grouped"].values())
+                     + serve_split["launches"]["psoft_matmul_grouped"]}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/"
@@ -7596,6 +8565,7 @@ def main(argv=None) -> int:
                                        zoo=zoo, remat=remat, launcher=launched,
                                        zoo_card_vs_cpu=zoo_cross,
                                        sharded=sharded, split=split,
+                                       serve_split=serve_split,
                                        ssd_scan=ssd_scan,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)

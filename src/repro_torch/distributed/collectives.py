@@ -76,6 +76,7 @@ def all_gather(t: torch.Tensor, dim: int, mesh, axis: str,
     n = mesh_shape(mesh)[axis]
     group = mesh.get_group(axis)
     inp = t.contiguous()
+    dim %= inp.ndim
     staged = _staged(inp, group)
     if _alone(staged, n):
         RECORD.append(Collective("all_gather", inp.dtype, inp.numel(), axis,
@@ -141,15 +142,16 @@ def shard(full: torch.Tensor, pl: Placements, mesh) -> torch.Tensor:
 
 
 def gather(local: torch.Tensor, pl: Placements, mesh,
-           keep: Tuple[str, ...] = ()) -> torch.Tensor:
+           keep: Tuple[str, ...] = (), tag: str = "") -> torch.Tensor:
     """The full tensor from every rank's block: one all-gather per mesh
-    axis that splits a dim, the innermost axis first.  ``local`` may be a
-    layer's slice of a stacked tensor (``pl`` is the stack's).  The axes
-    in ``keep`` stay split (a vocab-parallel embedding keeps its rows)."""
+    axis that splits a dim, the innermost axis first, each recorded with
+    ``tag``.  ``local`` may be a layer's slice of a stacked tensor (``pl``
+    is the stack's).  The axes in ``keep`` stay split (a vocab-parallel
+    embedding keeps its rows, an expert-parallel stack its experts)."""
     for d, axes in pl.dim_axes(local.ndim).items():
         for name, _ in reversed(axes):
             if name not in keep:
-                local = all_gather(local, d, mesh, name)
+                local = all_gather(local, d, mesh, name, tag=tag)
     return local
 
 

@@ -1,13 +1,15 @@
-"""The compute split over the ``model`` mesh axis in the sharded train step:
-head-, MLP- and vocab-parallel training.
+"""The compute split over the ``model`` mesh axis: head-, MLP-, vocab- and
+expert-parallel training in the sharded train step, and split ``prefill``
+and ``decode_step``.
 
-The reference's rules send ``heads``, ``kv_heads``, ``mlp`` and ``vocab``
-to ``model``, and its model code constrains activations to them
-(``shard_act``), so XLA has each ``model`` rank compute its heads of
-attention, its columns of the MLP and its slice of the vocabulary, and sum
-the partial row products.  The port makes the same split by hand.  Each
-linear of an attention block (self and cross attention, the dense MLP) is
-planned as one of :data:`KINDS`:
+The reference's rules send ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and
+``expert`` to ``model``, and its model code constrains activations to
+them (``shard_act``), so XLA has each ``model`` rank compute its heads of
+attention, its columns of the MLP, its slice of the vocabulary and its
+experts, and sum the partial row products.  The port makes the same split
+by hand.  Each linear of an attention block (self and cross attention, the
+dense MLP, an MoE layer's shared experts) is planned as one of
+:data:`KINDS`:
 
 - ``"col"``: q, k, v, gate, up: the rank computes its output columns from
   the whole (replicated) input, which :func:`collectives.copy_to` hands
@@ -23,6 +25,21 @@ planned as one of :data:`KINDS`:
 - ``"replicated"``: every rank computes the whole output, as without a
   split.
 
+An MoE layer's expert stacks are ``"split"`` (module ``"expert"``) when
+``expert`` lands on ``model``: every rank routes and dispatches every
+token, as without a split, runs only its E / n experts' rows through its
+slices of the stacks (one grouped launch set a stack at G = E / n, the
+rotations of its experts only), and the ranks' partial outputs are summed
+over ``model`` (:func:`collectives.reduce_from`).  A sum of (tokens,
+d_model) moves less than a gather of the expert outputs along the expert
+axis (top-k times the capacity factor times more rows).  In the backward
+the expert path's input gradient and the combine's gate gradient are
+partial on each rank, and go through :func:`collectives.copy_to`: the
+buffer's gradient is summed as the dispatch input's (tokens, d_model),
+which the buffer's rows gather back to.  The shared experts' MLP
+(``"shared_gate"``, ``"shared_up"``, ``"shared_down"``) is planned like a
+dense MLP at its own width.
+
 The plan comes from the rules and the dims through ``logical_spec``, so
 the divisibility fallback decides it as in the reference: kv heads that
 the ``model`` size does not divide leave k and v replicated, and each rank
@@ -30,23 +47,33 @@ attends its q heads to the kv heads those heads map to by their global
 indices (:func:`repro_torch.models.attention.local_kv_heads`).  The
 embedding and the head split over vocabulary rows when ``vocab`` does:
 the lookup masks the ids outside the rank's rows and sums over ranks, and
-the loss is a vocab-parallel cross-entropy (:func:`vocab_parallel_ce`).
+the loss is a vocab-parallel cross-entropy (:func:`vocab_parallel_ce`);
+a split serving step gathers its logits over ``model`` (the reference's
+``out_shardings=None``).
+
+A serving split also lays out the dense decode cache (:data:`CACHES`),
+as ``cache_axes`` places it under ``rules_for(cfg, mesh, "decode")``:
+over ``"kv_heads"`` (a rank holds KH / n heads of every K/V buffer and
+decodes its heads as without a split), or, when the kv heads do not
+divide, over ``"cache_seq"`` (a rank holds every kv head at max_len / n
+positions; the owner of a position writes it, each rank attends every q
+head over its positions with the paged-decode kernel's log-sum-exp, and
+the ranks combine the partial softmaxes).  The Mamba2 mixer, its states
+and the hybrid's ``fuse`` compute replicated, as in the reference.
 
 The frozen weights keep the reference's layout (split over ``data``, not
 over ``model``), so the state, its shardings and its checkpoints do not
 change: a rank computes from its slice of each whole linear
-(:func:`local_params`: views, no copies), and only the embedding and the
-head, whose state is split over ``model`` by the rules, keep their own
-rows instead of being gathered.  A trainable gradient is partial on each
-rank where the plan splits the compute that uses it
-(:meth:`TensorParallel.grad_summed`), and the step sums those over
-``model`` too.  The MoE expert stacks (``expert``), the Mamba2 mixer
-(``conv_ch``) and the hybrid's ``fuse`` are not reached: they compute
-replicated across ``model`` ranks, as an unsplit step does.
+(:func:`local_params`: views, no copies); only the embedding, the head
+and the expert stacks, whose state the rules split over ``model``, keep
+their own rows instead of being gathered (:func:`kept_axes`).  A
+trainable gradient is partial on each rank where the plan splits the
+compute that uses it (:func:`grad_summed`), and the step sums those over
+``model`` too.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -67,8 +94,14 @@ ROW_MODULES = {"o": "heads", "down": "mlp"}
 #: the subtrees whose linears the split reaches, by parent name
 REACHED = {"attn": ("q", "k", "v", "o"), "cross": ("q", "k", "v", "o"),
            "mlp": ("gate", "up", "down")}
+#: an MoE layer's expert stacks and its shared experts' MLP, by name
+EXPERT_LINEARS = ("up", "down", "gate")
+SHARED = {m: "shared_" + m for m in ("gate", "up", "down")}
 #: the leaves that keep their vocabulary rows (not gathered over ``model``)
 VOCAB_LEAVES = (("embed", "w"), ("lm_head", "w"))
+#: the decode cache's layouts under a serving split: a rank's kv heads of
+#: every position, or every kv head of its positions
+CACHES = ("kv_heads", "cache_seq")
 #: stand-ins for a method's in and out axes, to find its params' dims
 _IN, _OUT = "tp_in", "tp_out"
 
@@ -77,23 +110,56 @@ def _splits(mesh, rules, name: str, dim: int) -> bool:
     return logical_spec(mesh, rules, (name,), (dim,))[0] == AXIS
 
 
-def plan_linears(cfg, mesh, rules) -> Tuple[Dict[str, str], bool]:
-    """(module -> kind for q, k, v, o, gate, up and down, whether the
-    vocabulary splits) of ``cfg`` on ``mesh`` (a live mesh or a size
-    mapping) under ``rules``."""
-    heads = _splits(mesh, rules, "heads", cfg.num_heads)
-    split = {"heads": heads, "mlp": _splits(mesh, rules, "mlp", cfg.d_ff),
-             "kv_heads": heads and _splits(mesh, rules, "kv_heads",
-                                           cfg.num_kv_heads)}
-
+def _mlp_kinds(cfg, split: bool, names: Mapping[str, str]
+               ) -> Dict[str, str]:
     def row(module):
         method = registry.get_method(cfg.peft.method_for(module))
         return "row" if method.row_separable else "gathered_row"
-    kinds = {m: "col" if split[ax] else "replicated"
-             for m, ax in COL_MODULES.items()}
-    kinds.update({m: row(m) if split[ax] else "replicated"
-                  for m, ax in ROW_MODULES.items()})
+    return {names["gate"]: "col" if split else "replicated",
+            names["up"]: "col" if split else "replicated",
+            names["down"]: row("down") if split else "replicated"}
+
+
+def plan_linears(cfg, mesh, rules) -> Tuple[Dict[str, str], bool]:
+    """(module -> kind for q, k, v, o, gate, up and down, whether the
+    vocabulary splits) of ``cfg`` on ``mesh`` (a live mesh or a size
+    mapping) under ``rules``; an MoE config adds ``"expert"`` (``"split"``
+    or ``"replicated"``) and, with shared experts, ``"shared_gate"``,
+    ``"shared_up"`` and ``"shared_down"``, planned like a dense MLP of
+    their width."""
+    heads = _splits(mesh, rules, "heads", cfg.num_heads)
+    kv = heads and _splits(mesh, rules, "kv_heads", cfg.num_kv_heads)
+    kinds = {"q": "col" if heads else "replicated",
+             "k": "col" if kv else "replicated",
+             "v": "col" if kv else "replicated"}
+    method = registry.get_method(cfg.peft.method_for("o"))
+    kinds["o"] = ("row" if method.row_separable else "gathered_row") \
+        if heads else "replicated"
+    kinds.update(_mlp_kinds(cfg, _splits(mesh, rules, "mlp", cfg.d_ff),
+                            {m: m for m in SHARED}))
+    if cfg.family == "moe":
+        kinds["expert"] = "split" if _splits(
+            mesh, rules, "expert", cfg.moe.num_experts) else "replicated"
+        if cfg.moe.num_shared_experts > 0:
+            width = cfg.moe.num_shared_experts * cfg.d_ff
+            kinds.update(_mlp_kinds(cfg, _splits(mesh, rules, "mlp", width),
+                                    SHARED))
     return kinds, _splits(mesh, rules, "vocab", cfg.padded_vocab_size)
+
+
+def cache_layout(cfg, mesh, rules, kinds: Mapping[str, str]
+                 ) -> Optional[str]:
+    """The decode cache's split (:data:`CACHES`) of ``cfg`` on ``mesh``
+    under ``rules`` and the linears' ``kinds``: ``"kv_heads"`` where k and
+    v split over heads, ``"cache_seq"`` where the rules send the cache's
+    sequence to ``model`` (``rules_for(cfg, mesh, "decode")`` does when
+    the kv heads do not divide), None otherwise (a cache every rank holds
+    whole, which a split decode refuses)."""
+    if kinds["k"] == "col":
+        return "kv_heads"
+    if logical_spec(mesh, rules, ("cache_seq",))[0] == AXIS:
+        return "cache_seq"
+    return None
 
 
 def local_params(params: Dict[str, torch.Tensor], method, peft_cfg,
@@ -121,9 +187,10 @@ def local_params(params: Dict[str, torch.Tensor], method, peft_cfg,
 
 @dataclass(frozen=True)
 class TensorParallel:
-    """The split of one sharded step: the live mesh, this rank's
-    coordinate on :data:`AXIS` and its size, the linears' kinds
-    (:func:`plan_linears`) and the config's head and vocabulary sizes."""
+    """The split of one sharded step or serving call: the live mesh, this
+    rank's coordinate on :data:`AXIS` and its size, the linears' kinds
+    (:func:`plan_linears`), the config's head, vocabulary and expert
+    sizes, and the decode cache's layout (:func:`cache_layout`)."""
     mesh: Any
     rank: int
     size: int
@@ -132,6 +199,8 @@ class TensorParallel:
     num_heads: int
     num_kv_heads: int
     vocab_size: int
+    num_experts: int = 0
+    cache: Optional[str] = None
 
     def copy_in(self, x: torch.Tensor, modules: Sequence[str]
                 ) -> torch.Tensor:
@@ -175,6 +244,49 @@ class TensorParallel:
             w = w.narrow(dim, self.rank * rows, rows)
         return w, self.rank * rows
 
+    @property
+    def experts(self) -> bool:
+        """Whether the expert stacks split over :data:`AXIS`."""
+        return self.kinds.get("expert") == "split"
+
+    def expert_range(self) -> Tuple[int, int]:
+        """(first expert, experts) this rank computes."""
+        if not self.experts:
+            return 0, self.num_experts
+        n = self.num_experts // self.size
+        return self.rank * n, n
+
+    def local_experts(self, layers, dim: int = 1):
+        """``layers`` (a stacked layer tree: expert dim ``dim``) with each
+        MoE expert stack's leaves cut to this rank's experts: a whole stack
+        (a trainable gathered for the step, or a tree every rank holds) is
+        sliced (views), a block the state holds split comes as it is."""
+        if not self.experts:
+            return layers
+        first, n = self.expert_range()
+
+        def cut(t):
+            if t.shape[dim] == n:
+                return t
+            if t.shape[dim] != self.num_experts:
+                raise ValueError(f"expert stack of shape {tuple(t.shape)}: "
+                                 f"dim {dim} is neither {self.num_experts} "
+                                 f"nor {n} experts")
+            return t.narrow(dim, first, n)
+        moe = dict(layers["moe"])
+        for m in EXPERT_LINEARS:
+            if m in moe:
+                moe[m] = {k: cut(v) for k, v in moe[m].items()}
+        return {**layers, "moe": moe}
+
+    def for_shared(self) -> "TensorParallel":
+        """This split with the shared experts' kinds as gate, up and
+        down, for ``mlp_apply`` of the shared MLP."""
+        kinds = dict(self.kinds)
+        for m, name in SHARED.items():
+            kinds[m] = self.kinds.get(name, "replicated")
+        return replace(self, kinds=kinds)
+
     def grad_summed(self, path: Tuple[str, ...]) -> bool:
         """:func:`grad_summed` under this split."""
         return grad_summed(self.kinds, self.vocab, path)
@@ -186,21 +298,35 @@ def grad_summed(kinds: Mapping[str, str], vocab: bool,
     on each rank under ``kinds`` and ``vocab`` (the compute that uses it
     is split), so that the step sums it over :data:`AXIS`: the leaves of a
     column- or row-split linear, of replicated k and v whose outputs feed
-    split q heads, and a trained embedding or head split over the
+    split q heads, of a split expert stack (each rank's gradient is zero
+    outside its experts), and a trained embedding or head split over the
     vocabulary.  A ``"gathered_row"`` or replicated linear's gradient is
     whole on every rank."""
     if tuple(path[:1]) in (("embed",), ("lm_head",)):
         return vocab
     module = reached_module(path)
+    if module == "expert":
+        return kinds.get("expert") == "split"
     return module is not None and (kinds[module] in ("col", "row") or (
         module in ("k", "v") and kinds["q"] == "col"))
 
 
 def reached_module(path: Tuple[str, ...]) -> Optional[str]:
-    """The linear of :data:`REACHED` that the leaf at ``path`` belongs to
-    (q, k, v, o, gate, up or down of an attention block or a dense MLP),
-    or None (an MoE layer's, or a linear the split does not reach)."""
+    """The module of the split that the leaf at ``path`` belongs to: q, k,
+    v, o, gate, up or down of an attention block or a dense MLP
+    (:data:`REACHED`), ``"shared_gate"``, ``"shared_up"`` or
+    ``"shared_down"`` of an MoE layer's shared experts, ``"expert"`` for
+    its expert stacks; None for the router and the linears the split does
+    not reach (the Mamba2 mixer, the hybrid's ``fuse``)."""
+    path = tuple(path)
     if "moe" in path:
+        i = path.index("moe")
+        rest = path[i + 1:]
+        if rest[:1] == ("shared",) and len(rest) >= 3 \
+                and rest[1] in SHARED:
+            return SHARED[rest[1]]
+        if len(rest) >= 2 and rest[0] in EXPERT_LINEARS:
+            return "expert"
         return None
     for i in range(len(path) - 2, 0, -1):
         module, parent = path[i], path[i - 1]
@@ -212,7 +338,9 @@ def reached_module(path: Tuple[str, ...]) -> Optional[str]:
 def plan(cfg, mesh, rules) -> Optional[TensorParallel]:
     """The split of ``cfg`` on a live ``mesh`` whose :data:`AXIS` has more
     than one rank; None otherwise (a size-only mesh, no such axis, or one
-    rank on it), and the step then computes as without a split."""
+    rank on it), and the step then computes as without a split.  Under
+    ``rules_for(cfg, mesh, "decode")`` (or ``"prefill"``) its cache layout
+    is the one ``cache_axes`` gets there."""
     if mesh is None or not hasattr(mesh, "get_group"):
         return None
     size = mesh_shape(mesh).get(AXIS, 1)
@@ -221,14 +349,20 @@ def plan(cfg, mesh, rules) -> Optional[TensorParallel]:
     kinds, vocab = plan_linears(cfg, mesh, rules)
     return TensorParallel(mesh, mesh.get_local_rank(AXIS), size, kinds,
                           vocab, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.padded_vocab_size)
+                          cfg.padded_vocab_size,
+                          cfg.moe.num_experts if cfg.family == "moe" else 0,
+                          cache_layout(cfg, mesh, rules, kinds))
 
 
-def kept_axes(vocab: bool, path: Tuple[str, ...]) -> Tuple[str, ...]:
+def kept_axes(vocab: bool, path: Tuple[str, ...],
+              experts: bool = False) -> Tuple[str, ...]:
     """The mesh axes the frozen leaf at ``path`` stays split over in the
     step: :data:`AXIS` for the embedding and the head when the vocabulary
-    splits (``vocab``) over several ranks."""
+    splits (``vocab``) over several ranks, and for an expert stack's
+    leaves when the experts do (``experts``)."""
     if vocab and tuple(path) in VOCAB_LEAVES:
+        return (AXIS,)
+    if experts and reached_module(path) == "expert":
         return (AXIS,)
     return ()
 
@@ -308,12 +442,21 @@ def step_collectives(cfg, kinds: Mapping[str, str], vocab: bool, size: int,
       that nothing trained lies upstream of (autograd does not run that
       backward);
     - ``ce_max``, ``ce_sum``, ``ce_gold``: the cross-entropy's three
-      reductions of (rows, chunk) a loss chunk.
+      reductions of (rows, chunk) a loss chunk;
+    - an MoE layer whose experts split: ``reduce_from`` of the experts'
+      partial output (tokens, d_model), again in a recompute when the
+      shared experts follow it (their products save tensors after it),
+      and in the backward ``copy_to`` of the expert path's input (tokens,
+      d_model) and of the combine's gates (tokens, top-k); the shared
+      experts' MLP as a dense MLP's.
     """
     d, hd = cfg.d_model, cfg.resolved_head_dim
     rec = 0 if cfg.remat_policy == "none" else 1
     attn = kinds["q"] == "col"
-    mlp = cfg.family != "moe" and kinds["up"] == "col"
+    moe = cfg.family == "moe"
+    mlp = not moe and kinds["up"] == "col"
+    shared = moe and kinds.get("shared_up") == "col"
+    experts = moe and kinds.get("expert") == "split"
     heads_local = cfg.num_heads // size if attn else cfg.num_heads
     out = []
 
@@ -330,6 +473,14 @@ def step_collectives(cfg, kinds: Mapping[str, str], vocab: bool, size: int,
                 linear_out("o", t, heads_local * hd, rec)
         if mlp:
             linear_out("down", t, cfg.d_ff // size, 0)
+        if experts:
+            out.extend([("reduce_from", t * d)] * (
+                1 + (rec if cfg.moe.num_shared_experts else 0)))
+            out.extend([("copy_to", t * d), ("copy_to", t * cfg.moe.top_k)])
+        if shared:
+            linear_out("shared_down", t, cfg.moe.num_shared_experts
+                       * cfg.d_ff // size, 0)
+            out.append(("copy_to", t * d))
         if attn and not first:
             out.append(("copy_to", t * d))
         if attn and cross:
@@ -361,4 +512,76 @@ def step_collectives(cfg, kinds: Mapping[str, str], vocab: bool, size: int,
         for _ in range(total // c):
             out.extend((tag, batch * c)
                        for tag in ("ce_max", "ce_sum", "ce_gold"))
+    return out
+
+
+def serve_collectives(cfg, kinds: Mapping[str, str], vocab: bool,
+                      cache: Optional[str], size: int, batch: int, seq: int,
+                      decode: bool, src_seq: int = 0, patches: int = 0
+                      ) -> list:
+    """The ``(tag, elements)`` of every collective over :data:`AXIS` that
+    a split ``prefill`` of ``batch`` rows of ``seq`` tokens (``patches``
+    image positions in front, an encoder's ``src_seq`` frames) or, with
+    ``decode``, one ``decode_step`` of ``batch`` rows makes under
+    :func:`plan_linears`'s ``kinds`` and ``vocab`` and the cache layout
+    ``cache`` on a ``model`` axis of ``size`` ranks (nothing in the
+    backward: serving has none):
+
+    - ``reduce_from`` (all-reduce of (tokens, d_model)): the
+      vocab-parallel lookup, each row-split o and down (self and cross
+      attention, the dense MLP, an MoE layer's shared experts), and an MoE
+      layer's expert-parallel output;
+    - ``gather_from``: each ``"gathered_row"`` o and down's input;
+    - ``logits`` (all-gather of (rows, V / n)): the head's rows;
+    - a decode over a cache split over its sequence, each self-attention
+      layer: ``seq_q`` (all-gather of the rank's q heads, where q is
+      split), ``seq_max`` (MAX all-reduce of (rows, H)) and ``seq_sum``
+      (all-reduce of (rows, H, hd + 1)).
+    """
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h = cfg.num_heads
+    h_local = h // size if kinds["q"] == "col" else h
+    moe = cfg.family == "moe"
+    t = batch * (1 if decode else seq + patches)
+    out = []
+
+    def linear(module, rows, width):
+        if kinds.get(module) == "row":
+            out.append(("reduce_from", rows * d))
+        elif kinds.get(module) == "gathered_row":
+            out.append(("gather_from", rows * width))
+
+    def block(rows, self_attn=True, cross=False):
+        if self_attn and decode and cache == "cache_seq":
+            if kinds["q"] == "col":
+                out.append(("seq_q", rows * h_local * hd))
+            out.extend([("seq_max", rows * h), ("seq_sum", rows * h * (hd + 1))])
+        linear("o", rows, h_local * hd)
+        if cross:
+            linear("o", rows, h_local * hd)
+        if moe:
+            if kinds.get("expert") == "split":
+                out.append(("reduce_from", rows * d))
+            linear("shared_down", rows,
+                   cfg.moe.num_shared_experts * cfg.d_ff // size)
+        else:
+            linear("down", rows, cfg.d_ff // size)
+
+    if vocab:
+        out.append(("reduce_from", batch * (1 if decode else seq) * d))
+    if cfg.is_encoder_decoder:
+        if not decode:
+            for _ in range(cfg.num_encoder_layers):
+                block(batch * src_seq, self_attn=False)
+        for _ in range(cfg.num_layers):
+            block(t, cross=True)
+    elif cfg.family == "hybrid":
+        for ch in cfg.layer_pattern():
+            if ch != "M":
+                block(t)
+    elif cfg.family != "ssm":
+        for _ in range(cfg.num_layers):
+            block(t)
+    if vocab:
+        out.append(("logits", batch * cfg.padded_vocab_size // size))
     return out

@@ -33,7 +33,7 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     "paged_decode_attention": (
         "paged_decode_attention_launch",
-        [_I] + [_P] * 7 + [_I] * 8 + [_P]),
+        [_I] + [_P] * 8 + [_I] * 8 + [_P]),
     "paged_prefill_attention": (
         "paged_prefill_attention_launch",
         [_I, _I] + [_P] * 8 + [_I] * 9 + [_P]),

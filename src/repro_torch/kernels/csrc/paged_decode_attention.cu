@@ -35,6 +35,11 @@
 //   2. combine kernel, one block per (row, head): rescales the non-empty
 //      splits to their common max, sums them and writes the output in q's
 //      dtype; no non-empty split (a row of length 0) writes exact zeros.
+//      Where the caller asks for it, it also writes the row's and head's
+//      fp32 log-sum-exp of the scaled scores, mx + log(l), -inf for a row
+//      of length 0: a decode over one slice of the sequence combines the
+//      slices' outputs with it.  The log is the fast intrinsic (l >= 1, a
+//      few ulp); the library's logf spills the combine's registers.
 // Any D: where D * sizeof(T) is a multiple of 16 and the pools are 16-byte
 // aligned, pages move by 16-byte cp.async and scores read 16 bytes of K at
 // a time; otherwise (an odd bf16 head dim, say) the same kernel copies and
@@ -277,7 +282,7 @@ __global__ void __launch_bounds__(kDecodeThreads, 4) decode_split_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kDecodeThreads)
     decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
-                          int rows, int S, int D) {
+                          float* __restrict__ lse, int rows, int S, int D) {
   const int row = blockIdx.x;  // b * H + h
   const float* part_acc = part;
   const float* part_m = part + (size_t)rows * S * D;
@@ -291,6 +296,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
     const float ls = part_l[(size_t)row * S + s];
     if (ls > 0.f) l += ls * expf(part_m[(size_t)row * S + s] - mx);
   }
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = l > 0.f ? mx + __logf(l) : __int_as_float(0xff800000);
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < S; ++s) {
@@ -304,8 +311,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* page_table, const void* lengths, void* out,
-                   float* part, int B, int H, int KH, int D, int P, int pg,
-                   int maxp, int pps, cudaStream_t stream) {
+                   float* part, float* lse, int B, int H, int KH, int D,
+                   int P, int pg, int maxp, int pps, cudaStream_t stream) {
   const int G = H / KH;
   const int S = (maxp + pps - 1) / pps;
   // q_s (fp32) follows the K/V ring: round the ring up to 16 bytes
@@ -329,17 +336,18 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T><<<B * H, kDecodeThreads, 0, stream>>>(
-      part, static_cast<T*>(out), B * H, S, D);
+      part, static_cast<T*>(out), lse, B * H, S, D);
   return cudaGetLastError();
 }
 
 }  // namespace repro_torch
 
-// part: B * H * S * (D + 2) fp32 scratch, S = ceil(maxp / pps)
+// part: B * H * S * (D + 2) fp32 scratch, S = ceil(maxp / pps); lse: null,
+// or B * H fp32 for each row's and head's log-sum-exp
 extern "C" int paged_decode_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* lengths, void* out, void* part,
-    int B, int H, int KH, int D, int P, int pg, int maxp, int pps,
+    void* lse, int B, int H, int KH, int D, int P, int pg, int maxp, int pps,
     void* stream) {
   if (B == 0) return 0;
   if (KH <= 0 || H % KH != 0 || D <= 0 || pg <= 0 || maxp <= 0 || P <= 0 ||
@@ -347,13 +355,14 @@ extern "C" int paged_decode_attention_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
+  float* lf = static_cast<float*>(lse);
   if (dtype == REPRO_DTYPE_F32)
     return (int)repro_torch::launch<float>(q, k_pool, v_pool, page_table,
-                                           lengths, out, pf, B, H, KH, D, P,
-                                           pg, maxp, pps, s);
+                                           lengths, out, pf, lf, B, H, KH, D,
+                                           P, pg, maxp, pps, s);
   if (dtype == REPRO_DTYPE_BF16)
     return (int)repro_torch::launch<__nv_bfloat16>(
-        q, k_pool, v_pool, page_table, lengths, out, pf, B, H, KH, D, P, pg,
-        maxp, pps, s);
+        q, k_pool, v_pool, page_table, lengths, out, pf, lf, B, H, KH, D, P,
+        pg, maxp, pps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -175,17 +175,19 @@ def decode_split_plan(b: int, kh: int, maxp: int) -> Tuple[int, int]:
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor, lse: bool = False):
     """One-token GQA over block-paged KV pools.
 
     q (B, H, D); pools (P, pg, KH, D); page_table (B, maxp); lengths (B,).
-    Page ids outside [0, P) are clamped.  Returns (B, H, D) in q's dtype.
-    Any D: on the card the kernel copies pages by 16-byte rows where D
-    times the element size is a multiple of 16 and the pools are 16-byte
-    aligned, element by element otherwise."""
+    Page ids outside [0, P) are clamped.  Returns (B, H, D) in q's dtype;
+    with ``lse`` (out, each row's and head's fp32 log-sum-exp of its
+    scaled scores (B, H), which the combine kernel writes: -inf for a row
+    of length 0).  Any D: on the card the kernel copies pages by 16-byte
+    rows where D times the element size is a multiple of 16 and the pools
+    are 16-byte aligned, element by element otherwise."""
     if _on_cpu(q, k_pool, v_pool, page_table, lengths):
         return ref.paged_decode_attention(q, k_pool, v_pool, page_table,
-                                          lengths)
+                                          lengths, lse=lse)
     code = _compute_code(q.dtype)
     b, h, d = q.shape
     p, pg, kh, d2 = k_pool.shape
@@ -202,13 +204,16 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty_like(q)
+    lse_out = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if lse else None
     _launch("paged_decode_attention", code,
             _float_arg(q, "q", q.dtype, 3),
             _float_arg(k_pool, "k_pool", q.dtype, 4),
             _float_arg(v_pool, "v_pool", q.dtype, 4),
             pt.data_ptr(), ln.data_ptr(), out.data_ptr(), part.data_ptr(),
+            None if lse_out is None else lse_out.data_ptr(),
             b, h, kh, d, p, pg, maxp, pps, _stream(q.device))
-    return out
+    return out if lse_out is None else (out, lse_out)
 
 
 def _cdiv(a: int, b: int) -> int:

@@ -54,12 +54,15 @@ def gather_delta_matmul(ids: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            lengths: torch.Tensor,
-                           out_dtype: Optional[torch.dtype] = None
-                           ) -> torch.Tensor:
+                           out_dtype: Optional[torch.dtype] = None,
+                           lse: bool = False):
     """One-token GQA over a block-paged KV cache, fp32.
 
     q (B, H, D); pools (P, pg, KH, D); page_table (B, maxp) page ids in
-    position order; lengths (B,) valid tokens per row (0 -> zeros)."""
+    position order; lengths (B,) valid tokens per row (0 -> zeros).  With
+    ``lse`` also each row's and head's log-sum-exp of its scaled scores
+    (B, H) fp32, ``max + log(sum of exps)`` as the kernel's combine
+    writes it, -inf for a row of length 0."""
     out_dtype = out_dtype or q.dtype
     b, h, d = q.shape
     pg, kh = k_pool.shape[1], k_pool.shape[2]
@@ -73,8 +76,14 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     valid = (pos[None, :] < lengths.reshape(-1, 1).long())[:, None, None, :]
     p = _masked_softmax_weights(scores, valid)
     out = torch.einsum("bkgs,bskd->bkgd", p, vg)
-    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(b, h, d).to(out_dtype)
+    total = p.sum(-1, keepdim=True)
+    out = (out / total.clamp_min(1e-30)).reshape(b, h, d).to(out_dtype)
+    if not lse:
+        return out
+    m = torch.where(valid, scores, torch.full_like(scores, NEG_INF)).amax(-1)
+    total = total[..., 0]
+    return out, torch.where(total > 0, m + torch.log(total),
+                            torch.full_like(total, -math.inf)).reshape(b, h)
 
 
 def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,

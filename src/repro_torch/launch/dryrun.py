@@ -17,26 +17,37 @@ counted from its design instead:
   every split frozen leaf is all-gathered at its use, a layer's once in the
   forward and once more in its remat recompute, the rest once a step,
   except over ``model`` where the compute splits: the embedding and the
-  head keep their vocabulary rows; the split trainable leaves and their
-  moments are gathered once a step; the trainable gradients are
-  all-reduced over the batch axes, and those the split leaves partial
-  over ``model`` too.  The split itself
+  head keep their vocabulary rows, the expert stacks their experts; the
+  split trainable leaves and their moments are gathered once a step; the
+  trainable gradients are all-reduced over the batch axes, and those the
+  split leaves partial over ``model`` too.  The split itself
   (:func:`repro_torch.distributed.tensor_parallel.step_collectives`) sums
   each row-split o and down over ``model`` in the forward (o again in the
   recompute), each split block input's gradient in the backward, the
-  vocab-parallel lookup and the head's input gradient, and three small
-  reductions a loss chunk.  A serving cell gathers its split weights once
-  a step.  A ring all-gather brings each device ``(n - 1)`` blocks per
-  axis of ``n``, a ring all-reduce moves ``2 (n - 1) / n`` of the
-  tensor;
+  vocab-parallel lookup and the head's input gradient, an MoE layer's
+  expert outputs and its dispatch input's and gates' gradients, and
+  three small reductions a loss chunk.  A serving cell (one prefill, or
+  one decode step) gathers its frozen weights over the batch axes once
+  (``fsdp``), keeps what the split consumes split over ``model``, and
+  makes the split's own collectives
+  (:func:`repro_torch.distributed.tensor_parallel.serve_collectives`):
+  the o and down sums, the vocab-parallel lookup, the logits gather, the
+  expert-parallel sums and, over a cache split over its sequence, the
+  decode's combine.  A ring all-gather brings each device ``(n - 1)``
+  blocks per axis of ``n``, a ring all-reduce moves ``2 (n - 1) / n`` of
+  the tensor;
 - reads: the whole (gathered) weights once per pass over them (forward,
-  remat recompute and backward in training), plus the cache in decode;
-- FLOPs per device, in a train cell: the batch splits over the batch
-  axes, and the products the compute split divides (:func:`split_share`
-  of N_active: the ``"col"`` and ``"row"`` linears, the head when the
-  vocabulary splits) over ``model`` as well; the rest (MoE expert stacks,
-  the Mamba2 mixer, linears a fallback leaves replicated) computes
-  replicated across ``model``.  A serving cell divides by every device.
+  remat recompute and backward in training); in a serving cell a device
+  reads its slices of the linears the split divides and the others
+  whole, plus its block of the cache in decode (``cache_axes`` under
+  ``rules_for``'s layout: kv heads, or the sequence where they do not
+  divide);
+- FLOPs per device: the batch splits over the batch axes (where it
+  divides), and the products the compute split divides
+  (:func:`split_share` of N_active: the ``"col"`` and ``"row"`` linears,
+  the expert stacks when the experts split, the head when the vocabulary
+  splits) over ``model`` as well; the rest (the Mamba2 mixer, linears a
+  fallback leaves replicated) computes replicated across ``model``.
 
 :mod:`repro_torch.launch.roofline` turns a cell into H100 times.
 """
@@ -56,7 +67,8 @@ from repro_torch.distributed import tensor_parallel
 from repro_torch.launch.mesh import make_production_mesh, rules_for
 from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
-from repro_torch.sharding import Placements, batch_axes, placements
+from repro_torch.sharding import (Placements, batch_axes, logical_spec,
+                                  placements)
 from repro_torch.train import trainer
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
@@ -83,24 +95,39 @@ def model_param_stats(arch: str) -> Dict[str, float]:
             "N_active": backbone + active_expert + embed / 2}
 
 
+def _split_fraction(kinds, vocab: bool, path) -> float:
+    """The share of the leaf at ``path`` whose products the compute split
+    divides over ``model`` under ``kinds`` and ``vocab``: all of a
+    ``"col"`` or ``"row"`` linear's, of a split expert stack's, of the
+    embedding and the head where the vocabulary splits; none else."""
+    if tuple(path[:1]) in (("embed",), ("lm_head",)):
+        return 1.0 if vocab else 0.0
+    kind = kinds.get(tensor_parallel.reached_module(path))
+    return 1.0 if kind in ("col", "row", "split") else 0.0
+
+
 def split_share(cfg, mesh, rules, n_active: float) -> float:
     """The share of ``n_active`` (:func:`model_param_stats`) whose products
-    the train step's compute split divides over ``model`` on ``mesh``
-    under ``rules``: the linears :func:`tensor_parallel.plan_linears`
-    makes ``"col"`` or ``"row"``, and the head when the vocabulary
-    splits; 0 on a ``model`` axis of one rank."""
+    the compute split divides over ``model`` on ``mesh`` under ``rules``:
+    the linears :func:`tensor_parallel.plan_linears` makes ``"col"`` or
+    ``"row"``, the expert stacks (their active top-k of E) when the
+    experts split, and the head when the vocabulary splits; 0 on a
+    ``model`` axis of one rank."""
     if mesh.get(tensor_parallel.AXIS, 1) == 1:
         return 0.0
     kinds, vocab = tensor_parallel.plan_linears(cfg, mesh, rules)
     merged = cfg.replace(peft=cfg.peft.replace(method="none"))
+    active = cfg.moe.top_k / cfg.moe.num_experts if cfg.family == "moe" \
+        else 1.0
     split = 0
     for path, leaf in tree_leaves_with_path(
             model_lib.abstract_params(merged)):
+        share = _split_fraction(kinds, vocab, path) * leaf.numel()
         if "embed" in path or "lm_head" in path:
-            split += leaf.numel() / 2 if vocab else 0
-        elif kinds.get(tensor_parallel.reached_module(path)) in ("col",
-                                                                  "row"):
-            split += leaf.numel()
+            share /= 2
+        elif tensor_parallel.reached_module(path) == "expert":
+            share *= active
+        split += share
     return split / n_active
 
 
@@ -123,6 +150,20 @@ def _gather_bytes(t, pl: Placements, out: Dict[str, float],
             block *= size
 
 
+#: the split's collectives that are all-gathers, and those in fp32
+_GATHER_TAGS = ("gather_from", "logits", "seq_q")
+_FP32_TAGS = ("ce_max", "ce_sum", "ce_gold", "seq_max", "seq_sum")
+
+
+def _tag_bytes(tag: str, elements: int, n: int, act: int) -> float:
+    """Bytes a device moves for one of the split's collectives over ``n``
+    ranks: ``n - 1`` blocks of an all-gather, ``2 (n - 1) / n`` of an
+    all-reduced tensor (fp32 or the compute dtype's ``act`` bytes)."""
+    if tag in _GATHER_TAGS:
+        return (n - 1) * elements * act
+    return 2 * (n - 1) / n * elements * (4 if tag in _FP32_TAGS else act)
+
+
 def _split_bytes(cfg, tc, mesh, rules, st, inputs, out: Dict[str, float],
                  wire: int) -> None:
     """Add to ``out["model"]`` the bytes a device moves over ``model`` for
@@ -143,11 +184,7 @@ def _split_bytes(cfg, tc, mesh, rules, st, inputs, out: Dict[str, float],
             src_seq=inputs.get("src_embeds", (0, 0))[1],
             patches=inputs.get("patch_embeds", (0, 0))[1],
             full_finetune=tc.full_finetune):
-        if tag == "gather_from":
-            total += (n - 1) * elements * act
-        else:
-            total += 2 * (n - 1) / n * elements * (
-                4 if tag.startswith("ce_") else act)
+        total += _tag_bytes(tag, elements, n, act)
     partial = sum(t.numel() for path, t in tree_leaves_with_path(
         st.trainable) if tensor_parallel.grad_summed(kinds, vocab, path))
     total += 2 * (n - 1) / n * partial * wire
@@ -166,7 +203,7 @@ def _shardings(tree, axes, mesh, rules):
 
 def _train_cell(cfg, tc, mesh, rules, rec):
     sh, st = trainer.state_shardings(cfg, tc, mesh, rules)
-    _, vocab = tensor_parallel.plan_linears(cfg, mesh, rules)
+    kinds, vocab = tensor_parallel.plan_linears(cfg, mesh, rules)
     split = mesh.get(tensor_parallel.AXIS, 1) > 1
     rec["param_bytes"] = _tree_bytes(st.trainable, sh.trainable) + \
         _tree_bytes(st.frozen, sh.frozen)
@@ -179,7 +216,9 @@ def _train_cell(cfg, tc, mesh, rules, rec):
                                   tree_leaves_with_path(sh.frozen)):
         _gather_bytes(t, pl, coll, layer_passes
                       if path[0] in model_lib.LAYER_TREES else 1,
-                      tensor_parallel.kept_axes(split and vocab, path))
+                      tensor_parallel.kept_axes(
+                          split and vocab, path,
+                          split and kinds.get("expert") == "split"))
     for tree, shs in ((st.trainable, sh.trainable), (st.opt.mu, sh.opt.mu),
                       (st.opt.nu, sh.opt.nu)):
         for (_, t), (_, pl) in zip(tree_leaves_with_path(tree),
@@ -197,36 +236,63 @@ def _train_cell(cfg, tc, mesh, rules, rec):
     rec["read_bytes_per_device"] = full * (layer_passes + 1)
 
 
+def _batch_rows(shape, mesh, rules) -> int:
+    """The ranks the rules split ``shape``'s batch over (1 where the
+    divisibility fallback replicates it)."""
+    spec = logical_spec(mesh, rules, ("batch",), (shape.global_batch,))[0]
+    axes = (spec,) if isinstance(spec, str) else tuple(spec or ())
+    return math.prod(mesh[a] for a in axes)
+
+
 def _serve_cell(cfg, shape, mesh, rules, rec):
     scfg = cfg.replace(peft=cfg.peft.replace(method="none"))
     params = model_lib.abstract_params(scfg)
     sh = _shardings(params, model_lib.param_axes(scfg, params), mesh, rules)
     rec["param_bytes"] = _tree_bytes(params, sh)
     rec["opt_bytes"] = 0
+    n = mesh.get(tensor_parallel.AXIS, 1)
+    kinds, vocab = tensor_parallel.plan_linears(scfg, mesh, rules)
+    vocab, experts = n > 1 and vocab, n > 1 and kinds.get("expert") == "split"
     coll: Dict[str, float] = {}
-    for (_, t), (_, pl) in zip(tree_leaves_with_path(params),
-                               tree_leaves_with_path(sh)):
-        _gather_bytes(t, pl, coll)
-    rec["collective_bytes"] = coll
-    full = sum(t.numel() * t.element_size()
-               for _, t in tree_leaves_with_path(params))
+    read = 0.0
+    for (path, t), (_, pl) in zip(tree_leaves_with_path(params),
+                                  tree_leaves_with_path(sh)):
+        _gather_bytes(t, pl, coll, keep=tensor_parallel.kept_axes(
+            vocab, path, experts))
+        frac = _split_fraction(kinds, vocab, path) if n > 1 else 0.0
+        read += t.numel() * t.element_size() * (1 - frac + frac / n)
+    decode = shape.kind == "decode"
+    inputs = rec["inputs"]
+    rows = shape.global_batch // _batch_rows(shape, mesh, rules)
     rec["cache_bytes"] = 0
-    if shape.kind == "decode":
+    cache_kind = tensor_parallel.cache_layout(scfg, mesh, rules, kinds)
+    if n > 1:
+        act = torch_dtype(scfg.dtype).itemsize
+        coll[tensor_parallel.AXIS] = coll.get(tensor_parallel.AXIS, 0.0) + sum(
+            _tag_bytes(tag, elements, n, act) for tag, elements in
+            tensor_parallel.serve_collectives(
+                scfg, kinds, vocab, cache_kind, n, rows,
+                1 if decode else inputs["tokens"][1], decode,
+                src_seq=inputs.get("src_embeds", (0, 0))[1],
+                patches=inputs.get("patch_embeds", (0, 0))[1]))
+    rec["collective_bytes"] = coll
+    if decode:
         b = shape.global_batch
         length = shape.seq_len // 2 if scfg.is_encoder_decoder \
             else shape.seq_len
         cache = model_lib.init_cache(scfg, b, length, device="meta")
         if scfg.family == "audio":
             # the cross K/V a prefill builds, one row of source a token
-            shape = (scfg.num_layers, b, length, scfg.num_kv_heads,
-                     scfg.resolved_head_dim)
+            cshape = (scfg.num_layers, b, length, scfg.num_kv_heads,
+                      scfg.resolved_head_dim)
             cache = {"self": cache["self"], "cross": {
-                n: torch.empty(shape, dtype=torch_dtype(scfg.dtype),
-                               device="meta") for n in ("k", "v")}}
+                k: torch.empty(cshape, dtype=torch_dtype(scfg.dtype),
+                               device="meta") for k in ("k", "v")}}
         csh = _shardings(cache, model_lib.cache_axes(scfg, cache), mesh,
                          rules)
         rec["cache_bytes"] = _tree_bytes(cache, csh)
-    rec["read_bytes_per_device"] = full + rec["cache_bytes"]
+    rec["cache_split"] = cache_kind if n > 1 else None
+    rec["read_bytes_per_device"] = read + rec["cache_bytes"]
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
@@ -259,18 +325,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                                    else shape.seq_len)
     mult = 6.0 if shape.kind == "train" else 2.0
     rec["model_flops"] = mult * stats[arch]["N_active"] * tokens
-    if shape.kind == "train":
-        # the batch splits over the batch axes; the products the compute
-        # split divides over "model" (split_share of N_active) split
-        # there too, the rest computes replicated across its ranks
-        share = split_share(cfg, mesh, rules, stats[arch]["N_active"])
-        rows = math.prod(mesh[a] for a in batch_axes(mesh, rules))
-        rec["split_share"] = share
-        rec["flops_per_device"] = rec["model_flops"] / rows * (
-            share / mesh.get(tensor_parallel.AXIS, 1) + 1 - share)
-    else:
-        rec["flops_per_device"] = rec["model_flops"] / math.prod(
-            mesh.values())
+    # the batch splits over the batch axes (where it divides); the
+    # products the compute split divides over "model" (split_share of
+    # N_active) split there too, the rest computes replicated across its
+    # ranks
+    share = split_share(cfg, mesh, rules, stats[arch]["N_active"])
+    rows = math.prod(mesh[a] for a in batch_axes(mesh, rules)) \
+        if shape.kind == "train" else _batch_rows(shape, mesh, rules)
+    rec["split_share"] = share
+    rec["flops_per_device"] = rec["model_flops"] / rows * (
+        share / mesh.get(tensor_parallel.AXIS, 1) + 1 - share)
     return rec
 
 

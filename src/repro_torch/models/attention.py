@@ -170,12 +170,16 @@ def paged_prefix_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor, lse: bool = False):
     """One-token attention over paged pools (the paged-decode kernel on a
-    GPU).  q (B, 1, H, D); lengths () or (B,)."""
+    GPU).  q (B, 1, H, D); lengths () or (B,).  With ``lse`` also each
+    row's and head's fp32 log-sum-exp of its scores (B, H)."""
     lengths = torch.as_tensor(lengths, device=q.device).expand(q.shape[0])
-    return ops.paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
-                                      page_table, lengths)[:, None]
+    got = ops.paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
+                                     page_table, lengths, lse=lse)
+    if lse:
+        return got[0][:, None], got[1]
+    return got[:, None]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -215,16 +219,22 @@ def dense_view_table(batch: int, max_len: int, device) -> torch.Tensor:
 
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, lengths: torch.Tensor,
-                           view_table: Optional[torch.Tensor]
-                           ) -> torch.Tensor:
+                           view_table: Optional[torch.Tensor],
+                           lse: bool = False):
     """One-token attention over dense per-slot buffers (B, S, KH, D) up to
     ``lengths`` (B,).  On the CPU the plain :func:`decode_attention`; on
     the card the paged-decode kernel over the contiguous buffers viewed
     (no copy) as ``(B * S / pg, pg, KH, D)`` pages through ``view_table``
-    (:func:`dense_view_table`)."""
-    if not q.is_cuda:
+    (:func:`dense_view_table`).  With ``lse`` (a decode over a slice of
+    the sequence) it returns (out, each row's and head's fp32
+    log-sum-exp (B, H)) from the paged-decode wrapper over that view on
+    either device (its plain version on the CPU, which builds the table
+    when it is None)."""
+    if not q.is_cuda and not lse:
         return decode_attention(q, k_cache, v_cache, lengths)
     b, s, kh, d = k_cache.shape
+    if view_table is None and not q.is_cuda:
+        view_table = dense_view_table(b, s, q.device)
     pg = s // view_table.shape[1]
     if tuple(view_table.shape) != (b, s // pg) or s % pg \
             or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
@@ -234,4 +244,5 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(view_table.shape)}")
     pages = (b * (s // pg), pg, kh, d)
     return paged_decode_attention(q, k_cache.view(pages),
-                                  v_cache.view(pages), view_table, lengths)
+                                  v_cache.view(pages), view_table, lengths,
+                                  lse)

@@ -14,9 +14,10 @@ The training forward builds every PSOFT, OFT and BOFT layer stack's
 rotations once per call (one ``cayley_neumann`` launch per stack), outside
 the per-layer recompute boundary, so remat does not build them twice.
 An MoE block holds ``"moe"`` (:mod:`repro_torch.models.moe`) where a dense
-one holds ``"mlp"``; training dispatches tokens with capacity, serving and
-logits run every expert on every token (``moe_impl``), as the reference
-does.
+one holds ``"mlp"``; ``moe_impl`` picks its dispatch with the reference's
+defaults: capacity in training and :func:`prefill`, every expert on every
+token in :func:`decode_step`, the paged paths and logits (the engine
+passes "dense" to all of them).
 
 The VLM's stub frontend hands in ``patch_embeds`` (B, P, d_model), put in
 front of the token embeddings: positions run over the patches, then the
@@ -44,6 +45,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import resolve_device
@@ -202,7 +204,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                page_size: Optional[int] = None,
-               num_pages: Optional[int] = None, device="cuda"):
+               num_pages: Optional[int] = None, device="cuda", tp=None):
     """The decode cache.  With ``page_size``: block-paged KV pools
     ``{"k","v"}: (L, num_pages, page_size, KH, hd)`` in the compute dtype
     (page 0 is the reserved trash page; ``num_pages`` defaults to
@@ -213,10 +215,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     batch, K-1, C), "ssm_state": (L, batch, H, N, P)}`` with the SSD state
     in fp32), ``{"self": those K/V buffers, "cross": None}`` for the audio
     encoder-decoder (the cross K/V come with its prefill) and a per-layer
-    list for the hybrid."""
+    list for the hybrid.  Under a serving split ``tp``
+    (:mod:`repro_torch.distributed.tensor_parallel`) every K/V buffer is
+    this rank's block: KH / n heads (``tp.cache == "kv_heads"``) or
+    max_len / n positions (``"cache_seq"``, ``max_len`` a multiple of n);
+    the Mamba2 states stay whole."""
     dev = resolve_device(device)
     cdt = torch_dtype(cfg.dtype)
     kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if tp is not None:
+        if page_size is not None:
+            raise ValueError("a split decode cache is the dense cache: the "
+                             "paged pools are not split over 'model'")
+        kh, max_len = _split_cache_dims(cfg, max_len, tp)
     if page_size is not None:
         if cfg.family not in PAGED_FAMILIES:
             raise ValueError(
@@ -243,6 +254,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return [ssm_lib.mamba_cache_init(cfg, batch, cdt, dev) if ch == "M"
                 else attn_cache(()) for ch in cfg.layer_pattern()]
     raise ValueError(cfg.family)
+
+
+def _split_cache_dims(cfg: ModelConfig, max_len: int, tp) -> Tuple[int, int]:
+    """(kv heads, positions) of a rank's K/V buffers under ``tp``."""
+    if tp.cache == "kv_heads":
+        return tp.local_heads()[1], max_len
+    if tp.cache == "cache_seq":
+        if max_len % tp.size:
+            raise ValueError(f"a decode cache split over its sequence needs "
+                             f"max_len a multiple of the 'model' size "
+                             f"{tp.size}, not {max_len}")
+        return cfg.num_kv_heads, max_len // tp.size
+    raise ValueError(
+        f"a split decode needs its cache split over kv heads or over its "
+        f"sequence: {cfg.num_kv_heads} kv heads do not divide over "
+        f"{tp.size} 'model' ranks and the rules keep 'cache_seq' off "
+        f"'model' (plan with rules_for(cfg, mesh, 'decode'))")
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +319,10 @@ def _local_kv(k, v, cfg: ModelConfig, tp):
 
 
 def _qkv(params, x, cfg: ModelConfig, cdt, positions, adapter_ids,
-         tp=None):
+         tp=None, narrow: bool = True):
     """q, k, v (B, S, heads, hd) after RoPE; under a compute split this
-    rank's q heads and the kv heads they attend."""
+    rank's q heads and the kv heads they attend (every kv head that k and
+    v compute, without ``narrow``)."""
     (h, kh), hd = _heads(cfg, tp), cfg.resolved_head_dim
     b, s = x.shape[:2]
     if tp is not None:
@@ -306,7 +335,8 @@ def _qkv(params, x, cfg: ModelConfig, cdt, positions, adapter_ids,
         b, s, kh, hd)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    k, v = _local_kv(k, v, cfg, tp)
+    if narrow:
+        k, v = _local_kv(k, v, cfg, tp)
     q = shard_act(q, ("batch", "seq", "heads", None))
     k = shard_act(k, ("batch", "seq", "kv_heads", None))
     v = shard_act(v, ("batch", "seq", "kv_heads", None))
@@ -350,35 +380,92 @@ def attn_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
 
 
 def attn_dense_prefill(params, x, cfg: ModelConfig, cdt, positions, kv,
-                       adapter_ids=None) -> torch.Tensor:
+                       adapter_ids=None, tp=None) -> torch.Tensor:
     """Prefill of one layer into a dense per-layer buffer ``kv`` (B,
     max_len, KH, hd): the prompt's K/V are written at positions [0, S) in
     place (the reference pad-writes the buffer), then the chunked causal
-    path."""
-    q, k, v = _qkv(params, x, cfg, cdt, positions, adapter_ids)
+    path.  Under a serving split ``tp`` the buffer is the rank's block:
+    its kv heads, or every kv head at its positions (``"cache_seq"``:
+    the rank writes the prompt's positions it holds, and attends its q
+    heads over the whole prompt's k and v as the train split does)."""
+    q, k, v = _qkv(params, x, cfg, cdt, positions, adapter_ids, tp,
+                   narrow=False)
     s = x.shape[1]
-    kv["k"][:, :s] = k.to(kv["k"].dtype)
-    kv["v"][:, :s] = v.to(kv["v"].dtype)
+    lo, hi = 0, s
+    if tp is not None and tp.cache == "cache_seq":
+        c = kv["k"].shape[1]
+        lo, hi = tp.rank * c, min(s, (tp.rank + 1) * c)
+    if hi > lo:
+        kv["k"][:, :hi - lo] = k[:, lo:hi].to(kv["k"].dtype)
+        kv["v"][:, :hi - lo] = v[:, lo:hi].to(kv["v"].dtype)
+    k, v = _local_kv(k, v, cfg, tp)
     out = attention.chunked_attention(q, k, v, causal=True)
     return _lin(params["o"], out.reshape(*x.shape[:-1], -1), cfg, cdt, "o",
-                adapter_ids)
+                adapter_ids, tp)
 
 
 def attn_dense_decode(params, x_t, cfg: ModelConfig, cdt, positions, kv,
-                      view_table, adapter_ids=None) -> torch.Tensor:
+                      view_table, adapter_ids=None, tp=None) -> torch.Tensor:
     """One-token decode of one layer over a dense buffer ``kv`` (B,
     max_len, KH, hd): the token's K/V written at ``[b, positions[b]]`` in
     place, then one-token attention over ``positions + 1`` (the paged-decode
     kernel over the buffer viewed as pages on the card, through
-    ``view_table``)."""
-    q, k, v = _qkv(params, x_t, cfg, cdt, positions[:, None], adapter_ids)
-    bidx = torch.arange(x_t.shape[0], device=x_t.device)
-    kv["k"][bidx, positions] = k[:, 0].to(kv["k"].dtype)
-    kv["v"][bidx, positions] = v[:, 0].to(kv["v"].dtype)
-    out = attention.dense_decode_attention(q, kv["k"], kv["v"], positions + 1,
-                                           view_table)
+    ``view_table``).  Under a serving split ``tp`` the rank decodes its
+    heads over its kv heads' buffer, or, over a sequence split, through
+    :func:`_seq_decode`."""
+    q, k, v = _qkv(params, x_t, cfg, cdt, positions[:, None], adapter_ids,
+                   tp, narrow=False)
+    if tp is not None and tp.cache == "cache_seq":
+        out = _seq_decode(q, k, v, kv, positions, view_table, tp)
+    else:
+        bidx = torch.arange(x_t.shape[0], device=x_t.device)
+        kv["k"][bidx, positions] = k[:, 0].to(kv["k"].dtype)
+        kv["v"][bidx, positions] = v[:, 0].to(kv["v"].dtype)
+        out = attention.dense_decode_attention(q, kv["k"], kv["v"],
+                                               positions + 1, view_table)
     out = out.reshape(x_t.shape[0], 1, -1)
-    return _lin(params["o"], out, cfg, cdt, "o", adapter_ids)
+    return _lin(params["o"], out, cfg, cdt, "o", adapter_ids, tp)
+
+
+def _seq_decode(q, k, v, kv, positions, view_table, tp) -> torch.Tensor:
+    """One-token attention over a decode cache split over its sequence:
+    this rank's buffers ``kv`` hold every kv head at positions [r c, (r +
+    1) c).  The owner of each row's position writes the token's K/V
+    (every rank computes them: the fallback leaves k and v replicated);
+    each rank attends every q head (its own q heads all-gathered over
+    ``model`` when q is split) over its positions through the paged-decode
+    kernel, with each row's and head's log-sum-exp (-inf for an empty
+    slice); the ranks combine: a MAX all-reduce of the lse, then one SUM
+    all-reduce of the rescaled outputs and weights.  Returns this rank's
+    q heads (B, 1, H', hd) in q's dtype."""
+    b, c = q.shape[0], kv["k"].shape[1]
+    lo = tp.rank * c
+    own = ((positions >= lo) & (positions < lo + c))[:, None, None]
+    bidx = torch.arange(b, device=q.device)
+    at = (positions - lo).clamp(0, c - 1)
+    for name, new in (("k", k), ("v", v)):
+        buf = kv[name]
+        buf[bidx, at] = torch.where(own, new[:, 0].to(buf.dtype),
+                                    buf[bidx, at])
+    h_local = q.shape[2]
+    split_q = tp.kinds["q"] == "col"
+    if split_q:
+        q = collectives.all_gather(q, 2, tp.mesh, tensor_parallel.AXIS,
+                                   tag="seq_q")
+    lengths = (positions + 1 - lo).clamp(0, c)
+    out, lse = attention.dense_decode_attention(q, kv["k"], kv["v"], lengths,
+                                                view_table, lse=True)
+    m = collectives.all_reduce(lse.clone(), tp.mesh, (tensor_parallel.AXIS,),
+                               dist.ReduceOp.MAX, tag="seq_max")
+    w = torch.exp(lse - torch.where(torch.isfinite(m), m,
+                                    torch.zeros_like(m)))
+    part = torch.cat([out[:, 0].float() * w[..., None], w[..., None]], -1)
+    collectives.all_reduce(part, tp.mesh, (tensor_parallel.AXIS,),
+                           tag="seq_sum")
+    out = (part[..., :-1] / part[..., -1:].clamp_min(1e-30))[:, None]
+    if split_q:
+        out = out.narrow(2, tp.rank * h_local, h_local)
+    return out.to(q.dtype)
 
 
 def cross_kv(params, enc_out, cfg: ModelConfig, cdt, adapter_ids=None,
@@ -406,10 +493,13 @@ def _cross_q(params, h, cfg: ModelConfig, cdt, adapter_ids, tp=None):
 
 
 def cross_apply(params, h, k, v, cfg: ModelConfig, cdt, adapter_ids=None,
-                tp=None) -> torch.Tensor:
+                tp=None, local_kv: bool = False) -> torch.Tensor:
     """Non-causal cross-attention of ``h``'s queries (no RoPE) over the
-    encoder's K/V (the training and prefill path)."""
-    k, v = _local_kv(k, v, cfg, tp)
+    encoder's K/V (the training and prefill path); ``local_kv``: k and v
+    are already the kv heads this rank's q heads attend (a split cross
+    cache)."""
+    if not local_kv:
+        k, v = _local_kv(k, v, cfg, tp)
     out = attention.chunked_attention(_cross_q(params, h, cfg, cdt,
                                                adapter_ids, tp), k, v,
                                       causal=False)
@@ -418,14 +508,16 @@ def cross_apply(params, h, k, v, cfg: ModelConfig, cdt, adapter_ids=None,
 
 
 def cross_decode(params, h_t, k, v, lengths, view_table, cfg: ModelConfig,
-                 cdt, adapter_ids=None) -> torch.Tensor:
+                 cdt, adapter_ids=None, tp=None) -> torch.Tensor:
     """One-token cross-attention over one layer's cross K/V buffers (B,
     S_pad, KH, hd) up to ``lengths`` (B,) (the paged-decode kernel over the
-    buffers viewed as pages on the card, through ``view_table``)."""
-    q = _cross_q(params, h_t, cfg, cdt, adapter_ids)
+    buffers viewed as pages on the card, through ``view_table``); under a
+    serving split the buffers hold the kv heads this rank's q heads
+    attend (:func:`cross_cache`)."""
+    q = _cross_q(params, h_t, cfg, cdt, adapter_ids, tp)
     out = attention.dense_decode_attention(q, k, v, lengths, view_table)
     return _lin(params["o"], out.reshape(h_t.shape[0], 1, -1), cfg, cdt,
-                "o", adapter_ids)
+                "o", adapter_ids, tp)
 
 
 def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense",
@@ -433,14 +525,14 @@ def _block(lp, x, cfg, cdt, attn_fn, adapter_ids, moe_impl="dense",
     """(y, the layer's MoE aux loss, or None for a dense layer);
     ``cross_fn(cross_params, h)``, for a decoder block of an
     encoder-decoder, is the cross-attention of the path; ``tp`` splits
-    the dense MLP (an MoE layer computes replicated)."""
+    the dense MLP, or an MoE layer's experts and shared experts."""
     h = layers.apply_norm(lp["ln1"], x)
     x = x + attn_fn(lp["attn"], h)
     if cross_fn is not None:
         x = x + cross_fn(lp["cross"], layers.apply_norm(lp["ln_cross"], x))
     h = layers.apply_norm(lp["ln2"], x)
     if "moe" in lp:
-        m, aux = moe_lib.moe_apply(lp["moe"], h, cfg, cdt, moe_impl)
+        m, aux = moe_lib.moe_apply(lp["moe"], h, cfg, cdt, moe_impl, tp)
     else:
         m, aux = mlp_apply(lp["mlp"], h, cfg, cdt, adapter_ids, tp), None
     return shard_act(x + m, ("batch", "seq_sp", "embed")), aux
@@ -586,18 +678,24 @@ def _with_rotations(tree, cfg: ModelConfig):
 # entry points
 # ---------------------------------------------------------------------------
 
+def _embed_tokens(params: Params, tokens: torch.Tensor, cdt,
+                  tp=None) -> torch.Tensor:
+    """Token embeddings; under a compute split over the vocabulary, a
+    vocab-parallel lookup of this rank's rows."""
+    if tp is not None and tp.vocab:
+        w, start = tp.vocab_block(params["embed"]["w"], 0)
+        return layers.embed_lookup({"w": w}, tokens, cdt,
+                                   (start, tp.mesh, tensor_parallel.AXIS))
+    return layers.embed_lookup(params["embed"], tokens, cdt)
+
+
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig, cdt, tp=None) -> torch.Tensor:
     """Token embeddings (B, S, D); a VLM batch's ``patch_embeds`` (B, P,
     D), cast to the compute dtype, go in front of them.  Under a compute
     split over the vocabulary, a vocab-parallel lookup of this rank's
     rows."""
-    if tp is not None and tp.vocab:
-        w, start = tp.vocab_block(params["embed"]["w"], 0)
-        x = layers.embed_lookup({"w": w}, batch["tokens"], cdt,
-                                (start, tp.mesh, tensor_parallel.AXIS))
-    else:
-        x = layers.embed_lookup(params["embed"], batch["tokens"], cdt)
+    x = _embed_tokens(params, batch["tokens"], cdt, tp)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
     return shard_act(x, ("batch", "seq", "embed"))
@@ -638,7 +736,8 @@ def forward_hidden(params: Params, batch: Dict[str, torch.Tensor],
             x = mamba(lays[i], ("layers", str(i)), x=x) if ch == "M" else \
                 attn(shared, ("shared_attn",), x=x, h0=h0)
         return layers.apply_norm(params["final_norm"], x), aux
-    stack = _with_rotations(params["layers"], cfg)
+    stack = _with_rotations(params["layers"] if tp is None
+                            else tp.local_experts(params["layers"]), cfg)
     if cfg.family == "ssm":
         block = _remat(_on_use(functools.partial(_train_mamba, cfg=cfg,
                                                  cdt=cdt), gather), cfg)
@@ -742,6 +841,36 @@ def lm_logits(params: Params, h: torch.Tensor,
     return shard_act(h.to(cdt) @ w.to(cdt), ("batch", "seq", "vocab"))
 
 
+def _serve_logits(params: Params, h: torch.Tensor, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
+    """Logits (B, 1, V) of a serving call, whole on every rank: under a
+    split over the vocabulary each rank's (B, 1, V / n) gathered over
+    ``model`` (the reference's ``out_shardings=None``)."""
+    logits = lm_logits(params, h, cfg, tp)
+    if tp is not None and tp.vocab:
+        logits = collectives.all_gather(logits, -1, tp.mesh,
+                                        tensor_parallel.AXIS, tag="logits")
+    return logits
+
+
+def _serving_split(params: Params, cfg: ModelConfig, tp, adapter_ids,
+                   paged: bool = False) -> Params:
+    """``params`` as a split serving call reads them (its expert stacks
+    cut to the rank's experts); raises where the split has no path: a
+    banked adapter (``adapter_ids``) or a paged cache."""
+    if tp is None:
+        return params
+    if adapter_ids is not None:
+        raise ValueError("a split prefill / decode_step serves the base "
+                         "model only: an adapter bank (adapter_ids) is not "
+                         "split over 'model'")
+    if paged:
+        raise ValueError("a split decode_step takes the dense cache "
+                         "(init_cache without a page size): the paged "
+                         "pools are not split over 'model'")
+    return {**params, "layers": tp.local_experts(params["layers"])}
+
+
 def _last_hidden(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, 1, D) hidden state at each row's last real token."""
     idx = lengths.long() - 1
@@ -795,48 +924,61 @@ def paged_prefill(params: Params, batch: Dict[str, torch.Tensor],
 def prefill(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, max_len: int,
             lengths: Optional[torch.Tensor] = None, *,
-            adapter_ids: Optional[torch.Tensor] = None):
+            moe_impl: str = "capacity",
+            adapter_ids: Optional[torch.Tensor] = None, tp=None):
     """Prompt prefill into a fresh dense cache (:func:`init_cache` with no
     page size): returns (the logits at each row's last real token (B, 1,
     V), the cache).  ``lengths`` (B,) are the true prompt lengths of
     right-padded attention-family rows, a VLM's patches included (None:
     every row is full); the recurrent families' states take every token
     in, so their rows must all be exactly ``lengths`` long.  Every MoE
-    layer runs the dense dispatch.  An encoder-decoder runs its encoder
-    over ``batch["src_embeds"]`` and builds each decoder layer's cross K/V
-    once (:func:`cross_cache`), which its cross-attention reads."""
+    layer runs ``moe_impl``'s dispatch ("capacity", the reference's
+    default, or "dense", which the engine passes).  An encoder-decoder
+    runs its encoder over ``batch["src_embeds"]`` and builds each decoder
+    layer's cross K/V once (:func:`cross_cache`), which its
+    cross-attention reads.
+
+    ``tp``, a serving split over ``model``
+    (``tensor_parallel.plan(cfg, mesh, rules_for(cfg, mesh, "decode"))``
+    on a live mesh; every rank calls with the same inputs and whole
+    ``params``, or its blocks of the embedding, the head and the expert
+    stacks), splits heads, MLP columns, experts and the vocabulary as
+    the train split does; the cache is this rank's block
+    (:func:`init_cache`) and the logits are whole on every rank."""
+    params = _serving_split(params, cfg, tp, adapter_ids)
     cdt = torch_dtype(cfg.dtype)
-    x = _embed_inputs(params, batch, cfg, cdt)
+    x = _embed_inputs(params, batch, cfg, cdt, tp)
     b, s = x.shape[:2]
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.long, device=x.device)
     positions = torch.arange(s, device=x.device)[None, :]
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    cache = init_cache(cfg, b, max_len, device=x.device, tp=tp)
 
     def attn_fn_for(kv):
         def attn_fn(ap, h):
             return attn_dense_prefill(ap, h, cfg, cdt, positions, kv,
-                                      adapter_ids)
+                                      adapter_ids, tp)
         return attn_fn
     if cfg.family in PAGED_FAMILIES:
         for i in range(cfg.num_layers):
             kv = {"k": cache["k"][i], "v": cache["v"][i]}
             x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
-                          attn_fn_for(kv), adapter_ids, "dense")
+                          attn_fn_for(kv), adapter_ids, moe_impl, tp=tp)
     elif cfg.family == "audio":
-        enc_out = run_encoder(params, batch["src_embeds"], cfg)
+        enc_out = run_encoder(params, batch["src_embeds"], cfg, tp=tp)
         s_src = enc_out.shape[1]
         cross = cache["cross"] = cross_cache(params, enc_out, cfg,
-                                             adapter_ids)
+                                             adapter_ids, tp)
         for i in range(cfg.num_layers):
             kv = {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}
 
             def cross_fn(cp, h, i=i):
                 return cross_apply(cp, h, cross["k"][i][:, :s_src],
                                    cross["v"][i][:, :s_src], cfg, cdt,
-                                   adapter_ids)
+                                   adapter_ids, tp, local_kv=True)
             x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
-                          attn_fn_for(kv), adapter_ids, "dense", cross_fn)
+                          attn_fn_for(kv), adapter_ids, moe_impl, cross_fn,
+                          tp)
     elif cfg.family == "ssm":
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
@@ -857,15 +999,16 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor],
                 x = x + y
             else:
                 x = shared_block_apply(params["shared_attn"], x, h0, cfg, cdt,
-                                       attn_fn_for(cache[i]), adapter_ids)
+                                       attn_fn_for(cache[i]), adapter_ids,
+                                       tp)
     else:
         raise ValueError(cfg.family)
     x = layers.apply_norm(params["final_norm"], x)
-    return lm_logits(params, _last_hidden(x, lengths), cfg), cache
+    return _serve_logits(params, _last_hidden(x, lengths), cfg, tp), cache
 
 
 def cross_cache(params: Params, enc_out: torch.Tensor, cfg: ModelConfig,
-                adapter_ids: Optional[torch.Tensor] = None
+                adapter_ids: Optional[torch.Tensor] = None, tp=None
                 ) -> Dict[str, torch.Tensor]:
     """The decoder's cross K/V, built once from the encoder output:
     ``{"k","v"}: (L, B, S_pad, KH, hd)`` in the compute dtype, the source's
@@ -873,27 +1016,30 @@ def cross_cache(params: Params, enc_out: torch.Tensor, cfg: ModelConfig,
     :data:`CROSS_PAD`; ``"len"`` (B,) int32, ``S_src`` in every row (the
     reference keeps one scalar).  Padded, the buffers view as whole pages
     of 16 rows on the card (:func:`repro_torch.models.attention
-    .dense_page_size`) at any source length."""
+    .dense_page_size`) at any source length.  Under a serving split
+    ``tp`` the buffers hold the kv heads this rank's q heads attend: its
+    KH / n heads where k and v split, else the ones its q heads map to
+    (:func:`repro_torch.models.attention.local_kv_heads`)."""
     cdt = torch_dtype(cfg.dtype)
     b, s = enc_out.shape[:2]
     s_pad = -(-s // CROSS_PAD) * CROSS_PAD
-    shape = (cfg.num_layers, b, s_pad, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    kvs = [_local_kv(*cross_kv(_layer(params["layers"]["cross"], i), enc_out,
+                               cfg, cdt, adapter_ids, tp), cfg, tp)
+           for i in range(cfg.num_layers)]
+    shape = (cfg.num_layers, b, s_pad) + tuple(kvs[0][0].shape[2:])
     k = torch.zeros(shape, dtype=cdt, device=enc_out.device)
     v = torch.zeros(shape, dtype=cdt, device=enc_out.device)
-    for i in range(cfg.num_layers):
-        k[i, :, :s], v[i, :, :s] = cross_kv(
-            _layer(params["layers"]["cross"], i), enc_out, cfg, cdt,
-            adapter_ids)
+    for i, (ki, vi) in enumerate(kvs):
+        k[i, :, :s], v[i, :, :s] = ki, vi
     return {"k": k, "v": v,
             "len": torch.full((b,), s, dtype=torch.int32,
                               device=enc_out.device)}
 
 
 def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
-                pos, cfg: ModelConfig, *,
+                pos, cfg: ModelConfig, *, moe_impl: str = "dense",
                 adapter_ids: Optional[torch.Tensor] = None,
-                view_table: Optional[torch.Tensor] = None):
+                view_table: Optional[torch.Tensor] = None, tp=None):
     """One-token serve step.  ``batch["tokens"]`` (B, 1); ``pos`` a scalar
     or (B,) per-slot positions; ``cache``: paged pools plus
     ``"page_table"`` (shared by every layer), or a dense cache
@@ -902,9 +1048,13 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
     the dense cache's paged view on the card
     (:func:`repro_torch.models.attention.dense_view_table`, built here
     when None; an encoder-decoder's cross cache gets its own here).
-    Returns (logits (B, 1, V), cache)."""
+    ``moe_impl``: the MoE layers' dispatch ("dense", the reference's
+    default).  ``tp``: a serving split (:func:`prefill`) over the dense
+    cache its prefill built.  Returns (logits (B, 1, V), cache)."""
+    params = _serving_split(params, cfg, tp, adapter_ids, paged=isinstance(
+        cache, dict) and "page_table" in cache)
     cdt = torch_dtype(cfg.dtype)
-    x = shard_act(layers.embed_lookup(params["embed"], batch["tokens"], cdt),
+    x = shard_act(_embed_tokens(params, batch["tokens"], cdt, tp),
                   ("batch", None, "embed"))
     b = x.shape[0]
     positions = torch.as_tensor(pos, device=x.device).long()
@@ -919,7 +1069,7 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
                 return attn_decode(ap, h, cfg, cdt, positions, kv, pt,
                                    adapter_ids)
             x, _ = _block(_layer(params["layers"], i), x, cfg, cdt, attn_fn,
-                          adapter_ids, "dense")
+                          adapter_ids, moe_impl)
         x = layers.apply_norm(params["final_norm"], x)
         return lm_logits(params, x, cfg), cache
 
@@ -933,7 +1083,7 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
 
         def attn_fn(ap, h):
             return attn_dense_decode(ap, h, cfg, cdt, positions, kv, table,
-                                     adapter_ids)
+                                     adapter_ids, tp)
         return attn_fn
 
     def mamba_step(lp, x, c):
@@ -947,7 +1097,7 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
         for i in range(cfg.num_layers):
             kv = {"k": cache["k"][i], "v": cache["v"][i]}
             x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
-                          attn_fn_for(kv), adapter_ids, "dense")
+                          attn_fn_for(kv), adapter_ids, moe_impl, tp=tp)
     elif cfg.family == "audio":
         cross = cache["cross"]
         cross_table = attention.dense_view_table(
@@ -958,9 +1108,10 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
             def cross_fn(cp, h, i=i):
                 return cross_decode(cp, h, cross["k"][i], cross["v"][i],
                                     cross["len"], cross_table, cfg, cdt,
-                                    adapter_ids)
+                                    adapter_ids, tp)
             x, _ = _block(_layer(params["layers"], i), x, cfg, cdt,
-                          attn_fn_for(kv), adapter_ids, "dense", cross_fn)
+                          attn_fn_for(kv), adapter_ids, moe_impl, cross_fn,
+                          tp)
     elif cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x = mamba_step(_layer(params["layers"], i), x,
@@ -972,11 +1123,12 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
                 x = mamba_step(params["layers"][i], x, cache[i])
             else:
                 x = shared_block_apply(params["shared_attn"], x, h0, cfg, cdt,
-                                       attn_fn_for(cache[i]), adapter_ids)
+                                       attn_fn_for(cache[i]), adapter_ids,
+                                       tp)
     else:
         raise ValueError(cfg.family)
     x = layers.apply_norm(params["final_norm"], x)
-    return lm_logits(params, x, cfg), cache
+    return _serve_logits(params, x, cfg, tp), cache
 
 
 # ---------------------------------------------------------------------------

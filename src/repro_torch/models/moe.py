@@ -15,6 +15,11 @@ two dispatch implementations.
   batch mates (capacity dispatch couples the rows of a batch through the
   shared buffer, so the engine never serves through it).
 
+Under a compute split over ``model`` whose experts split (expert
+parallelism, :mod:`repro_torch.distributed.tensor_parallel`), each rank
+runs both dispatches over every token but only its E / n experts' rows,
+and sums the partial outputs over ``model``.
+
 Expert linears are stacked ``(E, d_in, d_out)`` per layer (``(L, E, ...)``
 in the model's tree) and apply through the PEFT dispatcher with the expert
 axis written out as a batch dimension, where the reference vmaps one linear
@@ -137,14 +142,22 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
 
 
 def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-              compute_dtype, impl: str = "capacity"
+              compute_dtype, impl: str = "capacity", tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D) in the compute dtype, the Switch
-    load-balance aux loss)."""
+    load-balance aux loss).  Under a compute split ``tp`` whose experts
+    split (:mod:`repro_torch.distributed.tensor_parallel`), ``params``'
+    expert stacks are this rank's E / n experts (``tp.local_experts``):
+    the router, the aux loss and the dispatch run on every token as
+    without a split, only the rank's experts' rows run through its
+    stacks, and the partial outputs are summed over ``model``; the shared
+    experts' MLP splits as its plan says."""
     b, s, d = x.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     t = b * s
     xt = x.reshape(t, d)
+    split = tp is not None and tp.experts
+    first, local = tp.expert_range() if split else (0, e)
 
     logits = xt.float() @ params["router"]["w"].float()
     probs = torch.softmax(logits, dim=-1)                     # (T, E)
@@ -162,43 +175,54 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         mean_prob = collectives.sum_over(mean_prob, mesh, axes) / n
     aux = e * (frac * mean_prob).sum()
 
+    xin = xt
+    if split:
+        # each rank's gradients of the expert path's input and of the
+        # combine's gates cover its experts only: summed in the backward
+        xin = collectives.copy_to(xt, tp.mesh, "model")
+        gates = collectives.copy_to(gates, tp.mesh, "model")
     if impl == "dense":
-        # (E, T, D): every expert on every token
-        xe = xt[None].expand(e, t, d)
+        # (E, T, D): every (local) expert on every token
+        xe = xin[None].expand(local, t, d)
         ye = _expert_ffn(params, xe, cfg, compute_dtype)      # (E, T, D)
         comb = torch.zeros((t, e), dtype=torch.float32,
                            device=x.device).scatter_add(1, idx, gates)
-        y = torch.einsum("te,etd->td", comb.to(compute_dtype), ye)
+        y = torch.einsum("te,etd->td",
+                         comb[:, first:first + local].to(compute_dtype), ye)
     elif impl == "capacity":
         g = _group_count(t)
         tg = t // g
         cap = capacity(tg, cfg)
-        xg = shard_act(xt.reshape(g, tg, d), ("batch", None, None))
+        xg = shard_act(xin.reshape(g, tg, d), ("batch", None, None))
         flat_e = idx.reshape(g, tg * k)                       # (G, tg k)
         order = torch.argsort(flat_e, dim=1, stable=True)     # jnp.argsort
         sorted_e = torch.gather(flat_e, 1, order)
-        first = torch.searchsorted(sorted_e, sorted_e, side="left")
-        pos = torch.arange(tg * k, device=x.device) - first
-        keep = pos < cap
+        start = torch.searchsorted(sorted_e, sorted_e, side="left")
+        pos = torch.arange(tg * k, device=x.device) - start
+        # kept and (under a split) one of this rank's experts
+        keep = (pos < cap) & (sorted_e >= first) & (sorted_e < first + local)
+        mine = (sorted_e - first).clamp(0, local - 1)
         group = torch.arange(g, device=x.device)[:, None]
         src_tok = group * tg + order // k                     # global rows
         gathered = xg.reshape(t, d)[src_tok].to(compute_dtype)
         # positions >= cap are dropped (the reference's scatter mode
-        # "drop"): they land on one trash row past the buffers
-        dest = torch.where(keep, (group * e + sorted_e) * cap + pos,
-                           torch.full_like(pos, g * e * cap))
-        buf = torch.zeros((g * e * cap + 1, d), dtype=compute_dtype,
+        # "drop"), and other ranks' experts' rows skipped: they land on one
+        # trash row past the buffers
+        rows = g * local * cap
+        dest = torch.where(keep, (group * local + mine) * cap + pos,
+                           torch.full_like(pos, rows))
+        buf = torch.zeros((rows + 1, d), dtype=compute_dtype,
                           device=x.device).index_put((dest.reshape(-1),),
                                                      gathered.reshape(-1, d))
-        buf = shard_act(buf[:g * e * cap].reshape(g, e, cap, d),
+        buf = shard_act(buf[:rows].reshape(g, local, cap, d),
                         ("batch", "expert", None, None))
         # every group's rows of an expert through one linear: each expert
         # stack stays one grouped launch whatever G
-        out = _expert_ffn(params, buf.transpose(0, 1).reshape(e, g * cap, d),
-                          cfg, compute_dtype)
-        out = shard_act(out.reshape(e, g, cap, d).transpose(0, 1),
+        out = _expert_ffn(params, buf.transpose(0, 1).reshape(
+            local, g * cap, d), cfg, compute_dtype)
+        out = shard_act(out.reshape(local, g, cap, d).transpose(0, 1),
                         ("batch", "expert", None, None))      # (G,E,cap,D)
-        got = out[group, sorted_e, pos.clamp_max(cap - 1)]    # (G, tg k, D)
+        got = out[group, mine, pos.clamp_max(cap - 1)]        # (G, tg k, D)
         got = torch.where(keep[..., None], got, torch.zeros_like(got))
         gflat = torch.gather(gates.reshape(g, tg * k), 1,
                              order).to(compute_dtype)
@@ -210,9 +234,12 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(f"moe impl {impl!r}: 'capacity' or 'dense'")
 
+    if split:
+        y = collectives.reduce_from(y, tp.mesh, "model")
     y = y.reshape(b, s, d).to(compute_dtype)
     if "shared" in params:
         from repro_torch.models.model import mlp_apply  # local import
         y = y + mlp_apply(params["shared"], x.to(compute_dtype), cfg,
-                          compute_dtype)
+                          compute_dtype,
+                          tp=None if tp is None else tp.for_shared())
     return y, aux

@@ -766,7 +766,7 @@ class ServeEngine:
                                           step=self._obs_step):
                 logits, cache = model_lib.prefill(
                     self._tree, {"tokens": self._put(toks)}, self.cfg,
-                    self.max_len, self._put(lens),
+                    self.max_len, self._put(lens), moe_impl="dense",
                     adapter_ids=self._put(ids))
                 nxt = self._sample_rows(logits[:, -1, :self.cfg.vocab_size],
                                         [e[1] for e in group])
@@ -1103,8 +1103,8 @@ class ServeEngine:
             view = None
         logits, _ = model_lib.decode_step(
             self._tree, {"tokens": self._put(toks)}, cache,
-            self._put(positions), self.cfg, adapter_ids=self._put(ids),
-            view_table=view)
+            self._put(positions), self.cfg, moe_impl="dense",
+            adapter_ids=self._put(ids), view_table=view)
         return logits[:, -1, :self.cfg.vocab_size], live
 
     # -- speculative decode ------------------------------------------------
@@ -1185,7 +1185,7 @@ class ServeEngine:
         for j in range(k):
             logits, _ = model_lib.decode_step(
                 self._tree, {"tokens": tok}, cache, pos_t + j, self.cfg,
-                adapter_ids=ids_t)
+                moe_impl="dense", adapter_ids=ids_t)
             nxt, _, _, _ = sampling_lib.sample_tokens(
                 logits[:, -1, :self.cfg.vocab_size], temps, ks, ps, seeds,
                 None if greedy_only else counters + j, want_logprobs=False,

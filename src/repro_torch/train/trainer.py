@@ -23,12 +23,15 @@ layer's remat boundary, so the recompute gathers again), and the trainable
 gradients are summed over the batch axes in ``grad_allreduce_dtype``, one
 reduction set a step.  Over a ``model`` axis of several ranks the compute
 splits (:mod:`repro_torch.distributed.tensor_parallel`): each rank
-computes its heads, MLP columns and vocabulary slice; no leaf is gathered
-over ``model`` where the split consumes its block (the embedding and the
-head keep their vocabulary rows), and the gradients that the split leaves
-partial are summed over ``model`` as well.  What the split does not reach
-(MoE expert stacks, the Mamba2 mixer) computes replicated across
-``model`` ranks, its split leaves gathered over every axis.
+computes its heads, MLP columns, vocabulary slice and experts; no frozen
+leaf is gathered over ``model`` where the split consumes its block (the
+embedding and the head keep their vocabulary rows, the expert stacks
+their experts), and the gradients that the split leaves partial are
+summed over ``model`` as well.  The trainable leaves and their AdamW
+moments stay placed as the rules place them (an expert stack's over
+``model`` too) and are gathered whole for the update, one set a step.
+What the split does not reach (the Mamba2 mixer, the hybrid's ``fuse``)
+computes replicated across ``model`` ranks.
 """
 from __future__ import annotations
 
@@ -258,9 +261,10 @@ def shard_state(state: PyTree, shardings: PyTree, mesh) -> PyTree:
 
 def gather_state(state: PyTree, shardings: PyTree, mesh) -> PyTree:
     """The full tensors of a sharded ``state`` (collective: every rank of
-    the mesh calls it)."""
-    return tree_map(lambda t, pl: collectives.gather(t, pl, mesh), state,
-                    shardings)
+    the mesh calls it; its all-gathers are tagged ``"state"``)."""
+    return tree_map(lambda t, pl: collectives.gather(t, pl, mesh,
+                                                     tag="state"),
+                    state, shardings)
 
 
 def _rows(v: torch.Tensor, micro: int, micros: int, k: int,
@@ -355,7 +359,8 @@ def _sharded_step(cfg: ModelConfig, tc: TrainConfig, moe_impl: str, mesh,
             pl = split.get(prefix + path)
             return t if pl is None else collectives.gather(
                 t, pl, mesh, tensor_parallel.kept_axes(
-                    tp is not None and tp.vocab, prefix + path))
+                    tp is not None and tp.vocab, prefix + path,
+                    tp is not None and tp.experts), tag="frozen")
         return tree_map_with_path(one, tree)
 
     def objective(tr, frozen, micro):

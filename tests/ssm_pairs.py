@@ -12,13 +12,17 @@ pins it).  :func:`safe_ssd_chunked` is the reference's function with that
 one exponent masked before the ``exp``, as the port does; its forward
 values are the reference's, which the tests check before training with it.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import TrainConfig as JTrainConfig
 from repro.configs import get_config as jget_config
+from repro.core import cayley as jcayley
 from repro.data import SyntheticLMDataset as JDataset
 from repro.models import model as jmodel
 from repro.models import ssm as jssm
@@ -48,6 +52,19 @@ def compiled(fn, *args):
 
 def fast_jit(fn, **kw):
     return jax.jit(fn, compiler_options=XLA_FAST, **kw)
+
+
+@contextlib.contextmanager
+def compiled_reference_rotations():
+    """The reference's Cayley-Neumann rotation jitted once per shape while
+    the context lasts: called eagerly, its ``lax.scan`` traces and
+    compiles a new closure at every call (~0.1 s here), and the
+    reference engine's merges and bank builds call it for every PSOFT
+    linear of every adapter."""
+    fn = jax.jit(jcayley.cayley_neumann, static_argnums=(1, 2))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcayley, "cayley_neumann", fn)
+        yield
 
 
 #: the reference's sampler at the lowest optimisation level, shared by

@@ -131,6 +131,35 @@ def test_decode_kernel_at_split_seams(cuda_device, dtype, tol, maxp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxp", [32, 30, 3])
+def test_decode_kernel_lse_matches_plain(cuda_device, dtype, maxp):
+    """The combine kernel's log-sum-exp output (a decode over one slice of
+    a sequence-split cache): each row's and head's lse within fp32's 1e-4
+    of the plain version's, -inf exactly at a length-0 row, across split
+    seams; the output equal to the call without it."""
+    b, h, kh, hd, pg = 8, 24, 8, 128, 16
+    rng = np.random.default_rng(100 + maxp)
+    lengths = rng.integers(1, maxp * pg + 1, size=b).astype(np.int32)
+    lengths[0], lengths[1] = 0, maxp * pg
+    pages = 1 + b * maxp
+    table = (rng.permutation(pages - 1)[:b * maxp] + 1).reshape(b, maxp)
+    put = _on(cuda_device, dtype)
+    args = [put(_normal(rng, (b, h, hd))),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(_normal(rng, (pages, pg, kh, hd), 0.5)),
+            put(table.astype(np.int32)), put(lengths)]
+    out, lse = ops.paged_decode_attention(*args, lse=True)
+    want, want_lse = ref.paged_decode_attention(*args, lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(out, ops.paged_decode_attention(*args))
+    assert torch.all(torch.isneginf(lse[0])) and \
+        not torch.isinf(lse[1:]).any()
+    torch.testing.assert_close(lse[1:], want_lse[1:], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("b,s,h,kh,hd,pages,pg,maxp,plen", [
     (2, 8, 4, 4, 32, 8, 8, 3, [5, 17]), (2, 8, 8, 2, 32, 8, 8, 3, [0, 24]),

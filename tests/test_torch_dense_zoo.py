@@ -46,6 +46,12 @@ SHAPES = {"starcoder2-15b": (40, 6144, 48, 4, 24576, 49152, "gelu",
                              "layernorm", 128)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
+
+
 @pytest.mark.parametrize("arch", ZOO)
 def test_config_matches_reference(arch):
     cfg = get_config(arch)

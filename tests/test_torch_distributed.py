@@ -38,13 +38,22 @@ they run, computes the reference's side in this process:
     in-process 2-group step (1e-5); every family's step on (2, 1) and
     (1, 2) against the unsharded step;
 (f) the launcher under ``torch.distributed.run`` with 2 gloo ranks ends on
-    the loss of one process (1e-5).
+    the loss of one process (1e-5);
+(g) split serving: every family's ``prefill`` and 4 ``decode_step``s on
+    (1, 2), and reduced llama32-3b's on (1, 4), whose 2 kv heads put the
+    decode cache on its sequence, against the unsharded port (1e-5, fp32)
+    and the reference's logits (digests pinned by tests/torch_dist_refs.py,
+    one case recomputed live), each rank's cache its block, the
+    collectives over ``model`` those ``tensor_parallel.serve_collectives``
+    predicts; and the MoE expert split's train step, whose expert stacks
+    are never gathered over ``model``.
 """
 import json
 import os
 import subprocess
 import sys
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -90,6 +99,12 @@ GROUPS = {"four": 4, "moe2": 2}
 #: the split case whose reference the fixture recomputes (the others are
 #: pinned: ``torch_dist_refs.PINS``)
 LIVE_CASE = "psoft"
+#: the split serving case whose reference the fixture recomputes
+LIVE_SERVE = "llama32-3b"
+#: the serving cases: the rank group and its result key, by case
+SERVE = {**{arch: ("moe2", "serve", arch) for arch in ranks.SERVE_ARCHS},
+         f"seq {ranks.SERVE_SEQ_ARCH}": ("four", "serve seq",
+                                         ranks.SERVE_SEQ_ARCH)}
 #: the tiny meshes of (a): the group of ranks that runs each, its shape
 MESHES = {"2x2": ("four", (2, 2)), "4x1": ("four", (4, 1)),
           "1x4": ("four", (1, 4)), "1x2": ("moe2", (1, 2))}
@@ -228,7 +243,13 @@ def runs(tmp_path_factory):
     # the reference's side of the split cases: pinned digests, and one
     # case recomputed while the ranks run
     out["split references"] = json.loads(refs.PINS.read_text())
-    out["live reference"] = refs.case_reference(LIVE_CASE)
+    # the two live references traced in turn and compiled at once (XLA
+    # compiles without holding the interpreter lock)
+    with ThreadPoolExecutor(2) as pool:
+        train_ref = pool.submit(refs.case_reference, LIVE_CASE)
+        serve_ref = pool.submit(refs.serve_reference, LIVE_SERVE)
+        out["live reference"] = train_ref.result()
+        out["live serve reference"] = serve_ref.result()
 
     for group, ps in procs.items():
         for p in ps:
@@ -510,6 +531,92 @@ def test_every_family_steps_split_as_unsharded(runs, arch):
     trainables within 1e-5) and its first step the reference's."""
     _as_unsharded_and_reference(_group(runs, "moe2")["families"]["1x2"][arch],
                                 runs["split references"][arch], 1e-5)
+
+
+@pytest.mark.parametrize("case", list(SERVE))
+def test_split_serving_matches_unsharded_and_reference(runs, case):
+    """A split ``prefill`` and 4 ``decode_step``s (fp32) equal the
+    unsharded port's within 1e-5 and the reference's logits (each step's
+    digest within :data:`ssm_pairs.MODEL_TOL` of its pin); a rank's K/V
+    buffers hold KH / n heads (``"kv_heads"``) or max_len / n positions
+    (``"cache_seq"``, reduced llama32-3b's 2 kv heads on 4 ranks), the
+    Mamba2 states whole; the collectives over ``model`` are exactly the
+    ones ``tensor_parallel.serve_collectives`` predicts for the prefill
+    and each step."""
+    group, key, arch = SERVE[case]
+    res = _group(runs, group)[key][arch]
+    size = 4 if group == "four" else 2
+    assert res["diff"] <= 1e-5
+    pin = runs["split references"][f"serve {arch}"]["logits"]
+    got = refs.serve_digest(res["logits"])
+    assert sorted(got) == sorted(pin)
+    for k, (norm, proj) in pin.items():
+        tol = sp.MODEL_TOL * max(norm, 1e-3)
+        assert abs(got[k][0] - norm) <= tol, (k, got[k], norm)
+        assert abs(got[k][1] - proj) <= 4 * tol, (k, got[k], proj)
+    want_cache = "cache_seq" if group == "four" else "kv_heads"
+    assert res["cache"] == want_cache
+    shrunk = []
+    for shape in res["whole_shapes"]:
+        shape = list(shape)
+        shape[-2 if want_cache == "kv_heads" else -3] //= size
+        shrunk.append(tuple(shape))
+    assert res["shapes"] == sorted(shrunk)
+    cfg, _, batch, _, _ = ranks.serve_case(arch)
+    kw = dict(src_seq=batch["src_embeds"].shape[1]
+              if "src_embeds" in batch else 0,
+              patches=batch["patch_embeds"].shape[1]
+              if "patch_embeds" in batch else 0)
+    want = tensor_parallel.serve_collectives(
+        cfg, res["kinds"], res["vocab"], res["cache"], size,
+        ranks.SERVE_BATCH, batch["tokens"].shape[1], False, **kw) + \
+        tensor_parallel.serve_collectives(
+            cfg, res["kinds"], res["vocab"], res["cache"], size,
+            ranks.SERVE_BATCH, 1, True) * ranks.SERVE_STEPS
+    assert Counter((tag, n) for _, _, n, group_, tag in res["records"]
+                   if group_ == "model") == Counter(want)
+    assert all(group_ == "model" for *_, group_, _ in res["records"])
+
+
+def test_live_serving_reference_equals_its_pin(runs):
+    """The serving case recomputed from the reference in this run
+    (:data:`LIVE_SERVE`) equals its pinned digests (1e-6 relative) and
+    holds the split's logits elementwise (within
+    :data:`ssm_pairs.MODEL_TOL`)."""
+    live = runs["live serve reference"]
+    pin = runs["split references"][f"serve {LIVE_SERVE}"]["logits"]
+    for k, (norm, proj) in refs.serve_digest(live).items():
+        assert (norm, proj) == pytest.approx(tuple(pin[k]), rel=1e-6,
+                                             abs=1e-9), k
+    split = _group(runs, "moe2")["serve"][LIVE_SERVE]["logits"]
+    np.testing.assert_allclose(split, live, rtol=sp.MODEL_TOL,
+                               atol=sp.MODEL_TOL * float(np.abs(live).max()))
+
+
+def test_moe_expert_split_keeps_its_stacks_and_predicted_collectives(runs):
+    """Reduced deepseek-moe-16b's split step on (1, 2) (4 experts, 2 a
+    rank; the shared expert's MLP split like a dense one): no frozen leaf
+    is all-gathered over ``model`` (the expert stacks keep their experts,
+    the embedding and the head their rows), over ``model`` go exactly
+    the split's collectives ``step_collectives`` predicts (the experts'
+    output sums, the dispatch input's and the gates' gradient sums
+    included), the gradient sum, and the state's gathers of the
+    trainable expert leaves and their moments (placed over ``model`` by
+    the rules).  The step equals the unsharded one and the reference's
+    (:func:`test_every_family_steps_split_as_unsharded`)."""
+    res = _group(runs, "moe2")["families"]["1x2"]["deepseek-moe-16b"]
+    cfg, _, _, batch, seq, _ = ranks.family_case("deepseek-moe-16b")
+    kinds, vocab = res["plan"]
+    assert kinds["expert"] == "split" and kinds["shared_up"] == "col"
+    on_model = [(kind, tag, n) for kind, _, n, group, tag in res["records"]
+                if group == "model"]
+    assert not [r for r in on_model if r[1] == "frozen"]
+    assert {tag for kind, tag, _ in on_model if kind == "all_gather"} == \
+        {"state"}
+    want = tensor_parallel.step_collectives(cfg, kinds, vocab, 2, batch, seq)
+    assert Counter((tag, n) for kind, tag, n in on_model
+                   if tag not in ("grads", "state")) == Counter(want)
+    assert sum(tag == "grads" for _, tag, _ in on_model) == 1
 
 
 def test_launcher_on_two_ranks_ends_on_one_ranks_loss(runs):

@@ -19,6 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import lifecycle_pairs as lp  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 import repro.serve as jserve  # noqa: E402
 from repro.configs import TrainConfig as JTrainConfig  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
@@ -31,6 +32,12 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.train import checkpoint, trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
 
 
 @pytest.fixture(scope="module")

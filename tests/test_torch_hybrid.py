@@ -37,6 +37,12 @@ ARCH = "zamba2-1.2b"
 MAX_LEN = 48
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
+
+
 @pytest.fixture(scope="module")
 def params():
     return sp.numpy_params(sp.configs(ARCH)[0], 0)

@@ -3,6 +3,7 @@ each wrapper returns its plain PyTorch version, held here against both the
 reference oracle (``repro.kernels.ref``) and the interpret-mode Pallas
 kernel, fp32, tolerance 1e-5.  The CUDA launch path is tested on the card
 by test_torch_cuda.py."""
+import math
 import numpy as np
 import pytest
 
@@ -141,3 +142,38 @@ def test_cpu_calls_do_not_count_as_launches():
     q, kp, vp, table, lengths = _decode_case(1, 2, 4, 2, 32, 6, 8, 2)
     ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(table), _t(lengths))
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
+
+
+def test_plain_decode_lse_is_the_scores_logsumexp():
+    """The paged-decode wrapper's plain version (CPU tensors) with
+    ``lse``: each row's and head's log-sum-exp equals ``torch.logsumexp``
+    of its scaled scores over its valid tokens, -inf for a row of length
+    0; the output is the one without ``lse``; ``dense_decode_attention``
+    over a dense buffer gives the same through its view."""
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(3)
+    b, h, kh, d, pg, maxp = 3, 6, 2, 8, 4, 3
+    q = torch.randn((b, h, d), generator=gen)
+    kp = torch.randn((10, pg, kh, d), generator=gen)
+    vp = torch.randn((10, pg, kh, d), generator=gen)
+    table = torch.randint(0, 10, (b, maxp), generator=gen, dtype=torch.int32)
+    lengths = torch.tensor([0, 5, 12], dtype=torch.int32)
+    out, lse = ops.paged_decode_attention(q, kp, vp, table, lengths, lse=True)
+    assert torch.equal(out, ops.paged_decode_attention(q, kp, vp, table,
+                                                       lengths))
+    keys = kp[table.long()].reshape(b, maxp * pg, kh, d)
+    for row in range(b):
+        n = int(lengths[row])
+        for head in range(h):
+            if n == 0:
+                assert lse[row, head] == -math.inf
+                continue
+            s = keys[row, :n, head // (h // kh)] @ q[row, head] / math.sqrt(d)
+            torch.testing.assert_close(lse[row, head], torch.logsumexp(s, 0),
+                                       rtol=1e-6, atol=1e-6)
+    dense_k = keys.contiguous()
+    dense_v = vp[table.long()].reshape(b, maxp * pg, kh, d).contiguous()
+    got, got_lse = attention.dense_decode_attention(
+        q[:, None], dense_k, dense_v, lengths, None, lse=True)
+    torch.testing.assert_close(got[:, 0], out, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got_lse, lse, rtol=1e-6, atol=1e-6)

@@ -25,12 +25,19 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import lifecycle_pairs as lp  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 import repro_torch.serve as tserve  # noqa: E402
 from benchmarks.common import nudge_psoft  # noqa: E402
 from repro.configs.base import PEFTConfig as JPEFTConfig  # noqa: E402
 from repro.core import registry as jregistry  # noqa: E402
 from repro_torch.configs.base import PEFTConfig  # noqa: E402
 from repro_torch.core import registry  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -408,3 +408,34 @@ def test_rewrap_casts_the_router_like_reference():
     with pytest.raises(ValueError, match="'router'"):
         model.rewrap_peft(interop.params_from_numpy(merged, "cpu"), cfg.replace(
             peft=cfg.peft.replace(target_modules=("q", "router"))))
+
+
+def test_prefill_defaults_to_capacity_like_reference(model_pair):
+    """``prefill`` with default arguments dispatches the MoE layers with
+    capacity, as the reference's does (its ``moe_impl="capacity"``):
+    reduced deepseek-moe-16b on a batch whose capacity drops tokens (the
+    dense dispatch gives other logits there), both packages' logits within
+    1e-5; ``decode_step`` defaults to the dense dispatch in both."""
+    jcfg, params, _ = model_pair
+    cfg = get_config("deepseek-moe-16b").reduced()
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                              (2, 16)).astype(np.int32)
+    step = toks[:, :1]
+    jp = jax.tree.map(jnp.asarray, params)
+
+    def ref_fn(p, t, s):
+        logits, cache = jmodel.prefill(p, {"tokens": t}, jcfg, 32)
+        nxt, _ = jmodel.decode_step(p, {"tokens": s}, cache, 16, jcfg)
+        return logits, nxt
+    want, want_next = _compiled(ref_fn, jp, toks, step)(jp, toks, step)
+    tp = interop.params_from_numpy(params, "cpu")
+    got, cache = model.prefill(tp, {"tokens": torch.as_tensor(toks)}, cfg, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    dense, _ = model.prefill(tp, {"tokens": torch.as_tensor(toks)}, cfg, 32,
+                             moe_impl="dense")
+    assert float((dense - got).abs().max()) > 1e-3
+    nxt, _ = model.decode_step(tp, {"tokens": torch.as_tensor(step)}, cache,
+                               16, cfg)
+    np.testing.assert_allclose(nxt.numpy(), np.asarray(want_next), rtol=0,
+                               atol=1e-5)

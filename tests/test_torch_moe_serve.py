@@ -26,10 +26,17 @@ import repro_torch.serve as tserve  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 
 ARCH = "deepseek-moe-16b"
 ENGINE = dict(max_len=40, slots=3, page_size=8, prefill_chunk_tokens=8)
 ATTN = ("q", "k", "v", "o")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
 
 
 def _params(shapes, seed):
@@ -113,9 +120,9 @@ def test_moe_engine_matches_reference(setup, monkeypatch):
     impls = []
     real = moe.moe_apply
 
-    def spy(params, x, cfg, cdt, impl="capacity"):
+    def spy(params, x, cfg, cdt, impl="capacity", tp=None):
         impls.append(impl)
-        return real(params, x, cfg, cdt, impl)
+        return real(params, x, cfg, cdt, impl, tp)
     monkeypatch.setattr(moe, "moe_apply", spy)
     # plain expert stacks: the served base reads the source tree's storage
     plain = {**params, "layers": {**params["layers"], "moe": {

@@ -35,6 +35,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.blockdiag_rotate import blockdiag_rotate_pallas  # noqa
 from repro.models import model as jmodel  # noqa: E402
 from repro.train import trainer as jtrainer  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.core import oft, peft, registry  # noqa: E402
@@ -214,9 +215,9 @@ def ref_runs():
     """Per method: the reference's numpy states after each of 3 steps on
     tiny (index 0: the initial state) and each step's metrics.  Every
     method's init and step are traced in turn and then compiled together
-    on a thread pool (XLA compiles without holding the interpreter lock):
-    the same executables as ``jax.jit``'s, in ~9 s of compiling instead of
-    ~17 s one after the other."""
+    on a thread pool (XLA compiles without holding the interpreter lock),
+    at XLA's lowest optimisation level (``ssm_pairs.XLA_FAST``): compiling
+    is what costs at these sizes, not running."""
     key = jax.random.PRNGKey(0)
     lowered = {}
     for method in TRAIN_METHODS:
@@ -231,7 +232,8 @@ def ref_runs():
             jax.eval_shape(init, key),
             {k: jnp.asarray(v) for k, v in ds.batch_at(0).items()}), ds)
     with ThreadPoolExecutor(2 * len(lowered)) as pool:
-        jobs = {m: (pool.submit(i.compile), pool.submit(s.compile))
+        jobs = {m: (pool.submit(i.compile, sp.XLA_FAST),
+                    pool.submit(s.compile, sp.XLA_FAST))
                 for m, (i, s, _) in lowered.items()}
         compiled = {m: (i.result(), s.result()) for m, (i, s) in jobs.items()}
     out = {}

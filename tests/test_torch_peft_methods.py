@@ -29,12 +29,19 @@ from repro.core import registry as jregistry  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import PEFT_METHODS, PEFTConfig  # noqa: E402
 from repro_torch.core import peft, registry  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 
 D_IN, D_OUT = 64, 48
 NEW_METHODS = ["pissa", "dora", "lora_xs", "oft", "boft", "goft", "qgoft"]
 #: the reference's tests/test_registry.py split
 DENSE_METHODS = ["pissa", "dora", "oft", "boft", "goft", "qgoft"]
 F32 = jnp.float32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
 
 
 def _kw(method):

@@ -27,10 +27,17 @@ from repro.serve import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 
 #: a tight pool (10 usable pages): admissions wait for frees in FIFO order
 #: and retained prefix pages get evicted
 ENGINE = dict(max_len=64, slots=3, page_size=8, num_pages=11)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
 
 
 def _workload(vocab):

@@ -436,8 +436,12 @@ def test_dryrun_flops_per_device_follow_the_split():
     16, so of N_active only the MLP's three linears a layer and the head
     (the vocabulary splits) divide over data x model; attention and the
     norms compute replicated across ``model``, their share of the step's
-    FLOPs divided over data only.  A serving cell divides by every
-    device."""
+    FLOPs divided over data only.  A serving cell splits the same way:
+    ``decode_32k``'s 128 rows over data, the split share over ``model``;
+    its ``model`` collectives are the split's own (``serve_collectives``:
+    the down sums, the lookup, the logits gather and, its 8 kv heads not
+    dividing over 16, the sequence cache's combine), in bytes a device
+    moves."""
     cfg = get_config("llama32-3b")
     sizes = make_production_mesh()
     kinds, vocab = tensor_parallel.plan_linears(cfg, sizes,
@@ -454,5 +458,120 @@ def test_dryrun_flops_per_device_follow_the_split():
     assert cell["flops_per_device"] > cell["model_flops"] / math.prod(
         sizes.values())
     serve = dryrun.run_cell("llama32-3b", "decode_32k")
-    assert serve["flops_per_device"] == serve["model_flops"] / math.prod(
-        sizes.values())
+    assert serve["split_share"] == cell["split_share"]
+    assert serve["flops_per_device"] == pytest.approx(
+        serve["model_flops"] / sizes["data"] * (
+            split / n_active / sizes["model"] + 1 - split / n_active),
+        rel=1e-12)
+    n = sizes["model"]
+    tags = tensor_parallel.serve_collectives(
+        cfg, kinds, vocab, "cache_seq", n, 128 // sizes["data"], 1, True)
+    assert serve["cache_split"] == "cache_seq"
+    assert ("seq_sum", 8 * cfg.num_heads * (cfg.resolved_head_dim + 1)) \
+        in tags
+    act = 2
+    want = sum((n - 1) * e * act if t in ("logits", "gather_from", "seq_q")
+               else 2 * (n - 1) / n * e * (4 if t.startswith("seq_")
+                                           else act) for t, e in tags)
+    assert serve["collective_bytes"]["model"] == pytest.approx(want,
+                                                               rel=1e-12)
+
+
+@pytest.mark.parametrize("arch,model_size,cache,experts", (
+    ("llama32-3b", 2, "kv_heads", None),
+    ("llama32-3b", 3, "cache_seq", None),
+    ("deepseek-moe-16b", 2, "kv_heads", "split"),
+    ("deepseek-moe-16b", 16, "kv_heads", "split"),
+    ("starcoder2-15b", 16, "cache_seq", None)))
+def test_serving_plan_follows_the_reference_cache_rules(arch, model_size,
+                                                        cache, experts):
+    """The serving split's plan under ``rules_for(cfg, mesh, "decode")``:
+    the cache splits over kv heads where they divide and over its
+    sequence where they do not, as the reference's ``cache_axes`` under
+    its rules put the K/V buffers (its ``logical_spec`` of
+    ("batch", "cache_seq", "kv_heads", None)); llama32-3b on 3 ranks keeps
+    its MLP (8192 columns) replicated while its 128256-row vocabulary
+    splits; deepseek-moe-16b's 64 experts and its shared experts' MLP
+    (2 x 1408 columns) split."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    sizes = {"data": 1, "model": model_size}
+    rules = rules_for(cfg, sizes, "decode")
+    kinds, vocab = tensor_parallel.plan_linears(cfg, sizes, rules)
+    assert tensor_parallel.cache_layout(cfg, sizes, rules, kinds) == cache
+    spec = tuple(jlogical_spec(
+        Sizes(sizes), jmesh.rules_for(jcfg, Sizes(sizes), "decode"),
+        ("batch", "cache_seq", "kv_heads", None),
+        (1, 4096 * model_size, jcfg.num_kv_heads, jcfg.resolved_head_dim)))
+    assert spec[1 if cache == "cache_seq" else 2] == "model"
+    assert kinds.get("expert") == experts
+    if arch == "llama32-3b" and model_size == 3:
+        assert (kinds["q"], kinds["k"], kinds["up"], vocab) == \
+            ("col", "replicated", "replicated", True)
+    if experts:
+        assert (kinds["shared_up"], kinds["shared_down"]) == ("col", "row")
+    # the train rules keep the cache whole where the kv heads do not
+    # divide: a split decode refuses that layout
+    train = rules_for(cfg, sizes, "train")
+    if cache == "cache_seq":
+        assert tensor_parallel.cache_layout(
+            cfg, sizes, train, tensor_parallel.plan_linears(
+                cfg, sizes, train)[0]) is None
+
+
+def test_split_serving_refuses_what_it_does_not_split():
+    """A split ``prefill`` / ``decode_step`` serves the base model over
+    the dense cache: an adapter bank (``adapter_ids``), paged pools, a
+    cache the plan leaves whole and a sequence split ``max_len`` does not
+    divide raise ``ValueError`` before any collective runs."""
+    cfg = get_config("tiny")
+    params = model.init_params(cfg, device="cpu")
+    kinds, vocab = tensor_parallel.plan_linears(cfg, {"model": 2},
+                                                rules_for(cfg, {"model": 2}))
+
+    def split(cache):
+        return tensor_parallel.TensorParallel(
+            None, 0, 2, kinds, vocab, cfg.num_heads, cfg.num_kv_heads,
+            cfg.padded_vocab_size, 0, cache)
+    toks = {"tokens": torch.zeros((2, 4), dtype=torch.long)}
+    ids = torch.zeros((2,), dtype=torch.long)
+    with pytest.raises(ValueError, match="adapter bank"):
+        model.prefill(params, toks, cfg, 16, adapter_ids=ids,
+                      tp=split("kv_heads"))
+    pools = model.init_cache(cfg, 2, 16, page_size=16, device="cpu")
+    pools["page_table"] = torch.zeros((2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="paged pools"):
+        model.decode_step(params, {"tokens": toks["tokens"][:, :1]}, pools,
+                          4, cfg, tp=split("kv_heads"))
+    with pytest.raises(ValueError, match="paged pools"):
+        model.init_cache(cfg, 2, 16, page_size=16, device="cpu",
+                         tp=split("kv_heads"))
+    with pytest.raises(ValueError, match="'decode'"):
+        model.init_cache(cfg, 2, 16, device="cpu", tp=split(None))
+    with pytest.raises(ValueError, match="multiple"):
+        model.init_cache(cfg, 2, 15, device="cpu", tp=split("cache_seq"))
+    assert model.init_cache(cfg, 2, 16, device="cpu", tp=split(
+        "cache_seq"))["k"].shape == (cfg.num_layers, 2, 8, 4, 32)
+    assert model.init_cache(cfg, 2, 16, device="cpu", tp=split(
+        "kv_heads"))["k"].shape == (cfg.num_layers, 2, 16, 2, 32)
+
+
+def test_expert_paths_are_reached_summed_and_kept():
+    """An MoE layer's leaves in the split: the expert stacks are module
+    ``"expert"`` (their gradients summed over ``model`` and their frozen
+    leaves kept split there when the experts split), the shared experts'
+    linears their own modules, the router none."""
+    kinds, vocab = tensor_parallel.plan_linears(
+        get_config("deepseek-moe-16b"), {"model": 2},
+        rules_for(get_config("deepseek-moe-16b"), {"model": 2}))
+    expert = ("layers", "moe", "up", "w_res")
+    shared = ("layers", "moe", "shared", "down", "alpha")
+    router = ("layers", "moe", "router", "w")
+    assert tensor_parallel.reached_module(expert) == "expert"
+    assert tensor_parallel.reached_module(shared) == "shared_down"
+    assert tensor_parallel.reached_module(router) is None
+    assert tensor_parallel.grad_summed(kinds, vocab, expert)
+    assert tensor_parallel.grad_summed(kinds, vocab, shared)
+    assert not tensor_parallel.grad_summed(kinds, vocab, router)
+    assert tensor_parallel.kept_axes(vocab, expert, True) == ("model",)
+    assert tensor_parallel.kept_axes(vocab, expert, False) == ()
+    assert tensor_parallel.kept_axes(vocab, shared, True) == ()

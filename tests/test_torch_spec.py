@@ -35,6 +35,7 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.serve import kv_cache as tkv, spec as tspec  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 
 #: the reference test's engine: slots of 48 tokens in pages of 8
 ENGINE = dict(max_len=48, slots=2, page_size=8)
@@ -42,6 +43,12 @@ ROOMY, TIGHT = 13, 7
 LOGPROB_TOL = 1e-5
 #: the reference test's sampled traffic (seeds 7 + uid)
 SAMPLED = dict(temperature=0.8, top_k=40, seed=7, logprobs=2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,12 @@ ARCH = "mamba2-1.3b"
 ENGINE = dict(max_len=48, slots=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
+
+
 def _ssd_inputs(seed, s, g, h=4, p=8, n=16, b=2):
     rng = np.random.default_rng(seed)
     f = np.float32

@@ -30,12 +30,19 @@ import repro_torch.serve as tserve  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.serve import kv_cache as tkv  # noqa: E402
+import ssm_pairs as sp  # noqa: E402
 
 #: slots of 56 tokens in pages of 8: a tight pool (6 usable pages) where
 #: admission waits and decode preempts, and a roomy one (12)
 TIGHT, ROOMY = 7, 13
 ENGINE = dict(max_len=56, slots=2, page_size=8)
 LOGPROB_TOL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,12 @@ MAX_LEN = 48
 TOL = dict(atol=sp.MODEL_TOL, rtol=sp.MODEL_TOL)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_rotations():
+    with sp.compiled_reference_rotations():
+        yield
+
+
 def assert_config_matches(arch):
     """Every field the port's config keeps equals the reference's, the
     nested PEFT, MoE and SSM configs field by field, full and reduced."""

@@ -157,9 +157,9 @@ def summary(run: Run) -> dict:
 
 
 def four(rank, work):
-    """(a) three meshes, the split's kv and vocab fallbacks on (1, 4),
-    (b) bf16 and int8 gradients, (c) the elastic restore, (d) GPipe over
-    4 stages."""
+    """(a) three meshes, the split's kv and vocab fallbacks on (1, 4) and
+    its serving split's sequence cache there, (b) bf16 and int8
+    gradients, (c) the elastic restore, (d) GPipe over 4 stages."""
     cfg, tc, init = tiny_init(work)
     mesh = make_mesh_from_config(MeshConfig(data=2, model=2))
     out = {"mesh_from_config": (mesh.mesh_dim_names, tuple(mesh.shape))}
@@ -174,6 +174,7 @@ def four(rank, work):
                             mesh=mesh)
             saved = flat(run.full)
     out["fallbacks"] = fallbacks(meshes[(1, 4)])
+    out["serve seq"] = serve_cases(meshes[(1, 4)], (SERVE_SEQ_ARCH,))
     dist.barrier()
     mesh = meshes[(4, 1)]
     sh, _ = trainer.state_shardings(cfg, tc, mesh, rules_for(cfg, mesh))
@@ -205,8 +206,9 @@ def four(rank, work):
 
 def moe2(rank, work):
     """(e) reduced deepseek-moe-16b on a (2, 1) mesh: the capacity layer,
-    each rank one dispatch group, and sharded train steps; and the other
-    families' sharded steps (:func:`families`)."""
+    each rank one dispatch group, and sharded train steps; the other
+    families' sharded steps (:func:`families`); and on (1, 2) the split
+    steps and every family's split serving (:func:`serve_cases`)."""
     cfg = get_config("deepseek-moe-16b").reduced()
     z = np.load(os.path.join(work, "moe.npz"))
     params = interop.params_from_numpy(
@@ -227,6 +229,7 @@ def moe2(rank, work):
     out["1x2"] = summary(run_sharded(*tiny_init(work), split))
     out["families"]["1x2"] = families(split, FAMILIES + SPLIT_FAMILIES)
     out["methods"] = methods(split)
+    out["serve"] = serve_cases(split, SERVE_ARCHS)
     return out
 
 
@@ -328,6 +331,93 @@ def fallback_case(case):
                1, BATCH, SEQ, "dense")
     finally:
         config_base.VOCAB_PAD_MULTIPLE = pad
+
+
+#: the split serving cases: every family on (1, 2), reduced; and reduced
+#: llama32-3b on (1, 4), whose 2 kv heads fall back to the sequence cache
+SERVE_ARCHS = ("llama32-3b", "deepseek-moe-16b", "internvl2-26b",
+               "seamless-m4t-medium", "mamba2-1.3b", "zamba2-1.2b")
+SERVE_SEQ_ARCH = "llama32-3b"
+#: prompts, their padded length, the cache's length, decode steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = 2, 16, 32, 4
+
+
+def serve_case(arch):
+    """(config, params, prefill batch (numpy), lengths or None, decode
+    tokens (steps, B, 1)) of a split serving case: ``arch`` reduced in
+    fp32, its params from seed 1 with every PSOFT trainable moved off its
+    init, a right-padded batch of :data:`SERVE_BATCH` prompts (the
+    recurrent families' at full length), and fixed decode tokens the
+    split and the unsharded runs (and the reference) are all fed."""
+    from repro_torch.models import model
+    cfg = get_config(arch).reduced()
+    params = model.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(7)
+    for path, t in tree_leaves_with_path(params):
+        if path[-1] in ("q", "alpha", "beta"):
+            t.add_(torch.from_numpy(0.05 * rng.standard_normal(
+                tuple(t.shape)).astype(np.float32)))
+    batch = SyntheticLMDataset(cfg, SERVE_BATCH, SERVE_PROMPT).batch_at(3)
+    batch.pop("labels")
+    lengths = None
+    if cfg.family not in ("ssm", "hybrid"):
+        extra = batch["patch_embeds"].shape[1] if "patch_embeds" in batch \
+            else 0
+        lengths = np.array([SERVE_PROMPT, SERVE_PROMPT - 5]) + extra
+    toks = rng.integers(0, cfg.vocab_size,
+                        (SERVE_STEPS, SERVE_BATCH, 1)).astype(np.int32)
+    return cfg, params, batch, lengths, toks
+
+
+def serve_positions(batch, lengths, step):
+    """Each row's decode position at ``step``."""
+    if lengths is None:
+        return np.full((SERVE_BATCH,), batch["tokens"].shape[1] + step)
+    return np.asarray(lengths) + step
+
+
+def serve_run(cfg, params, batch, lengths, toks, tp=None):
+    """(the prefill's and every decode step's logits (numpy), the cache's
+    K/V buffer shapes) of a prefill and :data:`SERVE_STEPS` decode steps,
+    under the serving split ``tp`` or unsharded."""
+    from repro_torch.models import model
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    ln = None if lengths is None else torch.as_tensor(lengths)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, tb, cfg, SERVE_MAX_LEN, ln,
+                                      tp=tp)
+        out = [logits.numpy()]
+        for j in range(SERVE_STEPS):
+            logits, cache = model.decode_step(
+                params, {"tokens": torch.as_tensor(toks[j])}, cache,
+                torch.as_tensor(serve_positions(batch, lengths, j)), cfg,
+                tp=tp)
+            out.append(logits.numpy())
+    shapes = sorted({tuple(t.shape) for p, t in tree_leaves_with_path(cache)
+                     if p[-1] in ("k", "v")})
+    return np.stack(out), shapes
+
+
+def serve_cases(mesh, archs):
+    """Each arch's split prefill and decode steps on ``mesh`` against the
+    unsharded run in this process: the largest logits difference, the
+    split's logits (for the test to hold against the reference's pinned
+    digests), its cache's K/V shapes, its collectives over ``model`` and
+    the plan's cache layout."""
+    from repro_torch.models import model  # noqa: F401
+    out = {}
+    for arch in archs:
+        cfg, params, batch, lengths, toks = serve_case(arch)
+        rules = rules_for(cfg, mesh, "decode")
+        tp = tensor_parallel.plan(cfg, mesh, rules)
+        want, whole = serve_run(cfg, params, batch, lengths, toks)
+        collectives.reset()
+        got, shapes = serve_run(cfg, params, batch, lengths, toks, tp)
+        out[arch] = dict(diff=float(np.abs(got - want).max()), logits=got,
+                         shapes=shapes, whole_shapes=whole,
+                         records=records(), cache=tp.cache,
+                         kinds=dict(tp.kinds), vocab=tp.vocab)
+    return out
 
 
 def one(rank, work):

@@ -3,19 +3,24 @@ the reference's unsharded loss and step-1 gradients of each named case (a
 method or remat case of :func:`torch_dist_ranks.method_case`, a family of
 :func:`torch_dist_ranks.family_case`, and ``"seamless kv"``, the fallback
 that runs the family case of reduced seamless-m4t-medium at 1x4) from the
-port's initial state of the case, converted, on its first batch.
+port's initial state of the case, converted, on its first batch; and the
+reference's logits of each split serving case (``"serve <arch>"``:
+:func:`torch_dist_ranks.serve_case`'s prefill and decode steps from the
+port's params, converted).
 
 Tracing and compiling the reference for every case takes ~80 s, so the
 test holds the split's results against :data:`PINS`, a digest of each
 case's reference result that this script writes:
 
-    PYTHONPATH=src python tests/torch_dist_refs.py
+    PYTHONPATH=src python tests/torch_dist_refs.py [--serve-only]
 
 (``{case: {"loss": float, "grads": {leaf: [L2 norm, projection on a
-fixed random direction]}}}``), and recomputes one case live to show that
-the digests are still the reference's.
+fixed random direction]}}}``, a serving case ``{"logits": {"step<i>":
+[L2 norm, projection]}}``), and recomputes one case of each kind live to
+show that the digests are still the reference's.
 """
 import json
+import sys
 import zlib
 from pathlib import Path
 
@@ -34,9 +39,11 @@ from repro_torch.train import trainer
 import ssm_pairs as sp
 import torch_dist_ranks as ranks
 
+#: every serving case the test holds against the reference
+SERVE_CASES = tuple(f"serve {arch}" for arch in ranks.SERVE_ARCHS)
 #: every case the test holds against the reference
 CASES = (ranks.METHOD_CASES + ranks.FAMILIES + ranks.SPLIT_FAMILIES
-         + ("seamless kv",))
+         + ("seamless kv",) + SERVE_CASES)
 #: the digests of the reference's results, by case
 PINS = Path(__file__).resolve().parent / "fixtures" / \
     "torch_split_reference.json"
@@ -90,6 +97,36 @@ def reference_step(jcfg, spec):
     return float(loss), _flat(grads)
 
 
+def serve_reference(arch):
+    """The reference's logits (steps + 1, B, 1, V) of a serving case: its
+    ``prefill`` (default dispatch: capacity) and ``decode_step``s (dense)
+    on :func:`torch_dist_ranks.serve_case`'s inputs, one compiled
+    function."""
+    cfg, params, batch, lengths, toks = ranks.serve_case(arch)
+    jcfg = jget_config(arch).reduced()
+
+    def fn(p, b, ln, toks):
+        logits, cache = jmodel.prefill(p, b, jcfg, ranks.SERVE_MAX_LEN,
+                                       lengths=ln)
+        out = [logits]
+        for j in range(ranks.SERVE_STEPS):
+            pos = (b["tokens"].shape[1] if ln is None else ln) + j
+            if ln is None:
+                pos = np.full((ranks.SERVE_BATCH,), pos, np.int32)
+            logits, cache = jmodel.decode_step(p, {"tokens": toks[j]},
+                                               cache, pos, jcfg)
+            out.append(logits)
+        return out
+    got = sp.fast_jit(fn)(interop.params_to_numpy(params), batch,
+                          lengths, toks)
+    return np.stack([np.asarray(x) for x in got])
+
+
+def serve_digest(logits) -> dict:
+    """:func:`digest` of each step's logits (``"step<i>"``)."""
+    return digest({f"step{i}": x for i, x in enumerate(logits)})
+
+
 def case_reference(case):
     """:func:`reference_step` of one of :data:`CASES`, on the reference's
     SSD scan made NaN-safe (:func:`ssm_pairs.safe_ssd_chunked`) while it
@@ -110,8 +147,14 @@ def case_reference(case):
 
 
 def main():
-    pins = {}
+    pins = json.loads(PINS.read_text()) if PINS.exists() else {}
     for case in CASES:
+        if case in SERVE_CASES:
+            pins[case] = {"logits": serve_digest(serve_reference(
+                case.split(" ", 1)[1]))}
+            continue
+        if case in pins and "--serve-only" in sys.argv:
+            continue
         loss, grads = case_reference(case)
         pins[case] = {"loss": loss, "grads": digest(grads)}
     PINS.write_text(json.dumps(pins, indent=1, sort_keys=True) + "\n")
