@@ -329,8 +329,10 @@ Phases, each of which raises (non-zero exit) on a failed check:
     sequence, each rank's log-sum-exp combined), every logits row within
     2e-2 relative L2 of the unsharded run's; deepseek-moe-16b's
     expert-parallel train step (32 of 64 experts a rank) and split
-    serving from phase 17's state; tiny fp32 card vs CPU; the predicted
-    collectives and launches, three planted faults rejected
+    serving from phase 17's state; mamba2-1.3b (4 layers) and zamba2-1.2b
+    (6) at full width with the Mamba2 mixer and its decode states split
+    over their 64 SSM heads; tiny fp32 card vs CPU; the predicted
+    collectives and launches, six planted faults rejected
     (:func:`split_serve_phase`).
 
 Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
@@ -7414,9 +7416,41 @@ def split_serve_kernel_phase(torch, ops, ref, F, attention):
               f"plain {v['plain_ms']:.4f} ms, torch.bmm on merged weights "
               f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms by "
               f"{v['bound_by']}")
+    out["mixer"] = psoft_shape_checks(torch, ops, ref, gen,
+                                      SERVE_SPLIT_MIXER_PSOFT)
+    for name, v in out["mixer"].items():
+        print(f"kernels: psoft_matmul at a split rank's {name} "
+              f"({v['shape']}): forward {v['ms']:.4f} ms, transposed "
+              f"{v['backward_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+              f"torch.matmul on the merged weight {v['library_ms']:.4f} ms, "
+              f"bound {v['bound_ms']:.4f} ms by {v['bound_by']}; max err "
+              f"{v['max_err']:.3g} / {v['max_err_transposed']:.3g}")
     return out
 
 
+#: phase 2's psoft_matmul at a split rank's Mamba2 linears on (1, 2): 32
+#: of 64 SSM heads a rank, in_proj's column set (z, x and dt of its heads,
+#: B and C of the one group every rank reads) and out_proj's rows
+SERVE_SPLIT_MIXER_PSOFT = (
+    ("mamba2 in_proj rank", 2048, 2048, 4384, SSM_RANK),
+    ("zamba2 in_proj rank", 2048, 2048, 4256, SSM_RANK),
+    ("out_proj rank", 2048, 2048, 2048, SSM_RANK))
+#: (d): the recurrent models' depths at full width (a hybrid keeps one
+#: shared-block position), the cache length, the params' seed
+SERVE_RECURRENT_LAYERS = {"mamba2-1.3b": 4, "zamba2-1.2b": 6}
+SERVE_RECURRENT_MAX_LEN, SERVE_RECURRENT_SEED = 512, 35
+#: (d)'s fp32 split against the unsharded fp32 run, each logits row in
+#: relative L2: the random zamba2 amplifies a rounding ~60-fold (its bf16
+#: run sits 0.12 from fp32), so fp32's reassociations leave a few logits
+#: 1.5e-4 apart, past fp32's elementwise 1e-4, while the worst row moves
+#: 1.25e-5 (mamba2) and 3.87e-5 (zamba2) on an H100
+SERVE_RECURRENT_FP32_ROW = 1e-4
+#: (d)'s planted faults, each on the reduced mamba2 twin (two groups of B
+#: and C) in fp32, card against CPU
+SERVE_MIXER_FAULTS = (
+    "the norm without its all-reduce (a rank-local mean of squares)",
+    "a rank reading its neighbour's a_log / dt_bias heads",
+    "B and C taken from another rank's columns")
 #: phase 31: (a) and (b)'s prompts, their length and decode steps; each
 #: mesh's cache length (a multiple of its "model" size)
 SERVE_SPLIT_PROMPTS, SERVE_SPLIT_PROMPT_LEN, SERVE_SPLIT_STEPS = 8, 256, 32
@@ -7442,7 +7476,7 @@ SERVE_SPLIT_MAX_LEN = {2: 512, 3: 768}
 SERVE_MOE_LOSS_REL, SERVE_MOE_STEPS = 1e-4, 3
 SERVE_MOE_PROMPTS, SERVE_MOE_PROMPT_LEN, SERVE_MOE_MAX_LEN, \
     SERVE_MOE_GEN = 4, 128, 256, 8
-#: (d): tiny fp32 on the card against the CPU, each mesh's cache length
+#: (e): tiny fp32 on the card against the CPU, each mesh's cache length
 SERVE_TINY_TOL, SERVE_TINY_PROMPT, SERVE_TINY_STEPS = 1e-4, 16, 4
 SERVE_TINY_MAX_LEN = {2: 32, 3: 48}
 #: decode steps of a planted fault's run, and the faults with their run
@@ -7469,6 +7503,71 @@ def serve_split_configs(configs, spec):
     return llama, moe, configs.get_config("tiny")
 
 
+def serve_recurrent_configs(configs, spec):
+    """((d)'s mamba2-1.3b and zamba2-1.2b at full width and
+    SERVE_RECURRENT_LAYERS, bf16, PSOFT r 64 (reduced where the spec asks:
+    a CPU rehearsal); their reduced fp32 twins, mamba2's with two groups
+    of B and C, so that each rank reads its own), by arch."""
+    import dataclasses
+    full, small = {}, {}
+    for arch, layers in SERVE_RECURRENT_LAYERS.items():
+        cfg = configs.get_config(arch)
+        small[arch] = cfg.reduced()
+        full[arch] = small[arch] if spec.get("reduced") else \
+            cfg.replace(num_layers=layers)
+    small["mamba2-1.3b"] = small["mamba2-1.3b"].replace(ssm=dataclasses.replace(
+        small["mamba2-1.3b"].ssm, ngroups=2))
+    return full, small
+
+
+def recurrent_split_params(torch, model, cfg, seed, device):
+    """``cfg``'s params from ``seed`` with PSOFT's trainables and each
+    Mamba2 layer's ``dt_bias`` moved off their init by seeded noise."""
+    params = nudged(torch, model.init_params(cfg, seed=seed, device=device),
+                    PSOFT_TRAINABLES, seed, 0.05, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    layers = params["layers"]
+    for lp in ([layers] if isinstance(layers, dict) else layers):
+        if "ssm" in lp:
+            t = lp["ssm"]["dt_bias"]
+            lp["ssm"]["dt_bias"] = t + 0.3 * torch.randn(
+                t.shape, generator=gen, device=device)
+    return params
+
+
+def recurrent_tiny_prompts(torch, small):
+    """(2 prompts of SERVE_TINY_PROMPT tokens, SERVE_TINY_STEPS x 2 fed
+    tokens) of (d)'s reduced twins (one vocabulary)."""
+    cfg = small["mamba2-1.3b"]
+    return (split_prompts(torch, cfg, 2, SERVE_TINY_PROMPT, 36),
+            split_prompts(torch, cfg, SERVE_TINY_STEPS, 2, 37))
+
+
+def mamba_states(cache):
+    """The Mamba2 decode states of a dense cache by name: ``conv_state``
+    and ``ssm_state`` of a stacked SSM cache, ``<layer>/conv_state`` and
+    ``<layer>/ssm_state`` of a hybrid's per-layer list."""
+    if isinstance(cache, dict):
+        return {k: cache[k] for k in ("conv_state", "ssm_state")}
+    return {f"{i}/{k}": c[k] for i, c in enumerate(cache)
+            if "conv_state" in c for k in ("conv_state", "ssm_state")}
+
+
+def gathered_states(ssm_lib, cfg, blocks):
+    """:func:`mamba_states`' names of the whole states from every rank's
+    blocks (``ssm.gather_state_blocks`` layer by layer)."""
+    out = {}
+    for name in blocks[0]:
+        if not name.endswith("conv_state"):
+            continue
+        pre = name[:-len("conv_state")]
+        out.update({pre + k: v for k, v in ssm_lib.gather_state_blocks(
+            cfg, [{k: b[pre + k] for k in ("conv_state", "ssm_state")}
+                  for b in blocks]).items()})
+    return out
+
+
 def split_prompts(torch, cfg, b, s, seed):
     gen = torch.Generator()
     gen.manual_seed(seed)
@@ -7476,11 +7575,12 @@ def split_prompts(torch, cfg, b, s, seed):
 
 
 def split_generate(torch, model, ops, params, cfg, tokens, max_len, steps,
-                   forced=None, tp=None, moe=False):
+                   forced=None, tp=None, moe=False, states=None):
     """A prefill of ``tokens`` (every prompt full) and ``steps`` decode
     steps, greedy or fed ``forced`` (steps, B): (logits (steps + 1, B, V)
     on the host in fp32, the tokens fed, the paged-decode launches of
-    each decode step)."""
+    each decode step); a dict ``states`` receives the final cache's
+    Mamba2 states (:func:`mamba_states`) on the host."""
     b, s = tokens.shape
     kw = dict(tp=tp)
     with torch.no_grad():
@@ -7499,6 +7599,8 @@ def split_generate(torch, model, ops, params, cfg, tokens, max_len, steps,
                 moe_impl="dense", **kw)
             per_step.append(ops.LAUNCHES["paged_decode_attention"] - before)
             outs.append(logits[:, -1, :cfg.vocab_size].float().cpu())
+    if states is not None:
+        states.update({k: v.cpu() for k, v in mamba_states(cache).items()})
     return torch.stack(outs), torch.stack(fed) if fed else None, per_step
 
 
@@ -7511,7 +7613,10 @@ def serve_split_rank_main(torch, rank: int, work: Path) -> int:
     the parent's greedy tokens, and the group's planted fault; (c) on two
     ranks: deepseek-moe-16b's split train steps from the state phase 17
     saved, then its split serving and the neighbour's-experts fault; (d)
-    tiny fp32's split serving.  Writes DIR/rankR.pt."""
+    on two ranks: mamba2-1.3b's and zamba2-1.2b's split serving from the
+    parent's params, their reduced fp32 twins and the mixer's three
+    planted faults; (e) tiny fp32's split serving.  Writes
+    DIR/rankR.pt."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -7521,6 +7626,7 @@ def serve_split_rank_main(torch, rank: int, work: Path) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.launch.mesh import make_local_mesh, rules_for
     from repro_torch.models import model
+    from repro_torch.models import ssm as ssm_lib
     from repro_torch.optim import adamw
     from repro_torch.train import checkpoint, trainer
 
@@ -7555,15 +7661,26 @@ def serve_split_rank_main(torch, rank: int, work: Path) -> int:
                 for c in collectives.RECORD]
 
     def generation(cfg, params, tokens, max_len, steps, forced, tp,
-                   moe=False, keep=torch.bfloat16):
+                   moe=False, keep=torch.bfloat16, states=False):
         collectives.reset()
         ops.reset_launches()
         if device == "cuda":
             torch.cuda.synchronize()
+        shapes, psoft_mm = {}, ops._psoft_mm
+
+        def rec_mm(x, w_res, *args_):
+            key = tuple(w_res.shape)
+            shapes[key] = shapes.get(key, 0) + 1
+            return psoft_mm(x, w_res, *args_)
+        ops._psoft_mm = rec_mm
+        held_states = {} if states else None
         t0 = time.perf_counter()
-        logits, _, per_step = split_generate(
-            torch, model, ops, params, cfg, tokens, max_len, steps,
-            forced[:steps], tp, moe)
+        try:
+            logits, _, per_step = split_generate(
+                torch, model, ops, params, cfg, tokens, max_len, steps,
+                forced[:steps], tp, moe, held_states)
+        finally:
+            ops._psoft_mm = psoft_mm
         wall = time.perf_counter() - t0
         cache = model.init_cache(cfg, tokens.shape[0], max_len,
                                  device="meta", tp=tp)
@@ -7572,7 +7689,10 @@ def serve_split_rank_main(torch, rank: int, work: Path) -> int:
         return dict(logits=logits.to(keep) if rank == 0 else None,
                     per_step=per_step, records=records(),
                     launches=dict(ops.LAUNCHES), wall_s=wall,
-                    cache_shape=tuple(kv[0].shape),
+                    psoft_engines=dict(ops.PSOFT_ENGINE_LAUNCHES),
+                    psoft_shapes=sorted(shapes.items()),
+                    states=held_states,
+                    cache_shape=tuple(kv[0].shape) if kv else None,
                     cache_bytes=sum(t.numel() * t.element_size()
                                     for t in kv),
                     plan=dict(cache=tp.cache, kinds=dict(tp.kinds),
@@ -7717,6 +7837,81 @@ def serve_split_rank_main(torch, rank: int, work: Path) -> int:
             TP.local_experts = local_experts
         del params
 
+    if "recurrent" in spec["runs"]:
+        full, small = serve_recurrent_configs(configs, spec)
+        rec = out["recurrent"] = {}
+        for arch, cfg in full.items():
+            params = shared(f"{arch}.params.pt")
+            tokens = split_prompts(torch, cfg, SERVE_SPLIT_PROMPTS,
+                                   SERVE_SPLIT_PROMPT_LEN,
+                                   SERVE_RECURRENT_SEED).to(device)
+            forced = shared(f"{arch}.pt")["tokens"]
+            rec[arch] = generation(cfg, params, tokens,
+                                   SERVE_RECURRENT_MAX_LEN,
+                                   SERVE_SPLIT_STEPS, forced, plan(cfg),
+                                   states=True)
+            # the same split in fp32, against the unsharded fp32 run
+            params = tree_lib.tree_map(
+                lambda t: t.float() if t.is_floating_point() else t, params)
+            cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+            rec[f"{arch} fp32"] = generation(
+                cfg32, params, tokens, SERVE_RECURRENT_MAX_LEN,
+                SERVE_SPLIT_STEPS, forced, plan(cfg32), keep=torch.float32)
+            del params
+        tokens, forced = recurrent_tiny_prompts(torch, small)
+        for arch, cfg in small.items():
+            params = tree_lib.tree_map(lambda t: t.to(device),
+                                       shared(f"tiny {arch}.params.pt"))
+            rec[f"tiny {arch}"] = generation(
+                cfg, params, tokens.to(device), SERVE_TINY_MAX_LEN[world],
+                SERVE_TINY_STEPS, forced, plan(cfg), keep=torch.float32)
+        # the planted faults, on the reduced mamba2 twin (two groups): a
+        # rank-local mean of squares in the norm (the all-reduce replaced
+        # by a scaling by the ranks), rank 1 reading rank 0's a_log and
+        # dt_bias heads, rank 1 reading rank 0's group of B and C
+        cfg = small["mamba2-1.3b"]
+        all_reduce = collectives.all_reduce
+        local_mixer, split_dims = ssm_lib.local_mixer, ssm_lib.split_dims
+
+        def local_mean(t, mesh_, axes, *args_, tag="", **kwargs):
+            if tag == "ssm_norm":
+                return t.mul_(world)
+            return all_reduce(t, mesh_, axes, *args_, tag=tag, **kwargs)
+
+        def neighbours_heads(p, cfg_, tp_):
+            got = local_mixer(p, cfg_, tp_)
+            if tp_.rank == 1:
+                d = split_dims(cfg_, 0, tp_.size)
+                for name in ("a_log", "dt_bias"):
+                    got[name] = p[name].narrow(-1, d["head0"], d["heads"])
+            return got
+
+        def other_group(cfg_, r, size):
+            d = split_dims(cfg_, r, size)
+            if r == 1:
+                d["group0"] = (d["group0"] + d["g"]) % cfg_.ssm.ngroups
+            return d
+        patches = {SERVE_MIXER_FAULTS[0]: (collectives, "all_reduce",
+                                           local_mean),
+                   SERVE_MIXER_FAULTS[1]: (ssm_lib, "local_mixer",
+                                           neighbours_heads),
+                   SERVE_MIXER_FAULTS[2]: (ssm_lib, "split_dims",
+                                           other_group)}
+        params = tree_lib.tree_map(lambda t: t.to(device),
+                                   shared("tiny mamba2-1.3b.params.pt"))
+        tp = plan(cfg)
+        for name, (module, attr, fn) in patches.items():
+            before = getattr(module, attr)
+            setattr(module, attr, fn)
+            try:
+                rec[name] = generation(cfg, params, tokens.to(device),
+                                       SERVE_TINY_MAX_LEN[world],
+                                       SERVE_FAULT_STEPS, forced, tp,
+                                       keep=torch.float32)
+            finally:
+                setattr(module, attr, before)
+        del params
+
     if "tiny" in spec["runs"]:
         params = tree_lib.tree_map(lambda t: t.to(device), model.init_params(
             tiny, seed=33, device="cpu"))
@@ -7773,11 +7968,33 @@ def split_serve_phase(torch, args, configs, model, trainer, data, tree, ops,
         rank's stacks, no frozen leaf gathered over ``model``; then split
         serving (capacity prefill, dense decode) against the unsharded
         run at the bf16 rule;
-    (d) tiny fp32 on (1, 2) and (1, 3) (4 kv heads over 3: a sequence
+    (d) mamba2-1.3b at 4 layers and zamba2-1.2b at 6 (one shared-block
+        position) at full width, bf16, PSOFT r 64 with its trainables
+        moved off init, on (1, 2): the Mamba2 mixer split over its SSM
+        heads (32 of 64 a rank: in_proj's column set at N 4384 / 4256,
+        out_proj's 2048 rows summed, the gated norm's sums of squares
+        summed), its decode states the rank's blocks; a split ``prefill``
+        of 8 prompts of 256 and 32 ``decode_step``s fed the unsharded
+        greedy tokens: every logits row within 2e-2 relative L2
+        (or, where bf16's rounding moves a row further, within
+        SPLIT_WITNESS_RATIO times the unsharded bf16 run's own worst
+        distance from the same run in fp32), and the same split in fp32
+        every row within SERVE_RECURRENT_FP32_ROW of the unsharded fp32
+        run's; the
+        greedy agreement and the gathered fp32 states against the
+        unsharded ones reported, a rank's state bytes exactly half the
+        SSD state's, the collectives exactly ``serve_collectives``', every
+        psoft_matmul launch on "wgmma" at the rank's shapes, one
+        cayley_neumann a PSOFT linear a call, zamba2's paged decode at 16
+        of 32 heads a rank; their reduced fp32 twins (mamba2's with two
+        groups of B and C) on the card against the CPU within 1e-4, and
+        three planted faults there (SERVE_MIXER_FAULTS);
+    (e) tiny fp32 on (1, 2) and (1, 3) (4 kv heads over 3: a sequence
         cache, q replicated) on the card against the unsharded run on the
         CPU, within 1e-4.
 
-    Each limit is shown rejecting a planted fault (SERVE_SPLIT_FAULTS).
+    Each limit is shown rejecting a planted fault (SERVE_SPLIT_FAULTS,
+    SERVE_MIXER_FAULTS).
     Times are two or three gloo ranks sharing one card with their
     collectives staged through host: not a speed figure of the split."""
     import numpy as np
@@ -7785,6 +8002,7 @@ def split_serve_phase(torch, args, configs, model, trainer, data, tree, ops,
     from repro_torch import tree as tree_lib
     from repro_torch.distributed import tensor_parallel
     from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import ssm as ssm_lib
     from repro_torch.optim import adamw
 
     cuda = device == "cuda"
@@ -7794,11 +8012,14 @@ def split_serve_phase(torch, args, configs, model, trainer, data, tree, ops,
                                args.layers or MOE_TRAIN_LAYERS),
                 reduced=bool(getattr(args, "reduced", False)))
     llama, moe_cfg, tiny = serve_split_configs(configs, spec)
+    rec_full, rec_small = serve_recurrent_configs(configs, spec)
     check((work / "moe").is_dir(), f"serve split: no deepseek-moe-16b "
                                    f"state under {work / 'moe'} (phase 17 "
                                    f"saves it)")
-    runs = {2: ["llama", "moe", "tiny"], 3: ["llama", "tiny"]}
-    for name in ("llama2.pt", "llama3.pt", "moe.pt"):
+    runs = {2: ["llama", "moe", "recurrent", "tiny"], 3: ["llama", "tiny"]}
+    for name in ["llama2.pt", "llama3.pt", "moe.pt"] + [
+            f"{t}{a}{s}" for a in rec_full for t, s in (
+                ("", ".pt"), ("", ".params.pt"), ("tiny ", ".params.pt"))]:
         (work / name).unlink(missing_ok=True)
     procs, logs = [], []
     for world, names in runs.items():
@@ -7872,10 +8093,48 @@ def split_serve_phase(torch, args, configs, model, trainer, data, tree, ops,
                 moe_cfg.replace(dtype="float32", param_dtype="float32"), tc,
                 "capacity"), state, batches[:1], device)
         del state
-        # (d): tiny fp32 on the CPU
-        tparams = model.init_params(tiny, seed=33, device="cpu")
+        # (d): the recurrent models' unsharded greedy runs and states
+        for arch, cfg in rec_full.items():
+            rparams = recurrent_split_params(torch, model, cfg,
+                                             SERVE_RECURRENT_SEED, device)
+            save_shared(torch, rparams, work / f"{arch}.params.pt")
+            rtokens = split_prompts(torch, cfg, SERVE_SPLIT_PROMPTS,
+                                    SERVE_SPLIT_PROMPT_LEN,
+                                    SERVE_RECURRENT_SEED).to(device)
+            ops.reset_launches()
+            states = {}
+            if cuda:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, fed, per_step = split_generate(
+                torch, model, ops, rparams, cfg, rtokens,
+                SERVE_RECURRENT_MAX_LEN, SERVE_SPLIT_STEPS, states=states)
+            want[arch] = dict(logits=logits, tokens=fed, per_step=per_step,
+                              states=states, launches=dict(ops.LAUNCHES),
+                              wall_s=time.perf_counter() - t1)
+            save_shared(torch, {"tokens": fed}, work / f"{arch}.pt")
+            # the same run in fp32: bf16's own distance, the witness
+            rparams = tree_lib.tree_map(
+                lambda t: t.float() if t.is_floating_point() else t, rparams)
+            want[arch]["fp32"] = split_generate(
+                torch, model, ops, rparams, cfg.replace(
+                    dtype="float32", param_dtype="float32"), rtokens,
+                SERVE_RECURRENT_MAX_LEN, SERVE_SPLIT_STEPS, fed)[0]
+            del rparams
+        # (d), (e): the reduced fp32 runs on the CPU
         ttokens = split_prompts(torch, tiny, 2, SERVE_TINY_PROMPT, 33)
         tforced = split_prompts(torch, tiny, SERVE_TINY_STEPS, 2, 34)
+        # (the ranks load these params: an SVD's factors differ in their
+        # last bits with the host's thread count, and so would a rank's)
+        rtokens, rforced = recurrent_tiny_prompts(torch, rec_small)
+        for arch, cfg in rec_small.items():
+            rparams = recurrent_split_params(torch, model, cfg,
+                                             SERVE_RECURRENT_SEED, "cpu")
+            save_shared(torch, rparams, work / f"tiny {arch}.params.pt")
+            want[f"tiny {arch}"] = split_generate(
+                torch, model, ops, rparams, cfg, rtokens,
+                SERVE_TINY_MAX_LEN[2], SERVE_TINY_STEPS, rforced)[0]
+        tparams = model.init_params(tiny, seed=33, device="cpu")
         for world, max_len in SERVE_TINY_MAX_LEN.items():
             want[f"tiny{world}"] = split_generate(
                 torch, model, ops, tparams, tiny, ttokens, max_len,
@@ -8114,30 +8373,176 @@ def split_serve_phase(torch, args, configs, model, trainer, data, tree, ops,
           f"figure), peak {[round(t['peak_gib'], 2) for t in tr]} GiB "
           f"against {wt['peak_gib']:.2f} [{gpu_line}]")
 
-    # (d) tiny fp32, card against CPU
+    # (d) the recurrent models' split mixers and states
+    rec_res, mixer = {}, [g["recurrent"] for g in got[2]]
+    for arch, cfg in rec_full.items():
+        what = f"(d) {arch} on (1, 2)"
+        res, ref = [m[arch] for m in mixer], want[arch]
+        # every logits row within 2e-2 relative L2 of the unsharded run's,
+        # or, where bf16's rounding moves it further, within
+        # SPLIT_WITNESS_RATIO times the unsharded bf16 run's own worst
+        # distance from the fp32 run
+        rows = row_rel_err(torch, res[0]["logits"], ref["logits"])
+        split32 = row_rel_err(torch, res[0]["logits"], ref["fp32"])
+        plain32 = float(row_rel_err(torch, ref["logits"], ref["fp32"]).max())
+        over = rows > SPLIT_GRAD_REL_L2
+        over32 = float(split32[over].max()) if over.any() else 0.0
+        check(bool((~over | (split32 <= SPLIT_WITNESS_RATIO * plain32))
+                   .all()),
+              f"serve split {what}: logits rows over {SPLIT_GRAD_REL_L2} "
+              f"relative L2 of the unsharded run at (step, row) "
+              f"{over.nonzero().tolist()[:10]} (max {float(rows.max()):.4g}),"
+              f" {over32:.4g} from the fp32 run there "
+              f"against the unsharded bf16 run's worst {plain32:.4g} (limit "
+              f"{SPLIT_WITNESS_RATIO} times)")
+        rel = float(rows.max())
+        got32 = mixer[0][f"{arch} fp32"]["logits"]
+        err32 = float((got32 - ref["fp32"]).abs().max())
+        rows32 = float(row_rel_err(torch, got32, ref["fp32"]).max())
+        check(rows32 <= SERVE_RECURRENT_FP32_ROW,
+              f"serve split {what} in fp32: worst logits row {rows32:.3e} "
+              f"relative L2 of the unsharded fp32 run (limit "
+              f"{SERVE_RECURRENT_FP32_ROW}; max abs err {err32:.3e})")
+        agree = float((res[0]["logits"].float().argmax(-1)
+                       == ref["logits"].argmax(-1)).float().mean())
+        n_m, n_a = recurrent_counts(cfg)
+        calls = 1 + SERVE_SPLIT_STEPS
+        psoft = calls * (2 * n_m + 7 * n_a)
+        for r, rr in enumerate(res):
+            local = ssm_lib.split_dims(cfg, r, 2)
+            kinds = rr["plan"]["kinds"]
+            check((kinds["in_proj"], kinds["out_proj"]) == ("col", "row"),
+                  f"serve split {what} rank {r}: the mixer planned "
+                  f"{kinds['in_proj']} / {kinds['out_proj']}, not split")
+            collectives_held(rr, cfg, 2, SERVE_SPLIT_PROMPTS,
+                             SERVE_SPLIT_PROMPT_LEN, SERVE_SPLIT_STEPS,
+                             f"{what} rank {r}")
+            shapes = dict(rr["psoft_shapes"])
+            mixer_shapes = {(cfg.d_model, local["in_proj_out"]): calls * n_m,
+                            (local["d_inner"], cfg.d_model): calls * n_m}
+            check(not cuda or (
+                rr["launches"]["psoft_matmul"] == psoft
+                == ref["launches"]["psoft_matmul"]
+                == rr["psoft_engines"]["wgmma"]
+                and rr["launches"]["cayley_neumann"] == psoft
+                == ref["launches"]["cayley_neumann"]
+                and all(shapes.get(s) == n for s, n in mixer_shapes.items())
+                and rr["per_step"] == [n_a] * SERVE_SPLIT_STEPS
+                and (not n_a or rr["cache_shape"][-2:] == (
+                    cfg.num_kv_heads // 2, cfg.resolved_head_dim))),
+                  f"serve split {what} rank {r}: psoft_matmul "
+                  f"{rr['launches']['psoft_matmul']} on "
+                  f"{rr['psoft_engines']} at {rr['psoft_shapes']} "
+                  f"(expected {psoft} on wgmma, {mixer_shapes}), "
+                  f"cayley_neumann {rr['launches']['cayley_neumann']}, "
+                  f"paged decodes a step {rr['per_step'][:3]}, K/V "
+                  f"{rr['cache_shape']}")
+        whole = ref["states"]
+        got_states = gathered_states(ssm_lib, cfg, [rr["states"]
+                                                    for rr in res])
+        check(sorted(got_states) == sorted(whole) and all(
+            got_states[k].shape == whole[k].shape for k in whole),
+              f"serve split {what}: gathered states "
+              f"{ {k: tuple(v.shape) for k, v in got_states.items()} } "
+              f"against {({k: tuple(v.shape) for k, v in whole.items()})}")
+        state_rel = {k: float((got_states[k].float() - whole[k].float())
+                              .abs().max() / whole[k].float().abs().max())
+                     for k in whole}
+
+        def nbytes(st, suffix=""):
+            return sum(v.numel() * v.element_size() for k, v in st.items()
+                       if k.endswith(suffix))
+        rank_bytes, whole_bytes = nbytes(res[0]["states"]), nbytes(whole)
+        check(2 * nbytes(res[0]["states"], "ssm_state")
+              == nbytes(whole, "ssm_state"),
+              f"serve split {what}: a rank's SSD state "
+              f"{nbytes(res[0]['states'], 'ssm_state')} bytes, whole "
+              f"{nbytes(whole, 'ssm_state')}")
+        rec_res[arch] = dict(
+            max_row_rel_l2=rel, rows_over=int(over.sum()),
+            witness=dict(split=float(split32.max()), unsharded=plain32),
+            fp32_max_row_rel_l2=rows32, fp32_max_abs_err=err32,
+            greedy_agreement=agree,
+            state_max_rel_err=max(state_rel.values()),
+            state_bytes_per_rank=rank_bytes, state_bytes_whole=whole_bytes,
+            psoft_shapes=res[0]["psoft_shapes"],
+            psoft_engines=res[0]["psoft_engines"],
+            launches={k: sum(rr["launches"][k] for rr in res)
+                      for k in ("psoft_matmul", "cayley_neumann",
+                                "paged_decode_attention")},
+            collectives=len([t for t in res[0]["records"]
+                             if t[3] == "model"]),
+            wall_s=[rr["wall_s"] for rr in res], plain_wall_s=ref["wall_s"])
+        print(f"serve split {what}: {cfg.num_layers} layers ({n_m} Mamba2, "
+              f"{n_a} shared-block positions), 32 of 64 SSM heads a rank: "
+              f"worst logits row {rel:.3e} relative L2 ({int(over.sum())} of "
+              f"{over.numel()} rows over {SPLIT_GRAD_REL_L2}; from the fp32 "
+              f"run the split's worst {float(split32.max()):.3e}, the "
+              f"unsharded bf16 run's {plain32:.3e}; in fp32 the split's "
+              f"worst row {rows32:.3e} from the unsharded fp32 run (limit "
+              f"{SERVE_RECURRENT_FP32_ROW}), max abs err {err32:.3e}), "
+              f"greedy agreement "
+              f"{agree:.4f}; gathered states {max(state_rel.values()):.3e} "
+              f"from the "
+              f"unsharded ones (worst relative to the state's largest "
+              f"value); states {rank_bytes / 2**20:.1f} MiB a rank against "
+              f"{whole_bytes / 2**20:.1f} MiB whole; "
+              f"{rec_res[arch]['collectives']} collectives over model as "
+              f"predicted; psoft_matmul {res[0]['launches']['psoft_matmul']}"
+              f" a rank on {res[0]['psoft_engines']} (in_proj N "
+              f"{ssm_lib.split_dims(cfg, 0, 2)['in_proj_out']}), "
+              f"cayley_neumann {res[0]['launches']['cayley_neumann']}; "
+              f"{[round(rr['wall_s'], 2) for rr in res]} s a rank against "
+              f"{ref['wall_s']:.2f} s unsharded (not a speed figure) "
+              f"[{gpu_line}]")
+    for arch in rec_small:
+        err = float((mixer[0][f"tiny {arch}"]["logits"]
+                     - want[f"tiny {arch}"]).abs().max())
+        check(err <= SERVE_TINY_TOL,
+              f"serve split (d): reduced {arch} fp32 on (1, 2) against the "
+              f"CPU: max abs err {err:.2e} (limit {SERVE_TINY_TOL})")
+        rec_res[f"tiny {arch}"] = err
+    ref32 = want["tiny mamba2-1.3b"][:SERVE_FAULT_STEPS + 1]
+    for name in SERVE_MIXER_FAULTS:
+        fault_err, fault_bad = over_limit(torch, mixer[0][name]["logits"],
+                                          ref32, "float32")
+        check(bool(fault_bad.any()),
+              f"serve split: planted fault {name!r} not rejected by fp32's "
+              f"limit (max abs err {float(fault_err.max()):.3g})")
+        faults[name] = float(row_rel_err(torch, mixer[0][name]["logits"],
+                                          ref32).max())
+    result["d"] = rec_res
+
+    # (e) tiny fp32, card against CPU
     tiny_err = {}
     for world in runs:
         g = got[world][0]["tiny"]
         tiny_err[world] = float((g["logits"] - want[f"tiny{world}"]).abs()
                                 .max())
         check(tiny_err[world] <= SERVE_TINY_TOL,
-              f"serve split (d): tiny on (1, {world}) ({g['plan']['cache']})"
+              f"serve split (e): tiny on (1, {world}) ({g['plan']['cache']})"
               f" against the CPU: max abs err {tiny_err[world]:.2e} (limit "
               f"{SERVE_TINY_TOL})")
-    result["d"] = {f"1x{w}": e for w, e in tiny_err.items()}
+    result["e"] = {f"1x{w}": e for w, e in tiny_err.items()}
     result["faults"] = faults
     print(f"serve split: planted faults rejected (worst logits row, "
           f"relative L2): " + "; ".join(f"{k}: {v:.3g}"
                                         for k, v in faults.items())
-          + f"; tiny fp32 card vs CPU {result['d']}; references "
+          + f"; reduced recurrent fp32 card vs CPU "
+            f"{ {k: v for k, v in rec_res.items() if k.startswith('tiny')} }"
+            f"; tiny fp32 card vs CPU {result['e']}; references "
             f"{ref_s:.1f} s, ranks done after {ranks_s:.1f} s [{gpu_line}]")
+    recurrent = [rec_res[a]["launches"] for a in rec_full]
     result["launches"] = {
         "paged_decode_attention": result["a"]["launches"]
         + result["b"]["launches"] + sum(
             g["moe_serve"]["launches"]["paged_decode_attention"]
-            for g in got[2]),
-        "psoft_matmul": sum(t["launches"]["psoft_matmul"] for t in tr),
-        "cayley_neumann": sum(t["launches"]["cayley_neumann"] for t in tr),
+            for g in got[2])
+        + sum(r["paged_decode_attention"] for r in recurrent),
+        "psoft_matmul": sum(t["launches"]["psoft_matmul"] for t in tr)
+        + sum(r["psoft_matmul"] for r in recurrent),
+        "cayley_neumann": sum(t["launches"]["cayley_neumann"] for t in tr)
+        + sum(r["cayley_neumann"] for r in recurrent),
         "psoft_matmul_grouped": sum(sum(t["psoft_grouped"].values())
                                     for t in tr)}
     result.update(references_s=ref_s, ranks_s=ranks_s)
@@ -8260,6 +8665,7 @@ def main(argv=None) -> int:
         k: serve_split_kernels[k] for k in ("heads", "slice")}
     kernels["psoft_matmul_grouped"]["split_experts"] = \
         serve_split_kernels["grouped"]
+    kernels["psoft_matmul"]["split_mixer"] = serve_split_kernels["mixer"]
     kernels["paged_decode_attention"]["cross_view"] = \
         vlm_audio_kernels["cross_view"]
     phase_s["kernels"] = time.perf_counter() - t0

@@ -58,8 +58,23 @@ decodes its heads as without a split), or, when the kv heads do not
 divide, over ``"cache_seq"`` (a rank holds every kv head at max_len / n
 positions; the owner of a position writes it, each rank attends every q
 head over its positions with the paged-decode kernel's log-sum-exp, and
-the ranks combine the partial softmaxes).  The Mamba2 mixer, its states
-and the hybrid's ``fuse`` compute replicated, as in the reference.
+the ranks combine the partial softmaxes).
+
+A serving split (``plan(..., serving=True)``, the default) also splits the
+Mamba2 mixer over its SSM heads where the rules send ``heads`` to
+``model`` and the heads divide (the reference's ``cache_axes`` puts
+``ssm_state`` on ``heads`` and ``conv_state`` on ``conv_ch``, both on
+``model``): ``"in_proj"`` is ``"col"``, a column *set* (the rank's z, x
+and dt heads and the B and C channels of the groups its heads read), and
+``"out_proj"`` is ``"row"`` (``"gathered_row"`` under a method that is not
+row-separable); the gated norm over the whole ``d_inner`` sums each rank's
+fp32 sum of squares over ``model`` (tag ``"ssm_norm"``), and each rank
+holds its heads of both decode states
+(:func:`repro_torch.models.ssm.split_dims`).  Where the heads do not
+divide, or the groups neither divide over the ranks nor the ranks over
+the groups, both stay ``"replicated"`` and every rank holds the states
+whole.  A training plan leaves the mixer and the hybrid's ``fuse``
+replicated, as the reference computes them.
 
 The frozen weights keep the reference's layout (split over ``data``, not
 over ``model``), so the state, its shardings and its checkpoints do not
@@ -99,6 +114,9 @@ EXPERT_LINEARS = ("up", "down", "gate")
 SHARED = {m: "shared_" + m for m in ("gate", "up", "down")}
 #: the leaves that keep their vocabulary rows (not gathered over ``model``)
 VOCAB_LEAVES = (("embed", "w"), ("lm_head", "w"))
+#: the families with Mamba2 mixers, and the mixer's linears
+MIXER_FAMILIES = ("ssm", "hybrid")
+MIXER = ("in_proj", "out_proj")
 #: the decode cache's layouts under a serving split: a rank's kv heads of
 #: every position, or every kv head of its positions
 CACHES = ("kv_heads", "cache_seq")
@@ -120,13 +138,32 @@ def _mlp_kinds(cfg, split: bool, names: Mapping[str, str]
             names["down"]: row("down") if split else "replicated"}
 
 
-def plan_linears(cfg, mesh, rules) -> Tuple[Dict[str, str], bool]:
+def mixer_splits(cfg, mesh, rules) -> bool:
+    """Whether a serving split of ``cfg`` (an SSM or hybrid config) on
+    ``mesh`` under ``rules`` splits the Mamba2 mixer over its SSM heads:
+    ``heads`` lands on ``model`` for ``d_inner / head_dim`` heads, and each
+    rank's heads read whole groups of B and C (the groups divide over the
+    ranks, or the ranks over the groups)."""
+    if cfg.family not in MIXER_FAMILIES:
+        return False
+    heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    size = mesh_shape(mesh).get(AXIS, 1)
+    g = cfg.ssm.ngroups
+    return _splits(mesh, rules, "heads", heads) and (
+        g % size == 0 or size % g == 0)
+
+
+def plan_linears(cfg, mesh, rules, serving: bool = False
+                 ) -> Tuple[Dict[str, str], bool]:
     """(module -> kind for q, k, v, o, gate, up and down, whether the
     vocabulary splits) of ``cfg`` on ``mesh`` (a live mesh or a size
     mapping) under ``rules``; an MoE config adds ``"expert"`` (``"split"``
     or ``"replicated"``) and, with shared experts, ``"shared_gate"``,
     ``"shared_up"`` and ``"shared_down"``, planned like a dense MLP of
-    their width."""
+    their width; a ``serving`` plan of an SSM or hybrid config adds the
+    Mamba2 mixer's ``"in_proj"`` (``"col"``: a column set) and
+    ``"out_proj"`` (a row split), both ``"replicated"`` where
+    :func:`mixer_splits` does not hold."""
     heads = _splits(mesh, rules, "heads", cfg.num_heads)
     kv = heads and _splits(mesh, rules, "kv_heads", cfg.num_kv_heads)
     kinds = {"q": "col" if heads else "replicated",
@@ -144,6 +181,12 @@ def plan_linears(cfg, mesh, rules) -> Tuple[Dict[str, str], bool]:
             width = cfg.moe.num_shared_experts * cfg.d_ff
             kinds.update(_mlp_kinds(cfg, _splits(mesh, rules, "mlp", width),
                                     SHARED))
+    if serving and cfg.family in MIXER_FAMILIES:
+        mixer = mixer_splits(cfg, mesh, rules)
+        method = registry.get_method(cfg.peft.method_for("out_proj"))
+        kinds["in_proj"] = "col" if mixer else "replicated"
+        kinds["out_proj"] = ("row" if method.row_separable
+                             else "gathered_row") if mixer else "replicated"
     return kinds, _splits(mesh, rules, "vocab", cfg.padded_vocab_size)
 
 
@@ -182,6 +225,22 @@ def local_params(params: Dict[str, torch.Tensor], method, peft_cfg,
         d = t.ndim - len(ax) + ax.index(cut)
         chunk = t.shape[d] // size
         out[name] = t.narrow(d, rank * chunk, chunk)
+    return out
+
+
+def column_set(params: Dict[str, torch.Tensor], method, peft_cfg,
+               index: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One linear's params with the out axis of every param that has one
+    cut to the columns ``index`` (a copy: a column set is not one block),
+    the rest whole; dims as in :func:`local_params`."""
+    axes = method.logical_axes(peft_cfg, _IN, _OUT)
+    out = {}
+    for name, t in params.items():
+        ax = axes.get(name)
+        if ax is None or _OUT not in ax:
+            out[name] = t
+            continue
+        out[name] = t.index_select(t.ndim - len(ax) + ax.index(_OUT), index)
     return out
 
 
@@ -243,6 +302,12 @@ class TensorParallel:
         if w.shape[dim] == self.vocab_size:
             w = w.narrow(dim, self.rank * rows, rows)
         return w, self.rank * rows
+
+    @property
+    def mixer(self) -> bool:
+        """Whether the Mamba2 mixer and its decode states split over
+        :data:`AXIS` (a serving plan only)."""
+        return self.kinds.get("in_proj") == "col"
 
     @property
     def experts(self) -> bool:
@@ -307,7 +372,7 @@ def grad_summed(kinds: Mapping[str, str], vocab: bool,
     module = reached_module(path)
     if module == "expert":
         return kinds.get("expert") == "split"
-    return module is not None and (kinds[module] in ("col", "row") or (
+    return module is not None and (kinds.get(module) in ("col", "row") or (
         module in ("k", "v") and kinds["q"] == "col"))
 
 
@@ -316,9 +381,13 @@ def reached_module(path: Tuple[str, ...]) -> Optional[str]:
     v, o, gate, up or down of an attention block or a dense MLP
     (:data:`REACHED`), ``"shared_gate"``, ``"shared_up"`` or
     ``"shared_down"`` of an MoE layer's shared experts, ``"expert"`` for
-    its expert stacks; None for the router and the linears the split does
-    not reach (the Mamba2 mixer, the hybrid's ``fuse``)."""
+    its expert stacks, ``"in_proj"`` or ``"out_proj"`` of a Mamba2 mixer
+    (which only a serving plan splits); None for the router and the
+    linears the split does not reach (the hybrid's ``fuse``)."""
     path = tuple(path)
+    if "ssm" in path:
+        rest = path[path.index("ssm") + 1:]
+        return rest[0] if len(rest) >= 2 and rest[0] in MIXER else None
     if "moe" in path:
         i = path.index("moe")
         rest = path[i + 1:]
@@ -335,18 +404,21 @@ def reached_module(path: Tuple[str, ...]) -> Optional[str]:
     return None
 
 
-def plan(cfg, mesh, rules) -> Optional[TensorParallel]:
+def plan(cfg, mesh, rules, serving: bool = True
+         ) -> Optional[TensorParallel]:
     """The split of ``cfg`` on a live ``mesh`` whose :data:`AXIS` has more
     than one rank; None otherwise (a size-only mesh, no such axis, or one
     rank on it), and the step then computes as without a split.  Under
     ``rules_for(cfg, mesh, "decode")`` (or ``"prefill"``) its cache layout
-    is the one ``cache_axes`` gets there."""
+    is the one ``cache_axes`` gets there.  A ``serving`` plan (a split
+    ``prefill`` / ``decode_step``) also splits the Mamba2 mixer
+    (:func:`plan_linears`); the train step plans with ``serving=False``."""
     if mesh is None or not hasattr(mesh, "get_group"):
         return None
     size = mesh_shape(mesh).get(AXIS, 1)
     if size == 1:
         return None
-    kinds, vocab = plan_linears(cfg, mesh, rules)
+    kinds, vocab = plan_linears(cfg, mesh, rules, serving)
     return TensorParallel(mesh, mesh.get_local_rank(AXIS), size, kinds,
                           vocab, cfg.num_heads, cfg.num_kv_heads,
                           cfg.padded_vocab_size,
@@ -536,7 +608,11 @@ def serve_collectives(cfg, kinds: Mapping[str, str], vocab: bool,
     - a decode over a cache split over its sequence, each self-attention
       layer: ``seq_q`` (all-gather of the rank's q heads, where q is
       split), ``seq_max`` (MAX all-reduce of (rows, H)) and ``seq_sum``
-      (all-reduce of (rows, H, hd + 1)).
+      (all-reduce of (rows, H, hd + 1));
+    - each Mamba2 layer whose mixer splits (``kinds["in_proj"]``):
+      ``ssm_norm`` (all-reduce of the gated norm's fp32 sums of squares,
+      (tokens, 1)) and its ``out_proj``'s ``reduce_from`` (or
+      ``gather_from`` of its (tokens, d_inner / n) input).
     """
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h = cfg.num_heads
@@ -550,6 +626,12 @@ def serve_collectives(cfg, kinds: Mapping[str, str], vocab: bool,
             out.append(("reduce_from", rows * d))
         elif kinds.get(module) == "gathered_row":
             out.append(("gather_from", rows * width))
+
+    def mixer(rows):
+        if kinds.get("in_proj") == "col":
+            out.append(("ssm_norm", rows))
+            linear("out_proj", rows,
+                   cfg.ssm.expand * cfg.d_model // size)
 
     def block(rows, self_attn=True, cross=False):
         if self_attn and decode and cache == "cache_seq":
@@ -579,7 +661,12 @@ def serve_collectives(cfg, kinds: Mapping[str, str], vocab: bool,
         for ch in cfg.layer_pattern():
             if ch != "M":
                 block(t)
-    elif cfg.family != "ssm":
+            else:
+                mixer(t)
+    elif cfg.family == "ssm":
+        for _ in range(cfg.num_layers):
+            mixer(t)
+    else:
         for _ in range(cfg.num_layers):
             block(t)
     if vocab:

@@ -32,8 +32,8 @@ counted from its design instead:
   makes the split's own collectives
   (:func:`repro_torch.distributed.tensor_parallel.serve_collectives`):
   the o and down sums, the vocab-parallel lookup, the logits gather, the
-  expert-parallel sums and, over a cache split over its sequence, the
-  decode's combine.  A ring all-gather brings each device ``(n - 1)``
+  expert-parallel sums, each split Mamba2 layer's norm and out_proj
+  sums and, over a cache split over its sequence, the decode's combine.  A ring all-gather brings each device ``(n - 1)``
   blocks per axis of ``n``, a ring all-reduce moves ``2 (n - 1) / n`` of
   the tensor;
 - reads: the whole (gathered) weights once per pass over them (forward,
@@ -41,13 +41,17 @@ counted from its design instead:
   reads its slices of the linears the split divides and the others
   whole, plus its block of the cache in decode (``cache_axes`` under
   ``rules_for``'s layout: kv heads, or the sequence where they do not
-  divide);
+  divide; the Mamba2 states in the layout the port holds, a rank's SSM
+  heads and its ``[x_r, B_g, C_g]`` conv channels where a serving split
+  splits the mixer, else whole);
 - FLOPs per device: the batch splits over the batch axes (where it
   divides), and the products the compute split divides
   (:func:`split_share` of N_active: the ``"col"`` and ``"row"`` linears,
   the expert stacks when the experts split, the head when the vocabulary
-  splits) over ``model`` as well; the rest (the Mamba2 mixer, linears a
-  fallback leaves replicated) computes replicated across ``model``.
+  splits, a serving cell's Mamba2 ``in_proj`` columns that divide and
+  ``out_proj``) over ``model`` as well; the rest (the training step's
+  Mamba2 mixer, linears a fallback leaves replicated, the B and C columns
+  every rank computes) computes replicated across ``model``.
 
 :mod:`repro_torch.launch.roofline` turns a cell into H100 times.
 """
@@ -66,6 +70,7 @@ from repro_torch.data.pipeline import make_input_specs
 from repro_torch.distributed import tensor_parallel
 from repro_torch.launch.mesh import make_production_mesh, rules_for
 from repro_torch.models import model as model_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.optim import adamw
 from repro_torch.sharding import (Placements, batch_axes, logical_spec,
                                   placements)
@@ -95,34 +100,57 @@ def model_param_stats(arch: str) -> Dict[str, float]:
             "N_active": backbone + active_expert + embed / 2}
 
 
-def _split_fraction(kinds, vocab: bool, path) -> float:
+def in_proj_share(cfg, n: int) -> float:
+    """The share of a Mamba2 ``in_proj``'s columns that a split of its
+    mixer over ``n`` ranks divides: its z, x and dt heads, and B and C
+    where the groups divide (a rank computes ``(1 - f) + f / n`` of the
+    columns for a share ``f``)."""
+    whole = ssm_lib.ssm_dims(cfg)["in_proj_out"]
+    local = ssm_lib.split_dims(cfg, 0, n)["in_proj_out"]
+    return (1 - local / whole) * n / (n - 1)
+
+
+def _split_fraction(kinds, vocab: bool, path, in_proj: float = 1.0
+                    ) -> float:
     """The share of the leaf at ``path`` whose products the compute split
     divides over ``model`` under ``kinds`` and ``vocab``: all of a
-    ``"col"`` or ``"row"`` linear's, of a split expert stack's, of the
-    embedding and the head where the vocabulary splits; none else."""
+    ``"col"`` or ``"row"`` linear's (``in_proj`` of a Mamba2 mixer: the
+    share ``in_proj``), of a split expert stack's, of the embedding and the
+    head where the vocabulary splits; none else."""
     if tuple(path[:1]) in (("embed",), ("lm_head",)):
         return 1.0 if vocab else 0.0
-    kind = kinds.get(tensor_parallel.reached_module(path))
-    return 1.0 if kind in ("col", "row", "split") else 0.0
+    module = tensor_parallel.reached_module(path)
+    if kinds.get(module) not in ("col", "row", "split"):
+        return 0.0
+    return in_proj if module == "in_proj" else 1.0
 
 
-def split_share(cfg, mesh, rules, n_active: float) -> float:
+def _in_proj(cfg, kinds, n: int) -> float:
+    """:func:`in_proj_share` where ``kinds`` split the mixer, else 1."""
+    return in_proj_share(cfg, n) if kinds.get("in_proj") == "col" else 1.0
+
+
+def split_share(cfg, mesh, rules, n_active: float,
+                serving: bool = False) -> float:
     """The share of ``n_active`` (:func:`model_param_stats`) whose products
     the compute split divides over ``model`` on ``mesh`` under ``rules``:
     the linears :func:`tensor_parallel.plan_linears` makes ``"col"`` or
-    ``"row"``, the expert stacks (their active top-k of E) when the
-    experts split, and the head when the vocabulary splits; 0 on a
-    ``model`` axis of one rank."""
-    if mesh.get(tensor_parallel.AXIS, 1) == 1:
+    ``"row"`` (in a ``serving`` cell the Mamba2 mixer's too, ``in_proj``
+    at :func:`in_proj_share`), the expert stacks (their active top-k of E)
+    when the experts split, and the head when the vocabulary splits; 0 on
+    a ``model`` axis of one rank."""
+    n = mesh.get(tensor_parallel.AXIS, 1)
+    if n == 1:
         return 0.0
-    kinds, vocab = tensor_parallel.plan_linears(cfg, mesh, rules)
+    kinds, vocab = tensor_parallel.plan_linears(cfg, mesh, rules, serving)
+    in_proj = _in_proj(cfg, kinds, n)
     merged = cfg.replace(peft=cfg.peft.replace(method="none"))
     active = cfg.moe.top_k / cfg.moe.num_experts if cfg.family == "moe" \
         else 1.0
     split = 0
     for path, leaf in tree_leaves_with_path(
             model_lib.abstract_params(merged)):
-        share = _split_fraction(kinds, vocab, path) * leaf.numel()
+        share = _split_fraction(kinds, vocab, path, in_proj) * leaf.numel()
         if "embed" in path or "lm_head" in path:
             share /= 2
         elif tensor_parallel.reached_module(path) == "expert":
@@ -152,7 +180,8 @@ def _gather_bytes(t, pl: Placements, out: Dict[str, float],
 
 #: the split's collectives that are all-gathers, and those in fp32
 _GATHER_TAGS = ("gather_from", "logits", "seq_q")
-_FP32_TAGS = ("ce_max", "ce_sum", "ce_gold", "seq_max", "seq_sum")
+_FP32_TAGS = ("ce_max", "ce_sum", "ce_gold", "seq_max", "seq_sum",
+              "ssm_norm")
 
 
 def _tag_bytes(tag: str, elements: int, n: int, act: int) -> float:
@@ -189,6 +218,19 @@ def _split_bytes(cfg, tc, mesh, rules, st, inputs, out: Dict[str, float],
         st.trainable) if tensor_parallel.grad_summed(kinds, vocab, path))
     total += 2 * (n - 1) / n * partial * wire
     out[tensor_parallel.AXIS] = out.get(tensor_parallel.AXIS, 0.0) + total
+
+
+def _cache_block_bytes(path, t, pl: Placements, states) -> int:
+    """A device's bytes of the cache leaf ``t`` at ``path``: its block
+    under ``pl``, except the Mamba2 states, whose batch rows follow ``pl``
+    and whose heads and conv channels are the ones the port holds (the
+    mixer dims ``states``: a rank's share, or the whole)."""
+    shape = list(pl.local_shape(t.shape))
+    if path[-1] == "conv_state":
+        shape[-1] = states["conv_ch"]
+    elif path[-1] == "ssm_state":
+        shape[-3] = states["heads"]
+    return math.prod(shape) * t.element_size()
 
 
 def _tree_bytes(tree, shardings) -> int:
@@ -251,15 +293,18 @@ def _serve_cell(cfg, shape, mesh, rules, rec):
     rec["param_bytes"] = _tree_bytes(params, sh)
     rec["opt_bytes"] = 0
     n = mesh.get(tensor_parallel.AXIS, 1)
-    kinds, vocab = tensor_parallel.plan_linears(scfg, mesh, rules)
+    kinds, vocab = tensor_parallel.plan_linears(scfg, mesh, rules, True)
     vocab, experts = n > 1 and vocab, n > 1 and kinds.get("expert") == "split"
+    mixer = n > 1 and kinds.get("in_proj") == "col"
+    in_proj = _in_proj(scfg, kinds, n) if n > 1 else 1.0
     coll: Dict[str, float] = {}
     read = 0.0
     for (path, t), (_, pl) in zip(tree_leaves_with_path(params),
                                   tree_leaves_with_path(sh)):
         _gather_bytes(t, pl, coll, keep=tensor_parallel.kept_axes(
             vocab, path, experts))
-        frac = _split_fraction(kinds, vocab, path) if n > 1 else 0.0
+        frac = _split_fraction(kinds, vocab, path, in_proj) if n > 1 \
+            else 0.0
         read += t.numel() * t.element_size() * (1 - frac + frac / n)
     decode = shape.kind == "decode"
     inputs = rec["inputs"]
@@ -290,7 +335,13 @@ def _serve_cell(cfg, shape, mesh, rules, rec):
                                device="meta") for k in ("k", "v")}}
         csh = _shardings(cache, model_lib.cache_axes(scfg, cache), mesh,
                          rules)
-        rec["cache_bytes"] = _tree_bytes(cache, csh)
+        states = None
+        if scfg.family in tensor_parallel.MIXER_FAMILIES:
+            states = ssm_lib.split_dims(scfg, 0, n) if mixer \
+                else ssm_lib.ssm_dims(scfg)
+        rec["cache_bytes"] = sum(
+            _cache_block_bytes(path, t, pl, states) for (path, t), (_, pl)
+            in zip(tree_leaves_with_path(cache), tree_leaves_with_path(csh)))
     rec["cache_split"] = cache_kind if n > 1 else None
     rec["read_bytes_per_device"] = read + rec["cache_bytes"]
 
@@ -329,7 +380,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     # products the compute split divides over "model" (split_share of
     # N_active) split there too, the rest computes replicated across its
     # ranks
-    share = split_share(cfg, mesh, rules, stats[arch]["N_active"])
+    share = split_share(cfg, mesh, rules, stats[arch]["N_active"],
+                        shape.kind != "train")
     rows = math.prod(mesh[a] for a in batch_axes(mesh, rules)) \
         if shape.kind == "train" else _batch_rows(shape, mesh, rules)
     rec["split_share"] = share

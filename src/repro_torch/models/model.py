@@ -219,11 +219,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     (:mod:`repro_torch.distributed.tensor_parallel`) every K/V buffer is
     this rank's block: KH / n heads (``tp.cache == "kv_heads"``) or
     max_len / n positions (``"cache_seq"``, ``max_len`` a multiple of n);
-    the Mamba2 states stay whole."""
+    where ``tp`` splits the Mamba2 mixer (``tp.mixer``) a rank's states are
+    ``ssm_state`` (L, batch, H / n, N, P) and ``conv_state`` (L, batch,
+    K-1, d_inner / n + 2 g_l N) in the rank's channel order ``[x_r, B_g,
+    C_g]`` (:func:`repro_torch.models.ssm.split_dims`), and the ranks'
+    blocks put back in channel order
+    (:func:`repro_torch.models.ssm.gather_state_blocks`) are the whole
+    states; otherwise every rank holds them whole."""
     dev = resolve_device(device)
     cdt = torch_dtype(cfg.dtype)
     kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    if tp is not None:
+    if tp is not None and cfg.family != "ssm":
         if page_size is not None:
             raise ValueError("a split decode cache is the dense cache: the "
                              "paged pools are not split over 'model'")
@@ -249,10 +255,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return {"self": attn_cache((cfg.num_layers,)), "cross": None}
     if cfg.family == "ssm":
         return ssm_lib.mamba_cache_init(cfg, batch, cdt, dev,
-                                        (cfg.num_layers,))
+                                        (cfg.num_layers,), tp)
     if cfg.family == "hybrid":
-        return [ssm_lib.mamba_cache_init(cfg, batch, cdt, dev) if ch == "M"
-                else attn_cache(()) for ch in cfg.layer_pattern()]
+        return [ssm_lib.mamba_cache_init(cfg, batch, cdt, dev, (), tp)
+                if ch == "M" else attn_cache(())
+                for ch in cfg.layer_pattern()]
     raise ValueError(cfg.family)
 
 
@@ -856,8 +863,10 @@ def _serve_logits(params: Params, h: torch.Tensor, cfg: ModelConfig,
 def _serving_split(params: Params, cfg: ModelConfig, tp, adapter_ids,
                    paged: bool = False) -> Params:
     """``params`` as a split serving call reads them (its expert stacks
-    cut to the rank's experts); raises where the split has no path: a
-    banked adapter (``adapter_ids``) or a paged cache."""
+    cut to the rank's experts, its Mamba2 mixers to the rank's heads:
+    :func:`repro_torch.models.ssm.local_mixer`, once a call); raises where
+    the split has no path: a banked adapter (``adapter_ids``) or a paged
+    cache."""
     if tp is None:
         return params
     if adapter_ids is not None:
@@ -868,7 +877,14 @@ def _serving_split(params: Params, cfg: ModelConfig, tp, adapter_ids,
         raise ValueError("a split decode_step takes the dense cache "
                          "(init_cache without a page size): the paged "
                          "pools are not split over 'model'")
-    return {**params, "layers": tp.local_experts(params["layers"])}
+    layers_ = params["layers"]
+    if tp.mixer and cfg.family == "ssm":
+        layers_ = {**layers_, "ssm": ssm_lib.local_mixer(layers_["ssm"], cfg,
+                                                         tp)}
+    elif tp.mixer and cfg.family == "hybrid":
+        layers_ = [{**lp, "ssm": ssm_lib.local_mixer(lp["ssm"], cfg, tp)}
+                   if "ssm" in lp else lp for lp in layers_]
+    return {**params, "layers": tp.local_experts(layers_)}
 
 
 def _last_hidden(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -984,7 +1000,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor],
             lp = _layer(params["layers"], i)
             hn = layers.apply_norm(lp["ln"], x)
             y, c = ssm_lib.mamba_block_apply(lp["ssm"], hn, cfg, cdt, True,
-                                             adapter_ids)
+                                             adapter_ids, tp)
             x = x + y
             for k, v in c.items():
                 cache[k][i] = v
@@ -995,7 +1011,7 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor],
                 lp = params["layers"][i]
                 hn = layers.apply_norm(lp["ln"], x)
                 y, cache[i] = ssm_lib.mamba_block_apply(
-                    lp["ssm"], hn, cfg, cdt, True, adapter_ids)
+                    lp["ssm"], hn, cfg, cdt, True, adapter_ids, tp)
                 x = x + y
             else:
                 x = shared_block_apply(params["shared_attn"], x, h0, cfg, cdt,
@@ -1089,7 +1105,7 @@ def decode_step(params: Params, batch: Dict[str, torch.Tensor], cache,
     def mamba_step(lp, x, c):
         hn = layers.apply_norm(lp["ln"], x)
         y, nc = ssm_lib.mamba_block_decode(lp["ssm"], hn, c, cfg, cdt,
-                                           adapter_ids)
+                                           adapter_ids, tp)
         for k, v in nc.items():
             c[k].copy_(v)
         return x + y
@@ -1249,7 +1265,12 @@ def param_axes(cfg: ModelConfig, params: Params):
 def cache_axes(cfg: ModelConfig, cache):
     """Logical sharding axes of a decode cache tree (the dense cache; a
     paged pool's page axis would read as ``"batch"``, as in the
-    reference)."""
+    reference).  They place the whole cache, as the reference's do: a
+    serving split's rank computes from its own blocks of the Mamba2 states
+    (:func:`init_cache`), ``ssm_state``'s heads as placed here but
+    ``conv_state``'s channels ``[x_r, B_g, C_g]``, not this even cut of
+    ``conv_ch`` (which would part a head's channels from its B and C);
+    the ranks' blocks put back in channel order are the whole cache."""
     def assign(path, leaf):
         n = path[-1]
         if n == "page_table":

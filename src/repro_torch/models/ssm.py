@@ -24,6 +24,19 @@ linears take the engine's per-row ``adapter_ids``; a decode step applies
 ``in_proj`` and ``out_proj`` to 2-D ``(B, d)`` rows, which
 :func:`repro_torch.core.registry.apply_batched` sends through the
 gather-delta wrapper.
+
+Under a serving split over ``model`` that splits the mixer
+(:attr:`repro_torch.distributed.tensor_parallel.TensorParallel.mixer`) a
+rank computes H / n SSM heads (:func:`split_dims`) from its view of the
+params (:func:`local_mixer`): ``in_proj``'s columns of its z, x and dt
+heads and of the B and C groups those heads read, the conv's channels
+``[x_r, B_g, C_g]``, its heads of ``a_log``, ``d_skip``, ``dt_bias`` and
+the norm, and ``out_proj``'s rows of its ``d_inner`` slice, summed over
+ranks.  The gated RMSNorm over the whole ``d_inner`` sums the ranks' fp32
+sums of squares (:func:`split_norm`).  Its decode states are its heads of
+``ssm_state`` and its ``[x_r, B_g, C_g]`` channels of ``conv_state``;
+:func:`gather_state_blocks` puts the ranks' blocks back together as the
+whole states.
 """
 from __future__ import annotations
 
@@ -35,6 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import peft as peft_lib
+from repro_torch.core import registry
+from repro_torch.distributed import collectives, tensor_parallel
 from repro_torch.models import layers
 
 Params = Dict[str, torch.Tensor]
@@ -50,9 +65,115 @@ def ssm_dims(cfg: ModelConfig) -> Dict[str, int]:
                 in_proj_out=in_proj_out)
 
 
-def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    """(z, x, B, C, dt) along the last axis of ``in_proj``'s output."""
+def split_dims(cfg: ModelConfig, rank: int, size: int) -> Dict[str, int]:
+    """:func:`ssm_dims` of a rank's share of the mixer under a serving
+    split over ``size`` ranks, plus ``head0`` and ``group0``, its first
+    head and group: H / n heads from ``rank * H / n`` and the groups they
+    read (g / n of them where the groups divide over the ranks, else the
+    one group all its heads map to)."""
     d = ssm_dims(cfg)
+    h, n = d["heads"] // size, d["n"]
+    g = max(d["g"] // size, 1)
+    head0 = rank * h
+    d_inner = h * cfg.ssm.head_dim
+    return dict(d_inner=d_inner, heads=h, g=g, n=n,
+                conv_ch=d_inner + 2 * g * n,
+                in_proj_out=2 * d_inner + 2 * g * n + h, head0=head0,
+                group0=head0 // (d["heads"] // d["g"]))
+
+
+def _column_blocks(cfg: ModelConfig, rank: int, size: int
+                   ) -> Sequence[Tuple[int, int]]:
+    """(first column, columns) of each of the rank's z, x, B, C and dt
+    blocks in ``in_proj``'s output."""
+    whole, d = ssm_dims(cfg), split_dims(cfg, rank, size)
+    di, gn = whole["d_inner"], whole["g"] * whole["n"]
+    x0, g0 = d["head0"] * cfg.ssm.head_dim, d["group0"] * d["n"]
+    gl = d["g"] * d["n"]
+    return ((x0, d["d_inner"]), (di + x0, d["d_inner"]), (2 * di + g0, gl),
+            (2 * di + gn + g0, gl), (2 * di + 2 * gn + d["head0"], d["heads"]))
+
+
+def _index(blocks, offset: int, device) -> torch.Tensor:
+    return torch.cat([torch.arange(a - offset, a - offset + n, device=device)
+                      for a, n in blocks])
+
+
+def in_proj_columns(cfg: ModelConfig, rank: int, size: int,
+                    device=None) -> torch.Tensor:
+    """The columns of ``in_proj``'s output a rank computes, in its order
+    ``[z_r, x_r, B_g, C_g, dt_r]``."""
+    return _index(_column_blocks(cfg, rank, size), 0, device)
+
+
+def conv_channels(cfg: ModelConfig, rank: int, size: int,
+                  device=None) -> torch.Tensor:
+    """The conv channels a rank computes, ``[x_r, B_g, C_g]``."""
+    return _index(_column_blocks(cfg, rank, size)[1:4],
+                  ssm_dims(cfg)["d_inner"], device)
+
+
+def local_mixer(params: Params, cfg: ModelConfig, tp) -> Params:
+    """A rank's view of a Mamba2 mixer (or a layer stack of them) under a
+    serving split ``tp`` that splits it: ``in_proj`` cut to
+    :func:`in_proj_columns` (a copy), ``conv_w`` and ``conv_b`` to
+    :func:`conv_channels` (copies), ``a_log``, ``d_skip``, ``dt_bias`` and
+    the norm's scale to the rank's heads and ``out_proj`` to its rows
+    (views; ``out_proj`` stays whole where it is ``"gathered_row"``)."""
+    d = split_dims(cfg, tp.rank, tp.size)
+    dev = params["conv_w"].device
+    p = cfg.ssm.head_dim
+    chans = conv_channels(cfg, tp.rank, tp.size, dev)
+    out = dict(params)
+    out["in_proj"] = tensor_parallel.column_set(
+        params["in_proj"], registry.resolve(params["in_proj"], cfg.peft,
+                                            module="in_proj"),
+        cfg.peft, in_proj_columns(cfg, tp.rank, tp.size, dev))
+    out["conv_w"] = params["conv_w"].index_select(-1, chans)
+    out["conv_b"] = params["conv_b"].index_select(-1, chans)
+    for name in ("a_log", "d_skip", "dt_bias"):
+        out[name] = params[name].narrow(-1, d["head0"], d["heads"])
+    out["norm"] = {"scale": params["norm"]["scale"].narrow(
+        -1, d["head0"] * p, d["d_inner"])}
+    if tp.kinds["out_proj"] == "row":
+        out["out_proj"] = tensor_parallel.local_params(
+            params["out_proj"], registry.resolve(
+                params["out_proj"], cfg.peft, module="out_proj"),
+            cfg.peft, "row", tp.rank, tp.size)
+    return out
+
+
+def gather_state_blocks(cfg: ModelConfig, blocks: Sequence[Params]
+                        ) -> Params:
+    """The whole decode states ``{"conv_state", "ssm_state"}`` from every
+    rank's blocks, in rank order: the heads of ``ssm_state`` concatenated,
+    and ``conv_state``'s channels put back in order ``[x, B, C]`` (ranks
+    that read the same group hold the same B and C)."""
+    size = len(blocks)
+    xs, bs, cs = [], {}, {}
+    for r, blk in enumerate(blocks):
+        d = split_dims(cfg, r, size)
+        gl = d["g"] * d["n"]
+        x, b, c = torch.split(blk["conv_state"], [d["d_inner"], gl, gl], -1)
+        xs.append(x)
+        bs.setdefault(d["group0"], b)
+        cs.setdefault(d["group0"], c)
+    return {"conv_state": torch.cat(xs + [bs[k] for k in sorted(bs)]
+                                    + [cs[k] for k in sorted(cs)], -1),
+            "ssm_state": torch.cat([b["ssm_state"] for b in blocks], -3)}
+
+
+def _dims(cfg: ModelConfig, tp) -> Dict[str, int]:
+    """The mixer's dims a rank computes: its share under a split ``tp``
+    that splits the mixer, else the whole."""
+    if tp is not None and tp.mixer:
+        return split_dims(cfg, tp.rank, tp.size)
+    return ssm_dims(cfg)
+
+
+def _split_in_proj(zxbcdt: torch.Tensor, d: Dict[str, int]):
+    """(z, x, B, C, dt) along the last axis of ``in_proj``'s output at the
+    dims ``d``."""
     gn = d["g"] * d["n"]
     return torch.split(zxbcdt, [d["d_inner"], d["d_inner"], gn, gn,
                                 d["heads"]], dim=-1)
@@ -204,19 +325,50 @@ def _lin(params, x, cfg, cdt, module, adapter_ids):
                                  adapter_ids=adapter_ids)
 
 
-def _gate_out(params, y, z, cfg, cdt, adapter_ids):
-    """norm(y * silu(z)) through ``out_proj``."""
-    y = layers.apply_norm(params["norm"], y * F.silu(z.float()).to(y.dtype))
-    return _lin(params["out_proj"], y, cfg, cdt, "out_proj", adapter_ids)
+def split_norm(params: Params, x: torch.Tensor, width: int, tp,
+               eps: float = 1e-6) -> torch.Tensor:
+    """:func:`layers.apply_norm`'s RMSNorm over a last axis of ``width``
+    split over ``model``: the rank's fp32 sum of squares summed over the
+    ranks (one all-reduce of (tokens, 1), tag ``"ssm_norm"``), divided by
+    the whole ``width``; ``params`` hold the rank's slice of the scale."""
+    x32 = x.float()
+    ss = x32.square().sum(-1, keepdim=True)
+    collectives.all_reduce(ss, tp.mesh, (tensor_parallel.AXIS,),
+                           tag="ssm_norm")
+    y = x32 * torch.rsqrt(ss / width + eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def _gate_out(params, y, z, cfg, cdt, adapter_ids, tp=None):
+    """norm(y * silu(z)) through ``out_proj``; under a split ``tp`` that
+    splits the mixer, the rank's heads normed over the whole ``d_inner``
+    and ``out_proj``'s partial rows summed over ranks (its input gathered
+    first where it is ``"gathered_row"``)."""
+    y = y * F.silu(z.float()).to(y.dtype)
+    if tp is None or not tp.mixer:
+        return _lin(params["out_proj"], layers.apply_norm(params["norm"], y),
+                    cfg, cdt, "out_proj", adapter_ids)
+    y = split_norm(params["norm"], y, ssm_dims(cfg)["d_inner"], tp)
+    kind = tp.kinds["out_proj"]
+    if kind == "gathered_row":
+        y = collectives.gather_from(y, tp.mesh, tensor_parallel.AXIS, -1)
+    y = _lin(params["out_proj"], y, cfg, cdt, "out_proj", adapter_ids)
+    if kind == "row":
+        y = collectives.reduce_from(y, tp.mesh, tensor_parallel.AXIS)
+    return y
 
 
 def mamba_block_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
-                      cdt, return_cache: bool = False, adapter_ids=None):
+                      cdt, return_cache: bool = False, adapter_ids=None,
+                      tp=None):
     """Training and prefill forward.  u (B, S, D) -> (B, S, D), plus the
-    decode cache ``{"conv_state", "ssm_state"}`` with ``return_cache``."""
-    d = ssm_dims(cfg)
+    decode cache ``{"conv_state", "ssm_state"}`` with ``return_cache``.
+    Under a serving split ``tp`` that splits the mixer, ``params`` are the
+    rank's view (:func:`local_mixer`), the block computes the rank's heads
+    and the cache is the rank's block of the states."""
+    d = _dims(cfg, tp)
     zxbcdt = _lin(params["in_proj"], u, cfg, cdt, "in_proj", adapter_ids)
-    z, x, bmat, cmat, dt = _split_in_proj(zxbcdt, cfg)
+    z, x, bmat, cmat, dt = _split_in_proj(zxbcdt, d)
     xbc_raw = torch.cat([x, bmat, cmat], dim=-1)
     xbc = causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
     gn = d["g"] * d["n"]
@@ -228,7 +380,7 @@ def mamba_block_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
         cmat.reshape(bsz, s, d["g"], d["n"]), params["d_skip"],
         params["dt_bias"], cfg.ssm.chunk_size)
     out = _gate_out(params, y.reshape(bsz, s, d["d_inner"]), z, cfg, cdt,
-                    adapter_ids)
+                    adapter_ids, tp)
     if not return_cache:
         return out
     # the last K-1 conv inputs; a prompt shorter than that is led by the
@@ -240,15 +392,16 @@ def mamba_block_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba_block_decode(params: Params, u_t: torch.Tensor, cache: Params,
-                       cfg: ModelConfig, cdt, adapter_ids=None
+                       cfg: ModelConfig, cdt, adapter_ids=None, tp=None
                        ) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  u_t (B, 1, D); cache ``{"conv_state",
     "ssm_state"}``.  Returns ((B, 1, D), the new cache); the projections
-    take 2-D rows."""
-    d = ssm_dims(cfg)
+    take 2-D rows.  ``tp``: as in :func:`mamba_block_apply`, over the
+    rank's blocks of the states."""
+    d = _dims(cfg, tp)
     zxbcdt = _lin(params["in_proj"], u_t[:, 0], cfg, cdt, "in_proj",
                   adapter_ids)
-    z, x, bmat, cmat, dt = _split_in_proj(zxbcdt, cfg)
+    z, x, bmat, cmat, dt = _split_in_proj(zxbcdt, d)
     xbc = torch.cat([x, bmat, cmat], dim=-1)                   # (B, conv_ch)
     xbc, conv_state = conv_step(xbc, cache["conv_state"], params["conv_w"],
                                 params["conv_b"])
@@ -260,14 +413,18 @@ def mamba_block_decode(params: Params, u_t: torch.Tensor, cache: Params,
         bmat.reshape(bsz, d["g"], d["n"]), cmat.reshape(bsz, d["g"], d["n"]),
         params["d_skip"], params["dt_bias"], cache["ssm_state"])
     out = _gate_out(params, y.reshape(bsz, d["d_inner"]), z, cfg, cdt,
-                    adapter_ids)
+                    adapter_ids, tp)
     return out[:, None, :], {"conv_state": conv_state,
                              "ssm_state": ssm_state}
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device,
-                     lead: Sequence[int] = ()) -> Params:
-    d = ssm_dims(cfg)
+                     lead: Sequence[int] = (), tp=None) -> Params:
+    """Zero decode states (``lead`` stacked): ``conv_state`` (..., batch,
+    K-1, C) in ``dtype``, ``ssm_state`` (..., batch, H, N, P) in fp32; a
+    rank's blocks under a split ``tp`` that splits the mixer (H / n heads,
+    the channels ``[x_r, B_g, C_g]``)."""
+    d = _dims(cfg, tp)
     lead = tuple(lead)
     return {
         "conv_state": torch.zeros(

@@ -352,7 +352,7 @@ def _sharded_step(cfg: ModelConfig, tc: TrainConfig, moe_impl: str, mesh,
     k, n = collectives.coordinate(mesh, tuple(
         (a, mesh_shape(mesh)[a]) for a in axes))
     aux_w = cfg.moe.aux_loss_weight if cfg.family == "moe" else 0.0
-    tp = tensor_parallel.plan(cfg, mesh, rules)
+    tp = tensor_parallel.plan(cfg, mesh, rules, serving=False)
 
     def gather(tree, prefix):
         def one(path, t):

@@ -41,9 +41,12 @@ they run, computes the reference's side in this process:
     the loss of one process (1e-5);
 (g) split serving: every family's ``prefill`` and 4 ``decode_step``s on
     (1, 2), and reduced llama32-3b's on (1, 4), whose 2 kv heads put the
-    decode cache on its sequence, against the unsharded port (1e-5, fp32)
-    and the reference's logits (digests pinned by tests/torch_dist_refs.py,
-    one case recomputed live), each rank's cache its block, the
+    decode cache on its sequence, and reduced mamba2-1.3b's there, against
+    the unsharded port (1e-5, fp32) and the reference's logits (digests
+    pinned by tests/torch_dist_refs.py, one case recomputed live), each
+    rank's cache its block (the Mamba2 states its SSM heads and its
+    ``[x_r, B_g, C_g]`` conv channels, gathered within 1e-5 relative of
+    the unsharded run's and of the reference's pinned digests), the
     collectives over ``model`` those ``tensor_parallel.serve_collectives``
     predicts; and the MoE expert split's train step, whose expert stacks
     are never gathered over ``model``.
@@ -104,7 +107,10 @@ LIVE_SERVE = "llama32-3b"
 #: the serving cases: the rank group and its result key, by case
 SERVE = {**{arch: ("moe2", "serve", arch) for arch in ranks.SERVE_ARCHS},
          f"seq {ranks.SERVE_SEQ_ARCH}": ("four", "serve seq",
-                                         ranks.SERVE_SEQ_ARCH)}
+                                         ranks.SERVE_SEQ_ARCH),
+         "four mamba2-1.3b": ("four", "serve seq", "mamba2-1.3b")}
+#: the serving cases with Mamba2 decode states
+STATE_CASES = ("mamba2-1.3b", "zamba2-1.2b", "four mamba2-1.3b")
 #: the tiny meshes of (a): the group of ranks that runs each, its shape
 MESHES = {"2x2": ("four", (2, 2)), "4x1": ("four", (4, 1)),
           "1x4": ("four", (1, 4)), "1x2": ("moe2", (1, 2))}
@@ -539,10 +545,12 @@ def test_split_serving_matches_unsharded_and_reference(runs, case):
     unsharded port's within 1e-5 and the reference's logits (each step's
     digest within :data:`ssm_pairs.MODEL_TOL` of its pin); a rank's K/V
     buffers hold KH / n heads (``"kv_heads"``) or max_len / n positions
-    (``"cache_seq"``, reduced llama32-3b's 2 kv heads on 4 ranks), the
-    Mamba2 states whole; the collectives over ``model`` are exactly the
-    ones ``tensor_parallel.serve_collectives`` predicts for the prefill
-    and each step."""
+    (``"cache_seq"``, reduced llama32-3b's 2 kv heads on 4 ranks; its
+    Mamba2 states: :func:`test_split_serving_splits_the_mamba2_states`);
+    the collectives over ``model`` are exactly the ones
+    ``tensor_parallel.serve_collectives`` predicts for the prefill and
+    each step (a split Mamba2 layer's norm sum and out_proj sum
+    included)."""
     group, key, arch = SERVE[case]
     res = _group(runs, group)[key][arch]
     size = 4 if group == "four" else 2
@@ -576,6 +584,47 @@ def test_split_serving_matches_unsharded_and_reference(runs, case):
     assert Counter((tag, n) for _, _, n, group_, tag in res["records"]
                    if group_ == "model") == Counter(want)
     assert all(group_ == "model" for *_, group_, _ in res["records"])
+
+
+@pytest.mark.parametrize("case", STATE_CASES)
+def test_split_serving_splits_the_mamba2_states(runs, case):
+    """Under the serving plan the mixer splits (in_proj a column set,
+    out_proj a row split) and a rank's states are its blocks:
+    ``ssm_state`` (..., B, H / n, N, P) and ``conv_state`` (..., B, K-1,
+    d_inner / n + 2 g_l N); the blocks gathered in channel order equal
+    the unsharded run's final states within 1e-5 relative (fp32) and the
+    reference's (digests within :data:`ssm_pairs.MODEL_TOL` of the pins
+    ``torch_dist_refs.py`` wrote)."""
+    from repro_torch.models import ssm
+    group, key, arch = SERVE[case]
+    res = _group(runs, group)[key][arch]
+    size = 4 if group == "four" else 2
+    cfg = ranks.serve_case(arch)[0]
+    assert (res["kinds"]["in_proj"], res["kinds"]["out_proj"]) == \
+        ("col", "row")
+    whole, local = ssm.ssm_dims(cfg), ssm.split_dims(cfg, 0, size)
+    assert local["heads"] * size == whole["heads"] == 8
+    assert sorted(res["state_shapes"]) == sorted(res["whole_state_shapes"])
+    for name, shape in res["whole_state_shapes"].items():
+        got = list(res["state_shapes"][name])
+        if name.endswith("ssm_state"):
+            assert shape[-3:] == (whole["heads"], whole["n"],
+                                  cfg.ssm.head_dim)
+            assert got == list(shape[:-3]) + [
+                whole["heads"] // size, whole["n"], cfg.ssm.head_dim]
+        else:
+            assert shape[-1] == whole["conv_ch"]
+            assert got == list(shape[:-1]) + [
+                whole["d_inner"] // size + 2 * whole["n"]]
+        assert tuple(res["states"][name].shape) == shape
+    assert res["state_diff"] <= 1e-5
+    pin = runs["split references"][f"serve {arch}"]["states"]
+    got = refs.digest(res["states"])
+    assert sorted(got) == sorted(pin)
+    for k, (norm, proj) in pin.items():
+        tol = sp.MODEL_TOL * max(norm, 1e-3)
+        assert abs(got[k][0] - norm) <= tol, (k, got[k], norm)
+        assert abs(got[k][1] - proj) <= 4 * tol, (k, got[k], proj)
 
 
 def test_live_serving_reference_equals_its_pin(runs):

@@ -190,8 +190,11 @@ def test_logical_specs_and_device_bytes_match_reference(full_size_axes, arch,
                                         ("zamba2-1.2b", "long_500k")))
 def test_dryrun_cache_bytes_match_reference(arch, shape):
     """A decode cell's per-device cache bytes: the reference's cache tree,
-    axes and specs on the production mesh against the dry-run's; the
-    roofline's terms from them."""
+    axes and specs on the production mesh against the dry-run's, except
+    a split Mamba2 layer's ``conv_state``, whose last axis a rank holds as
+    the port computes from it (its ``[x_r, B_g, C_g]`` channels, not the
+    spec's even cut of ``conv_ch``); the roofline's terms from them."""
+    from repro_torch.models import ssm
     jcfg = jget_config(arch)
     jcfg = jcfg.replace(peft=jcfg.peft.replace(method="none"))
     sizes = make_production_mesh()
@@ -203,7 +206,13 @@ def test_dryrun_cache_bytes_match_reference(arch, shape):
             _ref_pairs(jmodel.cache_axes(jcfg, cache)), [
                 leaf for _, leaf in _ref_pairs(cache)]):
         spec = jlogical_spec(Sizes(sizes), jrules, tuple(axes), leaf.shape)
-        want += _ref_block_bytes(leaf.shape, tuple(spec), sizes,
+        shape_ = leaf.shape
+        if path[-1] == "conv_state":
+            assert tuple(spec)[-1] == "model"
+            spec = tuple(spec)[:-1] + (None,)
+            shape_ = shape_[:-1] + (ssm.split_dims(
+                get_config(arch), 0, sizes["model"])["conv_ch"],)
+        want += _ref_block_bytes(shape_, tuple(spec), sizes,
                                  np.dtype(leaf.dtype).itemsize)
     cell = dryrun.run_cell(arch, shape)
     assert cell["cache_bytes"] == want > 0
@@ -575,3 +584,224 @@ def test_expert_paths_are_reached_summed_and_kept():
     assert tensor_parallel.kept_axes(vocab, expert, True) == ("model",)
     assert tensor_parallel.kept_axes(vocab, expert, False) == ()
     assert tensor_parallel.kept_axes(vocab, shared, True) == ()
+
+
+def _mixer_tp(cfg, sizes, rank):
+    """A serving split's plan of ``cfg`` on the size-only mesh ``sizes``
+    as rank ``rank`` sees it (no process group: the tests run the
+    collectives by hand)."""
+    kinds, vocab = tensor_parallel.plan_linears(
+        cfg, sizes, rules_for(cfg, sizes, "decode"), serving=True)
+    rules = rules_for(cfg, sizes, "decode")
+    return tensor_parallel.TensorParallel(
+        None, rank, sizes["model"], kinds, vocab, cfg.num_heads,
+        cfg.num_kv_heads, cfg.padded_vocab_size, 0,
+        tensor_parallel.cache_layout(cfg, sizes, rules, kinds))
+
+
+@pytest.mark.parametrize("arch", ("mamba2-1.3b", "zamba2-1.2b"))
+@pytest.mark.parametrize("reduced", (False, True))
+def test_mixer_split_falls_back_where_its_heads_do_not_divide(arch,
+                                                              reduced):
+    """On 3 ranks neither model's SSM heads (64 at full width, 8 reduced)
+    divide, so a serving plan leaves ``in_proj`` and ``out_proj``
+    replicated, as the reference's ``logical_spec`` leaves its ``heads``
+    off ``model``, and every rank holds the Mamba2 states whole; on 2
+    ranks the mixer splits (``"row"`` out_proj under PSOFT)."""
+    from repro_torch.models import ssm
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    if reduced:
+        cfg, jcfg = cfg.reduced(), jcfg.reduced()
+    heads = ssm.ssm_dims(cfg)["heads"]
+    for m, split in ((3, False), (2, True)):
+        sizes = {"data": 1, "model": m}
+        tp = _mixer_tp(cfg, sizes, 0)
+        on_model = tuple(jlogical_spec(
+            Sizes(sizes), jmesh.rules_for(jcfg, Sizes(sizes), "decode"),
+            ("heads",), (heads,)))[:1] == ("model",)
+        assert tp.mixer == split == on_model
+        assert (tp.kinds["in_proj"], tp.kinds["out_proj"]) == (
+            ("col", "row") if split else ("replicated", "replicated"))
+        if not reduced:
+            continue
+        cache = model.init_cache(cfg, 2, 48, device="meta", tp=tp)
+        whole = model.init_cache(cfg, 2, 48, device="meta")
+        states = [(a.shape, b.shape) for (pa, a), (_, b) in zip(
+            tree_leaves_with_path(cache), tree_leaves_with_path(whole))
+            if pa[-1] in ("conv_state", "ssm_state")]
+        assert states and all((a == b) != split for a, b in states)
+
+
+def test_train_plan_leaves_the_mixer_replicated():
+    """A training plan has no kind for the Mamba2 mixer (the reference
+    computes it replicated in the step): the train step's split, its
+    collectives and its gradient sums are as before; the mixer's leaves
+    are its modules, whose gradients a serving plan (which trains
+    nothing) would also leave whole on the replicated fallback."""
+    cfg = get_config("mamba2-1.3b").reduced()
+    sizes = {"data": 1, "model": 2}
+    train, vocab = tensor_parallel.plan_linears(cfg, sizes,
+                                                rules_for(cfg, sizes))
+    serve, _ = tensor_parallel.plan_linears(
+        cfg, sizes, rules_for(cfg, sizes, "decode"), serving=True)
+    assert "in_proj" not in train and "out_proj" not in train
+    assert {k: v for k, v in serve.items()
+            if k not in tensor_parallel.MIXER} == train
+    for leaf, module in ((("layers", "ssm", "in_proj", "w_res"), "in_proj"),
+                         (("layers", "ssm", "out_proj", "alpha"), "out_proj"),
+                         (("layers", "ssm", "conv_w"), None),
+                         (("layers", "3", "ssm", "in_proj", "q"), "in_proj")):
+        assert tensor_parallel.reached_module(leaf) == module
+        assert not tensor_parallel.grad_summed(train, vocab, leaf)
+    assert tensor_parallel.step_collectives(
+        cfg, train, vocab, 2, 4, 32) == tensor_parallel.step_collectives(
+        cfg, serve, vocab, 2, 4, 32)
+
+
+def _two_rank_block(monkeypatch, cfg, params, u, size):
+    """The split Mamba2 block's prefill and one decode step on each of
+    ``size`` ranks run one after the other in this process, its
+    collectives taken over three passes: each pass records every rank's
+    inputs and hands each rank the sums (the norm's) and concatenations
+    (a ``"gathered_row"`` out_proj's input, which depends on the norm's
+    sum) of the last pass's; ``out_proj``'s partial rows are summed here.
+    Returns (the outputs, each rank's state blocks after the decode step,
+    each rank's plan)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.models import ssm
+    sizes = {"data": 1, "model": size}
+    tps = [_mixer_tp(cfg, sizes, r) for r in range(size)]
+
+    def run(last):
+        outs, caches, calls = [], [], {}
+        for r, tp in enumerate(tps):
+            seen = calls.setdefault(r, [])
+
+            def take(t):
+                seen.append(t.clone())
+                return [last[q][len(seen) - 1] for q in range(size)] \
+                    if last else [t] * size
+
+            def all_reduce(t, mesh, axes, *args, tag="", **kw):
+                assert tag == "ssm_norm"
+                return t.copy_(sum(take(t)))
+
+            def gather_from(x, mesh, axis, dim):
+                return torch.cat(take(x), dim)
+            monkeypatch.setattr(collectives, "all_reduce", all_reduce)
+            monkeypatch.setattr(collectives, "gather_from", gather_from)
+            monkeypatch.setattr(collectives, "reduce_from",
+                                lambda y, mesh, axis: y)
+            local = ssm.local_mixer(params, cfg, tp)
+            y, cache = ssm.mamba_block_apply(local, u, cfg, torch.float32,
+                                             True, tp=tp)
+            y1, cache = ssm.mamba_block_decode(local, u[:, -1:], cache, cfg,
+                                               torch.float32, tp=tp)
+            outs.append(torch.cat([y, y1], 1))
+            caches.append(cache)
+        return outs, caches, calls
+    calls = None
+    for _ in range(3):
+        outs, caches, calls = run(calls)
+    out = sum(outs) if tps[0].kinds["out_proj"] == "row" else outs[0]
+    return out, caches, tps
+
+
+@pytest.mark.parametrize("method", ("psoft", "dora"))
+def test_mixer_split_reads_each_ranks_own_group(monkeypatch, method):
+    """Reduced mamba2-1.3b with ``ngroups = 2`` on (1, 2): each rank's 4
+    heads read its own group of B and C (its columns of ``in_proj`` and
+    channels of the conv), and the two ranks' prefill and decode step,
+    their norm sums and out_proj rows summed (PSOFT's ``"row"``; DoRA's
+    norm over the input makes out_proj ``"gathered_row"``: every rank
+    computes it whole from the gathered input), equal the unsharded block
+    within 1e-5, their state blocks gathered the whole states."""
+    from repro_torch.models import ssm
+    cfg = get_config("mamba2-1.3b").reduced()
+    cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, ngroups=2),
+                      peft=cfg.peft.replace(method=method))
+    params = model.init_params(cfg, seed=3, device="cpu")
+    lp = {k: v[0] if torch.is_tensor(v) else {n: t[0] for n, t in v.items()}
+          for k, v in params["layers"]["ssm"].items()}
+    gen = torch.Generator().manual_seed(4)
+    m_ = registry.get_method(method)
+    for name in m_.trainable_names(cfg.peft):
+        for m in ("in_proj", "out_proj"):
+            t = lp[m][name]
+            lp[m][name] = t + 0.05 * torch.randn(t.shape, generator=gen)
+    lp["dt_bias"] = 0.3 * torch.randn(lp["dt_bias"].shape, generator=gen)
+    u = torch.randn((2, 32, cfg.d_model), generator=gen)
+    y, cache = ssm.mamba_block_apply(lp, u, cfg, torch.float32, True)
+    y1, cache = ssm.mamba_block_decode(lp, u[:, -1:], cache, cfg,
+                                       torch.float32)
+    got, blocks, tps = _two_rank_block(monkeypatch, cfg, lp, u, 2)
+    assert tps[0].kinds["out_proj"] == (
+        "row" if method == "psoft" else "gathered_row")
+    d = ssm.ssm_dims(cfg)
+    for r, tp in enumerate(tps):
+        local = ssm.split_dims(cfg, r, 2)
+        assert (local["heads"], local["g"], local["group0"]) == (4, 1, r)
+        gn = d["g"] * d["n"]
+        cols = ssm.in_proj_columns(cfg, r, 2).tolist()
+        bc = [c - 2 * d["d_inner"] for c in cols
+              if 2 * d["d_inner"] <= c < 2 * d["d_inner"] + 2 * gn]
+        assert bc == list(range(r * d["n"], (r + 1) * d["n"])) + list(
+            range(gn + r * d["n"], gn + (r + 1) * d["n"]))
+    torch.testing.assert_close(got, torch.cat([y, y1], 1), rtol=1e-5,
+                               atol=1e-5)
+    whole = ssm.gather_state_blocks(cfg, blocks)
+    for k in ("conv_state", "ssm_state"):
+        torch.testing.assert_close(whole[k], cache[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ("mamba2-1.3b", "zamba2-1.2b"))
+def test_dryrun_serving_cells_split_the_mixer(arch):
+    """``decode_32k`` on 16x16: the mixer splits (64 heads, 4 a rank), so
+    ``split_share`` counts out_proj whole and in_proj at its z, x and dt
+    columns (B and C, one group, every rank computes), above the train
+    cell's share, which leaves the mixer replicated; ``cache_bytes`` is
+    the layout the port holds, a device's rows of the rank's heads of
+    ``ssm_state`` and its ``[x_r, B, C]`` conv channels (plus zamba2's
+    attention K/V, 2 of 32 kv heads a rank); a rank's in_proj is 772
+    columns, which ``psoft_matmul`` runs on ``"wmma"`` (a row pitch of
+    1544 bytes is no multiple of 16: TMA cannot read it), and 4384 /
+    4256 on (1, 2), on ``"wgmma"``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    cfg = get_config(arch)
+    sizes = make_production_mesh()
+    n = sizes["model"]
+    d, local = ssm.ssm_dims(cfg), ssm.split_dims(cfg, 0, n)
+    share = dryrun.in_proj_share(cfg, n)
+    assert share == pytest.approx((2 * d["d_inner"] + d["heads"])
+                                  / d["in_proj_out"], rel=1e-12)
+    serve = dryrun.run_cell(arch, "decode_32k")
+    train = dryrun.run_cell(arch, "train_4k")
+    n_active = dryrun.model_param_stats(arch)["N_active"]
+    kinds, vocab = tensor_parallel.plan_linears(
+        cfg, sizes, rules_for(cfg, sizes, "decode"), serving=True)
+    assert tensor_parallel.mixer_splits(cfg, sizes, rules_for(
+        cfg, sizes, "decode")) and kinds["in_proj"] == "col"
+    merged = model.abstract_params(cfg.replace(
+        peft=cfg.peft.replace(method="none")))
+    mixer = sum(t.numel() * (share if p[-2] == "in_proj" else 1.0)
+                for p, t in tree_leaves_with_path(merged)
+                if p[-2:-1] in (("in_proj",), ("out_proj",)))
+    assert serve["split_share"] == pytest.approx(
+        train["split_share"] + mixer / n_active, rel=1e-9)
+    rows = LM_SHAPES["decode_32k"].global_batch // sizes["data"]
+    layers = cfg.layer_pattern().count("M")
+    states = layers * rows * (
+        (cfg.ssm.conv_width - 1) * local["conv_ch"] * 2
+        + local["heads"] * d["n"] * cfg.ssm.head_dim * 4)
+    assert local["conv_ch"] == d["d_inner"] // n + 2 * d["n"]
+    attn = (cfg.num_layers - layers) * rows * 2 * 32768 * (
+        cfg.num_kv_heads // n) * cfg.resolved_head_dim * 2
+    assert serve["cache_bytes"] == states + attn
+    cols = {m: ssm.split_dims(cfg, 0, m)["in_proj_out"] for m in (2, n)}
+    assert cols[n] == (772 if arch == "mamba2-1.3b" else 644)
+    assert cols[2] == (4384 if arch == "mamba2-1.3b" else 4256)
+    assert ops._psoft_engine(torch.bfloat16, cfg.d_model, cols[n], 64,
+                             (0, 0, 0)) == "wmma"
+    assert ops._psoft_engine(torch.bfloat16, cfg.d_model, cols[2], 64,
+                             (0, 0, 0)) == "wgmma"

@@ -158,8 +158,9 @@ def summary(run: Run) -> dict:
 
 def four(rank, work):
     """(a) three meshes, the split's kv and vocab fallbacks on (1, 4) and
-    its serving split's sequence cache there, (b) bf16 and int8
-    gradients, (c) the elastic restore, (d) GPipe over 4 stages."""
+    its serving split's sequence cache and Mamba2 states there, (b) bf16
+    and int8 gradients, (c) the elastic restore, (d) GPipe over 4
+    stages."""
     cfg, tc, init = tiny_init(work)
     mesh = make_mesh_from_config(MeshConfig(data=2, model=2))
     out = {"mesh_from_config": (mesh.mesh_dim_names, tuple(mesh.shape))}
@@ -174,7 +175,7 @@ def four(rank, work):
                             mesh=mesh)
             saved = flat(run.full)
     out["fallbacks"] = fallbacks(meshes[(1, 4)])
-    out["serve seq"] = serve_cases(meshes[(1, 4)], (SERVE_SEQ_ARCH,))
+    out["serve seq"] = serve_cases(meshes[(1, 4)], SERVE_FOUR_ARCHS)
     dist.barrier()
     mesh = meshes[(4, 1)]
     sh, _ = trainer.state_shardings(cfg, tc, mesh, rules_for(cfg, mesh))
@@ -334,10 +335,12 @@ def fallback_case(case):
 
 
 #: the split serving cases: every family on (1, 2), reduced; and reduced
-#: llama32-3b on (1, 4), whose 2 kv heads fall back to the sequence cache
+#: llama32-3b on (1, 4), whose 2 kv heads fall back to the sequence cache,
+#: and reduced mamba2-1.3b there (8 SSM heads, 2 a rank)
 SERVE_ARCHS = ("llama32-3b", "deepseek-moe-16b", "internvl2-26b",
                "seamless-m4t-medium", "mamba2-1.3b", "zamba2-1.2b")
 SERVE_SEQ_ARCH = "llama32-3b"
+SERVE_FOUR_ARCHS = (SERVE_SEQ_ARCH, "mamba2-1.3b")
 #: prompts, their padded length, the cache's length, decode steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = 2, 16, 32, 4
 
@@ -376,10 +379,23 @@ def serve_positions(batch, lengths, step):
     return np.asarray(lengths) + step
 
 
+def state_leaves(cache) -> dict:
+    """The Mamba2 decode states of a cache (the port's or the
+    reference's) by name: ``conv_state`` and ``ssm_state`` of a stacked
+    SSM cache, ``<layer>/conv_state`` and ``<layer>/ssm_state`` of a
+    hybrid's per-layer list; none for an attention cache."""
+    if isinstance(cache, dict):
+        return {k: cache[k] for k in ("conv_state", "ssm_state")
+                if k in cache}
+    return {f"{i}/{k}": c[k] for i, c in enumerate(cache)
+            if "conv_state" in c for k in ("conv_state", "ssm_state")}
+
+
 def serve_run(cfg, params, batch, lengths, toks, tp=None):
     """(the prefill's and every decode step's logits (numpy), the cache's
-    K/V buffer shapes) of a prefill and :data:`SERVE_STEPS` decode steps,
-    under the serving split ``tp`` or unsharded."""
+    K/V buffer shapes, its final Mamba2 states (:func:`state_leaves`)) of
+    a prefill and :data:`SERVE_STEPS` decode steps, under the serving
+    split ``tp`` or unsharded."""
     from repro_torch.models import model
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     ln = None if lengths is None else torch.as_tensor(lengths)
@@ -395,7 +411,7 @@ def serve_run(cfg, params, batch, lengths, toks, tp=None):
             out.append(logits.numpy())
     shapes = sorted({tuple(t.shape) for p, t in tree_leaves_with_path(cache)
                      if p[-1] in ("k", "v")})
-    return np.stack(out), shapes
+    return np.stack(out), shapes, state_leaves(cache)
 
 
 def serve_cases(mesh, archs):
@@ -403,20 +419,46 @@ def serve_cases(mesh, archs):
     unsharded run in this process: the largest logits difference, the
     split's logits (for the test to hold against the reference's pinned
     digests), its cache's K/V shapes, its collectives over ``model`` and
-    the plan's cache layout."""
-    from repro_torch.models import model  # noqa: F401
+    the plan's cache layout; with Mamba2 layers also each state's shape
+    on this rank and whole, the states gathered from every rank's blocks
+    (``ssm.gather_state_blocks``, through ``all_gather_object``, which
+    :data:`collectives.RECORD` does not see) and their largest difference
+    from the unsharded run's, relative to its largest magnitude."""
+    from repro_torch.models import ssm
     out = {}
     for arch in archs:
         cfg, params, batch, lengths, toks = serve_case(arch)
         rules = rules_for(cfg, mesh, "decode")
         tp = tensor_parallel.plan(cfg, mesh, rules)
-        want, whole = serve_run(cfg, params, batch, lengths, toks)
+        want, whole, want_states = serve_run(cfg, params, batch, lengths,
+                                             toks)
         collectives.reset()
-        got, shapes = serve_run(cfg, params, batch, lengths, toks, tp)
+        got, shapes, states = serve_run(cfg, params, batch, lengths, toks,
+                                        tp)
         out[arch] = dict(diff=float(np.abs(got - want).max()), logits=got,
                          shapes=shapes, whole_shapes=whole,
                          records=records(), cache=tp.cache,
                          kinds=dict(tp.kinds), vocab=tp.vocab)
+        if not states:
+            continue
+        blocks = [None] * tp.size
+        dist.all_gather_object(blocks, states)
+        layers = sorted({k.rsplit("/", 1)[0] for k in states
+                         if "/" in k}) or [None]
+        gathered = {}
+        for layer in layers:
+            pre = "" if layer is None else layer + "/"
+            gathered.update({pre + k: v for k, v in ssm.gather_state_blocks(
+                cfg, [{k: b[pre + k] for k in ("conv_state", "ssm_state")}
+                      for b in blocks]).items()})
+        out[arch].update(
+            state_shapes={k: tuple(v.shape) for k, v in states.items()},
+            whole_state_shapes={k: tuple(v.shape)
+                                for k, v in want_states.items()},
+            states={k: v.numpy() for k, v in gathered.items()},
+            state_diff=max(float((gathered[k] - v).abs().max()
+                                 / v.abs().max())
+                           for k, v in want_states.items()))
     return out
 
 

@@ -6,7 +6,8 @@ that runs the family case of reduced seamless-m4t-medium at 1x4) from the
 port's initial state of the case, converted, on its first batch; and the
 reference's logits of each split serving case (``"serve <arch>"``:
 :func:`torch_dist_ranks.serve_case`'s prefill and decode steps from the
-port's params, converted).
+port's params, converted), with the final Mamba2 decode states of the
+SSM and hybrid cases.
 
 Tracing and compiling the reference for every case takes ~80 s, so the
 test holds the split's results against :data:`PINS`, a digest of each
@@ -16,8 +17,10 @@ case's reference result that this script writes:
 
 (``{case: {"loss": float, "grads": {leaf: [L2 norm, projection on a
 fixed random direction]}}}``, a serving case ``{"logits": {"step<i>":
-[L2 norm, projection]}}``), and recomputes one case of each kind live to
-show that the digests are still the reference's.
+[L2 norm, projection]}}`` and, with Mamba2 layers, ``"states": {name:
+[L2 norm, projection]}`` (``torch_dist_ranks.state_leaves``' names)), and
+recomputes one case of each kind live to show that the digests are still
+the reference's.
 """
 import json
 import sys
@@ -97,11 +100,12 @@ def reference_step(jcfg, spec):
     return float(loss), _flat(grads)
 
 
-def serve_reference(arch):
+def serve_reference(arch, states=False):
     """The reference's logits (steps + 1, B, 1, V) of a serving case: its
     ``prefill`` (default dispatch: capacity) and ``decode_step``s (dense)
     on :func:`torch_dist_ranks.serve_case`'s inputs, one compiled
-    function."""
+    function; with ``states``, (the logits, the final cache's Mamba2
+    states by :func:`torch_dist_ranks.state_leaves`' names)."""
     cfg, params, batch, lengths, toks = ranks.serve_case(arch)
     jcfg = jget_config(arch).reduced()
 
@@ -116,10 +120,13 @@ def serve_reference(arch):
             logits, cache = jmodel.decode_step(p, {"tokens": toks[j]},
                                                cache, pos, jcfg)
             out.append(logits)
-        return out
-    got = sp.fast_jit(fn)(interop.params_to_numpy(params), batch,
-                          lengths, toks)
-    return np.stack([np.asarray(x) for x in got])
+        return out, ranks.state_leaves(cache)
+    got, final = sp.fast_jit(fn)(interop.params_to_numpy(params), batch,
+                                 lengths, toks)
+    logits = np.stack([np.asarray(x) for x in got])
+    if states:
+        return logits, {k: np.asarray(v) for k, v in final.items()}
+    return logits
 
 
 def serve_digest(logits) -> dict:
@@ -150,8 +157,10 @@ def main():
     pins = json.loads(PINS.read_text()) if PINS.exists() else {}
     for case in CASES:
         if case in SERVE_CASES:
-            pins[case] = {"logits": serve_digest(serve_reference(
-                case.split(" ", 1)[1]))}
+            logits, states = serve_reference(case.split(" ", 1)[1], True)
+            pins[case] = {"logits": serve_digest(logits)}
+            if states:
+                pins[case]["states"] = digest(states)
             continue
         if case in pins and "--serve-only" in sys.argv:
             continue
