@@ -333,7 +333,22 @@ Phases, each of which raises (non-zero exit) on a failed check:
     (6) at full width with the Mamba2 mixer and its decode states split
     over their 64 SSM heads; tiny fp32 card vs CPU; the predicted
     collectives and launches, six planted faults rejected
-    (:func:`split_serve_phase`).
+    (:func:`split_serve_phase`);
+32. host syncs (runs right after 3, on its params and adapters, same
+    depth and engine settings, fresh engines): 12 requests of 4 tokens
+    (half sampled with logprobs) through ``run`` on 8 slots; over one
+    live decode step with all 8 slots live
+    (``_decode_live`` and then ``_draw``), ``model.decode_step`` and
+    ``sampling.sample_tokens`` pass
+    ``repro_torch.analysis.dispatch_tools.assert_no_host_syncs`` under
+    ``set_sync_debug_mode("error")``, the whole step synchronizes exactly
+    once (its packed ``.cpu()`` in ``sampling.to_host``, counted under
+    ``"warn"``) and launches exactly 7 gather_delta_matmul and 1
+    paged_decode_attention per layer; the instrumented run's tokens equal
+    a plain run's; a planted ``.item()`` and a planted ``.cpu()`` in a
+    wrapped copy of the step are each caught; ``python -m
+    repro_torch.analysis`` on the checkout reports nothing
+    (:func:`host_sync_phase`).
 
 Phase 2 also holds the kernels at deepseek-moe-16b's shapes: the grouped
 psoft_matmul at both expert stacks (G 64, M 240, K/N 2048/1408, r 64; bf16
@@ -434,7 +449,7 @@ METHOD_LAYERS, METHOD_STEPS = 2, 2
 #: default depths of the earlier full-width paths, cut so that the whole
 #: call, the dense zoo's phases and phase 31 included, stays well inside
 #: its time limit (``--layers`` overrides them): the llama32-3b paths
-#: (phases 3, 5, 7, 10, 12, 14, 29-31), deepseek-moe-16b's serving (16;
+#: (phases 3, 5, 7, 10, 12, 14, 29-32), deepseek-moe-16b's serving (16;
 #: 8 until PR 26), mamba2-1.3b and zamba2-1.2b (19-20; 12 until PR 26, a
 #: hybrid keeps one shared-block position)
 LLAMA_LAYERS, MOE_SERVE_LAYERS, RECURRENT_LAYERS = 8, 4, 6
@@ -1071,6 +1086,192 @@ def serve_phase(torch, args, configs, model, serve, ops, gpu_line):
           f"per prefill call {result['prefill_launches_per_call']:.2f}, by "
           f"engine {prefill_engines}")
     return result, params, adapters, cfg
+
+
+#: the warning ``set_sync_debug_mode("warn")`` raises at each synchronizing
+#: CUDA call (setting the mode also warns that it is a prototype)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+#: phase 32: the serve phase's slots; requests through them (more than
+#: the slots, so that later admissions alias the first ones' system
+#: prompt and the prefill kernel runs too); the 1-based decode step whose
+#: syncs are counted (every slot live by then); the new tokens a request
+#: (the run ends soon after that step)
+HOST_SYNC_SLOTS, HOST_SYNC_REQUESTS, HOST_SYNC_STEP, HOST_SYNC_NEW_TOKENS = \
+    8, 12, 2, 4
+
+
+def host_sync_requests(serve, sampling, vocab):
+    """Phase 32's requests: :func:`workload`'s prompts, odd uids sampled
+    (top-p, a seed, 2 logprobs) so the watched step returns the packed
+    logprob transfer, even uids greedy."""
+    out = []
+    for uid, prompt, _n, adapter in workload(vocab, HOST_SYNC_REQUESTS,
+                                             seed=7):
+        sp = sampling.SamplingParams(temperature=0.9, top_p=0.95, seed=uid,
+                                     logprobs=2) if uid % 2 else None
+        out.append(serve.Request(uid=uid, prompt=prompt,
+                                 max_new_tokens=HOST_SYNC_NEW_TOKENS,
+                                 adapter=adapter, sampling=sp))
+    return out
+
+
+def run_analysis_cli() -> str:
+    """``python -m repro_torch.analysis`` on this checkout (no baseline):
+    its summary line; a finding fails the phase."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--root", str(ROOT),
+         "--no-baseline"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else proc.stderr.strip()[-300:]
+    check(proc.returncode == 0 and summary.startswith("clean:"),
+          f"python -m repro_torch.analysis reports findings (exit "
+          f"{proc.returncode}): {proc.stdout.strip()[-1500:]}")
+    return summary
+
+
+def host_sync_phase(torch, serve, ops, model, sampling, params, adapters,
+                    cfg, gpu_line):
+    """Phase 32: the host-sync discipline of one live full-width decode
+    step of the serve phase's engine (see the module docstring)."""
+    import warnings
+    from repro_torch.analysis import dispatch_tools
+
+    def fresh_engine():
+        eng = serve.ServeEngine(params, cfg, device="cuda",
+                                slots=HOST_SYNC_SLOTS, page_size=16,
+                                max_len=512)
+        for name, tree in adapters.items():
+            eng.register_adapter(name, tree)
+        eng._banked_tree()       # the bank build reads device values, once
+        torch.cuda.synchronize()
+        return eng
+
+    t_phase = time.perf_counter()
+    eng = fresh_engine()
+    decode_live, draw = eng._decode_live, eng._draw
+    watch = {"decode_calls": 0}
+
+    def decode_w(live, step):
+        watch["decode_calls"] += 1
+        if watch["decode_calls"] != HOST_SYNC_STEP:
+            return decode_live(live, step)
+        # the watched step, from here through its one transfer
+        torch.cuda.synchronize()
+        watch.update(live=len(live), before=dict(ops.LAUNCHES))
+        watch["ctx"] = warnings.catch_warnings(record=True)
+        watch["caught"] = watch["ctx"].__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        orig = model.decode_step
+
+        def checked(*a, **k):
+            watch["decode_args"] = (a, k)
+            return dispatch_tools.assert_no_host_syncs(orig, *a, **k)
+        model.decode_step = checked
+        try:
+            return decode_live(live, step)
+        finally:
+            model.decode_step = orig
+
+    def draw_w(logits_rows, entries, want_lp):
+        if watch["decode_calls"] != HOST_SYNC_STEP or "syncs" in watch:
+            return draw(logits_rows, entries, want_lp)
+        orig = sampling.sample_tokens
+
+        def checked(*a, **k):
+            watch["sampler_checked"] = True
+            return dispatch_tools.assert_no_host_syncs(orig, *a, **k)
+        sampling.sample_tokens = checked
+        try:
+            return draw(logits_rows, entries, want_lp)
+        finally:
+            sampling.sample_tokens = orig
+            torch.cuda.set_sync_debug_mode(0)
+            watch["ctx"].__exit__(None, None, None)
+            watch.update(want_lp=want_lp, after=dict(ops.LAUNCHES),
+                         syncs=[str(w.message) for w in watch["caught"]
+                                if SYNC_WARNING in str(w.message)])
+
+    eng._decode_live, eng._draw = decode_w, draw_w
+    reqs = host_sync_requests(serve, sampling, cfg.vocab_size)
+    ops.reset_launches()
+    try:
+        done = eng.run(reqs, max_steps=64)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        if "ctx" in watch and "syncs" not in watch:
+            watch["ctx"].__exit__(None, None, None)
+    launches = dict(ops.LAUNCHES)
+    eng._decode_live, eng._draw = decode_live, draw
+    check("syncs" in watch, f"phase 32 watched no decode step "
+                            f"({watch['decode_calls']} decode calls)")
+    check("decode_args" in watch and watch.get("sampler_checked", False),
+          "the watched step ran decode_step and sample_tokens under "
+          "assert_no_host_syncs")
+    check(watch["live"] == HOST_SYNC_SLOTS and watch["want_lp"],
+          f"the watched step serves every slot with logprobs "
+          f"({watch['live']} live, logprobs {watch['want_lp']})")
+    check(len(watch["syncs"]) == 1,
+          f"one live decode step synchronizes exactly once (its packed "
+          f"transfer), not {len(watch['syncs'])}: {watch['syncs'][:3]}")
+    step = {k: watch["after"][k] - watch["before"][k] for k in ops.LAUNCHES}
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(gather_delta_matmul=7 * cfg.num_layers,
+                paged_decode_attention=cfg.num_layers)
+    check(step == want, f"the watched step's launches {step}, expected "
+                        f"{want}")
+    check(len(done) == len(reqs) and all(
+        r.done and len(r.generated) == r.max_new_tokens for r in done),
+        "every phase-32 request finishes with max_new_tokens")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} launched in phase 32")
+    # a fresh engine, as phase 3's second run: the first one's retained
+    # prefix pages would turn the same prompts into prefix hits
+    again = fresh_engine().run(
+        host_sync_requests(serve, sampling, cfg.vocab_size), max_steps=64)
+    check({r.uid: list(r.generated) for r in again}
+          == {r.uid: list(r.generated) for r in done},
+          "the instrumented run's tokens equal a plain run's")
+    # planted syncs in wrapped copies of the watched step's decode call
+    a, k = watch["decode_args"]
+
+    def plant(sync):
+        def step_copy(*a, **k):
+            logits, cache = model.decode_step(*a, **k)
+            sync(logits)
+            return logits, cache
+        return step_copy
+
+    caught = {}
+    for what, sync in ((".item()", lambda t: t.float().sum().item()),
+                       (".cpu()", lambda t: t.cpu())):
+        try:
+            dispatch_tools.assert_no_host_syncs(plant(sync), *a, **k)
+        except AssertionError as e:
+            caught[what] = str(e)[:240]
+        check(what in caught, f"a planted {what} in a copy of the decode "
+                              f"step passes assert_no_host_syncs")
+    del eng, done, again
+    torch.cuda.empty_cache()
+    summary = run_analysis_cli()
+    result = dict(
+        layers=cfg.num_layers, requests=len(reqs),
+        syncs_in_watched_step=len(watch["syncs"]),
+        sync_messages=[m[:160] for m in watch["syncs"]],
+        watched_step_launches=step,
+        launches=launches, planted=caught, analysis=summary,
+        phase_s=time.perf_counter() - t_phase, gpu=gpu_line)
+    print(f"host syncs: decode step {HOST_SYNC_STEP} with "
+          f"{watch['live']} live slots at {cfg.num_layers} layers: "
+          f"{len(watch['syncs'])} sync (its packed transfer); "
+          f"decode_step and sample_tokens clean under sync-debug "
+          f"\"error\"; launches {step}; planted {sorted(caught)} caught; "
+          f"linter: {summary} [{gpu_line}]")
+    for what, msg in caught.items():
+        print(f"host syncs: planted {what}: {msg}")
+    return result
 
 
 #: ranges the serve profile marks around the engine's prefill and decode
@@ -2521,8 +2722,9 @@ def lifecycle_phase(torch, configs, serve, ops, trainer, data, tree, params,
     split = trainer.train_state_from_params(
         params, tcfg, configs.TrainConfig(steps=100))
     from repro_torch.optim import adamw
-    eng = serve.ServeEngine(params, cfg, device="cuda", slots=8,
-                            page_size=16, max_len=512)
+    eng = serve.ServeEngine(params, cfg, device="cuda",
+                            slots=HOST_SYNC_SLOTS, page_size=16,
+                            max_len=512)
     for name, t in adapters.items():
         eng.register_adapter(name, t)
     for ver in sorted(set(res["versions"].values())):
@@ -8599,6 +8801,7 @@ def main(argv=None) -> int:
     from repro_torch.models import attention, model
     from repro_torch.models import ssm as ssm_lib
     from repro_torch import serve
+    from repro_torch.serve import sampling
     from repro_torch.train import checkpoint, trainer
     from repro_torch import tree
 
@@ -8759,6 +8962,11 @@ def main(argv=None) -> int:
         torch, llama_args, configs, model, serve, ops, gpu_line)
     phase_s["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    host_sync = host_sync_phase(torch, serve, ops, model, sampling, params,
+                                adapters, serve_cfg, gpu_line)
+    torch.cuda.empty_cache()
+    phase_s["host_sync"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     streamed = stream_phase(torch, configs, serve, ops, params, adapters,
                             serve_cfg, gpu_line)
     torch.cuda.empty_cache()
@@ -8902,8 +9110,9 @@ def main(argv=None) -> int:
     # phase 25's four run()s and train steps, phase 26's three policies'
     # steps, phase 27's full-size launcher run, phase 29's sharded steps
     # and phase 30's split steps on both ranks (its llama32-3b and OFT
-    # runs)
+    # runs), and phase 32's instrumented run()
     main_path = {**{k: served["launches"][k] + streamed["launches"][k]
+                    + host_sync["launches"][k]
                     + specced["launches"][k] + lifecycle["launches"][k]
                     + moe_served["launches"][k]
                     + sum(r["serve"]["launches"][k]
@@ -8972,6 +9181,7 @@ def main(argv=None) -> int:
                                        zoo_card_vs_cpu=zoo_cross,
                                        sharded=sharded, split=split,
                                        serve_split=serve_split,
+                                       host_sync=host_sync,
                                        ssd_scan=ssd_scan,
                                        phase_s=phase_s), indent=1))
     print(gpu_line)

@@ -70,7 +70,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train, repro_torch.train.straggler, "
             "repro_torch.sharding, repro_torch.distributed, "
             "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
-            "repro_torch.launch.roofline, repro_torch.data.pipeline; "
+            "repro_torch.launch.roofline, repro_torch.data.pipeline, "
+            "repro_torch.analysis, repro_torch.analysis.dispatch_tools; "
             "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro') "
             "if m in sys.modules]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
